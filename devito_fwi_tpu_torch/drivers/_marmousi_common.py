@@ -1,0 +1,249 @@
+"""Shared Marmousi driver logic (SMARMN), acoustic L2 FWI.
+
+CLI/flow parity with ``drivers/_marmousi_common.py`` of the JAX package
+(reference ``marmousi_fwi.py``): same flags, model and acquisition
+constants and result-file layout, plus ``--device`` (default "cuda"; "cpu"
+runs the plain torch twins). The raw velocity models are read from
+``--data-dir`` (default: the vendored ``model_data/`` at the repo root).
+
+Not ported yet (each raises ``NotImplementedError``): ``--misfit 1/2``
+(W2, ROADMAP.md queue A item 9), ``--physics elastic|viscoacoustic``
+(items 11-12), ``--filter 1`` and ``--resample`` (item 4), and the
+SMARM2 and forward-modeling drivers (item 6).
+"""
+import argparse
+import os
+from dataclasses import dataclass
+from functools import partial
+from time import perf_counter
+
+import numpy as np
+
+from ..fwi import fm_multi, fwi_loss
+from ..misfit import least_square
+from ..models.geometry import AcquisitionGeometry
+from ..models.model import SeismicModel
+from ..optimize import LBFGS, minimize
+
+
+@dataclass
+class MarmousiConfig:
+    name: str           # 'SMARMN'
+    shape: tuple        # (nx, nz)
+    dt: float
+    tn: float
+    nsrc_default: int
+    bathy_rows: int     # water rows zeroed by the bathy mask
+    spacing: tuple = (30., 30.)
+    f0: float = 0.007
+    space_order: int = 8
+    nbl: int = 40
+
+
+SMARMN = MarmousiConfig(name="SMARMN", shape=(300, 106), dt=2.95, tn=4000.,
+                        nsrc_default=29, bathy_rows=7)
+
+
+def default_data_dir():
+    """The vendored model_data/ at the repo root."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "model_data")
+
+
+def make_parser(cfg):
+    p = argparse.ArgumentParser(description="Full waveform inversion")
+    p.add_argument("--misfit", type=int, default=0, choices=[0, 1, 2],
+                   help="misfit function type:"
+                        "0=least square/1=1d W2/2=2d W2")
+    p.add_argument("--precond", type=int, default=1,
+                   help="apply precondition")
+    p.add_argument("--check-gradient", type=int, default=0,
+                   help="check the gradient at 1st iteration")
+    p.add_argument("--resample", type=float, default=0.,
+                   help="resample dt, default 0 will not resample")
+    p.add_argument("--ftol", type=float, default=1e-5,
+                   help="Optimizing loss tolerance")
+    p.add_argument("--gtol", type=float, default=1e-10,
+                   help="Optimizing gradient norm tolerance")
+    p.add_argument("--maxiter", type=int, default=200,
+                   help="FWI iteration")
+    p.add_argument("--steplen", type=float, default=0.1,
+                   help="initial step length for line search")
+    p.add_argument("--maxls", type=int, default=5,
+                   help="max number of line search in each iteration")
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="random shot subset per iteration (0 = all shots)")
+    p.add_argument("--physics", type=str, default="acoustic",
+                   choices=["acoustic", "elastic", "viscoacoustic"],
+                   help="propagator (only acoustic is ported)")
+    p.add_argument("--resume", type=int, default=0,
+                   help="resume from the latest checkpoint under the log "
+                        "dir")
+    p.add_argument("--checkpoint-freq", type=int, default=1,
+                   help="write an optimizer-state checkpoint every N "
+                        "iterations (0 disables)")
+    p.add_argument("--odir", type=str, default="./result/" + cfg.name,
+                   help="directory to output result")
+    p.add_argument("--bathy", type=int, default=1, help="apply bathy mask")
+    p.add_argument("--filter", type=int, default=0, help="filtering data")
+    p.add_argument("--nsrc", type=int, default=cfg.nsrc_default,
+                   help="number of shots")
+    p.add_argument("--data-dir", type=str, default=default_data_dir(),
+                   help="directory holding %s/vp.true etc." % cfg.name)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (the kernels) or cpu (the "
+                        "plain torch twins)")
+    return p
+
+
+def load_models(cfg, data_dir):
+    """Returns (true_vp, smooth_vp) in km/s."""
+    base = os.path.join(data_dir, cfg.name)
+    true_vp = np.fromfile(os.path.join(base, "vp.true"),
+                          dtype=np.float32).reshape(cfg.shape) / 1000
+    smooth_vp = np.fromfile(os.path.join(base, "vp.smooth_20"),
+                            dtype=np.float32).reshape(cfg.shape) / 1000
+    return true_vp, smooth_vp
+
+
+def setup(cfg, args, nsources):
+    """Build (true, init, constant-water) models + geometries + bathy mask
+    (reference marmousi_fwi.py:62-117)."""
+    origin = (0, 0)
+    true_vp, smooth_vp = load_models(cfg, args.data_dir)
+    constant_vp = np.ones(cfg.shape) * 1.5
+
+    bathy_mask = np.ones(cfg.shape, dtype=np.float32)
+    bathy_mask[:, :cfg.bathy_rows] = 0
+    if not args.bathy:
+        bathy_mask = None
+
+    def model(vp):
+        return SeismicModel(origin=origin, spacing=cfg.spacing,
+                            shape=cfg.shape, space_order=cfg.space_order,
+                            vp=vp, nbl=cfg.nbl, fs=False, dt=cfg.dt,
+                            bcs="damp")
+
+    true_model = model(true_vp)
+    init_model = model(smooth_vp)
+    constant_model = model(constant_vp)
+
+    src_coordinates = np.empty((nsources, 2))
+    src_coordinates[:, 0] = np.linspace(0, true_model.domain_size[0],
+                                        num=nsources)
+    src_coordinates[:, -1] = 2 * cfg.spacing[0]
+    nreceivers = cfg.shape[0]
+    rec_coordinates = np.empty((nreceivers, 2))
+    rec_coordinates[:, 0] = np.linspace(cfg.spacing[0],
+                                        true_model.domain_size[0]
+                                        - cfg.spacing[0], num=nreceivers)
+    rec_coordinates[:, 1] = 2 * cfg.spacing[0]
+
+    geoms = [AcquisitionGeometry(m, rec_coordinates, src_coordinates, 0.,
+                                 cfg.tn, f0=cfg.f0, src_type="Ricker")
+             for m in (true_model, init_model, constant_model)]
+    return (true_model, init_model, constant_model), geoms, \
+        (true_vp, smooth_vp), bathy_mask
+
+
+class TimedLoss:
+    """``fwi_loss`` on one device, recording each call in order as
+    (calc_grad, objective, host seconds). Each call ends with the
+    objective (and gradient) on the host, so its time includes the device
+    work."""
+
+    def __init__(self, device):
+        self.loss = partial(fwi_loss, device=device)
+        self.calls = []
+
+    def __call__(self, x, geometry, obs, misfit_func, direct_wave=None,
+                 mask=None, precond=True, calc_grad=True, shot_indices=None):
+        t0 = perf_counter()
+        out = self.loss(x, geometry, obs, misfit_func, direct_wave, mask,
+                        precond, calc_grad, shot_indices=shot_indices)
+        self.calls.append((bool(calc_grad), out[0], perf_counter() - t0))
+        return out
+
+
+def _reject_unported(args, cfg):
+    if args.misfit != 0:
+        raise NotImplementedError("--misfit %d: the W2 misfits are not "
+                                  "ported yet (ROADMAP.md queue A item 9)"
+                                  % args.misfit)
+    if args.physics != "acoustic":
+        raise NotImplementedError("--physics %s is not ported yet "
+                                  "(ROADMAP.md queue A items 11-12)"
+                                  % args.physics)
+    if args.filter:
+        raise NotImplementedError("--filter 1: Filter is not ported yet "
+                                  "(ROADMAP.md queue A item 4)")
+    if args.resample and args.resample != cfg.dt:
+        raise NotImplementedError("--resample: trace resampling is not "
+                                  "ported yet (ROADMAP.md queue A item 4)")
+
+
+def run_fwi(cfg, argv=None):
+    """Parse ``argv`` (default: the command line) and run the inversion.
+    Returns (m, stats): the final squared slowness and a dict with the
+    objective calls in order (``calls``: (calc_grad, objective, host
+    seconds); a gradient opens each iteration, the line-search trials
+    follow) and the time of the forward modeling of the observed data and
+    the direct wave (``model_s``)."""
+    args = make_parser(cfg).parse_args(argv)
+    _reject_unported(args, cfg)
+    result_dir = args.odir
+    os.makedirs(result_dir, exist_ok=True)
+    misfit_type = args.misfit
+    print("---------------- Parameter Setting ------------\n",
+          "\t Result dir: %s \t Misfit function: %d \t Precondition: %d\n"
+          % (result_dir, misfit_type, args.precond),
+          "\t Use mask: %d \t Device: %s\n" % (args.bathy, args.device),
+          "\t ftol: %e \t gtol: %e \t nsrc: %d\n"
+          % (args.ftol, args.gtol, args.nsrc),
+          "\t maxiter:%d \t maxls: %d \t init step length: %.3f\n"
+          % (args.maxiter, args.maxls, args.steplen),
+          "-------------------------------------------------")
+
+    models, geoms, vps, bathy_mask = setup(cfg, args, args.nsrc)
+    geometry1, geometry0, geometry2 = geoms
+    _, smooth_vp = vps
+
+    t0 = perf_counter()
+    obs = fm_multi(geometry1, device=args.device)
+    direct_wave = fm_multi(geometry2, device=args.device)
+    model_s = perf_counter() - t0
+    misfit_func = least_square
+    loss = TimedLoss(args.device)
+
+    if args.check_gradient:
+        f, g, _ = loss(1. / smooth_vp.reshape(-1).astype(np.float64) ** 2,
+                       geometry0, obs, misfit_func, None, bathy_mask,
+                       args.precond)
+        g.tofile(os.path.join(result_dir, "marmousi_1st_grad_"
+                              + str(misfit_type)))
+        print("check-gradient: f=%.6e |g|max=%.3e" % (f, np.abs(g).max()))
+
+    vmin, vmax = 1.5, 5.2
+    bounds = [1.0 / vmax ** 2, 1.0 / vmin ** 2]
+    m0 = 1. / (smooth_vp.reshape(-1).astype(np.float64)) ** 2
+
+    tic = perf_counter()
+    log_path = os.path.join(result_dir, "log" + str(misfit_type))
+    optimizer = LBFGS(memory=10, ls_method="Bracket",
+                      step_len_init=args.steplen, max_ls=args.maxls,
+                      log_path=log_path)
+    minimizer = minimize(optimizer, maxIter=args.maxiter, ftol=args.ftol,
+                         gtol=args.gtol, batch_size=args.batch_size or None,
+                         checkpoint_freq=args.checkpoint_freq,
+                         resume=bool(args.resume), loss_fn=loss,
+                         log_path=log_path)
+    m = minimizer.run(m0, geometry0, obs, misfit_func, direct_wave,
+                      bathy_mask, args.precond, bounds)
+    print(f"\n Elapsed time: {perf_counter() - tic:.2f}s")
+
+    vp = 1.0 / np.sqrt(m.reshape(cfg.shape))
+    vp.astype(np.float32).tofile(
+        os.path.join(result_dir,
+                     "marmousi_result_misfit_" + str(misfit_type)))
+    print("final model range: %.3f %.3f km/s" % (vp.min(), vp.max()))
+    return m, dict(calls=loss.calls, model_s=model_s)

@@ -1,0 +1,416 @@
+"""FWI objective layer on torch: multi-shot modeling, the L2 misfit and the
+adjoint-state gradient of the 2-D acoustic wave equation.
+
+Port of the 2-D acoustic L2 route of ``devito_fwi_tpu.fwi``. ``fm_single``,
+``fm_multi``, ``fwi_obj_multi`` and ``fwi_loss`` keep their signatures and
+add ``device``: "cuda" (the default) runs the CUDA kernels of
+``ops.cuda_acoustic`` and raises when no card is present; "cpu" runs their
+plain torch twins. One gradient evaluation of a shot chunk is
+
+1. ``forward_dt2_segments``: the batched forward, recording the receiver
+   rows, streaming the d2u/dt2 history and summing the illumination;
+2. ``_traces_from_rows``, then the L2 misfit with direct-wave subtraction;
+3. ``residual_rows``;
+4. ``gradient_stream_segments``: the adjoint sweep over the history;
+5. the per-shot crop and source/receiver illumination fix, summed over
+   shots,
+
+and the illumination precondition and the mask follow on the device, so
+one field comes back to the host. Line-search trials and forward modeling
+run ``forward_rec_segments``. The explicit adjoint sweep is the gradient:
+no autograd is involved.
+
+Not ported yet (each raises ``NotImplementedError``): misfits other than
+``least_square`` and trace resampling, which need the host-misfit path
+(ROADMAP.md queue A items 4 and 9); geometries the kernels do not take
+(3-D, receivers off two adjacent z-planes; queue A items 2 and 16).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .misfit.w2 import least_square, least_square_torch
+from .models.geometry import AcquisitionGeometry
+from .models.sources import PointSource
+from .ops import acoustic as _ac
+from .ops import cuda_acoustic as _ca
+from .ops.acoustic import _ckpt_layout
+from .ops.interp import interp_table
+
+__all__ = ["fm_single", "fm_multi", "fwi_obj_multi", "fwi_loss",
+           "ResidualStack"]
+
+
+def _resolve_device(device):
+    """The torch device for an entry point: "cuda" needs a card (no
+    silent fall-back to the CPU), "cpu" runs the plain twins."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch sees no CUDA device; pass "
+            "device='cpu' to run the plain torch twins")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {dev}: expected cuda or cpu")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# tables and operands
+# ---------------------------------------------------------------------------
+
+def _shot_geometry(geometry, i):
+    # propagation steps at the model's critical dt (_solver_dt), so the
+    # per-shot geometry deliberately does not carry a resampled dt
+    return AcquisitionGeometry(geometry.model, geometry.rec_positions,
+                               geometry.src_positions[i, :], geometry.t0,
+                               geometry.tn, f0=geometry.f0,
+                               src_type=geometry.src_type,
+                               a=geometry._a, t0w=geometry._t0w,
+                               src_data=geometry._src_data,
+                               filter=geometry._filter)
+
+
+def _batched_tables(geometry):
+    """Per-shot source tables + shared receiver table + wavelet (numpy)."""
+    model = geometry.model
+    s_idx, s_w = interp_table(geometry.src_positions, model.origin_pml,
+                              model.spacing, dtype=model.dtype)
+    # (nsrc, 2^d, d) -> one point per shot -> (nsrc, 1, 2^d, d)
+    s_idx = s_idx[:, None]
+    s_w = s_w[:, None]
+    r_idx, r_w = interp_table(geometry.rec_positions, model.origin_pml,
+                              model.spacing, dtype=model.dtype)
+    src_wav = _shot_geometry(geometry, 0).src.data  # (nt, 1); same per shot
+    return s_idx, s_w, r_idx, r_w, src_wav
+
+
+def _solver_dt(geometry):
+    return geometry.model.critical_dt
+
+
+def _pads(model):
+    return tuple(tuple(p) for p in model.padsizes)
+
+
+def _crop(field, pads, shape):
+    """Crop the trailing padded-grid axes of ``field`` to the physical
+    domain."""
+    slc = tuple(slice(lo, lo + n) for (lo, _), n in zip(pads, shape))
+    return field[(Ellipsis,) + slc]
+
+
+def _default_checkpoints(nt):
+    """sqrt(nt) segments; on the card only the padding layout of the
+    steps (the history is streamed whole)."""
+    return max(4, int(np.sqrt(max(nt - 2, 1))))
+
+
+def _damp(model, dev):
+    """model.damp (padded array, or a scalar when nbl = 0) as a tensor."""
+    return torch.as_tensor(np.asarray(model.damp, dtype=model.dtype),
+                           device=dev)
+
+
+class _Setup:
+    """Everything one modeling or objective call needs on the device."""
+
+    def __init__(self, geometry, dev):
+        model = geometry.model
+        if model.dim != 2 or not _ca.geometry_supported(geometry):
+            raise NotImplementedError(
+                "only 2-D geometries with all receivers on two adjacent "
+                "z-planes run on the port so far (3-D and general receiver "
+                "layouts: ROADMAP.md queue A items 2 and 16)")
+        self.s_idx, self.s_w, self.r_idx, r_w, src_wav = \
+            _batched_tables(geometry)
+        self.z0 = int(self.r_idx[..., 1].min())
+        self.nt = geometry.nt
+        self.dt = float(_solver_dt(geometry))
+        self.nsteps, self.seg, self.nseg = _ckpt_layout(
+            self.nt, _default_checkpoints(self.nt))
+        nx, nz = model.padded_shape
+        self.nx, self.nz = nx, nz
+        vp = torch.as_tensor(np.asarray(model.vp), device=dev)
+        self.m = 1.0 / (vp * vp)
+        self.mT = self.m.T.contiguous()
+        hd = torch.broadcast_to(self.dt * _damp(model, dev), vp.shape)
+        self.hdT = hd.T.contiguous()
+        self.wav_pad = _ca.pad_wavelet(torch.as_tensor(src_wav, device=dev),
+                                       self.nt, self.nseg * self.seg)
+        self.r_w = torch.as_tensor(r_w, device=dev)
+        self.W = _ca.receiver_plane_matrix(self.r_idx, self.r_w, self.z0,
+                                           nx).T.contiguous()
+        self.kw = dict(nt=self.nt, nx=nx, nz=nz,
+                       space_order=model.space_order, spacing=model.spacing,
+                       z0=self.z0, n_checkpoints=_default_checkpoints(
+                           self.nt), fs=model.fs)
+
+    def injT(self, lo, hi):
+        """Transposed source patterns (hi-lo, nz, nx) of shots lo..hi-1."""
+        inj = _ca.source_pattern(self.s_idx[lo:hi], self.s_w[lo:hi], self.m,
+                                 self.dt * self.dt)
+        return inj.transpose(-1, -2).contiguous()
+
+    def traces(self, rec_rows):
+        return _traces_from_rows(rec_rows, self.W, self.nt, self.nsteps)
+
+
+def _traces_from_rows(rec_rows, W, nt, nsteps):
+    """Receiver rows (B, nseg, seg, 2, nx) -> traces (B, nt, nrec):
+    rec[1+g] = sum_c w_c * row[g, plane_c, x_c] as one product against the
+    scattered (2*nx, nrec) weights ``W`` at full f32; rows beyond nsteps
+    are layout padding."""
+    B = rec_rows.shape[0]
+    nx = rec_rows.shape[-1]
+    rows = rec_rows.reshape(B, -1, 2 * nx)[:, :nsteps]
+    tr = _ca.matmul_full(rows, W)
+    rec = rec_rows.new_zeros((B, nt, W.shape[1]))
+    rec[:, 1:nsteps + 1] = tr
+    return rec
+
+
+def _illum_fix_factors(src_pos, rec_positions, spacing, shape, dev):
+    """Gaussian-mask factors of the source/receiver illumination fix
+    (reference ``fwi.py:104-129``, 2-D, its meshgrid axis convention kept):
+    (1 - source mask) per shot (B, nx, nz) and the product of (1 - receiver
+    mask) over receivers (nx, nz), in float64."""
+    dx, dz = spacing
+    nx, nz = shape
+    f64 = torch.float64
+    x = torch.arange(0, nx, dtype=f64, device=dev) * dx
+    z = torch.arange(0, nz, dtype=f64, device=dev) * dz
+    # reference quirk preserved: meshgrid(z, x) -> xx holds z-values
+    xx, zz = torch.meshgrid(z, x, indexing="xy")
+    sigma = dx + dz
+    sp = torch.as_tensor(np.asarray(src_pos), dtype=f64, device=dev)
+    sx, sz = sp[:, 0, None, None], sp[:, 1, None, None]
+    smask = torch.exp(-.5 * ((xx - sx) ** 2 + (zz - sz) ** 2) / sigma ** 2)
+    rp = torch.as_tensor(np.asarray(rec_positions), dtype=f64, device=dev)
+    rx, rz = rp[:, 0, None, None], rp[:, 1, None, None]
+    rmasks = torch.exp(-.5 * ((xx[None] - rx) ** 2 + (zz[None] - rz) ** 2)
+                       / sigma ** 2)
+    return 1. - smask, torch.prod(1. - rmasks, dim=0)
+
+
+class ResidualStack:
+    """List-like view of the per-shot residual gathers: the chunks stay on
+    the device and are copied to the host once, only if a caller indexes
+    them (e.g. ``minimize.save_residual``)."""
+
+    def __init__(self, stacks):
+        self._stacks = list(stacks)  # (chunk, nt, nrec) tensors
+        self._host = None
+
+    def _materialize(self):
+        if self._host is None:
+            self._host = torch.cat(self._stacks).cpu().numpy()
+        return self._host
+
+    def __len__(self):
+        return sum(int(s.shape[0]) for s in self._stacks)
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+
+_DEVICE_STACK_CACHE = {}
+
+
+def _device_stack(objs, dev):
+    """Stack shot records on the device once and reuse the copy across
+    objective calls (obs and direct-wave data are constant through an
+    inversion). Entries keep strong references to the records, so a
+    recycled id() cannot alias freed objects. The gathers are not
+    content-hashed: build new records rather than editing ``data`` in
+    place between calls."""
+    key = (tuple(id(o) for o in objs), str(dev))
+    entry = _DEVICE_STACK_CACHE.get(key)
+    if entry is not None and all(a is b for a, b in zip(entry[0], objs)):
+        return entry[1]
+    st = torch.as_tensor(np.stack([np.asarray(o.data) for o in objs]),
+                         device=dev)
+    while len(_DEVICE_STACK_CACHE) >= 8:
+        del _DEVICE_STACK_CACHE[next(iter(_DEVICE_STACK_CACHE))]
+    _DEVICE_STACK_CACHE[key] = (tuple(objs), st)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# forward modeling (reference fwi.py:59-102)
+# ---------------------------------------------------------------------------
+
+def fm_single(geometry, save=False, device="cuda"):
+    """Model one shot with the plain torch propagator; returns (rec
+    PointSource, wavefield array)."""
+    dev = _resolve_device(device)
+    model = geometry.model
+    s_idx, s_w = interp_table(geometry.src_positions, model.origin_pml,
+                              model.spacing, dtype=model.dtype)
+    r_idx, r_w = interp_table(geometry.rec_positions, model.origin_pml,
+                              model.spacing, dtype=model.dtype)
+    rec, u = _ac.forward(
+        torch.as_tensor(np.asarray(model.vp), device=dev),
+        _damp(model, dev), torch.as_tensor(geometry.src.data, device=dev),
+        s_idx, s_w, r_idx, r_w, _solver_dt(geometry), nt=geometry.nt,
+        spacing=model.spacing, space_order=model.space_order, fs=model.fs,
+        save=save)
+    shot = PointSource(name="rec", time_range=geometry.time_axis,
+                       coordinates=geometry.rec_positions, dtype=model.dtype)
+    shot.data[:] = rec.cpu().numpy()
+    return shot, u.cpu().numpy()
+
+
+def fm_multi(geometry, save=False, device="cuda"):
+    """Model all shots of ``geometry`` in one batch through
+    ``forward_rec_segments``; returns a list of PointSource shot records.
+    ``save`` is accepted for signature parity and changes nothing (the
+    reference's ``fm_multi`` discards the saved wavefield too)."""
+    dev = _resolve_device(device)
+    model = geometry.model
+    st = _Setup(geometry, dev)
+    rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
+                                        st.injT(0, geometry.nsrc), st.dt,
+                                        **st.kw)
+    rec_all = st.traces(rec_rows).cpu().numpy()
+    shots = []
+    for i in range(geometry.nsrc):
+        shot = PointSource(name="rec", time_range=geometry.time_axis,
+                           coordinates=geometry.rec_positions,
+                           dtype=model.dtype)
+        shot.data[:] = rec_all[i]
+        shots.append(shot)
+    return shots
+
+
+# ---------------------------------------------------------------------------
+# objective + gradient (reference fwi.py:131-246)
+# ---------------------------------------------------------------------------
+
+def _shot_chunk(nsrc, shot_chunk, calc_grad, st, dev, itemsize):
+    """Shots per batch: all of them, unless ``shot_chunk`` asks for fewer
+    or, on the card, the streamed history of a gradient would not fit in
+    80% of the free device memory."""
+    chunk = min(nsrc, shot_chunk or nsrc)
+    if calc_grad and dev.type == "cuda":
+        per_shot = st.nseg * st.seg * st.nz * st.nx * itemsize
+        free, _ = torch.cuda.mem_get_info(dev)
+        chunk = min(chunk, max(1, int(0.8 * free) // per_shot))
+    return chunk
+
+
+def _shot_objective(geometry, obs_stack, dw_stack, calc_grad, shot_chunk,
+                    shot_indices, dev):
+    """Batched objective of the L2 misfit. Returns (fval tensor, grad sum,
+    illum sum (both cropped, fixed, float64, or None), residuals)."""
+    model = geometry.model
+    st = _Setup(geometry, dev)
+    src_pos = np.asarray(geometry.src_positions)
+    if shot_indices is not None:
+        sel = np.asarray(shot_indices, dtype=np.int64)
+        st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
+        src_pos = src_pos[sel]
+        sel_t = torch.as_tensor(sel, device=dev)
+        obs_stack = obs_stack[sel_t]
+        if dw_stack.shape[0] > 1:
+            dw_stack = dw_stack[sel_t]
+    nsrc = st.s_idx.shape[0]
+    chunk = _shot_chunk(nsrc, shot_chunk, calc_grad, st, dev,
+                        st.m.element_size())
+    pads, shape = _pads(model), model.shape
+    if calc_grad:
+        keep_src, rec_prod = _illum_fix_factors(
+            src_pos, geometry.rec_positions, model.spacing, shape, dev)
+    fval = 0.0
+    residuals = []
+    grad = illum = None
+    for lo in range(0, nsrc, chunk):
+        hi = min(lo + chunk, nsrc)
+        injT = st.injT(lo, hi)
+        dw = dw_stack[lo:hi] if dw_stack.shape[0] > 1 else dw_stack
+        if calc_grad:
+            rec_rows, hist, illumT = _ca.forward_dt2_segments(
+                st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
+        else:
+            rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
+                                                injT, st.dt, **st.kw)
+        fvals, res = least_square_torch(st.traces(rec_rows) - dw,
+                                        obs_stack[lo:hi] - dw)
+        fval = fval + torch.sum(fvals)
+        residuals.append(res)
+        if not calc_grad:
+            continue
+        rows = _ca.residual_rows(res, st.r_idx, st.r_w, st.m,
+                                 st.dt * st.dt, st.z0, st.nsteps, st.seg,
+                                 st.nseg)
+        gradT = _ca.gradient_stream_segments(st.mT, st.hdT, hist, rows,
+                                             st.dt, **st.kw)
+        # free this chunk's history before the next forward allocates one
+        del hist
+        # crop + illumination fix per shot, in float64: (g*(1-smask))*rprod
+        g = _crop(gradT.transpose(-1, -2), pads, shape).double()
+        il = _crop(illumT.transpose(-1, -2), pads, shape).double()
+        g = torch.sum(g * keep_src[lo:hi] * rec_prod, dim=0)
+        il = torch.sum(il * keep_src[lo:hi] * rec_prod, dim=0)
+        grad = g if grad is None else grad + g
+        illum = il if illum is None else illum + il
+    return fval, grad, illum, ResidualStack(residuals)
+
+
+def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
+                  precond=True, calc_grad=False, resample_dt=None,
+                  shot_chunk=None, shot_indices=None, device="cuda"):
+    """Multi-shot objective and gradient (reference ``fwi.py:175-205``):
+    returns (fval, grad (flat float64 numpy or zeros), residuals).
+
+    ``shot_indices`` evaluates only that shot subset (random-batch FWI);
+    ``shot_chunk`` caps the shots per batch (default: as many as the
+    device memory holds)."""
+    if resample_dt not in (None, geometry.dt):
+        raise NotImplementedError(
+            "trace resampling (resample_dt != geometry.dt) needs the "
+            "host-misfit path, not ported yet (ROADMAP.md queue A item 4)")
+    if misfit_func is not None and misfit_func is not least_square:
+        raise NotImplementedError(
+            f"misfit {misfit_func!r}: only least_square runs on the port "
+            "so far; other misfits need the host-misfit path and the W2 "
+            "misfits (ROADMAP.md queue A items 4 and 9)")
+    dev = _resolve_device(device)
+    obs_stack = _device_stack(obs, dev)
+    if obs_stack.shape[1] != geometry.nt:
+        raise ValueError(
+            "observed data has %d time samples but the geometry's time "
+            "axis has %d — resample the traces or rebuild the geometry with "
+            "a matching dt" % (obs_stack.shape[1], geometry.nt))
+    if direct_wave is not None:
+        dw_stack = _device_stack(direct_wave, dev)
+    else:
+        dw_stack = obs_stack.new_zeros((obs_stack.shape[0], 1, 1))
+    fval, grad, illum, residuals = _shot_objective(
+        geometry, obs_stack, dw_stack, calc_grad, shot_chunk, shot_indices,
+        dev)
+    if not calc_grad:
+        return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
+                residuals)
+    # precondition + mask on the device, then one field to the host
+    if precond:
+        grad = grad / torch.sqrt(illum + 1e-30)
+    if mask is not None:
+        grad = grad * torch.as_tensor(np.asarray(mask), dtype=grad.dtype,
+                                      device=dev)
+    return (float(fval), grad.cpu().numpy().reshape(-1).astype(np.float64),
+            residuals)
+
+
+def fwi_loss(x, geometry, obs, misfit_func, direct_wave=None, mask=None,
+             precond=True, calc_grad=True, shot_indices=None, device="cuda"):
+    """Objective in squared-slowness parameterization
+    (reference ``fwi.py:236-246``)."""
+    v = 1.0 / np.sqrt(x.reshape(geometry.model.shape))
+    geometry.model.update("vp", v.reshape(geometry.model.shape))
+    return fwi_obj_multi(geometry, obs, misfit_func, direct_wave, mask,
+                         precond, calc_grad, shot_indices=shot_indices,
+                         device=device)

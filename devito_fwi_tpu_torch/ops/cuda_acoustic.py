@@ -1,0 +1,443 @@
+"""CUDA kernels for the 2-D acoustic OT2 time loops, each beside its plain
+torch twin. Counterpart of ``devito_fwi_tpu.ops.pallas_acoustic``.
+
+Three sweeps carry the 2-D acoustic L2 FWI:
+
+* ``forward_rec_segments``: forward modeling that records the two
+  receiver rows of every step (observed data, direct wave, line-search
+  trials);
+* ``forward_dt2_segments``: the same forward, also streaming the d2u/dt2
+  history ``un - 2u + up`` and the illumination ``sum un^2``;
+* ``gradient_stream_segments``: the reverse adjoint sweep over that
+  history, ``grad = -(1/s^2) sum_t dt2[t] * v[t]``.
+
+Fields use the transposed (nz, nx) layout with x contiguous, so the two
+receiver z-planes z0, z0+1 are two contiguous rows. The nt-2 forward steps
+are laid out as ``nseg`` segments of ``seg`` steps (``_ckpt_layout``); on
+the card the segment count is only a padding layout, and the padded tail
+steps (``t >= nsteps``) are stepped forward with a zero wavelet, left out
+of the illumination and skipped in reverse.
+
+Each wrapper checks its operands, computes ``denom = 1/(m + hd)`` and
+``two_m_hd = 2m + hd`` once, and then, for CUDA tensors, launches the
+kernel of ``csrc/acoustic2d.cu`` (one ctypes call per sweep, one launch
+per step on the current stream) and adds one to ``LAUNCHES[name]``; for
+CPU tensors it runs the plain twin, a Python loop over the steps with the
+kernel's exact arithmetic (``_make_lap_t``). On another device it raises.
+The twins take float32 or float64; the kernels float32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils.fd import second_derivative_weights
+from . import cuda_build
+from .acoustic import _ckpt_layout, shift
+from .interp import interp_table, valid_corners
+
+__all__ = ["forward_rec_segments", "forward_dt2_segments",
+           "gradient_stream_segments", "forward_rec_plain",
+           "forward_dt2_plain", "gradient_stream_plain", "source_pattern",
+           "pad_wavelet", "residual_rows", "receiver_plane_matrix",
+           "matmul_full", "geometry_supported", "LAUNCHES", "TWIN_CALLS",
+           "reset_counters"]
+
+KERNELS = ("forward_rec_segments", "forward_dt2_segments",
+           "gradient_stream_segments")
+# launches of each kernel (one per sweep) and calls of each plain twin
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+TWIN_CALLS = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counters():
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+        TWIN_CALLS[name] = 0
+
+
+def _stencil_constants(space_order, spacing, dt):
+    """(w, inv_h2x, inv_h2z, s2): half-stencil weights and the per-axis
+    1/h^2 scales with dt^2 folded in (see ``_make_lap_t``)."""
+    w_full = second_derivative_weights(space_order)
+    w = tuple(float(v) for v in np.asarray(w_full)[len(w_full) // 2:])
+    s2 = float(dt) ** 2
+    inv_h2x = float(1.0 / spacing[0] ** 2) * s2
+    inv_h2z = float(1.0 / spacing[1] ** 2) * s2
+    return w, inv_h2x, inv_h2z, s2
+
+
+def _make_lap_t(w, inv_h2x, inv_h2z, fs):
+    """Laplacian on the transposed (..., nz, nx) layout with zero-fill
+    shifts. The association is the kernels' and the JAX kernels', term
+    for term: w rounded to the field's type, (shift+ + shift-) summed
+    before the weight multiply, per-axis accumulation, the x term scaled
+    and added first, and under a free surface rows 0..r of the unscaled
+    z-derivative replaced by the mirrored stencil (plain +k term, then the
+    odd mirror). Folding dt^2/h^2 into one constant per tap gives a
+    rounding bias of the same sign every step, which grows over a run."""
+    r = len(w) - 1
+
+    def lap(u):
+        accx = w[0] * u
+        for k in range(1, r + 1):
+            accx = accx + w[k] * (shift(u, k, -1) + shift(u, -k, -1))
+        accz = w[0] * u
+        for k in range(1, r + 1):
+            accz = accz + w[k] * (shift(u, k, -2) + shift(u, -k, -2))
+        if fs:
+            rows = []
+            for z in range(r + 1):
+                acc = w[0] * u[..., z, :]
+                for k in range(1, r + 1):
+                    acc = acc + w[k] * u[..., z + k, :]
+                    i = z - k
+                    if i > 0:
+                        acc = acc + w[k] * u[..., i, :]
+                    elif i < 0:
+                        acc = acc - w[k] * u[..., -i, :]
+                rows.append(acc)
+            accz = torch.cat([torch.stack(rows, -2), accz[..., r + 1:, :]],
+                             -2)
+        return accx * inv_h2x + accz * inv_h2z
+
+    return lap
+
+
+# ---------------------------------------------------------------------------
+# operands
+# ---------------------------------------------------------------------------
+
+def source_pattern(s_idx, s_w, m, s2):
+    """Dense per-shot source pattern (B, nx, nz): ``w * s^2 / m`` at the
+    bilinear corners of each shot's source. ``s_idx`` (B, 1, 4, 2) and
+    ``s_w`` (B, 1, 4) are numpy ``interp_table`` outputs; ``m`` is the
+    untransposed (nx, nz) squared slowness. Out-of-grid corners add
+    nothing."""
+    B = s_idx.shape[0]
+    valid, cl = valid_corners(s_idx[:, 0], tuple(m.shape))
+    dev = m.device
+    xi = torch.as_tensor(cl[..., 0], dtype=torch.long, device=dev)
+    zi = torch.as_tensor(cl[..., 1], dtype=torch.long, device=dev)
+    w = torch.as_tensor(np.where(valid, s_w[:, 0], 0.0), dtype=m.dtype,
+                        device=dev)
+    vals = w * s2 / m[xi, zi]
+    bi = torch.arange(B, device=dev)[:, None].expand_as(xi)
+    out = m.new_zeros((B,) + tuple(m.shape))
+    return out.index_put_((bi, xi, zi), vals, accumulate=True)
+
+
+def pad_wavelet(src_wav, nt, total):
+    """``src_wav[1:nt-1, 0]`` zero-padded to the segment-layout length."""
+    out = src_wav.new_zeros((total,))
+    out[:nt - 2] = src_wav[1:nt - 1, 0]
+    return out
+
+
+def matmul_full(a, b):
+    """``a @ b`` at full precision: TF32 is switched off for matrix products
+    and cuDNN during this one product, since its ~3 decimal digits would
+    show in the traces and residual rows. The caller's settings are put
+    back afterwards."""
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = mm.allow_tf32, dnn.allow_tf32
+    mm.allow_tf32 = dnn.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        mm.allow_tf32, dnn.allow_tf32 = saved
+
+
+def receiver_plane_matrix(r_idx, vals, z0, nx):
+    """(nrec, 2*nx) matrix holding each receiver's corner values ``vals``
+    (nrec, 4) at column ``plane*nx + x``, plane 0 on row z0 and 1 on row
+    z0+1. Corners off those two rows or off the x range get nothing."""
+    xi = r_idx[..., 0]
+    zi = r_idx[..., 1]
+    valid = (xi >= 0) & (xi < nx) & ((zi == z0) | (zi == z0 + 1))
+    col = (zi != z0).astype(np.int64) * nx + np.clip(xi, 0, nx - 1)
+    dev = vals.device
+    rows = torch.arange(r_idx.shape[0], device=dev)[:, None].expand(
+        col.shape)
+    col_t = torch.as_tensor(col, device=dev)
+    vals = torch.where(torch.as_tensor(valid, device=dev), vals,
+                       torch.zeros((), dtype=vals.dtype, device=dev))
+    out = vals.new_zeros((r_idx.shape[0], 2 * nx))
+    return out.index_put_((rows, col_t), vals, accumulate=True)
+
+
+def residual_rows(res_stack, r_idx, r_w, m, s2, z0, nsteps, seg, nseg):
+    """Receiver residuals (B, nt, nrec) folded with the interpolation
+    weights and ``s^2/m`` into dense two-row slabs (B, nseg, seg, 2, nx)
+    for the reverse sweep: one matrix product against the scattered
+    (nrec, 2*nx) weights, at full precision (TF32 off). ``m`` is the
+    untransposed (nx, nz) squared slowness; ``r_idx`` numpy, ``r_w``
+    tensor (nrec, 4)."""
+    B = res_stack.shape[0]
+    nx, nz = m.shape
+    xi = torch.as_tensor(np.clip(r_idx[..., 0], 0, nx - 1),
+                         dtype=torch.long, device=m.device)
+    zi = torch.as_tensor(np.clip(r_idx[..., 1], 0, nz - 1),
+                         dtype=torch.long, device=m.device)
+    V = receiver_plane_matrix(r_idx, r_w * s2 / m[xi, zi], z0, nx)
+    res_pad = res_stack.new_zeros((B, nseg * seg, r_idx.shape[0]))
+    res_pad[:, :nsteps] = res_stack[:, 1:nsteps + 1]
+    rows = matmul_full(res_pad, V)
+    return rows.reshape(B, nseg, seg, 2, nx)
+
+
+def geometry_supported(geometry):
+    """True when the kernels apply: 2-D grid and all receivers between the
+    same two ADJACENT z-planes (z0, z0+1), both inside the padded grid —
+    the kernels record and inject exactly those two rows."""
+    model = geometry.model
+    if model.dim != 2:
+        return False
+    r_idx, _ = interp_table(geometry.rec_positions, model.origin_pml,
+                            model.spacing, dtype=model.dtype)
+    zplanes = np.unique(np.asarray(r_idx)[..., 1])
+    if len(zplanes) > 2 or zplanes.max() - zplanes.min() > 1:
+        return False
+    nz = model.padded_shape[1]
+    z0 = int(zplanes.min())
+    return 0 <= z0 and z0 + 2 <= nz
+
+
+# ---------------------------------------------------------------------------
+# plain twins: Python loops over the steps with the kernels' arithmetic
+# ---------------------------------------------------------------------------
+
+def _forward_plain(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x,
+                   inv_h2z, nsteps, z0, fs, hist):
+    B, nz, nx = inj.shape
+    total = wav_pad.shape[0]
+    lap = _make_lap_t(w, inv_h2x, inv_h2z, fs)
+    u = inj.new_zeros((B, nz, nx))
+    up = inj.new_zeros((B, nz, nx))
+    rec = inj.new_empty((B, total, 2, nx))
+    dt2 = inj.new_empty((B, total, nz, nx)) if hist else None
+    illum = inj.new_zeros((B, nz, nx)) if hist else None
+    for t in range(total):
+        rec[:, t] = u[:, z0:z0 + 2, :]
+        un = (lap(u) + two_m_hd * u - m * up) * denom + wav_pad[t] * inj
+        if hist:
+            dt2[:, t] = un - 2.0 * u + up
+            if t < nsteps:
+                illum = illum + un * un
+        up, u = u, un
+    return rec, dt2, illum
+
+
+def _adjoint_plain(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
+                   nsteps, z0, fs, neg_inv_s2):
+    B, _, nz, nx = dt2.shape
+    lap = _make_lap_t(w, inv_h2x, inv_h2z, fs)
+    v = dt2.new_zeros((B, nz, nx))
+    vn = dt2.new_zeros((B, nz, nx))
+    grad = dt2.new_zeros((B, nz, nx))
+    for t in range(nsteps - 1, -1, -1):
+        grad = grad + dt2[:, t] * v
+        vnew = (lap(v) + two_m_hd * v - m * vn) * denom
+        vnew[:, z0:z0 + 2] = vnew[:, z0:z0 + 2] + res[:, t]
+        vn, v = v, vnew
+    return grad * neg_inv_s2
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+# (argtypes, restype) of the C entry points of csrc/acoustic2d.cu; every
+# pointer and the stream are c_void_p, so no 64-bit value is cut
+SIGNATURES = {
+    "acoustic2d_forward": ([_P] * 10 + [_I] * 8 + [_P, _F, _F, _P], _I),
+    "acoustic2d_adjoint": ([_P] * 8 + [_I] * 8 + [_P, _F, _F, _F, _P], _I),
+    "acoustic2d_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _lib():
+    lib = cuda_build.load("acoustic2d")
+    if not getattr(lib, "_argtypes_set", False):
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        lib._argtypes_set = True
+    return lib
+
+
+def _check(lib, fn, err):
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err} "
+                           f"({lib.acoustic2d_error_string(err).decode()})")
+
+
+def _forward_cuda(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x, inv_h2z,
+                  nsteps, z0, fs, hist):
+    lib = _lib()
+    B, nz, nx = inj.shape
+    total = wav_pad.shape[0]
+    rec = inj.new_empty((B, total, 2, nx))
+    dt2 = inj.new_empty((B, total, nz, nx)) if hist else None
+    illum = inj.new_zeros((B, nz, nx)) if hist else None
+    u = inj.new_zeros((B, nz, nx))
+    up = inj.new_zeros((B, nz, nx))
+    w32 = np.asarray(w, np.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(inj.device):
+        err = lib.acoustic2d_forward(
+            m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
+            wav_pad.data_ptr(), inj.data_ptr(), rec.data_ptr(), ptr(dt2),
+            ptr(illum), u.data_ptr(), up.data_ptr(), B, nz, nx, total,
+            nsteps, z0, int(fs), len(w) - 1, w32.ctypes.data, inv_h2x,
+            inv_h2z, torch.cuda.current_stream(inj.device).cuda_stream)
+    _check(lib, "acoustic2d_forward", err)
+    return rec, dt2, illum
+
+
+def _adjoint_cuda(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
+                  nsteps, z0, fs, neg_inv_s2):
+    lib = _lib()
+    B, total, nz, nx = dt2.shape
+    grad = dt2.new_zeros((B, nz, nx))
+    v = dt2.new_zeros((B, nz, nx))
+    vn = dt2.new_zeros((B, nz, nx))
+    w32 = np.asarray(w, np.float32)
+    with torch.cuda.device(dt2.device):
+        err = lib.acoustic2d_adjoint(
+            m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
+            dt2.data_ptr(), res.data_ptr(), grad.data_ptr(), v.data_ptr(),
+            vn.data_ptr(), B, nz, nx, total, nsteps, z0, int(fs),
+            len(w) - 1, w32.ctypes.data, inv_h2x, inv_h2z, neg_inv_s2,
+            torch.cuda.current_stream(dt2.device).cuda_stream)
+    _check(lib, "acoustic2d_adjoint", err)
+    return grad
+
+
+def _checked(fn, tensors, shapes, z0, nz):
+    """Validate one call's tensors: one device, one float type (float32 on
+    the card), the expected shapes, contiguous; z0 inside the grid."""
+    dev = tensors[0].device
+    dtype = tensors[0].dtype
+    allowed = (torch.float32,) if dev.type == "cuda" else (torch.float32,
+                                                           torch.float64)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{fn}: tensors on {dev}; expected cuda or cpu")
+    if dtype not in allowed:
+        raise TypeError(f"{fn}: dtype {dtype} on {dev.type}; expected one "
+                        f"of {allowed}")
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{fn}: operand {i} is {t.dtype} on "
+                             f"{t.device}, operand 0 is {dtype} on {dev}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{fn}: operand {i} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: operand {i} is not contiguous")
+    if not 0 <= z0 <= nz - 2:
+        raise ValueError(f"{fn}: receiver rows z0={z0}, z0+1 outside "
+                         f"0..{nz - 1}")
+    return dev
+
+
+def _forward(fn, hist, plain, m, hd, wav_pad, inj, dt, *, nt, nx, nz,
+             space_order, spacing, z0, n_checkpoints, fs=False):
+    nsteps, seg, nseg = _ckpt_layout(nt, n_checkpoints)
+    B = inj.shape[0]
+    dev = _checked(fn, (m, hd, wav_pad, inj),
+                   ((nz, nx), (nz, nx), (nseg * seg,), (B, nz, nx)), z0, nz)
+    w, inv_h2x, inv_h2z, _ = _stencil_constants(space_order, spacing, dt)
+    denom = 1.0 / (m + hd)
+    two_m_hd = 2.0 * m + hd
+    kw = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, nsteps=nsteps, z0=z0,
+              fs=fs, hist=hist)
+    if dev.type == "cuda" and not plain:
+        rec, dt2, illum = _forward_cuda(m, two_m_hd, denom, wav_pad, inj,
+                                        **kw)
+        LAUNCHES[fn] += 1
+    else:
+        TWIN_CALLS[fn] += 1
+        rec, dt2, illum = _forward_plain(m, two_m_hd, denom, wav_pad, inj,
+                                         **kw)
+    rec = rec.reshape(B, nseg, seg, 2, nx)
+    if hist:
+        return rec, dt2.reshape(B, nseg, seg, nz, nx), illum
+    return rec
+
+
+def _gradient(plain, m, hd, dt2, res_rows, dt, *, nt, nx, nz, space_order,
+              spacing, z0, n_checkpoints, fs=False):
+    fn = "gradient_stream_segments"
+    nsteps, seg, nseg = _ckpt_layout(nt, n_checkpoints)
+    B = dt2.shape[0]
+    dev = _checked(fn, (m, hd, dt2, res_rows),
+                   ((nz, nx), (nz, nx), (B, nseg, seg, nz, nx),
+                    (B, nseg, seg, 2, nx)), z0, nz)
+    w, inv_h2x, inv_h2z, s2 = _stencil_constants(space_order, spacing, dt)
+    denom = 1.0 / (m + hd)
+    two_m_hd = 2.0 * m + hd
+    kw = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, nsteps=nsteps, z0=z0,
+              fs=fs, neg_inv_s2=-1.0 / s2)
+    hist = dt2.reshape(B, nseg * seg, nz, nx)
+    res = res_rows.reshape(B, nseg * seg, 2, nx)
+    if dev.type == "cuda" and not plain:
+        grad = _adjoint_cuda(m, two_m_hd, denom, hist, res, **kw)
+        LAUNCHES[fn] += 1
+        return grad
+    TWIN_CALLS[fn] += 1
+    return _adjoint_plain(m, two_m_hd, denom, hist, res, **kw)
+
+
+def forward_rec_segments(m, hd, wav_pad, inj, dt, **kw):
+    """Forward sweep, receiver rows only. ``m``, ``hd`` (nz, nx) squared
+    slowness and dt*damp; ``wav_pad`` (nseg*seg,) from ``pad_wavelet``;
+    ``inj`` (B, nz, nx) transposed ``source_pattern``. Keywords: nt, nx,
+    nz, space_order, spacing, z0, n_checkpoints, fs=False. Returns rec_rows
+    (B, nseg, seg, 2, nx): rows z0, z0+1 of u before each step."""
+    return _forward("forward_rec_segments", False, False, m, hd, wav_pad,
+                    inj, dt, **kw)
+
+
+def forward_dt2_segments(m, hd, wav_pad, inj, dt, **kw):
+    """Forward sweep that also streams the history. Operands as in
+    ``forward_rec_segments``. Returns (rec_rows (B, nseg, seg, 2, nx),
+    dt2 (B, nseg, seg, nz, nx) = un - 2u + up, illum (B, nz, nx) = sum of
+    un^2 over the steps t < nsteps)."""
+    return _forward("forward_dt2_segments", True, False, m, hd, wav_pad,
+                    inj, dt, **kw)
+
+
+def gradient_stream_segments(m, hd, dt2, res_rows, dt, **kw):
+    """Reverse sweep over the streamed history (``forward_dt2_segments``
+    output) with the residual rows (``residual_rows``) injected on rows
+    z0, z0+1. Returns grad (B, nz, nx) = -(1/s^2) sum_t dt2[t] * v[t]."""
+    return _gradient(False, m, hd, dt2, res_rows, dt, **kw)
+
+
+# The plain twins under the wrappers' signatures, on any device: the
+# comparison on the card calls them on CUDA tensors.
+
+def forward_rec_plain(m, hd, wav_pad, inj, dt, **kw):
+    """Plain torch twin of ``forward_rec_segments``."""
+    return _forward("forward_rec_segments", False, True, m, hd, wav_pad,
+                    inj, dt, **kw)
+
+
+def forward_dt2_plain(m, hd, wav_pad, inj, dt, **kw):
+    """Plain torch twin of ``forward_dt2_segments``."""
+    return _forward("forward_dt2_segments", True, True, m, hd, wav_pad, inj,
+                    dt, **kw)
+
+
+def gradient_stream_plain(m, hd, dt2, res_rows, dt, **kw):
+    """Plain torch twin of ``gradient_stream_segments``."""
+    return _gradient(True, m, hd, dt2, res_rows, dt, **kw)

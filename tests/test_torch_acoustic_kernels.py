@@ -1,0 +1,269 @@
+"""The port's three 2-D acoustic sweeps (devito_fwi_tpu_torch.ops.
+cuda_acoustic) against the JAX package, on the same inputs:
+
+* the plain torch twins at float32 against the Pallas kernels run in
+  interpret mode, at the tolerances of tests/test_pallas.py (receiver rows
+  1e-5 of the max, illumination 1e-4, gradient 1e-5; the dt2 history
+  1e-4);
+* the twins at float64 against the XLA operators forward_ckpt /
+  gradient_from_ckpt, to 1e-12 relative (the two associate the update
+  differently, so they agree to f64 rounding, not bitwise);
+* (tests/test_torch_cuda_kernels.py holds the CUDA kernels against the
+  twins on the card.)
+
+Small case: circle-isotropic 61x61, nbl=10, space_order=4, 2 shots,
+n_checkpoints=7, with and without the free surface.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from devito_fwi_tpu.models.presets import demo_model
+from devito_fwi_tpu.models.geometry import AcquisitionGeometry
+from devito_fwi_tpu.fwi import (_batched_tables, _solver_dt, _pallas_operands,
+                                _traces_from_rows)
+from devito_fwi_tpu.ops import acoustic as ac
+from devito_fwi_tpu.ops import pallas_acoustic as pa
+from devito_fwi_tpu.ops.acoustic import _ckpt_layout
+
+from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+from devito_fwi_tpu_torch import fwi as tfwi
+
+NCK = 7
+
+
+def _geometry(fs, dtype):
+    model = demo_model("circle-isotropic", vp_circle=3.0, vp_background=2.5,
+                       origin=(0., 0.), shape=(61, 61), spacing=(10., 10.),
+                       nbl=10, space_order=4, fs=fs, dtype=dtype)
+    nsrc, nrec = 2, 41
+    # under fs the source sits within the first cell, so its corners touch
+    # the z = 0 surface row
+    zsrc = 2.0 if fs else 20.0
+    src = np.stack([np.linspace(0., 600., nsrc), np.full(nsrc, zsrc)], 1)
+    rec = np.stack([np.linspace(0., 600., nrec), np.full(nrec, 20.)], 1)
+    return AcquisitionGeometry(model, rec, src, 0., 300., f0=0.010,
+                               src_type="Ricker")
+
+
+@functools.lru_cache(maxsize=None)
+def _case(fs, dtype=np.float32):
+    """Operands (numpy, transposed) and the JAX outputs for one case."""
+    geom = _geometry(fs, dtype)
+    model = geom.model
+    s_idx, s_w, r_idx, r_w, wav = _batched_tables(geom)
+    dt, nt = float(_solver_dt(geom)), geom.nt
+    nsteps, seg, nseg = _ckpt_layout(nt, NCK)
+    nx, nz = model.padded_shape
+    z0 = int(np.asarray(r_idx)[..., 1].min())
+    vp, damp = jnp.asarray(model.vp), jnp.asarray(model.damp)
+    m, mT, hdT, injT, wav_pad = _pallas_operands(
+        vp, damp, jnp.asarray(wav), jnp.asarray(s_idx), jnp.asarray(s_w),
+        dt, nt, nseg * seg)
+    kw = dict(nt=nt, nx=nx, nz=nz, space_order=4, spacing=model.spacing,
+              z0=z0, n_checkpoints=NCK, fs=fs)
+    rng = np.random.RandomState(0)
+    statics = dict(nt=nt, spacing=model.spacing, space_order=4,
+                   kernel="OT2", fs=fs)
+    recs, seg_starts, illum = jax.vmap(
+        lambda a, b: ac.forward_ckpt(vp, damp, jnp.asarray(wav), a, b,
+                                     jnp.asarray(r_idx), jnp.asarray(r_w),
+                                     dt, n_checkpoints=NCK, **statics))(
+        jnp.asarray(s_idx), jnp.asarray(s_w))
+    res = (np.asarray(recs) * 0.1
+           + 0.01 * rng.randn(*recs.shape)).astype(dtype)
+    out = dict(geom=geom, kw=kw, dt=dt, nsteps=nsteps, seg=seg, nseg=nseg,
+               z0=z0, tables=(s_idx, s_w, r_idx, r_w, wav),
+               mT=np.asarray(mT), hdT=np.asarray(hdT),
+               injT=np.asarray(injT), wav_pad=np.asarray(wav_pad),
+               m=np.asarray(m), res=res, recs=np.asarray(recs),
+               illum=np.asarray(illum))
+    if dtype == np.float32:
+        rows = pa.residual_rows(jnp.asarray(res), jnp.asarray(r_idx),
+                                jnp.asarray(r_w), m, dt * dt, z0, nsteps,
+                                seg, nseg)
+        out["res_rows"] = np.asarray(rows)
+        jkw = dict(kw, interpret=True)
+        out["pallas_rec"] = np.asarray(pa.forward_rec_segments(
+            mT, hdT, wav_pad, injT, dt, **jkw))
+        rec_rows, dt2, illumT = pa.forward_dt2_segments(
+            mT, hdT, wav_pad, injT, dt, **jkw)
+        out["pallas_dt2"] = (np.asarray(rec_rows), np.asarray(dt2),
+                             np.asarray(illumT))
+        out["pallas_grad"] = np.asarray(pa.gradient_stream_segments(
+            mT, hdT, dt2, rows, dt, **jkw))
+    else:
+        out["xla_grad"] = np.asarray(jax.vmap(
+            lambda a, b, sg, r: ac.gradient_from_ckpt(
+                vp, damp, jnp.asarray(wav), a, b, sg, r, jnp.asarray(r_idx),
+                jnp.asarray(r_w), dt, n_checkpoints=NCK, **statics)[0])(
+            jnp.asarray(s_idx), jnp.asarray(s_w), seg_starts,
+            jnp.asarray(res)))
+    return out
+
+
+def _t(a, device="cpu"):
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def _close(got, want, rtol):
+    got = got.cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
+    scale = max(np.abs(want).max(), 1e-30)
+    err = np.abs(got - want).max()
+    assert err <= rtol * scale, (err, scale)
+
+
+# ---------------------------------------------------------------------------
+# f32 twins vs the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_forward_rec_twin_matches_pallas(fs):
+    c = _case(fs)
+    rows = ca.forward_rec_segments(_t(c["mT"]), _t(c["hdT"]),
+                                   _t(c["wav_pad"]), _t(c["injT"]), c["dt"],
+                                   **c["kw"])
+    assert rows.shape == c["pallas_rec"].shape
+    _close(rows, c["pallas_rec"], 1e-5)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_forward_dt2_twin_matches_pallas(fs):
+    c = _case(fs)
+    rows, dt2, illum = ca.forward_dt2_segments(
+        _t(c["mT"]), _t(c["hdT"]), _t(c["wav_pad"]), _t(c["injT"]), c["dt"],
+        **c["kw"])
+    p_rows, p_dt2, p_illum = c["pallas_dt2"]
+    _close(rows, p_rows, 1e-5)
+    # dt2 = un - 2u + up cancels to ~1/50 of |u|, so the fields' f32
+    # rounding differences weigh ~50x more against its max: 1e-4, as for
+    # the illumination, another derived field
+    _close(dt2, p_dt2, 1e-4)
+    _close(illum, p_illum, 1e-4)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_gradient_stream_twin_matches_pallas(fs):
+    c = _case(fs)
+    dt2 = _t(c["pallas_dt2"][1])
+    grad = ca.gradient_stream_segments(_t(c["mT"]), _t(c["hdT"]), dt2,
+                                       _t(c["res_rows"]), c["dt"], **c["kw"])
+    _close(grad, c["pallas_grad"], 1e-5)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_operands_match_jax(fs):
+    """source_pattern, pad_wavelet, residual_rows and the trace assembly
+    of the port == the JAX package's, on the same tables."""
+    c = _case(fs)
+    s_idx, s_w, r_idx, r_w, wav = c["tables"]
+    m = _t(c["m"])
+    inj = ca.source_pattern(s_idx, s_w, m, c["dt"] * c["dt"])
+    _close(inj.transpose(-1, -2), c["injT"], 1e-7)
+    _close(ca.pad_wavelet(_t(wav), c["kw"]["nt"], c["nseg"] * c["seg"]),
+           c["wav_pad"], 0)
+    rows = ca.residual_rows(_t(c["res"]), r_idx, _t(r_w), m,
+                            c["dt"] * c["dt"], c["z0"], c["nsteps"], c["seg"],
+                            c["nseg"])
+    _close(rows, c["res_rows"], 1e-6)
+    nx = c["kw"]["nx"]
+    W = ca.receiver_plane_matrix(r_idx, _t(r_w), c["z0"], nx).T
+    tr = tfwi._traces_from_rows(_t(c["pallas_rec"]), W, c["kw"]["nt"],
+                                c["nsteps"])
+    want = np.asarray(_traces_from_rows(
+        jnp.asarray(c["pallas_rec"]), jnp.asarray(r_idx), jnp.asarray(r_w),
+        c["z0"], c["kw"]["nt"], c["nsteps"], jnp.float32))
+    _close(tr, want, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# f64 twins vs the XLA operators
+# ---------------------------------------------------------------------------
+
+def _f64_forward(fs):
+    c = _case(fs, np.float64)
+    s_idx, s_w, r_idx, r_w, wav = c["tables"]
+    m = _t(c["m"])
+    injT = ca.source_pattern(s_idx, s_w, m, c["dt"] * c["dt"]).transpose(
+        -1, -2).contiguous()
+    wav_pad = ca.pad_wavelet(_t(wav), c["kw"]["nt"], c["nseg"] * c["seg"])
+    rows, dt2, illumT = ca.forward_dt2_segments(
+        _t(c["mT"]), _t(c["hdT"]), wav_pad, injT, c["dt"], **c["kw"])
+    W = ca.receiver_plane_matrix(r_idx, _t(r_w), c["z0"],
+                                 c["kw"]["nx"]).T
+    return c, injT, wav_pad, rows, dt2, illumT, W
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_forward_twins_match_xla_f64(fs):
+    c, injT, wav_pad, rows, dt2, illumT, W = _f64_forward(fs)
+    nt, nsteps = c["kw"]["nt"], c["nsteps"]
+    _close(tfwi._traces_from_rows(rows, W, nt, nsteps), c["recs"], 1e-12)
+    _close(illumT.transpose(-1, -2), c["illum"], 1e-12)
+    rec_only = ca.forward_rec_segments(_t(c["mT"]), _t(c["hdT"]), wav_pad,
+                                       injT, c["dt"], **c["kw"])
+    assert torch.equal(rec_only, rows)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_gradient_twin_matches_xla_f64(fs):
+    c, injT, wav_pad, rows, dt2, illumT, W = _f64_forward(fs)
+    s_idx, s_w, r_idx, r_w, wav = c["tables"]
+    res_rows = ca.residual_rows(_t(c["res"]), r_idx, _t(r_w), _t(c["m"]),
+                                c["dt"] * c["dt"], c["z0"], c["nsteps"],
+                                c["seg"], c["nseg"])
+    grad = ca.gradient_stream_segments(_t(c["mT"]), _t(c["hdT"]), dt2,
+                                       res_rows, c["dt"], **c["kw"])
+    _close(grad.transpose(-1, -2), c["xla_grad"], 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: CPU tensors take the twin, bad operands raise
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_run_the_twins():
+    c = _case(False)
+    ca.reset_counters()
+    ca.forward_rec_segments(_t(c["mT"]), _t(c["hdT"]), _t(c["wav_pad"]),
+                            _t(c["injT"]), c["dt"], **c["kw"])
+    assert ca.TWIN_CALLS["forward_rec_segments"] == 1
+    assert sum(ca.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "z0"])
+def test_wrappers_reject_bad_operands(bad):
+    c = _case(False)
+    mT, hdT, wav, injT = (_t(c["mT"]), _t(c["hdT"]), _t(c["wav_pad"]),
+                          _t(c["injT"]))
+    kw = dict(c["kw"])
+    if bad == "dtype":
+        hdT = hdT.to(torch.float16)
+    elif bad == "shape":
+        injT = injT[:, :-1]
+    elif bad == "contiguous":
+        injT = _t(c["injT"]).transpose(-1, -2).contiguous() \
+            .transpose(-1, -2)
+    else:
+        kw["z0"] = kw["nz"] - 1
+    with pytest.raises((TypeError, ValueError)):
+        ca.forward_rec_segments(mT, hdT, wav, injT, c["dt"], **kw)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_matmul_full_restores_precision_flags(tf32):
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = mm.allow_tf32, dnn.allow_tf32
+    try:
+        mm.allow_tf32 = dnn.allow_tf32 = tf32
+        rng = np.random.default_rng(0)
+        a = torch.as_tensor(rng.standard_normal((3, 5)))
+        b = torch.as_tensor(rng.standard_normal((5, 4)))
+        assert torch.equal(ca.matmul_full(a, b), a @ b)
+        assert (mm.allow_tf32, dnn.allow_tf32) == (tf32, tf32)
+    finally:
+        mm.allow_tf32, dnn.allow_tf32 = saved

@@ -1,0 +1,112 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to fall back to the CPU when asked for the card."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from devito_fwi_tpu_torch import fwi as tfwi
+from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+from devito_fwi_tpu_torch.models.presets import demo_model
+from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "devito_fwi_tpu_torch")
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "devito_fwi_tpu")
+
+
+def test_import_leaves_jax_out():
+    """In a fresh interpreter (the test process itself has JAX loaded):
+    importing the package and every module of it loads no JAX module."""
+    mods = sorted(
+        os.path.relpath(f, REPO)[:-3].replace(os.sep, ".")
+        for f in _port_sources() if f.startswith(PKG))
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'devito_fwi_tpu')]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_jax(path):
+    """Source scan: no import of jax or of devito_fwi_tpu (the name not
+    followed by _torch), absolute or relative."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def _geometry():
+    model = demo_model("circle-isotropic", shape=(21, 21),
+                       spacing=(10., 10.), nbl=4, space_order=4)
+    rec = np.stack([np.linspace(0., 200., 11), np.full(11, 20.)], 1)
+    return AcquisitionGeometry(model, rec, np.array([[100., 20.]]), 0.,
+                               50., f0=0.01, src_type="Ricker")
+
+
+@pytest.mark.parametrize("entry", ["fm_single", "fm_multi", "fwi_obj_multi",
+                                   "fwi_loss"])
+def test_entry_points_raise_on_cuda_without_card(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _geometry()
+    obs = tfwi.fm_multi(g, device="cpu")
+    x = 1.0 / np.asarray(g.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    calls = {
+        "fm_single": lambda: tfwi.fm_single(g),
+        "fm_multi": lambda: tfwi.fm_multi(g),
+        "fwi_obj_multi": lambda: tfwi.fwi_obj_multi(g, obs, None,
+                                                    calc_grad=True),
+        "fwi_loss": lambda: tfwi.fwi_loss(x, g, obs, None),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_wrappers_reject_other_devices():
+    t = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ca.forward_rec_segments(t, t, torch.zeros(4, device="meta"),
+                                torch.zeros((1, 4, 8), device="meta"), 1.0,
+                                nt=6, nx=8, nz=4, space_order=4,
+                                spacing=(10., 10.), z0=1, n_checkpoints=4)
+
+
+def test_ctypes_signatures_match_the_cuda_source():
+    """The argtypes bound in cuda_acoustic.SIGNATURES follow the parameter
+    lists of the extern "C" functions of csrc/acoustic2d.cu (a mismatch
+    only shows on the card, as a ctypes error or a garbled argument)."""
+    import ctypes
+    import re
+    src = open(os.path.join(PKG, "csrc", "acoustic2d.cu")).read()
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    for name, (argtypes, _) in ca.SIGNATURES.items():
+        params = re.search(r"(?:int|char\*)\s+" + name + r"\(([^)]*)\)",
+                           src).group(1)
+        want = ["p" if "*" in p else "f" if p.split()[0] == "float" else "i"
+                for p in params.split(",")]
+        assert [kinds[a] for a in argtypes] == want, name

@@ -1,0 +1,135 @@
+"""The port's numpy layers (devito_fwi_tpu_torch.models, utils.fd,
+ops.interp, convert, the SMARMN driver setup) are the JAX package's,
+array for array: every comparison here is ``np.array_equal``."""
+import importlib.util
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+from devito_fwi_tpu.models.presets import demo_model as j_demo_model
+from devito_fwi_tpu.models.geometry import AcquisitionGeometry as JGeometry
+from devito_fwi_tpu.models.sources import ricker_wavelet as j_ricker
+from devito_fwi_tpu.ops.interp import interp_table as j_interp
+from devito_fwi_tpu.utils import fd as j_fd
+
+from devito_fwi_tpu_torch.convert import model_from_numpy
+from devito_fwi_tpu_torch.drivers import _marmousi_common as t_marm
+from devito_fwi_tpu_torch.models.presets import demo_model as t_demo_model
+from devito_fwi_tpu_torch.models.geometry import (AcquisitionGeometry as
+                                                  TGeometry)
+from devito_fwi_tpu_torch.models.sources import ricker_wavelet as t_ricker
+from devito_fwi_tpu_torch.ops.interp import (interp_table as t_interp,
+                                             valid_corners)
+from devito_fwi_tpu_torch.utils import fd as t_fd
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_marmousi_common():
+    spec = importlib.util.spec_from_file_location(
+        "jax_marmousi_common",
+        os.path.join(REPO, "drivers", "_marmousi_common.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("space_order", [2, 4, 8, 16])
+def test_fd_weights_and_cfl_equal(space_order):
+    assert np.array_equal(t_fd.second_derivative_weights(space_order),
+                          j_fd.second_derivative_weights(space_order))
+    for ndim in (2, 3):
+        assert t_fd.cfl_coefficient(space_order, ndim) == \
+            j_fd.cfl_coefficient(space_order, ndim)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+@pytest.mark.parametrize("abc_type", ["damp", "mask"])
+def test_damping_profile_equal(fs, abc_type):
+    pads = [(40, 40), (0 if fs else 40, 40)]
+    shape = (380, 146 if fs else 186)
+    args = (shape, pads, (30., 30.))
+    assert np.array_equal(
+        t_fd.damping_profile(*args, abc_type=abc_type, fs=fs),
+        j_fd.damping_profile(*args, abc_type=abc_type, fs=fs))
+
+
+def test_interp_table_equal_and_masked():
+    rng = np.random.RandomState(0)
+    # points inside, on the edge and outside a padded 81 x 61 grid
+    coords = rng.uniform(-150., 900., size=(64, 2))
+    origin, spacing = (-100., -100.), (10., 10.)
+    ti, tw = t_interp(coords, origin, spacing)
+    ji, jw = j_interp(coords, origin, spacing)
+    assert np.array_equal(ti, ji) and np.array_equal(tw, jw)
+    valid, cl = valid_corners(ti, (81, 61))
+    assert ((cl >= 0) & (cl < np.array([81, 61]))).all()
+    inside = ((ti >= 0) & (ti < np.array([81, 61]))).all(-1)
+    assert np.array_equal(valid, inside)
+    assert not valid.all() and valid.any()
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_models_geometry_wavelet_equal(fs):
+    kw = dict(vp_circle=3.0, vp_background=2.5, origin=(0., 0.),
+              shape=(61, 51), spacing=(10., 12.), nbl=10, space_order=4,
+              fs=fs)
+    tm, jm = t_demo_model("circle-isotropic", **kw), \
+        j_demo_model("circle-isotropic", **kw)
+    assert np.array_equal(tm.vp, jm.vp) and np.array_equal(tm.damp, jm.damp)
+    assert tm.critical_dt == jm.critical_dt
+    assert tm.padded_shape == jm.padded_shape
+    assert tm.origin_pml == jm.origin_pml
+    src = np.array([[100., 20.], [300., 20.]])
+    rec = np.stack([np.linspace(0., 600., 31), np.full(31, 24.)], 1)
+    tg = TGeometry(tm, rec, src, 0., 300., f0=0.012, src_type="Ricker")
+    jg = JGeometry(jm, rec, src, 0., 300., f0=0.012, src_type="Ricker")
+    assert tg.nt == jg.nt
+    assert np.array_equal(tg.time_axis.time_values, jg.time_axis.time_values)
+    assert np.array_equal(tg.src.data, jg.src.data)
+    t = jg.time_axis.time_values
+    assert np.array_equal(t_ricker(t, 0.01), j_ricker(t, 0.01))
+
+
+def test_model_from_numpy_reproduces_the_jax_model():
+    jm = j_demo_model("layers-isotropic", shape=(41, 31), spacing=(10., 10.),
+                      nbl=8, space_order=8, vp_top=1.5, vp_bottom=3.0)
+    jm.vp[0, 0] = 3.1  # a padding cell that is not an edge replication
+    tm = model_from_numpy(dict(
+        vp=np.asarray(jm.vp), damp=jm.damp, origin=jm.origin,
+        spacing=jm.spacing, shape=jm.shape, nbl=jm.nbl,
+        space_order=jm.space_order, fs=jm.fs, dt=jm._dt))
+    assert np.array_equal(tm.vp, jm.vp) and np.array_equal(tm.damp, jm.damp)
+    assert tm.vp.dtype == jm.vp.dtype
+    assert tm.critical_dt == jm.critical_dt
+    assert tm.padsizes == jm.padsizes and tm.origin_pml == jm.origin_pml
+
+
+def test_smarmn_setup_equal():
+    """The port's SMARMN driver setup (vendored model_data/SMARMN) builds
+    the JAX driver's models, geometries and bathy mask."""
+    jmc = _jax_marmousi_common()
+    args = SimpleNamespace(data_dir=t_marm.default_data_dir(), bathy=1,
+                           filter=0)
+    assert args.data_dir == jmc.default_data_dir()
+    tmodels, tgeoms, tvps, tmask = t_marm.setup(t_marm.SMARMN, args, 29)
+    jmodels, jgeoms, jvps, jmask = jmc.setup(jmc.SMARMN, args, 29)
+    assert np.array_equal(tmask, jmask)
+    for a, b in zip(tvps, jvps):
+        assert np.array_equal(a, b)
+    for tm, jm in zip(tmodels, jmodels):
+        assert np.array_equal(tm.vp, jm.vp)
+        assert np.array_equal(tm.damp, jm.damp)
+        assert tm.critical_dt == jm.critical_dt
+    for tg, jg in zip(tgeoms, jgeoms):
+        assert tg.nt == jg.nt == 1357
+        assert np.array_equal(tg.src_positions, jg.src_positions)
+        assert np.array_equal(tg.rec_positions, jg.rec_positions)
+        assert np.array_equal(tg.src.data, jg.src.data)
+    # receivers on the padded z-planes 42 and 43
+    ri, _ = t_interp(tgeoms[0].rec_positions, tmodels[0].origin_pml,
+                     tmodels[0].spacing)
+    assert set(np.unique(ri[..., 1])) == {42, 43}
+    assert tmodels[0].padded_shape == (380, 186)
