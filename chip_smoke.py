@@ -7,22 +7,40 @@ Phases, each printing its own lines; any failure exits non-zero and no
 result line is printed:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. the build: ``nvcc`` compiles ``devito_fwi_tpu_torch/csrc/*.cu`` (timed);
-3. kernel vs twin, quick gate: each CUDA kernel against its plain torch
-   twin on the card, at the SMARMN Marmousi grid (380 x 186 padded, nt
-   1357) with 3 shots, on every output;
+2. the build: ``nvcc`` compiles ``devito_fwi_tpu_torch/csrc/*.cu``, one
+   process per source, all started together (timed);
+3. kernel vs twin, quick gate: each acoustic CUDA kernel against its plain
+   torch twin on the card, at the SMARMN Marmousi grid (380 x 186 padded,
+   nt 1357) with 3 shots, on every output;
 4. kernel vs twin at the main path's shapes (29 shots, the history past
-   2^31 elements): each kernel beside its twin, CUDA events after a
-   warm-up, every output of the timed calls compared, with the card's
-   bound;
-5. the main path: the SMARMN L2 FWI driver (29 shots, ``--misfit 0
-   --maxiter 2``, default ``--maxls 5``) on cuda into a temporary
-   ``--odir``: the misfit must be finite and decreasing, every kernel
-   launched and no twin called;
-6. profile: one steady-state gradient and one line-search trial under
-   ``torch.profiler``: wall time, device-busy time and idle share, the
-   kernels that take the most device time;
-7. a ``kernels`` JSON line; the card's name and power limit; and last
+   2^31 elements): each acoustic kernel beside its twin, CUDA events after
+   a warm-up, every output of the timed calls compared, with the card's
+   bound; the checkpoint-route gradient against the streamed one, bitwise;
+5. the slab kernel at the main path's shapes: the subsamples of the last
+   pushforward of a live SMARMN W2-2d objective (29 shots, the initial
+   model), in the natural and the blocked layout, kernel beside twin, and
+   one ``index_put_(accumulate=True)`` scatter of the same subsamples as
+   the library yardstick;
+6. main path, L2: the SMARMN L2 FWI driver (29 shots, ``--misfit 0
+   --maxiter 2``) on cuda: finite and decreasing misfit, every kernel of
+   the path launched, no twin called;
+7. main path, W2: the same driver with ``--misfit 1`` (W2-1d) and
+   ``--misfit 2`` (W2-2d; the JAX driver's qWasserstein: gamma 1.01, 15
+   BFM steps); the same checks, for W2-2d also the slab kernel launched,
+   the pushforwards by tier and the Legendre certificate fallbacks
+   printed;
+8. main path, checkpoint route: 29-shot ``fwi_loss`` gradients with
+   ``stream=False``: the L2 one equal to the streamed one bitwise, and a
+   W2-2d one with the blocked slab layout;
+9. the misfits' device memory per gather sample (peak allocation around
+   the batched misfit of the 29 SMARMN gathers), held against the figures
+   ``fwi.MISFIT_BYTES_PER_SAMPLE`` sizes shot chunks with;
+10. profile: one steady-state gradient and one trial of the L2 and of the
+   W2-2d objective under ``torch.profiler``: wall time, device-busy time
+   and idle share, the kernels that take the most device time; then the
+   W2-2d objective's parts (2-D Legendre transform, pushforward, DCT
+   products) timed apart on its live state, times their calls;
+11. a ``kernels`` JSON line; the card's name and power limit; and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -32,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,11 +65,15 @@ SEED = 0
 # operations one for one, so they should agree bitwise; 1e-6 of each
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
-SOURCE = "devito_fwi_tpu_torch/csrc/acoustic2d.cu"
+SOURCES = ("acoustic2d", "bfm_push")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
     "gradient_stream_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:673",
+    "forward_ckpt_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:306",
+    "gradient_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:453",
+    "pushforward_slabs_nat": "devito_fwi_tpu/ops/pallas_bfm.py:369",
+    "pushforward_slabs": "devito_fwi_tpu/ops/pallas_bfm.py:323",
 }
 
 
@@ -124,14 +147,22 @@ def profile_call(fn):
     return wall, busy * 1e-6, by_name
 
 
-def bounds(st, B):
-    """(ms, bound_by) for each kernel at this run's shapes: the larger of
-    bytes moved (inputs read once, outputs written once) over the memory
-    rate and float32 operations over the f32 rate."""
+def bound(nbytes, ops):
+    """(ms, bound_by, bytes, ops): the larger of bytes over the memory rate
+    and float32 operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def acoustic_bounds(st, B):
+    """The acoustic kernels' bounds at this run's shapes: inputs read once,
+    outputs written once; 6r+12 operations per cell-step of the update."""
     f = 4
     cells = B * st.nz * st.nx
     field = st.nz * st.nx
-    total, nsteps = st.nseg * st.seg, st.nsteps
+    total, nsteps, nseg = st.nseg * st.seg, st.nsteps, st.nseg
     r = st.kw["space_order"] // 2
     lap = 6 * r + 5          # two axes of (1 + 3r) and the two scales
     ops_fwd = lap + 7        # update, source injection
@@ -140,25 +171,67 @@ def bounds(st, B):
     # reads only the first ``nsteps`` of the history and the residual rows
     rows = B * total * 2 * st.nx * f
     hist = B * total * field * f
+    pairs = B * nseg * 2 * field * f
+    res_used = B * nsteps * 2 * st.nx * f
+    adj_ops = cells * nsteps * (lap + 7) + B * nsteps * 2 * st.nx
     work = {
         "forward_rec_segments": (common_in + rows, cells * total * ops_fwd),
         "forward_dt2_segments": (common_in + rows + hist + cells * f,
                                  cells * total * (ops_fwd + 3) +
                                  cells * nsteps * 2),
         "gradient_stream_segments": (2 * field * f +
-                                     B * nsteps * (field + 2 * st.nx) * f +
-                                     cells * f,
-                                     cells * nsteps * (lap + 7) +
-                                     B * nsteps * 2 * st.nx),
+                                     B * nsteps * field * f + res_used +
+                                     cells * f, adj_ops),
+        "forward_ckpt_segments": (common_in + rows + pairs + cells * f,
+                                  cells * total * ops_fwd +
+                                  cells * nsteps * 2),
+        # the recompute's one-segment history is scratch, not an output
+        "gradient_segments": (common_in + pairs + res_used + cells * f,
+                              cells * total * (ops_fwd + 3) + adj_ops),
     }
-    out = {}
-    for name, (nbytes, ops) in work.items():
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_PER_S * 1e3
-        out[name] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations",
-                     nbytes, ops)
-    return out
+    return {name: bound(*w) for name, w in work.items()}
+
+
+def push_bound(planes, slabs):
+    """The slab kernel's bound: the five planes read once, the slabs
+    written once; per cell the two derived weights, per active
+    (cell, subsample) four products and four sums."""
+    nbytes = sum(p.numel() * p.element_size() for p in planes) + \
+        slabs.numel() * slabs.element_size()
+    active = int((planes[3] > 0).sum())
+    return bound(nbytes, 2 * planes[3].numel() + 8 * active)
+
+
+def run_driver(marm, misfit, counters):
+    """Drive the SMARMN driver (``--maxiter 2``, 29 shots) on cuda with
+    every counter set to 0 just before (``counters``: their reset
+    functions); returns the driver's stats."""
+    for reset in counters:
+        reset()
+    with tempfile.TemporaryDirectory() as odir:
+        _, stats = marm.run_fwi(marm.SMARMN, [
+            "--misfit", str(misfit), "--maxiter", "2", "--odir", odir,
+            "--device", "cuda"])
+    torch.cuda.synchronize()
+    return stats
+
+
+def check_history(stats):
+    calls = stats["calls"]
+    f = [c[1] for c in calls if c[0]]
+    last = max(i for i, c in enumerate(calls) if c[0])
+    last_trials = [c[1] for c in calls[last + 1:]]
+    print(f"   misfit at each gradient: {f}")
+    print(f"   line-search trials: {[c[1] for c in calls if not c[0]]}")
+    print(f"   time per gradient: {[c[2] for c in calls if c[0]]} s")
+    print(f"   time per line-search trial: "
+          f"{[c[2] for c in calls if not c[0]]} s")
+    print(f"   forward modeling of obs + direct wave: {stats['model_s']:.3f}"
+          " s")
+    values = [c[1] for c in calls]
+    if not (len(f) == 2 and np.all(np.isfinite(values)) and f[1] < f[0]
+            and last_trials and min(last_trials) < f[1]):
+        raise AssertionError(f"misfit not finite and decreasing: {calls}")
 
 
 def main():
@@ -167,8 +240,9 @@ def main():
         return 2
     from devito_fwi_tpu_torch import fwi
     from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
-    from devito_fwi_tpu_torch.misfit import least_square
+    from devito_fwi_tpu_torch.misfit import bfm, least_square, qWasserstein
     from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+    from devito_fwi_tpu_torch.ops import cuda_bfm as cb
     from devito_fwi_tpu_torch.ops import cuda_build
 
     phase("1 card")
@@ -181,10 +255,12 @@ def main():
 
     phase("2 build")
     t0 = time.perf_counter()
-    path = cuda_build.build("acoustic2d")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(cuda_build.build, SOURCES))
     ca._lib()
+    cb._lib()
     print(f"   nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
-    print(f"   built {path.name} in "
+    print(f"   built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
 
     args = marm.make_parser(marm.SMARMN).parse_args(["--device", "cuda"])
@@ -219,7 +295,12 @@ def main():
     compare("gradient_stream_segments",
             [ca.gradient_stream_segments(*gops, **kw)],
             [ca.gradient_stream_plain(*gops, **kw)])
-    del dt2, res, gops
+    got = ca.forward_ckpt_segments(*ops, **kw)
+    compare("forward_ckpt_segments", got, ca.forward_ckpt_plain(*ops, **kw))
+    sops = (st.mT, st.hdT, st.wav_pad, injT, got[1], res, st.dt)
+    compare("gradient_segments", [ca.gradient_segments(*sops, **kw)],
+            [ca.gradient_segments_plain(*sops, **kw)])
+    del dt2, res, gops, got, sops
     torch.cuda.empty_cache()
 
     B = g0.nsrc
@@ -227,12 +308,12 @@ def main():
           "shapes)")
     injT = st.injT(0, B)
     ops = (st.mT, st.hdT, st.wav_pad, injT, st.dt)
-    ms, plain_ms, err = {}, {}, {}
+    ms, plain_ms, err, library_ms, bounds = {}, {}, {}, {}, {}
 
-    def timed_pair(name, kernel, twin, args):
-        """Time kernel (3 calls) and twin (1 call), compare the outputs of
-        the timed calls; returns the kernel's outputs."""
-        ms[name], got = cuda_ms(lambda: kernel(*args, **kw), 3)
+    def timed_pair(name, kernel, twin, args, reps=3):
+        """Time kernel (``reps`` calls) and twin (1 call), compare the
+        outputs of the timed calls; returns the kernel's outputs."""
+        ms[name], got = cuda_ms(lambda: kernel(*args, **kw), reps)
         plain_ms[name], want = cuda_ms(lambda: twin(*args, **kw), 1)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -247,78 +328,277 @@ def main():
                      ca.forward_dt2_plain, ops)[1]
     res = torch.as_tensor(rng.standard_normal(
         (B, st.nseg, st.seg, 2, st.nx)), dtype=torch.float32, device=dev)
-    timed_pair("gradient_stream_segments", ca.gradient_stream_segments,
-               ca.gradient_stream_plain, (st.mT, st.hdT, dt2, res, st.dt))
-    del dt2, res, ops, injT
+    streamed = timed_pair("gradient_stream_segments",
+                          ca.gradient_stream_segments,
+                          ca.gradient_stream_plain,
+                          (st.mT, st.hdT, dt2, res, st.dt))[0]
+    del dt2
     torch.cuda.empty_cache()
-    bound = bounds(st, B)
+    pairs = timed_pair("forward_ckpt_segments", ca.forward_ckpt_segments,
+                       ca.forward_ckpt_plain, ops)[1]
+    recomputed = timed_pair("gradient_segments", ca.gradient_segments,
+                            ca.gradient_segments_plain,
+                            (st.mT, st.hdT, st.wav_pad, injT, pairs, res,
+                             st.dt))[0]
+    same = torch.equal(recomputed, streamed)
+    print(f"   checkpoint-route gradient == streamed gradient (same "
+          f"residual rows, {B} shots): {same}")
+    if not same:
+        raise AssertionError("the recompute gradient differs from the "
+                             "streamed one")
+    del pairs, recomputed, streamed, res, ops, injT
+    torch.cuda.empty_cache()
+    bounds.update(acoustic_bounds(st, B))
     for name in ca.KERNELS:
-        b_ms, by, nbytes, nops = bound[name]
+        b_ms, by, nbytes, nops = bounds[name]
         print(f"   {name}: kernel {ms[name]:.3f} ms, twin "
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
 
-    phase(f"5 main path: SMARMN L2 FWI, {B} shots, --maxiter 2, on cuda")
-    ca.reset_counters()
-    with tempfile.TemporaryDirectory() as odir:
-        _, stats = marm.run_fwi(marm.SMARMN, [
-            "--misfit", "0", "--maxiter", "2", "--odir", odir,
-            "--device", "cuda"])
-    torch.cuda.synchronize()
-    launches = dict(ca.LAUNCHES)
-    twins = dict(ca.TWIN_CALLS)
-    calls = stats["calls"]
-    f = [c[1] for c in calls if c[0]]
-    last = max(i for i, c in enumerate(calls) if c[0])
-    last_trials = [c[1] for c in calls[last + 1:]]
-    print(f"   misfit at each gradient: {f}")
-    print(f"   line-search trials: {[c[1] for c in calls if not c[0]]}")
-    print(f"   time per gradient: {[c[2] for c in calls if c[0]]} s")
-    print(f"   time per line-search trial: "
-          f"{[c[2] for c in calls if not c[0]]} s")
-    print(f"   forward modeling of obs + direct wave: {stats['model_s']:.3f}"
-          " s")
-    print(f"   kernel launches (sweeps): {launches}")
-    print(f"   twin calls: {twins}")
-    values = [c[1] for c in calls]
-    if not (len(f) == 2 and np.all(np.isfinite(values)) and f[1] < f[0]
-            and last_trials and min(last_trials) < f[1]):
-        raise AssertionError(f"misfit not finite and decreasing: {calls}")
-    if min(launches.values()) < 1 or any(twins.values()):
-        raise AssertionError("the main path did not run every kernel, or "
-                             "ran a twin")
-
-    phase("6 profile: one steady-state gradient and one trial, 29 shots")
+    phase(f"5 slab kernel at the main-path shapes, {B} shots")
     obs = fwi.fm_multi(geoms[0], device="cuda")
     dw = fwi.fm_multi(geoms[2], device="cuda")
-    x = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    x0 = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
     mask = np.ones(g0.model.shape, np.float32)
     mask[:, :marm.SMARMN.bathy_rows] = 0
-    for calc_grad in (True, False):
-        def call():
-            return fwi.fwi_loss(x, g0, obs, least_square, dw, mask,
-                                calc_grad=calc_grad, device="cuda")
-        call()  # warm: caches, allocator
-        wall, busy, by_name = profile_call(call)
-        what = "gradient" if calc_grad else "trial"
-        if busy is None:
-            print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy share "
-                  "not measured (the profiler recorded no device events)")
-            continue
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
-              f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
-        for name, sec in top:
-            print(f"      {sec * 1e3:9.3f} ms  {name[:90]}")
-    del obs, dw
+    qw2d = marm.misfits(marm.SMARMN)[2]
+    captured = {}
+    slab_push = bfm._slab_push
 
-    phase("7 result")
-    rows = [dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
-                 launches=launches[n], max_abs_err=err[n], ms=ms[n],
-                 plain_ms=plain_ms[n], bound_ms=bound[n][0],
-                 bound_by=bound[n][1], library_ms=None)
-            for n in ca.KERNELS]
+    def spy(subs, *a, **k):
+        captured["subs"] = tuple(t.clone() for t in subs)
+        return slab_push(subs, *a, **k)
+
+    bfm._slab_push = spy
+    try:
+        bfm.reset_counts()
+        fwi.fwi_loss(x0, g0, obs, qw2d, dw, mask, calc_grad=False,
+                     device="cuda")
+    finally:
+        bfm._slab_push = slab_push
+    print(f"   subsamples of the last of {bfm.COUNTS['push_slab']} slab "
+          "pushforwards of a W2-2d trial at the initial model")
+    subs = captured.pop("subs")
+    n2, n1 = subs[-1].shape[2:]
+    pkw = dict(G=24, dxmax=7, R=16)
+    for name, prep, kernel, twin in (
+            ("pushforward_slabs_nat", "nat", cb.pushforward_slabs_nat,
+             cb.pushforward_slabs_nat_plain),
+            ("pushforward_slabs", "blocked", cb.pushforward_slabs,
+             cb.pushforward_slabs_plain)):
+        planes, bases, lanes = bfm._slab_planes(subs, margin=128, prep=prep,
+                                                **pkw)
+        ms[name], got = cuda_ms(lambda: kernel(*planes, **pkw), 10)
+        plain_ms[name], want = cuda_ms(lambda: twin(*planes, **pkw), 1)
+        err[name] = compare(name, [got], [want])
+        bounds[name] = push_bound(planes, got)
+        print(f"   {name}: planes {tuple(planes[0].shape)}, slabs "
+              f"{tuple(got.shape)}; kernel {ms[name]:.3f} ms, twin "
+              f"{plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
+              f"by {bounds[name][1]}")
+        del want, got, planes
+    # kernel + overlap-add from the planes, the whole slab pushforward
+    # from the subsamples, and the library scatter of the same subsamples
+    xI, xO, xf, yI, yO, yf, mass = subs
+    idx = (torch.arange(B, device=dev).reshape(B, 1, 1, 1).expand(
+        B, 4 * mass.shape[1], n2, n1),
+        torch.cat([yI, yO, yI, yO], 1).long(),
+        torch.cat([xI, xI, xO, xO], 1).long())
+    vals = torch.cat([(1 - xf) * (1 - yf) * mass, (1 - xf) * yf * mass,
+                      xf * (1 - yf) * mass, xf * yf * mass], 1)
+    lib_ms, rho_lib = cuda_ms(lambda: mass.new_zeros((B, n2, n1)).index_put_(
+        idx, vals, accumulate=True), 3)
+    push_ms, rho = cuda_ms(lambda: bfm._slab_push(
+        subs, n1, n2, margin=128, **pkw), 3)
+    planes, bases, lanes = bfm._slab_planes(subs, margin=128, prep="nat",
+                                            **pkw)
+    fold_ms, _ = cuda_ms(lambda: bfm._overlap_add(
+        cb.pushforward_slabs_nat(*planes, **pkw), bases, 16, 128,
+        bases.shape[1] * 16 + 256 + 24, lanes), 3)
+    library_ms["pushforward_slabs_nat"] = library_ms["pushforward_slabs"] \
+        = lib_ms
+    rel = float((rho - rho_lib).abs().max() / rho_lib.abs().max())
+    print(f"   library index_put_(accumulate=True) of the "
+          f"{vals.numel() / 1e6:.1f} M contributions: {lib_ms:.3f} ms; "
+          f"kernel + overlap-add {fold_ms:.3f} ms; the whole slab "
+          f"pushforward from the subsamples {push_ms:.3f} ms; "
+          f"max|slab - scatter| / max = {rel:.2e}")
+    if not rel < 1e-5:
+        raise AssertionError("the slab pushforward disagrees with the "
+                             "scatter")
+    del subs, idx, vals, rho, rho_lib, planes, xI, xO, xf, yI, yO, yf, mass
+    torch.cuda.empty_cache()
+
+    counters = (ca.reset_counters, cb.reset_counters, bfm.reset_counts)
+    launches = {}
+
+    def report(path, names):
+        """Read the counts just after a path: every kernel of ``names``
+        launched, no twin called; the path's launches of ``names`` go into
+        the kernels line."""
+        la = {**ca.LAUNCHES, **cb.LAUNCHES}
+        twins = {**ca.TWIN_CALLS, **cb.TWIN_CALLS}
+        print(f"   kernel launches: {la}")
+        print(f"   twin calls: {twins}")
+        if any(twins.values()) or min((la[n] for n in names),
+                                      default=1) < 1:
+            raise AssertionError(f"the {path} path did not run every "
+                                 f"kernel of {names}, or ran a twin")
+        for n in names:
+            launches[n] = la[n]
+
+    phase(f"6 main path: SMARMN L2 FWI, {B} shots, --maxiter 2, on cuda")
+    check_history(run_driver(marm, 0, counters))
+    report("L2", ("forward_rec_segments", "forward_dt2_segments",
+                  "gradient_stream_segments"))
+
+    phase(f"7 main path: SMARMN W2-1d and W2-2d FWI, {B} shots, --misfit "
+          "1 and 2, --maxiter 2, on cuda")
+    check_history(run_driver(marm, 1, counters))
+    report("W2-1d", ())
+    if min(ca.LAUNCHES[n] for n in ca.KERNELS[:3]) < 1:
+        raise AssertionError("the W2-1d path did not run the sweeps")
+    check_history(run_driver(marm, 2, counters))
+    print(f"   BFM host reads and branches: {dict(bfm.COUNTS)}")
+    print(f"   pushforwards by tier: slab {bfm.COUNTS['push_slab']}, "
+          f"banded {bfm.COUNTS['push_banded']}, scatter "
+          f"{bfm.COUNTS['push_scatter']}; Legendre certificate fallbacks "
+          f"{bfm.COUNTS['legendre_fallbacks']} of "
+          f"{bfm.COUNTS['legendre_reads']}")
+    if min(ca.LAUNCHES[n] for n in ca.KERNELS[:3]) < 1:
+        raise AssertionError("the W2-2d path did not run the sweeps")
+    report("W2-2d", ("pushforward_slabs_nat",))
+
+    phase(f"8 main path: the checkpoint route, {B}-shot gradients")
+    for reset in counters:
+        reset()
+    f_s, g_s, _ = fwi.fwi_loss(x0, g0, obs, least_square, dw, mask,
+                               device="cuda", stream=True)
+    f_c, g_c, _ = fwi.fwi_loss(x0, g0, obs, least_square, dw, mask,
+                               device="cuda", stream=False)
+    same = f_s == f_c and np.array_equal(g_s, g_c)
+    print(f"   L2: objective {f_c!r} (streamed {f_s!r}); checkpoint-route "
+          f"gradient == streamed gradient: {same}")
+    if not same:
+        raise AssertionError("the checkpoint-route L2 gradient differs "
+                             "from the streamed one")
+    qw2d_blocked = qWasserstein(gamma=1.01, method="2d", num_steps=15,
+                                step_scale=1.0,
+                                bfm_options=dict(prep="blocked"))
+    t0 = time.perf_counter()
+    f_w, g_w, _ = fwi.fwi_loss(x0, g0, obs, qw2d_blocked, dw, mask,
+                               device="cuda", stream=False)
+    print(f"   W2-2d (blocked slab layout): objective {f_w!r}, gradient "
+          f"finite: {bool(np.isfinite(g_w).all())}, "
+          f"{time.perf_counter() - t0:.3f} s")
+    if not (np.isfinite(f_w) and np.isfinite(g_w).all()):
+        raise AssertionError("checkpoint-route W2-2d gradient not finite")
+    report("checkpoint", ("forward_ckpt_segments", "gradient_segments",
+                          "pushforward_slabs"))
+
+    phase(f"9 misfit memory per gather sample, {B} shots")
+    syn = fwi.fm_multi(g0, device="cuda")
+    stack = [torch.as_tensor(np.stack([s.data for s in d]), device=dev)
+             for d in (syn, obs, dw)]
+    nt, nrec = stack[0].shape[1:]
+    over = []
+    for key, misfit in (("least_square", fwi.least_square_torch),
+                        ("1d", marm.misfits(marm.SMARMN)[1].torch_batch),
+                        ("2d", qw2d.torch_batch)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = misfit(stack[0] - stack[2], stack[1] - stack[2])
+        torch.cuda.synchronize()
+        per = (torch.cuda.max_memory_allocated(dev) - base) / (B * nt * nrec)
+        del out
+        limit = fwi.MISFIT_BYTES_PER_SAMPLE[key]
+        print(f"   {key}: {per:.1f} B per sample at its peak ({B} x {nt} x "
+              f"{nrec}); sized with {limit} B")
+        if per > limit:
+            over.append(key)
+    if over:
+        raise AssertionError(f"misfits {over} hold more than "
+                             "fwi.MISFIT_BYTES_PER_SAMPLE says")
+    del syn, stack
+
+    phase(f"10 profile: one steady-state gradient and one trial, {B} shots")
+    walls = {}
+    for label, misfit in (("L2", least_square), ("W2-2d", qw2d)):
+        for calc_grad in (True, False):
+            def call():
+                return fwi.fwi_loss(x0, g0, obs, misfit, dw, mask,
+                                    calc_grad=calc_grad, device="cuda")
+            call()  # warm: caches, allocator
+            wall, busy, by_name = profile_call(call)
+            what = f"{label} {'gradient' if calc_grad else 'trial'}"
+            if busy is None:
+                print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy "
+                      "share not measured (the profiler recorded no device "
+                      "events)")
+                continue
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
+                  f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
+            for name, sec in top:
+                print(f"      {sec * 1e3:9.3f} ms  {name[:110]}")
+            walls[what] = wall
+
+    # the W2-2d objective's parts, each timed apart (CUDA events) on the
+    # live state of its last call in a trial, times its calls per objective
+    live, originals = {}, {}
+    for fn_name in ("_legendre_2d", "_sampling_pushforward_batch"):
+        originals[fn_name] = getattr(bfm, fn_name)
+
+        def spy(*a, _orig=originals[fn_name], _name=fn_name, **k):
+            live[_name] = (a, k)
+            return _orig(*a, **k)
+
+        setattr(bfm, fn_name, spy)
+    try:
+        fwi.fwi_loss(x0, g0, obs, qw2d, dw, mask, calc_grad=False,
+                     device="cuda")
+    finally:
+        for fn_name, orig in originals.items():
+            setattr(bfm, fn_name, orig)
+    steps = qw2d.num_steps
+    nt, nrec = st.nt, st.r_idx.shape[0]
+    C1, C2 = (bfm._dct_mat(n, torch.float32, dev) for n in (nrec, nt))
+    C1T, C2T = C1.T.contiguous(), C2.T.contiguous()
+    dens = torch.rand((B, nt, nrec), device=dev)
+    mm = ca.matmul_full
+    parts = {
+        "Legendre, one 2-D transform": (bfm._legendre_2d, live[
+            "_legendre_2d"], 4 * steps),
+        "pushforward (subsamples, tier choice, slabs, fold)": (
+            bfm._sampling_pushforward_batch,
+            live["_sampling_pushforward_batch"], 2 * steps),
+        "DCT-II + DCT-III products of one Poisson step": (
+            lambda r: mm(mm(C2T, mm(mm(C2, r), C1T)), C1), ((dens,), {}),
+            2 * steps),
+    }
+    total = 0.0
+    for label, (fn, (a, k), count) in parts.items():
+        t_ms, _ = cuda_ms(lambda: fn(*a, **k), 3)
+        total += t_ms * count
+        print(f"   W2-2d part: {label}: {t_ms:.3f} ms x {count} per "
+              f"objective = {t_ms * count:.1f} ms "
+              f"({t_ms * count / (walls['W2-2d trial'] * 1e3):.1%} of the "
+              "trial's wall)")
+    print(f"   W2-2d parts in all: {total:.1f} ms of the trial's "
+          f"{walls['W2-2d trial'] * 1e3:.1f} ms wall")
+    del obs, dw, live, dens
+
+    phase("11 result")
+    rows = []
+    for n in ca.KERNELS + cb.KERNELS:
+        src = "bfm_push" if n in cb.KERNELS else "acoustic2d"
+        rows.append(dict(
+            name=n, route="cuda", source=f"devito_fwi_tpu_torch/csrc/{src}.cu",
+            replaces=REPLACES[n], launches=launches[n], max_abs_err=err[n],
+            ms=ms[n], plain_ms=plain_ms[n], bound_ms=bounds[n][0],
+            bound_by=bounds[n][1], library_ms=library_ms.get(n)))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

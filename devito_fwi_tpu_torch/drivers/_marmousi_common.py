@@ -1,15 +1,17 @@
-"""Shared Marmousi driver logic (SMARMN), acoustic L2 FWI.
+"""Shared Marmousi driver logic (SMARMN), acoustic FWI with the L2
+(``--misfit 0``), W2-1d (``--misfit 1``) or W2-2d (``--misfit 2``) misfit.
 
 CLI/flow parity with ``drivers/_marmousi_common.py`` of the JAX package
 (reference ``marmousi_fwi.py``): same flags, model and acquisition
-constants and result-file layout, plus ``--device`` (default "cuda"; "cpu"
-runs the plain torch twins). The raw velocity models are read from
-``--data-dir`` (default: the vendored ``model_data/`` at the repo root).
+constants, misfit configurations and result-file layout, plus ``--device``
+(default "cuda"; "cpu" runs the plain torch twins). The raw velocity
+models are read from ``--data-dir`` (default: the vendored ``model_data/``
+at the repo root).
 
-Not ported yet (each raises ``NotImplementedError``): ``--misfit 1/2``
-(W2, ROADMAP.md queue A item 9), ``--physics elastic|viscoacoustic``
-(items 11-12), ``--filter 1`` and ``--resample`` (item 4), and the
-SMARM2 and forward-modeling drivers (item 6).
+Not ported yet (each raises ``NotImplementedError``): ``--physics
+elastic|viscoacoustic`` (ROADMAP.md queue A items 11-12), ``--filter 1``
+and ``--resample`` (item 4), and the SMARM2 and forward-modeling drivers
+(item 6).
 """
 import argparse
 import os
@@ -20,7 +22,7 @@ from time import perf_counter
 import numpy as np
 
 from ..fwi import fm_multi, fwi_loss
-from ..misfit import least_square
+from ..misfit import least_square, qWasserstein
 from ..models.geometry import AcquisitionGeometry
 from ..models.model import SeismicModel
 from ..optimize import LBFGS, minimize
@@ -34,6 +36,8 @@ class MarmousiConfig:
     tn: float
     nsrc_default: int
     bathy_rows: int     # water rows zeroed by the bathy mask
+    w2_step_scale: float
+    w2_num_steps: int = 15
     spacing: tuple = (30., 30.)
     f0: float = 0.007
     space_order: int = 8
@@ -41,7 +45,7 @@ class MarmousiConfig:
 
 
 SMARMN = MarmousiConfig(name="SMARMN", shape=(300, 106), dt=2.95, tn=4000.,
-                        nsrc_default=29, bathy_rows=7)
+                        nsrc_default=29, bathy_rows=7, w2_step_scale=1.)
 
 
 def default_data_dir():
@@ -165,11 +169,17 @@ class TimedLoss:
         return out
 
 
+def misfits(cfg):
+    """[least_square, W2-1d, W2-2d], indexed by ``--misfit`` (the JAX
+    driver's configurations)."""
+    return [least_square,
+            qWasserstein(gamma=1.01, method="1d"),
+            qWasserstein(gamma=1.01, method="2d",
+                         num_steps=cfg.w2_num_steps,
+                         step_scale=cfg.w2_step_scale)]
+
+
 def _reject_unported(args, cfg):
-    if args.misfit != 0:
-        raise NotImplementedError("--misfit %d: the W2 misfits are not "
-                                  "ported yet (ROADMAP.md queue A item 9)"
-                                  % args.misfit)
     if args.physics != "acoustic":
         raise NotImplementedError("--physics %s is not ported yet "
                                   "(ROADMAP.md queue A items 11-12)"
@@ -212,7 +222,7 @@ def run_fwi(cfg, argv=None):
     obs = fm_multi(geometry1, device=args.device)
     direct_wave = fm_multi(geometry2, device=args.device)
     model_s = perf_counter() - t0
-    misfit_func = least_square
+    misfit_func = misfits(cfg)[misfit_type]
     loss = TimedLoss(args.device)
 
     if args.check_gradient:

@@ -1,36 +1,45 @@
-"""FWI objective layer on torch: multi-shot modeling, the L2 misfit and the
-adjoint-state gradient of the 2-D acoustic wave equation.
+"""FWI objective layer on torch: multi-shot modeling, the L2 and
+quadratic-Wasserstein misfits and the adjoint-state gradient of the 2-D
+acoustic wave equation.
 
-Port of the 2-D acoustic L2 route of ``devito_fwi_tpu.fwi``. ``fm_single``,
+Port of the 2-D acoustic route of ``devito_fwi_tpu.fwi``. ``fm_single``,
 ``fm_multi``, ``fwi_obj_multi`` and ``fwi_loss`` keep their signatures and
 add ``device``: "cuda" (the default) runs the CUDA kernels of
-``ops.cuda_acoustic`` and raises when no card is present; "cpu" runs their
-plain torch twins. One gradient evaluation of a shot chunk is
+``ops.cuda_acoustic`` (and of ``ops.cuda_bfm`` inside the W2-2d misfit)
+and raises when no card is present; "cpu" runs their plain torch twins.
+One gradient evaluation of a shot chunk is
 
-1. ``forward_dt2_segments``: the batched forward, recording the receiver
-   rows, streaming the d2u/dt2 history and summing the illumination;
-2. ``_traces_from_rows``, then the L2 misfit with direct-wave subtraction;
+1. the batched forward: ``forward_dt2_segments`` records the receiver
+   rows, streams the d2u/dt2 history and sums the illumination; on the
+   checkpoint route ``forward_ckpt_segments`` keeps the segment-start
+   pairs instead of the history;
+2. ``_traces_from_rows``, then the batched misfit of the gathers after
+   direct-wave subtraction (``least_square``, ``qWasserstein`` 1d or 2d),
+   whose gradient is the residual;
 3. ``residual_rows``;
-4. ``gradient_stream_segments``: the adjoint sweep over the history;
+4. the adjoint sweep: ``gradient_stream_segments`` over the history, or
+   ``gradient_segments``, which recomputes each segment's history from its
+   pair (the same gradient, bitwise);
 5. the per-shot crop and source/receiver illumination fix, summed over
    shots,
 
 and the illumination precondition and the mask follow on the device, so
 one field comes back to the host. Line-search trials and forward modeling
 run ``forward_rec_segments``. The explicit adjoint sweep is the gradient:
-no autograd is involved.
+no autograd is involved. ``stream`` picks the route: None streams when one
+shot's history fits in 80% of the card's free memory.
 
-Not ported yet (each raises ``NotImplementedError``): misfits other than
-``least_square`` and trace resampling, which need the host-misfit path
-(ROADMAP.md queue A items 4 and 9); geometries the kernels do not take
-(3-D, receivers off two adjacent z-planes; queue A items 2 and 16).
+Not ported yet (each raises ``NotImplementedError``): other misfits and
+trace resampling, which need the host-misfit path (ROADMAP.md queue A item
+4); geometries the kernels do not take (3-D, receivers off two adjacent
+z-planes; queue A items 2 and 16).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .misfit.w2 import least_square, least_square_torch
+from .misfit.w2 import least_square, least_square_torch, qWasserstein
 from .models.geometry import AcquisitionGeometry
 from .models.sources import PointSource
 from .ops import acoustic as _ac
@@ -101,8 +110,8 @@ def _crop(field, pads, shape):
 
 
 def _default_checkpoints(nt):
-    """sqrt(nt) segments; on the card only the padding layout of the
-    steps (the history is streamed whole)."""
+    """sqrt(nt) segments: the layout of the steps; the checkpoint route
+    keeps one pair per segment and recomputes one segment at a time."""
     return max(4, int(np.sqrt(max(nt - 2, 1))))
 
 
@@ -290,22 +299,66 @@ def fm_multi(geometry, save=False, device="cuda"):
 # objective + gradient (reference fwi.py:131-246)
 # ---------------------------------------------------------------------------
 
-def _shot_chunk(nsrc, shot_chunk, calc_grad, st, dev, itemsize):
-    """Shots per batch: all of them, unless ``shot_chunk`` asks for fewer
-    or, on the card, the streamed history of a gradient would not fit in
-    80% of the free device memory."""
+# Device bytes the batched misfit holds per gather sample (nt x nrec) of
+# one shot at its peak: torch.cuda.max_memory_allocated around the misfit
+# of the 29 SMARMN gathers on an H100 (chip_smoke.py phase 9) gave 16.3,
+# 79.5 and 391.5; rounded up, 2d with room for the banded pushforward
+# tier's one-hot operands (~32 more).
+MISFIT_BYTES_PER_SAMPLE = {"least_square": 32, "1d": 96, "2d": 512}
+
+
+def _misfit_batch(misfit_func):
+    """(batched torch misfit of (B, nt, nrec) gathers -> (fvals, residual
+    = d misfit / d syn), key of MISFIT_BYTES_PER_SAMPLE)."""
+    if misfit_func is None or misfit_func is least_square:
+        return least_square_torch, "least_square"
+    if isinstance(misfit_func, qWasserstein):
+        return misfit_func.torch_batch, misfit_func.method
+    raise NotImplementedError(
+        f"misfit {misfit_func!r}: the port runs least_square and "
+        "qWasserstein; other misfits need the host-misfit path, not ported "
+        "yet (ROADMAP.md queue A item 4)")
+
+
+def _device_budget(dev):
+    """80% of the memory the caching allocator can still hand out: the
+    card's free memory plus what the allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
+        dev)
+    return int(0.8 * (free + cached))
+
+
+def _route(nsrc, shot_chunk, calc_grad, stream, st, dev, itemsize,
+           misfit_bytes):
+    """(shots per batch, stream). A gradient streams the history when
+    ``stream`` is True, or when it is None and one shot's history and
+    misfit fit in 80% of the card's free memory; otherwise it takes the
+    checkpoint route, which holds the segment pairs and one segment's
+    history per shot. The batch is all shots, or fewer when ``shot_chunk``
+    asks for it or the route's per-shot memory would not fit the budget
+    (at least one shot: nothing holds less than the checkpoint route)."""
     chunk = min(nsrc, shot_chunk or nsrc)
-    if calc_grad and dev.type == "cuda":
-        per_shot = st.nseg * st.seg * st.nz * st.nx * itemsize
-        free, _ = torch.cuda.mem_get_info(dev)
-        chunk = min(chunk, max(1, int(0.8 * free) // per_shot))
-    return chunk
+    if dev.type != "cuda":
+        return chunk, stream is not False
+    budget = _device_budget(dev)
+    field = st.nz * st.nx * itemsize
+    hist = st.nseg * st.seg * field + misfit_bytes
+    if calc_grad and stream is None:
+        stream = hist <= budget
+    if not calc_grad:
+        per_shot = misfit_bytes
+    elif stream:
+        per_shot = hist
+    else:
+        per_shot = (2 * st.nseg + st.seg) * field + misfit_bytes
+    return min(chunk, max(1, budget // max(per_shot, 1))), bool(stream)
 
 
-def _shot_objective(geometry, obs_stack, dw_stack, calc_grad, shot_chunk,
-                    shot_indices, dev):
-    """Batched objective of the L2 misfit. Returns (fval tensor, grad sum,
-    illum sum (both cropped, fixed, float64, or None), residuals)."""
+def _shot_objective(geometry, obs_stack, dw_stack, misfit_func, calc_grad,
+                    shot_chunk, shot_indices, stream, dev):
+    """Batched objective. Returns (fval tensor, grad sum, illum sum (both
+    cropped, fixed, float64, or None), residuals)."""
     model = geometry.model
     st = _Setup(geometry, dev)
     src_pos = np.asarray(geometry.src_positions)
@@ -318,8 +371,10 @@ def _shot_objective(geometry, obs_stack, dw_stack, calc_grad, shot_chunk,
         if dw_stack.shape[0] > 1:
             dw_stack = dw_stack[sel_t]
     nsrc = st.s_idx.shape[0]
-    chunk = _shot_chunk(nsrc, shot_chunk, calc_grad, st, dev,
-                        st.m.element_size())
+    misfit, kind = _misfit_batch(misfit_func)
+    chunk, stream = _route(
+        nsrc, shot_chunk, calc_grad, stream, st, dev, st.m.element_size(),
+        MISFIT_BYTES_PER_SAMPLE[kind] * st.nt * st.r_idx.shape[0])
     pads, shape = _pads(model), model.shape
     if calc_grad:
         keep_src, rec_prod = _illum_fix_factors(
@@ -331,14 +386,16 @@ def _shot_objective(geometry, obs_stack, dw_stack, calc_grad, shot_chunk,
         hi = min(lo + chunk, nsrc)
         injT = st.injT(lo, hi)
         dw = dw_stack[lo:hi] if dw_stack.shape[0] > 1 else dw_stack
-        if calc_grad:
+        if not calc_grad:
+            rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
+                                                injT, st.dt, **st.kw)
+        elif stream:
             rec_rows, hist, illumT = _ca.forward_dt2_segments(
                 st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
         else:
-            rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
-                                                injT, st.dt, **st.kw)
-        fvals, res = least_square_torch(st.traces(rec_rows) - dw,
-                                        obs_stack[lo:hi] - dw)
+            rec_rows, pairs, illumT = _ca.forward_ckpt_segments(
+                st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
+        fvals, res = misfit(st.traces(rec_rows) - dw, obs_stack[lo:hi] - dw)
         fval = fval + torch.sum(fvals)
         residuals.append(res)
         if not calc_grad:
@@ -346,10 +403,15 @@ def _shot_objective(geometry, obs_stack, dw_stack, calc_grad, shot_chunk,
         rows = _ca.residual_rows(res, st.r_idx, st.r_w, st.m,
                                  st.dt * st.dt, st.z0, st.nsteps, st.seg,
                                  st.nseg)
-        gradT = _ca.gradient_stream_segments(st.mT, st.hdT, hist, rows,
-                                             st.dt, **st.kw)
-        # free this chunk's history before the next forward allocates one
-        del hist
+        if stream:
+            gradT = _ca.gradient_stream_segments(st.mT, st.hdT, hist, rows,
+                                                 st.dt, **st.kw)
+            # free this chunk's history before the next forward allocates
+            # one
+            del hist
+        else:
+            gradT = _ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT,
+                                          pairs, rows, st.dt, **st.kw)
         # crop + illumination fix per shot, in float64: (g*(1-smask))*rprod
         g = _crop(gradT.transpose(-1, -2), pads, shape).double()
         il = _crop(illumT.transpose(-1, -2), pads, shape).double()
@@ -362,22 +424,21 @@ def _shot_objective(geometry, obs_stack, dw_stack, calc_grad, shot_chunk,
 
 def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
                   precond=True, calc_grad=False, resample_dt=None,
-                  shot_chunk=None, shot_indices=None, device="cuda"):
+                  shot_chunk=None, shot_indices=None, device="cuda",
+                  stream=None):
     """Multi-shot objective and gradient (reference ``fwi.py:175-205``):
     returns (fval, grad (flat float64 numpy or zeros), residuals).
 
+    ``misfit_func``: ``least_square`` (or None) or a ``qWasserstein``.
     ``shot_indices`` evaluates only that shot subset (random-batch FWI);
     ``shot_chunk`` caps the shots per batch (default: as many as the
-    device memory holds)."""
+    device memory holds). ``stream`` picks the gradient route: True the
+    streamed history, False the checkpoint-and-recompute pair, None (the
+    default) streams when one shot's history fits the card's memory."""
     if resample_dt not in (None, geometry.dt):
         raise NotImplementedError(
             "trace resampling (resample_dt != geometry.dt) needs the "
             "host-misfit path, not ported yet (ROADMAP.md queue A item 4)")
-    if misfit_func is not None and misfit_func is not least_square:
-        raise NotImplementedError(
-            f"misfit {misfit_func!r}: only least_square runs on the port "
-            "so far; other misfits need the host-misfit path and the W2 "
-            "misfits (ROADMAP.md queue A items 4 and 9)")
     dev = _resolve_device(device)
     obs_stack = _device_stack(obs, dev)
     if obs_stack.shape[1] != geometry.nt:
@@ -390,8 +451,8 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
     else:
         dw_stack = obs_stack.new_zeros((obs_stack.shape[0], 1, 1))
     fval, grad, illum, residuals = _shot_objective(
-        geometry, obs_stack, dw_stack, calc_grad, shot_chunk, shot_indices,
-        dev)
+        geometry, obs_stack, dw_stack, misfit_func, calc_grad, shot_chunk,
+        shot_indices, stream, dev)
     if not calc_grad:
         return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
                 residuals)
@@ -406,11 +467,12 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
 
 
 def fwi_loss(x, geometry, obs, misfit_func, direct_wave=None, mask=None,
-             precond=True, calc_grad=True, shot_indices=None, device="cuda"):
+             precond=True, calc_grad=True, shot_indices=None, device="cuda",
+             stream=None):
     """Objective in squared-slowness parameterization
     (reference ``fwi.py:236-246``)."""
     v = 1.0 / np.sqrt(x.reshape(geometry.model.shape))
     geometry.model.update("vp", v.reshape(geometry.model.shape))
     return fwi_obj_multi(geometry, obs, misfit_func, direct_wave, mask,
                          precond, calc_grad, shot_indices=shot_indices,
-                         device=device)
+                         device=device, stream=stream)

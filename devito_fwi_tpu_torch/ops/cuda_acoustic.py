@@ -1,7 +1,7 @@
 """CUDA kernels for the 2-D acoustic OT2 time loops, each beside its plain
 torch twin. Counterpart of ``devito_fwi_tpu.ops.pallas_acoustic``.
 
-Three sweeps carry the 2-D acoustic L2 FWI:
+Five sweeps carry the 2-D acoustic FWI:
 
 * ``forward_rec_segments``: forward modeling that records the two
   receiver rows of every step (observed data, direct wave, line-search
@@ -9,7 +9,14 @@ Three sweeps carry the 2-D acoustic L2 FWI:
 * ``forward_dt2_segments``: the same forward, also streaming the d2u/dt2
   history ``un - 2u + up`` and the illumination ``sum un^2``;
 * ``gradient_stream_segments``: the reverse adjoint sweep over that
-  history, ``grad = -(1/s^2) sum_t dt2[t] * v[t]``.
+  history, ``grad = -(1/s^2) sum_t dt2[t] * v[t]``;
+* ``forward_ckpt_segments``: the forward that keeps, instead of the
+  history, the (u, u_prev) pair at the start of every segment (plus the
+  receiver rows and the illumination);
+* ``gradient_segments``: the reverse sweep of the checkpoint route: for
+  each segment from the last, the forward steps of that segment recomputed
+  from its pair into a one-segment history, then its adjoint steps. With
+  a float32 history it equals ``gradient_stream_segments`` bitwise.
 
 Fields use the transposed (nz, nx) layout with x contiguous, so the two
 receiver z-planes z0, z0+1 are two contiguous rows. The nt-2 forward steps
@@ -39,14 +46,17 @@ from .acoustic import _ckpt_layout, shift
 from .interp import interp_table, valid_corners
 
 __all__ = ["forward_rec_segments", "forward_dt2_segments",
-           "gradient_stream_segments", "forward_rec_plain",
-           "forward_dt2_plain", "gradient_stream_plain", "source_pattern",
+           "gradient_stream_segments", "forward_ckpt_segments",
+           "gradient_segments", "forward_rec_plain", "forward_dt2_plain",
+           "gradient_stream_plain", "forward_ckpt_plain",
+           "gradient_segments_plain", "source_pattern",
            "pad_wavelet", "residual_rows", "receiver_plane_matrix",
            "matmul_full", "geometry_supported", "LAUNCHES", "TWIN_CALLS",
            "reset_counters"]
 
 KERNELS = ("forward_rec_segments", "forward_dt2_segments",
-           "gradient_stream_segments")
+           "gradient_stream_segments", "forward_ckpt_segments",
+           "gradient_segments")
 # launches of each kernel (one per sweep) and calls of each plain twin
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 TWIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -210,7 +220,7 @@ def geometry_supported(geometry):
 # ---------------------------------------------------------------------------
 
 def _forward_plain(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x,
-                   inv_h2z, nsteps, z0, fs, hist):
+                   inv_h2z, nsteps, seg, z0, fs, hist, ckpt):
     B, nz, nx = inj.shape
     total = wav_pad.shape[0]
     lap = _make_lap_t(w, inv_h2x, inv_h2z, fs)
@@ -218,31 +228,65 @@ def _forward_plain(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x,
     up = inj.new_zeros((B, nz, nx))
     rec = inj.new_empty((B, total, 2, nx))
     dt2 = inj.new_empty((B, total, nz, nx)) if hist else None
-    illum = inj.new_zeros((B, nz, nx)) if hist else None
+    pairs = inj.new_empty((B, total // seg, 2, nz, nx)) if ckpt else None
+    illum = inj.new_zeros((B, nz, nx)) if hist or ckpt else None
     for t in range(total):
         rec[:, t] = u[:, z0:z0 + 2, :]
+        if ckpt and t % seg == 0:
+            pairs[:, t // seg, 0] = u
+            pairs[:, t // seg, 1] = up
         un = (lap(u) + two_m_hd * u - m * up) * denom + wav_pad[t] * inj
         if hist:
             dt2[:, t] = un - 2.0 * u + up
-            if t < nsteps:
-                illum = illum + un * un
+        if illum is not None and t < nsteps:
+            illum = illum + un * un
         up, u = u, un
-    return rec, dt2, illum
+    return rec, dt2 if hist else pairs, illum
+
+
+def _adjoint_steps(lap, m, two_m_hd, denom, dt2, res, state, z0, lo, hi,
+                   t0):
+    """Reverse steps t = hi-1 .. lo over a history holding step t at
+    ``t - t0``; ``state`` = [v, vn, grad] is updated in place."""
+    v, vn, grad = state
+    for t in range(hi - 1, lo - 1, -1):
+        grad = grad + dt2[:, t - t0] * v
+        vnew = (lap(v) + two_m_hd * v - m * vn) * denom
+        vnew[:, z0:z0 + 2] = vnew[:, z0:z0 + 2] + res[:, t]
+        vn, v = v, vnew
+    state[:] = v, vn, grad
 
 
 def _adjoint_plain(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
                    nsteps, z0, fs, neg_inv_s2):
     B, _, nz, nx = dt2.shape
     lap = _make_lap_t(w, inv_h2x, inv_h2z, fs)
-    v = dt2.new_zeros((B, nz, nx))
-    vn = dt2.new_zeros((B, nz, nx))
-    grad = dt2.new_zeros((B, nz, nx))
-    for t in range(nsteps - 1, -1, -1):
-        grad = grad + dt2[:, t] * v
-        vnew = (lap(v) + two_m_hd * v - m * vn) * denom
-        vnew[:, z0:z0 + 2] = vnew[:, z0:z0 + 2] + res[:, t]
-        vn, v = v, vnew
-    return grad * neg_inv_s2
+    state = [dt2.new_zeros((B, nz, nx)) for _ in range(3)]
+    _adjoint_steps(lap, m, two_m_hd, denom, dt2, res, state, z0, 0, nsteps,
+                   0)
+    return state[2] * neg_inv_s2
+
+
+def _segments_plain(m, two_m_hd, denom, wav_pad, inj, pairs, res, *, w,
+                    inv_h2x, inv_h2z, nsteps, seg, z0, fs, neg_inv_s2):
+    """Checkpoint-route reverse sweep: per segment k (last first), the seg
+    forward steps from pair k into a one-segment history, then the
+    segment's adjoint steps t < nsteps."""
+    B, nseg, _, nz, nx = pairs.shape
+    lap = _make_lap_t(w, inv_h2x, inv_h2z, fs)
+    state = [inj.new_zeros((B, nz, nx)) for _ in range(3)]
+    dt2 = inj.new_empty((B, seg, nz, nx))
+    for k in range(nseg - 1, -1, -1):
+        base = k * seg
+        u, up = pairs[:, k, 0], pairs[:, k, 1]
+        for i in range(seg):
+            un = (lap(u) + two_m_hd * u - m * up) * denom \
+                + wav_pad[base + i] * inj
+            dt2[:, i] = un - 2.0 * u + up
+            up, u = u, un
+        _adjoint_steps(lap, m, two_m_hd, denom, dt2, res, state, z0, base,
+                       min(base + seg, nsteps), base)
+    return state[2] * neg_inv_s2
 
 
 # ---------------------------------------------------------------------------
@@ -257,8 +301,10 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/acoustic2d.cu; every
 # pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "acoustic2d_forward": ([_P] * 10 + [_I] * 8 + [_P, _F, _F, _P], _I),
+    "acoustic2d_forward": ([_P] * 11 + [_I] * 9 + [_P, _F, _F, _P], _I),
     "acoustic2d_adjoint": ([_P] * 8 + [_I] * 8 + [_P, _F, _F, _F, _P], _I),
+    "acoustic2d_gradient_segments": ([_P] * 13 + [_I] * 9
+                                     + [_P, _F, _F, _F, _P], _I),
     "acoustic2d_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -280,27 +326,32 @@ def _check(lib, fn, err):
                            f"({lib.acoustic2d_error_string(err).decode()})")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _forward_cuda(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x, inv_h2z,
-                  nsteps, z0, fs, hist):
+                  nsteps, seg, z0, fs, hist, ckpt):
     lib = _lib()
     B, nz, nx = inj.shape
     total = wav_pad.shape[0]
     rec = inj.new_empty((B, total, 2, nx))
     dt2 = inj.new_empty((B, total, nz, nx)) if hist else None
-    illum = inj.new_zeros((B, nz, nx)) if hist else None
+    pairs = inj.new_empty((B, total // seg, 2, nz, nx)) if ckpt else None
+    illum = inj.new_zeros((B, nz, nx)) if hist or ckpt else None
     u = inj.new_zeros((B, nz, nx))
     up = inj.new_zeros((B, nz, nx))
     w32 = np.asarray(w, np.float32)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(inj.device):
         err = lib.acoustic2d_forward(
             m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
-            wav_pad.data_ptr(), inj.data_ptr(), rec.data_ptr(), ptr(dt2),
-            ptr(illum), u.data_ptr(), up.data_ptr(), B, nz, nx, total,
-            nsteps, z0, int(fs), len(w) - 1, w32.ctypes.data, inv_h2x,
-            inv_h2z, torch.cuda.current_stream(inj.device).cuda_stream)
+            wav_pad.data_ptr(), inj.data_ptr(), rec.data_ptr(), _ptr(dt2),
+            _ptr(illum), _ptr(pairs), u.data_ptr(), up.data_ptr(), B, nz, nx,
+            total, nsteps, seg, z0, int(fs), len(w) - 1, w32.ctypes.data,
+            inv_h2x, inv_h2z,
+            torch.cuda.current_stream(inj.device).cuda_stream)
     _check(lib, "acoustic2d_forward", err)
-    return rec, dt2, illum
+    return rec, dt2 if hist else pairs, illum
 
 
 def _adjoint_cuda(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
@@ -319,6 +370,30 @@ def _adjoint_cuda(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
             len(w) - 1, w32.ctypes.data, inv_h2x, inv_h2z, neg_inv_s2,
             torch.cuda.current_stream(dt2.device).cuda_stream)
     _check(lib, "acoustic2d_adjoint", err)
+    return grad
+
+
+def _segments_cuda(m, two_m_hd, denom, wav_pad, inj, pairs, res, *, w,
+                   inv_h2x, inv_h2z, nsteps, seg, z0, fs, neg_inv_s2):
+    lib = _lib()
+    B, nseg, _, nz, nx = pairs.shape
+    grad = inj.new_zeros((B, nz, nx))
+    v = inj.new_zeros((B, nz, nx))
+    vn = inj.new_zeros((B, nz, nx))
+    u = inj.new_empty((B, nz, nx))
+    up = inj.new_empty((B, nz, nx))
+    scratch = inj.new_empty((B, seg, nz, nx))
+    w32 = np.asarray(w, np.float32)
+    with torch.cuda.device(inj.device):
+        err = lib.acoustic2d_gradient_segments(
+            m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
+            wav_pad.data_ptr(), inj.data_ptr(), pairs.data_ptr(),
+            res.data_ptr(), scratch.data_ptr(), grad.data_ptr(),
+            v.data_ptr(), vn.data_ptr(), u.data_ptr(), up.data_ptr(), B, nz,
+            nx, seg, nseg, nsteps, z0, int(fs), len(w) - 1, w32.ctypes.data,
+            inv_h2x, inv_h2z, neg_inv_s2,
+            torch.cuda.current_stream(inj.device).cuda_stream)
+    _check(lib, "acoustic2d_gradient_segments", err)
     return grad
 
 
@@ -349,8 +424,10 @@ def _checked(fn, tensors, shapes, z0, nz):
     return dev
 
 
-def _forward(fn, hist, plain, m, hd, wav_pad, inj, dt, *, nt, nx, nz,
+def _forward(fn, plain, m, hd, wav_pad, inj, dt, *, nt, nx, nz,
              space_order, spacing, z0, n_checkpoints, fs=False):
+    """The three forward sweeps; ``fn`` names the one: receivers only, with
+    the history, or with the segment-start pairs."""
     nsteps, seg, nseg = _ckpt_layout(nt, n_checkpoints)
     B = inj.shape[0]
     dev = _checked(fn, (m, hd, wav_pad, inj),
@@ -358,19 +435,23 @@ def _forward(fn, hist, plain, m, hd, wav_pad, inj, dt, *, nt, nx, nz,
     w, inv_h2x, inv_h2z, _ = _stencil_constants(space_order, spacing, dt)
     denom = 1.0 / (m + hd)
     two_m_hd = 2.0 * m + hd
-    kw = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, nsteps=nsteps, z0=z0,
-              fs=fs, hist=hist)
+    hist = fn == "forward_dt2_segments"
+    ckpt = fn == "forward_ckpt_segments"
+    kw = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, nsteps=nsteps, seg=seg,
+              z0=z0, fs=fs, hist=hist, ckpt=ckpt)
     if dev.type == "cuda" and not plain:
-        rec, dt2, illum = _forward_cuda(m, two_m_hd, denom, wav_pad, inj,
-                                        **kw)
+        rec, saved, illum = _forward_cuda(m, two_m_hd, denom, wav_pad, inj,
+                                          **kw)
         LAUNCHES[fn] += 1
     else:
         TWIN_CALLS[fn] += 1
-        rec, dt2, illum = _forward_plain(m, two_m_hd, denom, wav_pad, inj,
-                                         **kw)
+        rec, saved, illum = _forward_plain(m, two_m_hd, denom, wav_pad, inj,
+                                           **kw)
     rec = rec.reshape(B, nseg, seg, 2, nx)
     if hist:
-        return rec, dt2.reshape(B, nseg, seg, nz, nx), illum
+        return rec, saved.reshape(B, nseg, seg, nz, nx), illum
+    if ckpt:
+        return rec, saved, illum
     return rec
 
 
@@ -397,14 +478,39 @@ def _gradient(plain, m, hd, dt2, res_rows, dt, *, nt, nx, nz, space_order,
     return _adjoint_plain(m, two_m_hd, denom, hist, res, **kw)
 
 
+def _gradient_segments(plain, m, hd, wav_pad, inj, seg_starts, res_rows, dt,
+                       *, nt, nx, nz, space_order, spacing, z0,
+                       n_checkpoints, fs=False):
+    fn = "gradient_segments"
+    nsteps, seg, nseg = _ckpt_layout(nt, n_checkpoints)
+    B = inj.shape[0]
+    dev = _checked(fn, (m, hd, wav_pad, inj, seg_starts, res_rows),
+                   ((nz, nx), (nz, nx), (nseg * seg,), (B, nz, nx),
+                    (B, nseg, 2, nz, nx), (B, nseg, seg, 2, nx)), z0, nz)
+    w, inv_h2x, inv_h2z, s2 = _stencil_constants(space_order, spacing, dt)
+    denom = 1.0 / (m + hd)
+    two_m_hd = 2.0 * m + hd
+    kw = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, nsteps=nsteps, seg=seg,
+              z0=z0, fs=fs, neg_inv_s2=-1.0 / s2)
+    res = res_rows.reshape(B, nseg * seg, 2, nx)
+    if dev.type == "cuda" and not plain:
+        grad = _segments_cuda(m, two_m_hd, denom, wav_pad, inj, seg_starts,
+                              res, **kw)
+        LAUNCHES[fn] += 1
+        return grad
+    TWIN_CALLS[fn] += 1
+    return _segments_plain(m, two_m_hd, denom, wav_pad, inj, seg_starts, res,
+                           **kw)
+
+
 def forward_rec_segments(m, hd, wav_pad, inj, dt, **kw):
     """Forward sweep, receiver rows only. ``m``, ``hd`` (nz, nx) squared
     slowness and dt*damp; ``wav_pad`` (nseg*seg,) from ``pad_wavelet``;
     ``inj`` (B, nz, nx) transposed ``source_pattern``. Keywords: nt, nx,
     nz, space_order, spacing, z0, n_checkpoints, fs=False. Returns rec_rows
     (B, nseg, seg, 2, nx): rows z0, z0+1 of u before each step."""
-    return _forward("forward_rec_segments", False, False, m, hd, wav_pad,
-                    inj, dt, **kw)
+    return _forward("forward_rec_segments", False, m, hd, wav_pad, inj, dt,
+                    **kw)
 
 
 def forward_dt2_segments(m, hd, wav_pad, inj, dt, **kw):
@@ -412,8 +518,8 @@ def forward_dt2_segments(m, hd, wav_pad, inj, dt, **kw):
     ``forward_rec_segments``. Returns (rec_rows (B, nseg, seg, 2, nx),
     dt2 (B, nseg, seg, nz, nx) = un - 2u + up, illum (B, nz, nx) = sum of
     un^2 over the steps t < nsteps)."""
-    return _forward("forward_dt2_segments", True, False, m, hd, wav_pad,
-                    inj, dt, **kw)
+    return _forward("forward_dt2_segments", False, m, hd, wav_pad, inj, dt,
+                    **kw)
 
 
 def gradient_stream_segments(m, hd, dt2, res_rows, dt, **kw):
@@ -423,21 +529,53 @@ def gradient_stream_segments(m, hd, dt2, res_rows, dt, **kw):
     return _gradient(False, m, hd, dt2, res_rows, dt, **kw)
 
 
+def forward_ckpt_segments(m, hd, wav_pad, inj, dt, **kw):
+    """Forward sweep of the checkpoint route. Operands as in
+    ``forward_rec_segments``. Returns (rec_rows (B, nseg, seg, 2, nx),
+    seg_starts (B, nseg, 2, nz, nx): the pair (u, u_prev) before the first
+    step of each segment, illum (B, nz, nx))."""
+    return _forward("forward_ckpt_segments", False, m, hd, wav_pad, inj, dt,
+                    **kw)
+
+
+def gradient_segments(m, hd, wav_pad, inj, seg_starts, res_rows, dt, **kw):
+    """Reverse sweep of the checkpoint route: each segment's history is
+    recomputed from ``seg_starts`` (``forward_ckpt_segments``) into a
+    one-segment scratch, then swept in reverse with the residual rows.
+    Returns grad (B, nz, nx), equal to ``gradient_stream_segments`` on the
+    streamed history of the same forward."""
+    return _gradient_segments(False, m, hd, wav_pad, inj, seg_starts,
+                              res_rows, dt, **kw)
+
+
 # The plain twins under the wrappers' signatures, on any device: the
 # comparison on the card calls them on CUDA tensors.
 
 def forward_rec_plain(m, hd, wav_pad, inj, dt, **kw):
     """Plain torch twin of ``forward_rec_segments``."""
-    return _forward("forward_rec_segments", False, True, m, hd, wav_pad,
-                    inj, dt, **kw)
+    return _forward("forward_rec_segments", True, m, hd, wav_pad, inj, dt,
+                    **kw)
 
 
 def forward_dt2_plain(m, hd, wav_pad, inj, dt, **kw):
     """Plain torch twin of ``forward_dt2_segments``."""
-    return _forward("forward_dt2_segments", True, True, m, hd, wav_pad, inj,
-                    dt, **kw)
+    return _forward("forward_dt2_segments", True, m, hd, wav_pad, inj, dt,
+                    **kw)
 
 
 def gradient_stream_plain(m, hd, dt2, res_rows, dt, **kw):
     """Plain torch twin of ``gradient_stream_segments``."""
     return _gradient(True, m, hd, dt2, res_rows, dt, **kw)
+
+
+def forward_ckpt_plain(m, hd, wav_pad, inj, dt, **kw):
+    """Plain torch twin of ``forward_ckpt_segments``."""
+    return _forward("forward_ckpt_segments", True, m, hd, wav_pad, inj, dt,
+                    **kw)
+
+
+def gradient_segments_plain(m, hd, wav_pad, inj, seg_starts, res_rows, dt,
+                            **kw):
+    """Plain torch twin of ``gradient_segments``."""
+    return _gradient_segments(True, m, hd, wav_pad, inj, seg_starts,
+                              res_rows, dt, **kw)

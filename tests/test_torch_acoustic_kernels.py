@@ -1,10 +1,13 @@
-"""The port's three 2-D acoustic sweeps (devito_fwi_tpu_torch.ops.
+"""The port's five 2-D acoustic sweeps (devito_fwi_tpu_torch.ops.
 cuda_acoustic) against the JAX package, on the same inputs:
 
 * the plain torch twins at float32 against the Pallas kernels run in
   interpret mode, at the tolerances of tests/test_pallas.py (receiver rows
   1e-5 of the max, illumination 1e-4, gradient 1e-5; the dt2 history
-  1e-4);
+  1e-4; the segment-start pairs 1e-5);
+* the checkpoint route's twins at float32 against the streamed route's:
+  the same gradient bitwise (the recompute repeats the forward's steps
+  from the state it saved);
 * the twins at float64 against the XLA operators forward_ckpt /
   gradient_from_ckpt, to 1e-12 relative (the two associate the update
   differently, so they agree to f64 rounding, not bitwise);
@@ -35,6 +38,17 @@ from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
 from devito_fwi_tpu_torch import fwi as tfwi
 
 NCK = 7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this module runs: the suite runs several
+    pytest workers on one machine, and torch's thread pool in each of them
+    (as many threads as cores) oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _geometry(fs, dtype):
@@ -97,6 +111,12 @@ def _case(fs, dtype=np.float32):
                              np.asarray(illumT))
         out["pallas_grad"] = np.asarray(pa.gradient_stream_segments(
             mT, hdT, dt2, rows, dt, **jkw))
+        rec_c, seg_c, illum_c = pa.forward_ckpt_segments(
+            mT, hdT, wav_pad, injT, dt, **jkw)
+        out["pallas_ckpt"] = (np.asarray(rec_c), np.asarray(seg_c),
+                              np.asarray(illum_c))
+        out["pallas_grad_seg"] = np.asarray(pa.gradient_segments(
+            mT, hdT, wav_pad, injT, seg_c, rows, dt, **jkw))
     else:
         out["xla_grad"] = np.asarray(jax.vmap(
             lambda a, b, sg, r: ac.gradient_from_ckpt(
@@ -154,6 +174,46 @@ def test_gradient_stream_twin_matches_pallas(fs):
     grad = ca.gradient_stream_segments(_t(c["mT"]), _t(c["hdT"]), dt2,
                                        _t(c["res_rows"]), c["dt"], **c["kw"])
     _close(grad, c["pallas_grad"], 1e-5)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_forward_ckpt_twin_matches_pallas(fs):
+    c = _case(fs)
+    rows, pairs, illum = ca.forward_ckpt_segments(
+        _t(c["mT"]), _t(c["hdT"]), _t(c["wav_pad"]), _t(c["injT"]), c["dt"],
+        **c["kw"])
+    p_rows, p_pairs, p_illum = c["pallas_ckpt"]
+    assert pairs.shape == p_pairs.shape
+    _close(rows, p_rows, 1e-5)
+    _close(pairs, p_pairs, 1e-5)
+    _close(illum, p_illum, 1e-4)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_gradient_segments_twin_matches_pallas(fs):
+    c = _case(fs)
+    grad = ca.gradient_segments(
+        _t(c["mT"]), _t(c["hdT"]), _t(c["wav_pad"]), _t(c["injT"]),
+        _t(c["pallas_ckpt"][1]), _t(c["res_rows"]), c["dt"], **c["kw"])
+    _close(grad, c["pallas_grad_seg"], 1e-5)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+def test_recompute_gradient_equals_streamed(fs):
+    c = _case(fs)
+    ops = (_t(c["mT"]), _t(c["hdT"]), _t(c["wav_pad"]), _t(c["injT"]),
+           c["dt"])
+    rows, dt2, illum = ca.forward_dt2_segments(*ops, **c["kw"])
+    rows_c, pairs, illum_c = ca.forward_ckpt_segments(*ops, **c["kw"])
+    assert torch.equal(rows, rows_c) and torch.equal(illum, illum_c)
+    res = _t(c["res_rows"])
+    streamed = ca.gradient_stream_segments(ops[0], ops[1], dt2, res,
+                                           c["dt"], **c["kw"])
+    ca.reset_counters()
+    recomputed = ca.gradient_segments(*ops[:4], pairs, res, c["dt"],
+                                      **c["kw"])
+    assert ca.TWIN_CALLS["gradient_segments"] == 1
+    assert torch.equal(streamed, recomputed)
 
 
 @pytest.mark.parametrize("fs", [False, True])

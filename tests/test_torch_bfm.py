@@ -1,0 +1,432 @@
+"""The port's batch BFM (devito_fwi_tpu_torch.misfit.bfm) and its slab
+kernel's plain twin (ops.cuda_bfm) against the JAX package, on the CPU:
+
+* Legendre transforms, full and anchored, output and certificate, for
+  n < 512 and n >= 512 and for a state whose certificate fails: 1e-6 of
+  the max (the JAX transform may contract s_i*s_j - u_j into a
+  multiply-add; the port does not);
+* the map, the subsamples and the adaptive mask: the integer planes equal,
+  the float planes to 1e-6 of their max;
+* the slab twins (natural and blocked layouts) against the Pallas kernels
+  in interpret mode on the same planes and against a direct loop over the
+  contributions, and the whole slab pushforward against the JAX
+  ``_pallas_push`` at row shifts 0 and 40: 1e-6 of the max (the same sums
+  in the same order; the interpreter may round a multiply-add
+  differently);
+* the banded-product tier and the scatter against their JAX counterparts
+  (1e-5 of the max, the products summing in another order), the tier
+  choice against the JAX predicates on the same states, and the adaptive
+  two-pass pushforward (nsub = 0) at float64 (1e-12) and float32 (1e-5);
+* the two regressions of tests/test_pallas_bfm.py (an active dy equal to
+  the fill value; n1 a multiple of 128);
+* ``bfm_batch`` against ``bfm_jax_batch`` on the two-blob fixture: loss
+  rtol 1e-4 and gradient 1e-4 of its max at float32 (the JAX side on its
+  XLA pushforward tier, the port on the slab tier), and at float64 through
+  the scatter tier on both sides to 1e-10.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from devito_fwi_tpu_torch.misfit import bfm as T
+from devito_fwi_tpu_torch.ops import cuda_bfm as cb
+
+JB = importlib.import_module("devito_fwi_tpu.misfit.bfm")
+PB = importlib.import_module("devito_fwi_tpu.ops.pallas_bfm")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this module runs: the suite runs several
+    pytest workers on one machine, and torch's thread pool in each of them
+    (as many threads as cores) oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def _np(a):
+    return a.numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _close(got, want, rtol):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(np.abs(want).max(), 1e-30)
+    err = np.abs(got.astype(np.float64) - want).max()
+    assert err <= rtol * scale, (err, scale)
+
+
+# ---------------------------------------------------------------------------
+# Legendre transforms
+# ---------------------------------------------------------------------------
+
+def _legendre_input(n, shift, seed=0):
+    rng = np.random.RandomState(seed)
+    s = ((np.arange(n) + 0.5) / n).astype(np.float32)
+    u = (0.5 * s[None, None, :] ** 2
+         + 5e-4 * rng.rand(2, 9, n)).astype(np.float32)
+    return s, np.roll(u, shift, axis=-1)
+
+
+@pytest.mark.parametrize("n,shift,ok", [(300, 0, True), (700, 0, True),
+                                        (700, 250, False)])
+def test_legendre_transforms_match_jax(n, shift, ok):
+    s, u = _legendre_input(n, shift)
+    full_j = JB._legendre_last(jnp.asarray(u), jnp.asarray(s), 32_000_000)
+    _close(T._legendre_last(torch.tensor(u), torch.tensor(s)), full_j, 1e-6)
+    A, W = (32, 64) if n >= 512 else (8, 32)
+    out_j, ok_j = JB._legendre_last_anchored(jnp.asarray(u), jnp.asarray(s),
+                                             A, W)
+    out_t, ok_t = T._legendre_last_anchored(torch.tensor(u), torch.tensor(s),
+                                            A, W)
+    assert bool(ok_t) == bool(ok_j) == ok
+    if ok:
+        _close(out_t, out_j, 1e-6)
+    # the certificate-guarded transform falls back to the full one
+    T.reset_counts()
+    fast = T._legendre_last_anchor_fast(torch.tensor(u), torch.tensor(s))
+    _close(fast, full_j, 1e-6)
+    assert T.COUNTS["legendre_reads"] == 1
+    assert T.COUNTS["legendre_fallbacks"] == (0 if ok else 1)
+
+
+def test_legendre_2d_matches_jax():
+    rng = np.random.RandomState(1)
+    n2, n1 = 120, 140
+    xs = ((np.arange(n1) + 0.5) / n1).astype(np.float32)
+    ys = ((np.arange(n2) + 0.5) / n2).astype(np.float32)
+    u = (0.5 * (xs[None, :] ** 2 + ys[:, None] ** 2)
+         + 1e-3 * rng.rand(2, n2, n1)).astype(np.float32)
+    want = JB._legendre_2d(jnp.asarray(u), jnp.asarray(xs), jnp.asarray(ys),
+                           32_000_000, banded="anchor")
+    got = T._legendre_2d(torch.tensor(u), torch.tensor(xs), torch.tensor(ys),
+                         32_000_000, "anchor")
+    _close(got, want, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# map and subsamples
+# ---------------------------------------------------------------------------
+
+def _potential(Bb=3, n1=24, n2=90, seed=3):
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(0.2, 2.0, size=(Bb, n2, n1)).astype(np.float32)
+    pot = rng.normal(size=(Bb, n2, n1)) * 1e-3
+    pot = np.stack([gaussian_filter(p, 4) for p in pot])
+    xs = (np.arange(n1) + 0.5) / n1
+    ys = (np.arange(n2) + 0.5) / n2
+    quad = 0.5 * (xs[None, :] ** 2 + ys[:, None] ** 2)
+    return mu, (pot + quad).astype(np.float32)
+
+
+def _jax_subs(mu, pot, shift_rows, nsub=2, level=None):
+    Bb, n2, n1 = mu.shape
+    xMap, yMap = jax.vmap(lambda p: JB._pushforward_map(p, n1, n2))(
+        jnp.asarray(pot))
+    lm = None if level is None else jnp.asarray(level)
+    out = jax.vmap(lambda m, xm, ym, *h: JB._pushforward_subsamples(
+        m, xm, ym, n1, n2, nsub, level_mask=h[0] if h else None))(
+        jnp.asarray(mu), xMap, yMap + shift_rows / n2,
+        *([] if lm is None else [lm]))
+    return (xMap, yMap), out
+
+
+def _subs(shift_rows=0, nsub=2, **kw):
+    """The same subsamples on both sides (the JAX package's fixture)."""
+    mu, pot = _potential(**kw)
+    _, out = _jax_subs(mu, pot, shift_rows, nsub)
+    jsubs = tuple(jnp.asarray(a, jnp.float32) if a.dtype.kind == "f" else a
+                  for a in out[:7])
+    tsubs = tuple(torch.tensor(np.asarray(a)) for a in jsubs)
+    return jsubs, tsubs, mu.shape[2], mu.shape[1]
+
+
+@pytest.mark.parametrize("shift", [0, 40])
+def test_map_and_subsamples_match_jax(shift):
+    mu, pot = _potential()
+    Bb, n2, n1 = mu.shape
+    (xj, yj), out_j = _jax_subs(mu, pot, shift)
+    xt, yt = T._pushforward_map(torch.tensor(pot), n1, n2)
+    _close(xt, xj, 1e-6)
+    _close(yt, yj, 1e-6)
+    out_t = T._pushforward_subsamples(torch.tensor(mu), xt, yt + shift / n2,
+                                      n1, n2, 2)
+    for a, b in zip(out_t, out_j):
+        if b.dtype.kind in "ib":
+            assert np.array_equal(_np(a), np.asarray(b))
+        else:
+            _close(a, b, 1e-6)
+    hi_j = jax.vmap(lambda x, y: JB._adaptive_hi_mask(x, y, n1, n2))(xj, yj)
+    assert np.array_equal(_np(T._adaptive_hi_mask(xt, yt, n1, n2)),
+                          np.asarray(hi_j))
+
+
+# ---------------------------------------------------------------------------
+# the slab kernel's twins and the pushforward tiers
+# ---------------------------------------------------------------------------
+
+def _planes(blocked, Q, B=2, nblk=3, R=16, lanes=128, G=24, dxmax=7):
+    """Seeded planes over every offset the kernel takes: rel in [-1, G-1],
+    dxr in [0, 2*dxmax+1], weights in [0, 1], a fifth of the cells
+    empty."""
+    rng = np.random.default_rng(2)
+    shape = (B, nblk, Q, R, lanes) if blocked else (B, Q, nblk * R, lanes)
+    mass = rng.uniform(0, 1, shape) * (rng.uniform(0, 1, shape) > 0.2)
+    ints = [torch.tensor(rng.integers(lo, hi, shape), dtype=torch.int32)
+            for lo, hi in ((-1, G), (0, 2 * dxmax + 2))]
+    return ints + [torch.tensor(a, dtype=torch.float32) for a in (
+        mass * rng.uniform(0, 1, shape), mass, rng.uniform(0, 1, shape))]
+
+
+def _direct_slabs(planes, blocked, G=24, dxmax=7):
+    """The slabs as a plain loop over the cells' four contributions."""
+    rel, dxr, wy0, mass, wx0 = [_np(p).astype(np.float64) for p in planes]
+    if not blocked:
+        B, Q, n2p, L = rel.shape
+        rel, dxr, wy0, mass, wx0 = [
+            a.reshape(B, Q, n2p // 16, 16, L).swapaxes(1, 2)
+            for a in (rel, dxr, wy0, mass, wx0)]
+    B, nblk, Q, R, L = rel.shape
+    out = np.zeros((B, nblk, R + G, L))
+    for idx in np.ndindex(B, nblk, Q, R, L):
+        b, j, _, i, l = idx
+        r, d = int(rel[idx]), int(dxr[idx])
+        for g, wy in ((r, wy0[idx]), (r + 1, mass[idx] - wy0[idx])):
+            for e, wx in ((d, wx0[idx]), (d + 1, 1 - wx0[idx])):
+                if 0 <= g < G and 0 <= e < 2 * dxmax + 2 and l + e < L:
+                    out[b, j, i + g, l + e] += wx * wy
+    return out
+
+
+@pytest.mark.parametrize("prep", ["nat", "blocked"])
+def test_slab_twin_matches_pallas_interpret(prep):
+    """The twin on seeded planes against the Pallas kernel (Q = 1: its
+    interpret-mode build grows with the unrolled G*DX*Q sums) and, at
+    Q = 4, against a direct loop over the contributions (f64, 1e-6)."""
+    blocked = prep == "blocked"
+    twin = cb.pushforward_slabs if blocked else cb.pushforward_slabs_nat
+    kernel = PB.pushforward_slabs if blocked else PB.pushforward_slabs_nat
+    planes = _planes(blocked, Q=1)
+    cb.reset_counters()
+    got = twin(*planes, G=24, dxmax=7, R=16)
+    assert sum(cb.TWIN_CALLS.values()) == 1 and sum(cb.LAUNCHES.values()) == 0
+    _close(got, kernel(*[jnp.asarray(_np(p)) for p in planes], G=24,
+                       dxmax=7, R=16, interpret=True), 1e-6)
+    planes = _planes(blocked, Q=4, B=1, nblk=2)
+    _close(twin(*planes, G=24, dxmax=7, R=16),
+           _direct_slabs(planes, blocked), 1e-6)
+
+
+@pytest.mark.parametrize("prep", ["nat", "blocked"])
+@pytest.mark.parametrize("shift", [0, 40])
+def test_slab_push_matches_jax(shift, prep, monkeypatch):
+    """The slab pushforward (prep, twin, overlap-add) against the JAX
+    ``_pallas_push`` in interpret mode, on nsub = 1 subsamples (Q = 1, for
+    the interpreter's build time)."""
+    monkeypatch.setenv("DEVITO_FWI_TPU_PALLAS_INTERPRET", "1")
+    jsubs, tsubs, n1, n2 = _subs(shift, nsub=1)
+    want = JB._pallas_push(jsubs, n1, n2, G=24, dxmax=7, margin=128, R=16,
+                           fold="loop", prep_mode=prep)
+    got = T._slab_push(tsubs, n1, n2, G=24, dxmax=7, margin=128, R=16,
+                       prep=prep)
+    _close(got, want, 1e-6)
+    _close(got, JB._scatter_pushforward_batch(jsubs, n1, n2), 1e-5)
+
+
+@pytest.mark.parametrize("shift", [0, 40])
+def test_banded_tier_and_scatter_match_jax(shift):
+    jsubs, tsubs, n1, n2 = _subs(shift)
+    want = JB._local_banded_pushforward_batch(jsubs, n1, n2, G_local=32,
+                                              dxmax=7, margin=128)
+    got = T._local_banded_pushforward_batch(tsubs, n1, n2, G_local=32,
+                                            dxmax=7, margin=128)
+    _close(got, want, 1e-5)
+    # the scatters add the same terms in another order; at shift 40 up to
+    # ~100 of them pile onto the clamped last row
+    _close(T._scatter_pushforward_batch(tsubs, n1, n2),
+           JB._scatter_pushforward_batch(jsubs, n1, n2), 1e-5)
+
+
+def _tier_states():
+    """(name, JAX subs, torch subs, n1, n2): a state for each tier. The
+    wide one stretches dy over 28 rows within a block (past the slab's
+    G = 24, inside the banded product's 32); the far one moves a cell's dx
+    past dxmax."""
+    states = []
+    for name in ("slab", "wide", "far"):
+        jsubs, tsubs, n1, n2 = _subs(40)
+        xI, xO, xf, yI, yO, yf, mass = [np.asarray(a).copy() for a in jsubs]
+        if name == "wide":
+            yI[:, :, 5, :] = np.minimum(yI[:, :, 5, :] + 27, n2 - 2)
+            yO[:, :, 5, :] = yI[:, :, 5, :] + 1
+        if name == "far":
+            xI[0, 0, 10, 3] = 20
+            xO[0, 0, 10, 3] = 21
+        arrs = (xI, xO, xf, yI, yO, yf, mass)
+        states.append((name, tuple(jnp.asarray(a) for a in arrs),
+                       tuple(torch.tensor(a) for a in arrs), n1, n2))
+    return states
+
+
+@pytest.mark.parametrize("state", _tier_states(), ids=lambda s: s[0])
+def test_tier_choice_matches_jax(state):
+    name, jsubs, tsubs, n1, n2 = state
+    dx_j = bool(JB._dx_inband_predicate(jsubs, 7))
+    slab_j = dx_j and bool(JB._local_band_ok(jsubs, G_local=24, margin=128,
+                                             row_block=16))
+    band_j = dx_j and bool(JB._local_band_ok(jsubs, G_local=32, margin=128))
+    assert bool(T._dx_inband_predicate(tsubs, 7)) == dx_j
+    assert bool(T._local_band_ok(tsubs, G_local=24, margin=128,
+                                 row_block=16)) == bool(JB._local_band_ok(
+                                     jsubs, G_local=24, margin=128,
+                                     row_block=16))
+    want = "push_slab" if slab_j else "push_banded" if band_j \
+        else "push_scatter"
+    assert want == {"slab": "push_slab", "wide": "push_banded",
+                    "far": "push_scatter"}[name]
+    T.reset_counts()
+    rho = T._dispatch_push(tsubs, n1, n2, 127)
+    assert T.COUNTS[want] == 1 and T.COUNTS["predicate_reads"] >= 1
+    _close(rho, JB._scatter_pushforward_batch(jsubs, n1, n2), 1e-5)
+
+
+@pytest.mark.parametrize("dtype,tiers,tol", [
+    (np.float64, dict(push_banded=2), 1e-12),
+    (np.float32, dict(push_slab=1, push_banded=1), 1e-5)])
+def test_adaptive_pushforward_matches_jax(dtype, tiers, tol):
+    """nsub = 0: the low-stretch cells 2x2, the high-stretch ones (here a
+    quarter) 4x4 in a second pass of Q = 16 subsamples, which the slab
+    tier does not take (Q <= 8). The JAX side runs its XLA tiers; at
+    float32 the port's first pass takes the slab tier (the same sums in
+    another order)."""
+    from scipy.ndimage import gaussian_filter
+    mu, pot = _potential()
+    Bb, n2, n1 = mu.shape
+    rng = np.random.default_rng(5)
+    pot = pot + 2e-3 * np.stack([gaussian_filter(p, 2) for p in
+                                 rng.normal(size=pot.shape)])
+    mu, pot = mu.astype(dtype), pot.astype(dtype)
+    xj, yj = jax.vmap(lambda p: JB._pushforward_map(p, n1, n2))(
+        jnp.asarray(pot))
+    hi = np.asarray(jax.vmap(lambda x, y: JB._adaptive_hi_mask(
+        x, y, n1, n2))(xj, yj))
+    assert 0 < hi.sum() < hi.size
+    want = JB._sampling_pushforward_batch(jnp.asarray(mu), xj, yj, n1, n2,
+                                          0, 127, push_backend="xla")
+    xt, yt = T._pushforward_map(torch.tensor(pot), n1, n2)
+    T.reset_counts()
+    got = T._sampling_pushforward_batch(torch.tensor(mu), xt, yt, n1, n2, 0,
+                                        127)
+    assert {k: v for k, v in T.COUNTS.items() if k.startswith("push")
+            and v} == tiers
+    _close(got, want, tol)
+
+
+def test_local_band_ok_rejects_active_dy_at_margin():
+    """A block whose only active cell has dy == margin (the inactive-cell
+    fill value) must not read as empty."""
+    Bb, Q, n2s, n1s = 1, 1, 140, 8
+    margin = 128
+    z = torch.zeros((Bb, Q, n2s, n1s), dtype=torch.float32)
+    zi = torch.zeros((Bb, Q, n2s, n1s), dtype=torch.int32)
+    mass = z.clone()
+    mass[0, 0, 0, 0] = 1.0
+    yI = zi.clone()
+    yI[0, 0, 0, 0] = margin
+    c = torch.arange(n1s, dtype=torch.int32).expand(Bb, Q, n2s, n1s)
+    subs = (c, c, z, yI, yI + 1, z, mass)
+    assert not bool(T._local_band_ok(subs, G_local=32, margin=margin,
+                                     row_block=32))
+    subs0 = (c, c, z, yI, yI + 1, z, z)
+    assert bool(T._local_band_ok(subs0, G_local=32, margin=margin,
+                                 row_block=32))
+
+
+def test_slab_push_lane_multiple_of_128():
+    """With n1 % 128 == 0 the slab lanes still cover the +dxmax-shifted
+    targets: the right-edge mass stays."""
+    rng = np.random.default_rng(7)
+    Bb, Q, n2s, n1s = 2, 1, 40, 128
+    mass = torch.tensor(rng.uniform(0.1, 1.0, (Bb, Q, n2s, n1s)),
+                        dtype=torch.float32)
+    c = torch.arange(n1s, dtype=torch.int32).expand(Bb, Q, n2s, n1s)
+    r = torch.arange(n2s, dtype=torch.int32)[:, None].expand(Bb, Q, n2s, n1s)
+    xI = torch.clamp(c + 3, max=n1s - 1)
+    yI = torch.clamp(r + 2, max=n2s - 1)
+    xf = torch.full(mass.shape, 0.3)
+    yf = torch.full(mass.shape, 0.4)
+    subs = (xI, torch.clamp(xI + 1, max=n1s - 1), xf, yI,
+            torch.clamp(yI + 1, max=n2s - 1), yf, mass)
+    assert bool(T._dx_inband_predicate(subs, 7))
+    assert bool(T._local_band_ok(subs, G_local=24, margin=128, row_block=16))
+    rho = T._slab_push(subs, n1s, n2s, G=24, dxmax=7, margin=128, R=16)
+    assert rho.shape == (Bb, n2s, n1s)
+    _close(rho, T._scatter_pushforward_batch(subs, n1s, n2s), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the solver
+# ---------------------------------------------------------------------------
+
+def _blobs(dtype):
+    n1, n2 = 28, 100
+    t = np.arange(n2)[:, None]
+    x = np.arange(n1)[None, :]
+
+    def blob(t0, x0):
+        return np.exp(-((t - t0) ** 2 / 80.0 + (x - x0) ** 2 / 40.0))
+
+    mu = np.stack([blob(30, 10) + blob(70, 20),
+                   blob(40, 14) + blob(85, 8)]).astype(dtype) + 1e-3
+    nu = np.stack([blob(45, 11) + blob(80, 19),
+                   blob(38, 15) + blob(88, 9)]).astype(dtype) + 1e-3
+    return mu, nu
+
+
+def test_bfm_batch_matches_jax_f32():
+    mu, nu = _blobs(np.float32)
+    lj, gj = JB.bfm_jax_batch(jnp.asarray(mu), jnp.asarray(nu), num_steps=6,
+                              step_scale=1.0, dmax=127, push_backend="xla",
+                              legendre_banded="anchor")
+    T.reset_counts()
+    lt, gt = T.bfm_batch(torch.tensor(mu), torch.tensor(nu), num_steps=6,
+                         step_scale=1.0, dmax=127)
+    assert T.COUNTS["push_slab"] == 12 and T.COUNTS["legendre_fallbacks"] == 0
+    assert np.allclose(_np(lt), np.asarray(lj), rtol=1e-4, atol=1e-8)
+    _close(gt, gj, 1e-4)
+
+
+def test_bfm_batch_scatter_tier_matches_jax_f64():
+    mu, nu = _blobs(np.float64)
+    lj, gj = JB.bfm_jax_batch(jnp.asarray(mu), jnp.asarray(nu), num_steps=6,
+                              step_scale=1.0, dmax=0, push_backend="xla",
+                              legendre_banded="full")
+    T.reset_counts()
+    lt, gt = T.bfm_batch(torch.tensor(mu), torch.tensor(nu), num_steps=6,
+                         step_scale=1.0, dmax=0, push="xla",
+                         legendre="full")
+    assert T.COUNTS["push_scatter"] == 12
+    _close(lt, lj, 1e-10)
+    _close(gt, gj, 1e-10)
+
+
+def test_dead_shot_gives_zero():
+    mu, nu = _blobs(np.float32)
+    mu[1] = nu[1] = 0.0
+    loss, grad = T.bfm_batch(torch.tensor(mu), torch.tensor(nu), num_steps=2)
+    assert np.isfinite(_np(loss)).all() and float(loss[1]) == 0.0
+    assert not torch.any(grad[1])
+
+
+@pytest.mark.parametrize("kw", [dict(legendre="banded"), dict(push="vec")])
+def test_unported_backends_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T.resolve_backends(**kw)

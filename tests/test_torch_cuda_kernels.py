@@ -1,6 +1,7 @@
-"""The CUDA kernels of devito_fwi_tpu_torch.ops.cuda_acoustic against their
-plain torch twins, on the card (marked ``cuda``; each test skips without
-one). The file imports no JAX, so on a machine without it run it as
+"""The CUDA kernels of devito_fwi_tpu_torch.ops.cuda_acoustic and
+ops.cuda_bfm against their plain torch twins, on the card (marked ``cuda``;
+each test skips without one). The file imports no JAX, so on a machine
+without it run it as
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 
@@ -9,7 +10,10 @@ are compiled with -fmad=false and repeat the twins' operations one for one,
 so they should agree bitwise: every output within 1e-6 of its max.
 
 Small case: circle-isotropic 61x61, nbl=10, 2 shots, space_order 4 and 8,
-with and without the free surface; the residual rows are seeded noise.
+with and without the free surface; the residual rows are seeded noise. The
+checkpoint-route gradient must equal the streamed one bitwise. The slab
+kernel runs on seeded planes that reach every row and lane offset it
+takes, in both layouts.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from devito_fwi_tpu_torch import fwi
 from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
 from devito_fwi_tpu_torch.models.presets import demo_model
 from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+from devito_fwi_tpu_torch.ops import cuda_bfm as cb
 
 RTOL = 1e-6
 
@@ -93,3 +98,66 @@ def test_kernels_reject_float64_on_the_card(cuda):
            st.injT(0, 2).double(), st.dt)
     with pytest.raises(TypeError, match="float64"):
         ca.forward_rec_segments(*ops, **st.kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+@pytest.mark.parametrize("fs", [False, True])
+def test_checkpoint_kernels_match_twins(cuda, fs, space_order):
+    st = _setup(fs, space_order, cuda)
+    injT = st.injT(0, 2)
+    ops = (st.mT, st.hdT, st.wav_pad, injT, st.dt)
+    rng = np.random.default_rng(1)
+    res = torch.as_tensor(rng.standard_normal(
+        (2, st.nseg, st.seg, 2, st.nx)), dtype=torch.float32, device=cuda)
+    ca.reset_counters()
+    rec, pairs, illum = ca.forward_ckpt_segments(*ops, **st.kw)
+    grad = ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT, pairs, res,
+                                st.dt, **st.kw)
+    assert ca.LAUNCHES["forward_ckpt_segments"] == 1
+    assert ca.LAUNCHES["gradient_segments"] == 1
+    assert sum(ca.TWIN_CALLS.values()) == 0
+    want = ca.forward_ckpt_plain(*ops, **st.kw)
+    torch.cuda.synchronize()
+    _close((rec, pairs, illum), want)
+    _close([grad], [ca.gradient_segments_plain(
+        st.mT, st.hdT, st.wav_pad, injT, want[1], res, st.dt, **st.kw)])
+    # the recompute repeats the streamed forward's steps from its own state
+    r2, dt2, il2 = ca.forward_dt2_segments(*ops, **st.kw)
+    assert torch.equal(r2, rec) and torch.equal(il2, illum)
+    assert torch.equal(ca.gradient_stream_segments(st.mT, st.hdT, dt2, res,
+                                                   st.dt, **st.kw), grad)
+
+
+def _planes(dev, blocked, B=2, Q=4, nblk=5, R=16, lanes=128, G=24, dxmax=7):
+    """Seeded planes over every offset the kernel takes: rel in [-1, G-1],
+    dxr in [0, 2*dxmax+1], weights in [0, 1] with some cells empty."""
+    rng = np.random.default_rng(2)
+    shape = (B, nblk, Q, R, lanes) if blocked else (B, Q, nblk * R, lanes)
+    rel = rng.integers(-1, G, shape)
+    dxr = rng.integers(0, 2 * dxmax + 2, shape)
+    mass = rng.uniform(0, 1, shape) * (rng.uniform(0, 1, shape) > 0.2)
+    wy0 = mass * rng.uniform(0, 1, shape)
+    wx0 = rng.uniform(0, 1, shape)
+    ints = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+            for a in (rel, dxr)]
+    return ints + [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                   for a in (wy0, mass, wx0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_push_kernel_matches_twin(cuda, blocked):
+    planes = _planes(cuda, blocked)
+    kernel, twin, name = (
+        (cb.pushforward_slabs, cb.pushforward_slabs_plain,
+         "pushforward_slabs") if blocked else
+        (cb.pushforward_slabs_nat, cb.pushforward_slabs_nat_plain,
+         "pushforward_slabs_nat"))
+    cb.reset_counters()
+    got = kernel(*planes, G=24, dxmax=7, R=16)
+    assert cb.LAUNCHES[name] == 1 and sum(cb.TWIN_CALLS.values()) == 0
+    want = twin(*planes, G=24, dxmax=7, R=16)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 5, 40, 128)
+    assert torch.equal(got, want)

@@ -9,29 +9,53 @@ JAX package on a small multi-shot camembert geometry, on the CPU:
 * f64: ``fwi_loss`` with direct wave, illumination precondition, mask and a
   shot subset, against the JAX XLA route, to 1e-10 relative;
 * two L-BFGS iterations through the port's ``minimize`` and the JAX one
-  (f32, Pallas interpret): the same misfit history to 1e-5 relative.
+  (f32, Pallas interpret): the same misfit history to 1e-5 relative;
+* ``fwi_loss`` with the W2-1d and W2-2d misfits (``qWasserstein``, the
+  JAX driver's gamma 1.01, 4 BFM steps) with direct wave, against the JAX
+  objective: at f32 (the JAX wave kernels in interpret mode, its BFM on
+  the XLA pushforward tier, the port's on the slab tier) objective and
+  unpreconditioned gradient within the limits each case states; at f64
+  within 1e-10;
+* the checkpoint route (``stream=False``) gives the streamed route's
+  objective and gradient bitwise; on the card the route and the shot
+  chunk follow the memory budget (checked with a stated budget).
 
 The port's model and geometry are built from the JAX objects' numpy fields
 through ``devito_fwi_tpu_torch.convert``.
 """
 from functools import partial
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from devito_fwi_tpu import AcquisitionGeometry
 from devito_fwi_tpu.models.presets import demo_model
 from devito_fwi_tpu import fwi as jfwi
 from devito_fwi_tpu.misfit import least_square as j_least_square
+from devito_fwi_tpu.misfit import qWasserstein as JqW
 from devito_fwi_tpu.optimize import LBFGS as JLBFGS, minimize as jminimize
 
 from devito_fwi_tpu_torch import fwi as tfwi
 from devito_fwi_tpu_torch.convert import (model_from_numpy,
                                           geometry_from_numpy)
 from devito_fwi_tpu_torch.misfit import least_square as t_least_square
+from devito_fwi_tpu_torch.misfit import qWasserstein as TqW
 from devito_fwi_tpu_torch.models.sources import PointSource as TPointSource
 from devito_fwi_tpu_torch.optimize import (LBFGS as TLBFGS,
                                            minimize as tminimize)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this module runs: the suite runs several
+    pytest workers on one machine, and torch's thread pool in each of them
+    (as many threads as cores) oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _jax_geometries(dtype, nsrc=3):
@@ -178,3 +202,88 @@ def test_lbfgs_two_iterations_match_jax(pallas_interpret, tmp_path):
     assert len(ft) == len(fj) == 2 and ft[1] < ft[0]
     assert np.allclose(ft, fj, rtol=1e-5, atol=0)
     assert _rel(mt, mj) < 1e-5
+
+
+def _w2(method):
+    return dict(gamma=1.01, method=method, num_steps=4, step_scale=1.0)
+
+
+# (method, objective limit, gradient limit) at f32; measured: 1d 1.5e-6 and
+# 2.2e-5, 2d 2.0e-4 and 4.0e-5 (the W2 value is a difference of O(1)
+# terms, so the traces' f32 rounding weighs more on it than on L2)
+@pytest.mark.parametrize("method,f_tol,g_tol", [("1d", 1e-5, 1e-4),
+                                                ("2d", 1e-3, 1e-4)])
+def test_fwi_loss_w2_matches_jax_f32(method, f_tol, g_tol, pallas_interpret,
+                                     monkeypatch):
+    monkeypatch.setenv("DEVITO_FWI_TPU_BFM_PUSH", "xla")
+    g1, g0, g2 = _jax_geometries(np.float32)
+    obs, dw = jfwi.fm_multi(g1), jfwi.fm_multi(g2)
+    p0 = _port_geometry(g0)
+    x = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    fj, gj, _ = jfwi.fwi_loss(x.copy(), g0, obs, JqW(**_w2(method)), dw,
+                              precond=False)
+    ft, gt, _ = tfwi.fwi_loss(x.copy(), p0, _port_shots(obs, p0),
+                              TqW(**_w2(method)), _port_shots(dw, p0),
+                              precond=False, device="cpu")
+    assert abs(ft - fj) <= f_tol * abs(fj)
+    assert _rel(gt, gj) < g_tol
+
+
+@pytest.mark.parametrize("method", ["1d", "2d"])
+def test_fwi_loss_w2_matches_jax_f64(method):
+    g1, g0, g2 = _jax_geometries(np.float64)
+    obs, dw = jfwi.fm_multi(g1), jfwi.fm_multi(g2)
+    p0 = _port_geometry(g0)
+    mask = np.ones(g0.model.shape)
+    mask[:, :3] = 0.
+    x = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    fj, gj, _ = jfwi.fwi_loss(x.copy(), g0, obs, JqW(**_w2(method)), dw,
+                              mask)
+    ft, gt, _ = tfwi.fwi_loss(x.copy(), p0, _port_shots(obs, p0),
+                              TqW(**_w2(method)), _port_shots(dw, p0), mask,
+                              device="cpu")
+    assert abs(ft - fj) <= 1e-10 * abs(fj)
+    assert _rel(gt, gj) < 1e-10
+
+
+@pytest.mark.parametrize("misfit", [t_least_square, TqW(**_w2("2d"))],
+                         ids=["l2", "w2_2d"])
+def test_checkpoint_route_equals_streamed(misfit):
+    g0 = _port_geometry(_jax_geometries(np.float32)[1])
+    p1 = _port_geometry(_jax_geometries(np.float32)[0])
+    obs = tfwi.fm_multi(p1, device="cpu")
+    x = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    out = [tfwi.fwi_loss(x.copy(), g0, obs, misfit, device="cpu",
+                         stream=stream) for stream in (True, False)]
+    assert out[0][0] == out[1][0]
+    assert np.array_equal(out[0][1], out[1][1])
+
+
+def test_route_follows_the_memory_budget(monkeypatch):
+    """On the card, a gradient streams while one shot's history and misfit
+    fit the budget and takes the checkpoint route otherwise; the chunk is
+    what the route's per-shot bytes leave room for (SMARMN sizes)."""
+    st = SimpleNamespace(nz=186, nx=380, nseg=36, seg=38)
+    field = 186 * 380 * 4
+    hist = 36 * 38 * field
+    pairs = (2 * 36 + 38) * field
+    misfit = tfwi.MISFIT_BYTES_PER_SAMPLE["2d"] * 1357 * 300
+    budget = {}
+    monkeypatch.setattr(tfwi, "_device_budget", lambda dev: budget["b"])
+    card = torch.device("cuda", 0)
+
+    def route(b, calc_grad=True, stream=None, shot_chunk=None):
+        budget["b"] = b
+        return tfwi._route(29, shot_chunk, calc_grad, stream, st, card, 4,
+                           misfit)
+
+    assert route(29 * (hist + misfit)) == (29, True)
+    assert route(10 * (hist + misfit) + 1) == (10, True)
+    assert route(10 * (hist + misfit), shot_chunk=4) == (4, True)
+    # not one history: the checkpoint route, as many shots as fit
+    assert route(hist) == (hist // (pairs + misfit), False)
+    assert route(29 * (hist + misfit), stream=False) == (29, False)
+    assert route(2 * misfit, calc_grad=False) == (2, False)
+    # on the CPU every shot in one batch, streamed unless asked otherwise
+    assert tfwi._route(29, None, True, None, st, torch.device("cpu"), 4,
+                       misfit) == (29, True)

@@ -13,6 +13,7 @@ from devito_fwi_tpu_torch import fwi as tfwi
 from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
 from devito_fwi_tpu_torch.models.presets import demo_model
 from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+from devito_fwi_tpu_torch.ops import cuda_bfm as cb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "devito_fwi_tpu_torch")
@@ -96,17 +97,32 @@ def test_wrappers_reject_other_devices():
                                 spacing=(10., 10.), z0=1, n_checkpoints=4)
 
 
+def _check_signatures(module, source):
+    import ctypes
+    import re
+    src = open(os.path.join(PKG, "csrc", source)).read()
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f",
+             ctypes.c_longlong: "l"}
+
+    def kind(p):
+        if "*" in p:
+            return "p"
+        return {"float": "f", "long": "l"}.get(p.split()[0], "i")
+
+    for name, (argtypes, _) in module.SIGNATURES.items():
+        params = re.search(r"(?:int|char\*)\s+" + name + r"\(([^)]*)\)",
+                           src).group(1)
+        want = [kind(p) for p in params.split(",")]
+        assert [kinds[a] for a in argtypes] == want, name
+
+
 def test_ctypes_signatures_match_the_cuda_source():
     """The argtypes bound in cuda_acoustic.SIGNATURES follow the parameter
     lists of the extern "C" functions of csrc/acoustic2d.cu (a mismatch
     only shows on the card, as a ctypes error or a garbled argument)."""
-    import ctypes
-    import re
-    src = open(os.path.join(PKG, "csrc", "acoustic2d.cu")).read()
-    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
-    for name, (argtypes, _) in ca.SIGNATURES.items():
-        params = re.search(r"(?:int|char\*)\s+" + name + r"\(([^)]*)\)",
-                           src).group(1)
-        want = ["p" if "*" in p else "f" if p.split()[0] == "float" else "i"
-                for p in params.split(",")]
-        assert [kinds[a] for a in argtypes] == want, name
+    _check_signatures(ca, "acoustic2d.cu")
+
+
+def test_ctypes_signatures_match_the_bfm_source():
+    """The same for cuda_bfm.SIGNATURES and csrc/bfm_push.cu."""
+    _check_signatures(cb, "bfm_push.cu")

@@ -133,3 +133,26 @@ def test_smarmn_setup_equal():
                      tmodels[0].spacing)
     assert set(np.unique(ri[..., 1])) == {42, 43}
     assert tmodels[0].padded_shape == (380, 186)
+
+
+def test_smarmn_misfits_and_flags_match_the_jax_driver():
+    """``--misfit 0/1/2`` pick the JAX driver's misfits (least_square, W2-1d
+    and W2-2d with gamma 1.01 and the configuration's BFM steps and step
+    scale); the port's driver admits them and still rejects what it does
+    not run."""
+    jmc = _jax_marmousi_common()
+    cfg = t_marm.SMARMN
+    assert (cfg.w2_num_steps, cfg.w2_step_scale) == (
+        jmc.SMARMN.w2_num_steps, jmc.SMARMN.w2_step_scale)
+    l2, w1, w2 = t_marm.misfits(cfg)
+    assert l2 is t_marm.least_square
+    for q, method in ((w1, "1d"), (w2, "2d")):
+        assert (q.method, q.gamma, q.trans_type) == (method, 1.01, "linear")
+    assert (w1.num_steps, w1.step_scale) == (10, 1.0)
+    assert (w2.num_steps, w2.step_scale) == (15, 1.0)
+    parser = t_marm.make_parser(cfg)
+    for misfit in (0, 1, 2):
+        t_marm._reject_unported(parser.parse_args(["--misfit", str(misfit)]),
+                                cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        t_marm._reject_unported(parser.parse_args(["--filter", "1"]), cfg)
