@@ -40,11 +40,33 @@ result line is printed:
    and idle share, the kernels that take the most device time; then the
    W2-2d objective's parts (2-D Legendre transform, pushforward, DCT
    products) timed apart on its live state, times their calls;
-11. a ``kernels`` JSON line; the card's name and power limit; and last
+11. elastic kernel vs twin, quick gate: each elastic CUDA kernel against
+   its twin at the SMARM2 grid (420 x 220 padded, nt 1421, 1420 steps)
+   with 3 shots, on every output; the reference's elastic example
+   (``ElasticWaveSolver``, golden norms 19.25636 / 0.627606);
+12. main path, elastic: the SMARM2 elastic FWI driver (31 shots,
+   ``--physics elastic --misfit 0 --maxiter 2``) on cuda: finite and
+   decreasing misfit, every elastic kernel launched, no twin called, each
+   gradient's shot chunks sized to fit ``fwi._device_budget`` (on an
+   85 GB card with nothing else held, the 31 shots' 66.1 GB fit one). It
+   runs before the 31-shot comparisons: a small tensor that outlives them
+   can pin their 65 GB history's segment;
+13. elastic kernel vs twin at the main path's shapes (31 shots; the
+   history is 65 GB, 1.6e10 elements): kernel beside twin, CUDA events, with
+   the card's bound; the history forward's twin runs in shot chunks, each
+   held against its slice of the kernel's output, its time the sum of the
+   chunks';
+14. elastic profile: one steady-state gradient and one trial under
+   ``torch.profiler``; the gradient's peak device bytes per shot against
+   the figure the chunks are sized with; the gradient in two chunks
+   (``shot_chunk=16``, a smaller card's split) against the memory-sized
+   one;
+15. a ``kernels`` JSON line; the card's name and power limit; and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -60,12 +82,15 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 NSHOTS_CHECK = 3
+# shots per chunk of the 31-shot history forward's twin: its 8.4 GB history
+# beside the kernel's 65 GB
+TWIN_CHUNK = 4
 SEED = 0
 # The kernels are compiled with -fmad=false and repeat the twins'
 # operations one for one, so they should agree bitwise; 1e-6 of each
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
-SOURCES = ("acoustic2d", "bfm_push")
+SOURCES = ("acoustic2d", "bfm_push", "elastic2d")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
@@ -74,6 +99,10 @@ REPLACES = {
     "gradient_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:453",
     "pushforward_slabs_nat": "devito_fwi_tpu/ops/pallas_bfm.py:369",
     "pushforward_slabs": "devito_fwi_tpu/ops/pallas_bfm.py:323",
+    "elastic_segments": "devito_fwi_tpu/ops/pallas_staggered.py:173",
+    "elastic_fwd_hist_segments": "devito_fwi_tpu/ops/pallas_staggered.py:607",
+    "elastic_grad_stream_segments":
+        "devito_fwi_tpu/ops/pallas_staggered.py:763",
 }
 
 
@@ -202,16 +231,57 @@ def push_bound(planes, slabs):
     return bound(nbytes, 2 * planes[3].numel() + 8 * active)
 
 
-def run_driver(marm, misfit, counters):
-    """Drive the SMARMN driver (``--maxiter 2``, 29 shots) on cuda with
-    every counter set to 0 just before (``counters``: their reset
-    functions); returns the driver's stats."""
+def elastic_bounds(tb, B):
+    """The elastic kernels' bounds at this run's shapes: inputs read once,
+    outputs written once. Per cell-step, with r = space_order/2 and a
+    first-derivative stencil of 2r taps costing 4r operations: the forward
+    8 derivatives and the updates, 32r + 31; the reverse 12 derivatives
+    and the updates and images, 48r + 52; the modeling forward also the
+    two centred derivatives (8r + 5) on the two receiver rows."""
+    f = 4
+    field = tb.nz * tb.nx
+    cells = B * field
+    r = tb.kw["space_order"] // 2
+    nsteps = tb.nsteps
+    params = 9 * field * f
+    ops_fwd = 32 * r + 31
+    rows10 = B * nsteps * 2 * 2 * tb.nx * f
+    work = {
+        "elastic_segments": (
+            params + nsteps * f + cells * f + rows10,
+            cells * nsteps * ops_fwd + B * nsteps * 2 * tb.nx * (8 * r + 5)),
+        "elastic_fwd_hist_segments": (
+            params + nsteps * f + cells * f + B * nsteps * 2 * tb.nx * f
+            + B * nsteps * 4 * field * f + cells * f,
+            cells * nsteps * (ops_fwd + 4)),
+        "elastic_grad_stream_segments": (
+            params + B * nsteps * 4 * field * f + B * nsteps * 2 * tb.nx * f
+            + 5 * cells * f,
+            cells * nsteps * (48 * r + 52)),
+    }
+    return {name: bound(*w) for name, w in work.items()}
+
+
+def cuda_once(fn):
+    """(device ms of one call of ``fn``, its output), no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def run_driver(marm, cfg, argv, counters):
+    """Drive a Marmousi driver (``--maxiter 2``, the configuration's shots)
+    on cuda with every counter set to 0 just before (``counters``: their
+    reset functions); returns the driver's stats."""
     for reset in counters:
         reset()
     with tempfile.TemporaryDirectory() as odir:
-        _, stats = marm.run_fwi(marm.SMARMN, [
-            "--misfit", str(misfit), "--maxiter", "2", "--odir", odir,
-            "--device", "cuda"])
+        _, stats = marm.run_fwi(cfg, argv + [
+            "--maxiter", "2", "--odir", odir, "--device", "cuda"])
     torch.cuda.synchronize()
     return stats
 
@@ -234,16 +304,245 @@ def check_history(stats):
         raise AssertionError(f"misfit not finite and decreasing: {calls}")
 
 
+def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
+                   plain_ms, err, bounds):
+    """Phases 11-14: the elastic kernels against their twins at 3 SMARM2
+    shots, the SMARM2 elastic FWI driver, the kernels against their twins
+    at 31 shots with their times and bounds, and the driver's profile."""
+    # return what the acoustic phases left cached before the elastic tables
+    # are allocated: a small long-lived tensor placed in a large cached
+    # block pins that block's whole segment for the rest of the run
+    gc.collect()
+    torch.cuda.empty_cache()
+    eargs = marm.make_parser(marm.SMARM2).parse_args(
+        ["--physics", "elastic", "--device", "cuda"])
+    _, geoms, fields, mask = marm.setup_elastic(
+        marm.SMARM2, eargs, marm.SMARM2.nsrc_default)
+    g0 = geoms[1]
+    tb = elastic_fwi._Tables(g0, dev)
+    vp, vs, rho = elastic_fwi.model_vp_vs_rho(g0.model)
+
+    def T(a):
+        return torch.as_tensor(a, device=dev)
+
+    prm = cs.stagger_params(T(rho * (vp * vp - 2.0 * vs * vs)),
+                            T(rho * vs * vs), T(1.0 / rho), tb.damp)
+    kw = tb.kw
+    seg = tb.nsteps   # the objective's layout: one segment of every step
+    wav = tb.wav_pad(seg)
+    B = g0.nsrc
+    print(f"   SMARM2 elastic: padded grid {tb.nx} x {tb.nz}, nt {tb.nt} "
+          f"({tb.nsteps} steps, one segment), dt "
+          f"{tb.dt:.4f} ms, receivers on rows {tb.z0}, {tb.z0 + 1}, "
+          f"space_order {kw['space_order']}, {B} shots")
+
+    def residual_rows(nb):
+        return torch.as_tensor(rng.standard_normal((nb, 1, seg, 2, tb.nx)),
+                               dtype=torch.float32, device=dev)
+
+    phase(f"11 elastic kernel vs twin (quick gate), {NSHOTS_CHECK} shots at "
+          "the SMARM2 grid")
+    injT = tb.injT(0, NSHOTS_CHECK)
+    compare("elastic_segments",
+            [cs.elastic_segments(*prm, injT, wav, tb.dt, **kw)],
+            [cs.elastic_segments_plain(*prm, injT, wav, tb.dt, **kw)])
+    got = cs.elastic_fwd_hist_segments(*prm, injT, wav, tb.dt, seg=seg,
+                                       **kw)
+    compare("elastic_fwd_hist_segments", got,
+            cs.elastic_fwd_hist_plain(*prm, injT, wav, tb.dt, seg=seg,
+                                      **kw))
+    res = residual_rows(NSHOTS_CHECK)
+    gops = (*prm, got[1], res, tb.dt)
+    compare("elastic_grad_stream_segments",
+            cs.elastic_grad_stream_segments(*gops, seg=seg, **kw),
+            cs.elastic_grad_stream_plain(*gops, seg=seg, **kw))
+    del got, res, gops
+    torch.cuda.empty_cache()
+    # the reference's elastic example through ElasticWaveSolver on the card
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.models.presets import demo_model
+    from devito_fwi_tpu_torch.ops.elastic_wavesolver import ElasticWaveSolver
+    model = demo_model("layers-elastic", space_order=4, shape=(50, 50),
+                       nbl=40, dtype=np.float32, spacing=(20., 20.))
+    rec1, rec2, _, _, _ = ElasticWaveSolver(
+        model, setup_geometry(model, 1000.), space_order=4).forward()
+    n1, n2 = np.linalg.norm(rec1.data), np.linalg.norm(rec2.data)
+    print(f"   ElasticWaveSolver golden (layers-elastic 50 x 50): |rec1| = "
+          f"{n1:.5f} (19.25636), |rec2| = {n2:.6f} (0.627606), atol 1e-3")
+    if not (abs(n1 - 19.25636) <= 1e-3 and abs(n2 - 0.627606) <= 1e-3):
+        raise AssertionError("the elastic golden norms disagree")
+
+    phase(f"12 main path: SMARM2 elastic FWI, {B} shots, --physics elastic "
+          "--misfit 0 --maxiter 2, on cuda")
+    # return what the earlier phases left cached, so that the chunks follow
+    # the card's memory and not that state; record each sizing decision
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizing = []
+    shots_per_batch = elastic_fwi._shots_per_batch
+
+    def spy(nsrc, shot_chunk, per_shot, budget):
+        out = shots_per_batch(nsrc, shot_chunk, per_shot, budget)
+        sizing.append((per_shot, budget, out))
+        return out
+
+    elastic_fwi._shots_per_batch = spy
+    try:
+        stats = run_driver(marm, marm.SMARM2, ["--physics", "elastic",
+                                               "--misfit", "0"], counters)
+    finally:
+        elastic_fwi._shots_per_batch = shots_per_batch
+    check_history(stats)
+    ngrad = sum(1 for c in stats["calls"] if c[0])
+    per = elastic_fwi._bytes_per_shot(tb, True, "least_square")
+    grads = [(budget, n) for p, budget, n in sizing if p == per]
+    chunks = [-(-B // n) for _, n in grads]
+    print(f"   shot chunks per gradient: {chunks}, sized from {per / 1e9:.3f}"
+          " GB per shot and 80% of the largest block the allocator could "
+          f"hand out: {[round(b / 0.8 / 1e9, 2) for b, _ in grads]} GB of "
+          f"the {torch.cuda.mem_get_info(dev)[1] / 1e9:.2f} GB card")
+    if not (len(grads) == ngrad and sum(chunks) ==
+            cs.LAUNCHES["elastic_fwd_hist_segments"] and
+            all(n == 1 or n * per <= b for b, n in grads)):
+        raise AssertionError(f"the gradients' chunks are not memory-sized: "
+                             f"{grads}")
+    report("elastic", cs.KERNELS)
+
+    phase(f"13 elastic kernel vs twin and kernel times, {B} shots "
+          "(main-path shapes)")
+    injT = tb.injT(0, B)
+    name = "elastic_segments"
+    ms[name], got = cuda_ms(
+        lambda: cs.elastic_segments(*prm, injT, wav, tb.dt, **kw), 3)
+    plain_ms[name], want = cuda_once(
+        lambda: cs.elastic_segments_plain(*prm, injT, wav, tb.dt, **kw))
+    err[name] = compare(name, [got], [want])
+    del got, want
+    name = "elastic_fwd_hist_segments"
+    ms[name], fwd = cuda_ms(
+        lambda: cs.elastic_fwd_hist_segments(*prm, injT, wav, tb.dt,
+                                             seg=seg, **kw), 2)
+    hist = fwd[1]
+    print(f"   history {tuple(hist.shape)}: {hist.numel():.4g} elements, "
+          f"{hist.numel() * 4 / 1e9:.2f} GB")
+    # the twin in shot chunks (two 65 GB histories do not fit the card),
+    # each chunk held against its slice of the kernel's outputs
+    torch.cuda.empty_cache()
+    plain_ms[name], worst = 0.0, [0.0, 0.0, 0.0]
+    scale = [float(torch.maximum(o.max(), -o.min())) for o in fwd]
+    for lo in range(0, B, TWIN_CHUNK):
+        hi = min(lo + TWIN_CHUNK, B)
+        t_ms, want = cuda_once(lambda: cs.elastic_fwd_hist_plain(
+            *prm, injT[lo:hi], wav, tb.dt, seg=seg, **kw))
+        plain_ms[name] += t_ms
+        for k, (g, w) in enumerate(zip(fwd, want)):
+            worst[k] = max(worst[k], float(w.sub_(g[lo:hi]).abs_().max()))
+        del want
+    for k, what in enumerate(("rows", "history", "illumination")):
+        print(f"   {name} {what}: max|kernel-twin| = {worst[k]:.3e} "
+              f"(max|twin| = {scale[k]:.3e}, limit {RTOL:g} x max), twin in "
+              f"shot chunks of {TWIN_CHUNK}")
+        if not np.isfinite(worst[k]) or worst[k] > RTOL * scale[k]:
+            raise AssertionError(f"{name}: kernel disagrees with its twin")
+    err[name] = max(worst)
+    del fwd
+    torch.cuda.empty_cache()
+    name = "elastic_grad_stream_segments"
+    res = residual_rows(B)
+    gops = (*prm, hist, res, tb.dt)
+    ms[name], got = cuda_ms(
+        lambda: cs.elastic_grad_stream_segments(*gops, seg=seg, **kw), 2)
+    plain_ms[name], want = cuda_once(
+        lambda: cs.elastic_grad_stream_plain(*gops, seg=seg, **kw))
+    err[name] = compare(name, got, want)
+    del hist, res, gops, got, want, injT
+    torch.cuda.empty_cache()
+    bounds.update(elastic_bounds(tb, B))
+    for name in cs.KERNELS:
+        b_ms, by, nbytes, nops = bounds[name]
+        print(f"   {name}: kernel {ms[name]:.3f} ms, twin "
+              f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
+              f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
+              f"{b_ms / ms[name]:.1%} of the bound")
+
+    phase(f"14 elastic profile: one steady-state gradient and one trial, "
+          f"{B} shots")
+    obs, _ = elastic_fwi.elastic_fm_multi(geoms[0], device="cuda")
+    dw, _ = elastic_fwi.elastic_fm_multi(geoms[2], device="cuda")
+    _, smooth_vp, vs0, rho0 = fields
+    loss = elastic_fwi.ElasticFwiLoss(vs0, rho0, device="cuda")
+    x0 = 1.0 / smooth_vp.reshape(-1).astype(np.float64) ** 2
+    for calc_grad in (True, False):
+        def call():
+            return loss(x0, g0, obs, None, dw, mask, calc_grad=calc_grad)
+        call()  # warm: caches, allocator
+        wall, busy, by_name = profile_call(call)
+        what = f"elastic {'gradient' if calc_grad else 'trial'}"
+        if busy is None:
+            print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy share "
+                  "not measured (the profiler recorded no device events)")
+            continue
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
+              f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
+        for kname, sec in top:
+            print(f"      {sec * 1e3:9.3f} ms  {kname[:110]}")
+    cs.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    loss(x0, g0, obs, None, dw, mask, calc_grad=True)
+    torch.cuda.synchronize()
+    chunk = -(-B // cs.LAUNCHES["elastic_fwd_hist_segments"])
+    per = (torch.cuda.max_memory_allocated(dev) - base) / chunk
+    sized = elastic_fwi._bytes_per_shot(tb, True, "least_square")
+    print(f"   gradient peak: {per / 1e9:.4f} GB per shot (chunks of "
+          f"{chunk}); sized with {sized / 1e9:.4f} GB")
+    if per > sized:
+        raise AssertionError("the elastic gradient holds more per shot than "
+                             "elastic_fwi._bytes_per_shot says")
+    # the chunked route on the card: the same gradient with at most half the
+    # shots per chunk (a smaller card's chunks, at least two) against the
+    # memory-sized one; each shot's sweep is the same, the traces' products
+    # and the shots' sums may round in another order
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for label, chunk in (("memory-sized", None),
+                         (f"shot_chunk={-(-B // 2)}", -(-B // 2))):
+        lossc = elastic_fwi.ElasticFwiLoss(vs0, rho0, shot_chunk=chunk,
+                                        device="cuda")
+        cs.reset_counters()
+        t0 = time.perf_counter()
+        out[label] = lossc(x0, g0, obs, None, dw, mask)
+        sec = time.perf_counter() - t0
+        nchunks = cs.LAUNCHES["elastic_fwd_hist_segments"]
+        print(f"   gradient, {label}: {nchunks} chunk(s), {sec:.3f} s, "
+              f"objective {out[label][0]!r}")
+    if nchunks < 2:
+        raise AssertionError(f"{label} ran {nchunks} chunk, not two or more")
+    (f1, g1, _), (f2, g2, _) = out.values()
+    rel = float(np.abs(g2 - g1).max() / np.abs(g1).max())
+    print(f"   half-size chunks vs memory-sized: objective "
+          f"{abs(f2 - f1) / f1:.2e}, "
+          f"gradient {rel:.2e} of its max (limit 1e-5)")
+    if not (abs(f2 - f1) <= 1e-5 * f1 and rel <= 1e-5):
+        raise AssertionError("the chunked elastic gradient disagrees")
+    del obs, dw
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    from devito_fwi_tpu_torch import fwi
+    from devito_fwi_tpu_torch import elastic_fwi, fwi
     from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
     from devito_fwi_tpu_torch.misfit import bfm, least_square, qWasserstein
     from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
     from devito_fwi_tpu_torch.ops import cuda_bfm as cb
     from devito_fwi_tpu_torch.ops import cuda_build
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
 
     phase("1 card")
     card = card_line()
@@ -259,6 +558,7 @@ def main():
         paths = list(pool.map(cuda_build.build, SOURCES))
     ca._lib()
     cb._lib()
+    cs._lib()
     print(f"   nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     print(f"   built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -430,15 +730,16 @@ def main():
     del subs, idx, vals, rho, rho_lib, planes, xI, xO, xf, yI, yO, yf, mass
     torch.cuda.empty_cache()
 
-    counters = (ca.reset_counters, cb.reset_counters, bfm.reset_counts)
+    counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
+                bfm.reset_counts)
     launches = {}
 
     def report(path, names):
         """Read the counts just after a path: every kernel of ``names``
         launched, no twin called; the path's launches of ``names`` go into
         the kernels line."""
-        la = {**ca.LAUNCHES, **cb.LAUNCHES}
-        twins = {**ca.TWIN_CALLS, **cb.TWIN_CALLS}
+        la = {**ca.LAUNCHES, **cb.LAUNCHES, **cs.LAUNCHES}
+        twins = {**ca.TWIN_CALLS, **cb.TWIN_CALLS, **cs.TWIN_CALLS}
         print(f"   kernel launches: {la}")
         print(f"   twin calls: {twins}")
         if any(twins.values()) or min((la[n] for n in names),
@@ -449,17 +750,17 @@ def main():
             launches[n] = la[n]
 
     phase(f"6 main path: SMARMN L2 FWI, {B} shots, --maxiter 2, on cuda")
-    check_history(run_driver(marm, 0, counters))
+    check_history(run_driver(marm, marm.SMARMN, ["--misfit", "0"], counters))
     report("L2", ("forward_rec_segments", "forward_dt2_segments",
                   "gradient_stream_segments"))
 
     phase(f"7 main path: SMARMN W2-1d and W2-2d FWI, {B} shots, --misfit "
           "1 and 2, --maxiter 2, on cuda")
-    check_history(run_driver(marm, 1, counters))
+    check_history(run_driver(marm, marm.SMARMN, ["--misfit", "1"], counters))
     report("W2-1d", ())
     if min(ca.LAUNCHES[n] for n in ca.KERNELS[:3]) < 1:
         raise AssertionError("the W2-1d path did not run the sweeps")
-    check_history(run_driver(marm, 2, counters))
+    check_history(run_driver(marm, marm.SMARMN, ["--misfit", "2"], counters))
     print(f"   BFM host reads and branches: {dict(bfm.COUNTS)}")
     print(f"   pushforwards by tier: slab {bfm.COUNTS['push_slab']}, "
           f"banded {bfm.COUNTS['push_banded']}, scatter "
@@ -590,10 +891,14 @@ def main():
           f"{walls['W2-2d trial'] * 1e3:.1f} ms wall")
     del obs, dw, live, dens
 
-    phase("11 result")
+    elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
+                   plain_ms, err, bounds)
+
+    phase("15 result")
     rows = []
-    for n in ca.KERNELS + cb.KERNELS:
-        src = "bfm_push" if n in cb.KERNELS else "acoustic2d"
+    for n in ca.KERNELS + cb.KERNELS + cs.KERNELS:
+        src = ("bfm_push" if n in cb.KERNELS else
+               "elastic2d" if n in cs.KERNELS else "acoustic2d")
         rows.append(dict(
             name=n, route="cuda", source=f"devito_fwi_tpu_torch/csrc/{src}.cu",
             replaces=REPLACES[n], launches=launches[n], max_abs_err=err[n],

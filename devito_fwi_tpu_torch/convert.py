@@ -3,6 +3,7 @@ scalars, e.g. the fields of another package's objects. The port itself
 takes only numpy here.
 
     model = model_from_numpy(dict(vp=..., damp=..., origin=..., ...))
+    model = model_from_numpy(dict(lam=..., mu=..., b=..., damp=..., ...))
     geometry = geometry_from_numpy(model, dict(rec_positions=..., ...))
 """
 from __future__ import annotations
@@ -15,21 +16,51 @@ from .models.model import SeismicModel
 __all__ = ["model_from_numpy", "geometry_from_numpy"]
 
 
+def _elastic_velocities(d):
+    """Physical-domain (vp, vs, b) of an elastic field dict, for the
+    constructor only (its padded lam, mu, b are replaced afterwards)."""
+    lam = np.asarray(d["lam"])
+    mu = np.asarray(d["mu"])
+    b = np.broadcast_to(np.asarray(d.get("b", 1.0), dtype=lam.dtype),
+                        lam.shape)
+    vs = np.sqrt(mu * b)
+    vp = np.sqrt((lam + 2.0 * mu) * b)
+    return vp, vs, b
+
+
 def model_from_numpy(d):
-    """A ``SeismicModel`` from ``d``: ``vp`` and ``damp`` on the padded
-    grid (numpy; damp may be a scalar), ``origin``, ``spacing``,
-    ``shape``, ``nbl``, ``space_order``, ``fs`` and ``dt`` (the user time
-    step, or None for the CFL one). The padded fields are copied as given,
-    so a padding that is not an edge replication survives."""
-    vp = np.asarray(d["vp"])
+    """A ``SeismicModel`` from ``d``: either ``vp`` (acoustic) or ``lam``,
+    ``mu`` and optionally ``b`` and ``vs`` (elastic), each on the padded
+    grid (numpy; ``b`` may be a scalar); ``damp`` on the padded grid or a
+    scalar (the "damp" profile for acoustic models, the "mask" one for
+    elastic ones); ``origin``, ``spacing``, ``shape``, ``nbl``,
+    ``space_order``, ``fs`` and ``dt`` (the user time step, or None for
+    the CFL one). The padded fields are copied as given, so a padding that
+    is not an edge replication survives."""
     shape = tuple(int(s) for s in d["shape"])
+    core = tuple(slice(0, n) for n in shape)
+    elastic = "lam" in d
+    if elastic:
+        vp, vs, b = _elastic_velocities(d)
+        kw = dict(vp=vp[core], vs=vs[core], b=b[core], bcs="mask")
+    else:
+        vp = np.asarray(d["vp"])
+        kw = dict(vp=vp[core], bcs="damp")
     model = SeismicModel(origin=tuple(d["origin"]),
                          spacing=tuple(d["spacing"]), shape=shape,
-                         space_order=int(d["space_order"]), vp=vp[tuple(
-                             slice(0, n) for n in shape)],
+                         space_order=int(d["space_order"]),
                          nbl=int(d["nbl"]), fs=bool(d["fs"]),
-                         dtype=vp.dtype.type, bcs="damp", dt=d["dt"])
-    model.vp = vp.copy()
+                         dtype=vp.dtype.type, dt=d["dt"], **kw)
+    if elastic:
+        model.lam = np.array(d["lam"])
+        model.mu = np.array(d["mu"])
+        b = d.get("b", 1.0)
+        model.b = np.array(b) if isinstance(b, np.ndarray) \
+            else vp.dtype.type(b)
+        if d.get("vs") is not None:
+            model.vs = np.array(d["vs"])
+    else:
+        model.vp = vp.copy()
     damp = d["damp"]
     model.damp = np.array(damp) if isinstance(damp, np.ndarray) \
         else vp.dtype.type(damp)

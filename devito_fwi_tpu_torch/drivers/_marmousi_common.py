@@ -1,17 +1,19 @@
-"""Shared Marmousi driver logic (SMARMN), acoustic FWI with the L2
-(``--misfit 0``), W2-1d (``--misfit 1``) or W2-2d (``--misfit 2``) misfit.
+"""Shared Marmousi driver logic (SMARMN and SMARM2): acoustic FWI with
+the L2 (``--misfit 0``), W2-1d (``--misfit 1``) or W2-2d (``--misfit 2``)
+misfit, and elastic FWI (``--physics elastic``: velocity-stress
+propagator, vp inverted with vs and rho pinned at the smooth model's
+fields).
 
 CLI/flow parity with ``drivers/_marmousi_common.py`` of the JAX package
-(reference ``marmousi_fwi.py``): same flags, model and acquisition
-constants, misfit configurations and result-file layout, plus ``--device``
-(default "cuda"; "cpu" runs the plain torch twins). The raw velocity
-models are read from ``--data-dir`` (default: the vendored ``model_data/``
-at the repo root).
+(reference ``marmousi_fwi.py`` / ``marmousi2_fwi.py``): same flags, model
+and acquisition constants, misfit configurations and result-file layout,
+plus ``--device`` (default "cuda"; "cpu" runs the plain torch twins). The
+raw velocity models are read from ``--data-dir`` (default: the vendored
+``model_data/`` at the repo root).
 
 Not ported yet (each raises ``NotImplementedError``): ``--physics
-elastic|viscoacoustic`` (ROADMAP.md queue A items 11-12), ``--filter 1``
-and ``--resample`` (item 4), and the SMARM2 and forward-modeling drivers
-(item 6).
+viscoacoustic`` (ROADMAP.md queue A item 12), ``--filter 1`` and
+``--resample`` (item 4), and the forward-modeling drivers (item 6).
 """
 import argparse
 import os
@@ -21,6 +23,7 @@ from time import perf_counter
 
 import numpy as np
 
+from ..elastic_fwi import ElasticFwiLoss, elastic_fm_multi
 from ..fwi import fm_multi, fwi_loss
 from ..misfit import least_square, qWasserstein
 from ..models.geometry import AcquisitionGeometry
@@ -30,7 +33,7 @@ from ..optimize import LBFGS, minimize
 
 @dataclass
 class MarmousiConfig:
-    name: str           # 'SMARMN'
+    name: str           # 'SMARMN' | 'SMARM2'
     shape: tuple        # (nx, nz)
     dt: float
     tn: float
@@ -46,6 +49,8 @@ class MarmousiConfig:
 
 SMARMN = MarmousiConfig(name="SMARMN", shape=(300, 106), dt=2.95, tn=4000.,
                         nsrc_default=29, bathy_rows=7, w2_step_scale=1.)
+SMARM2 = MarmousiConfig(name="SMARM2", shape=(340, 140), dt=3., tn=4500.,
+                        nsrc_default=31, bathy_rows=15, w2_step_scale=4.)
 
 
 def default_data_dir():
@@ -79,7 +84,8 @@ def make_parser(cfg):
                    help="random shot subset per iteration (0 = all shots)")
     p.add_argument("--physics", type=str, default="acoustic",
                    choices=["acoustic", "elastic", "viscoacoustic"],
-                   help="propagator (only acoustic is ported)")
+                   help="propagator: acoustic, or elastic staggered-grid "
+                        "Vp/Vs/rho FWI (viscoacoustic is not ported)")
     p.add_argument("--resume", type=int, default=0,
                    help="resume from the latest checkpoint under the log "
                         "dir")
@@ -150,14 +156,80 @@ def setup(cfg, args, nsources):
         (true_vp, smooth_vp), bathy_mask
 
 
-class TimedLoss:
-    """``fwi_loss`` on one device, recording each call in order as
-    (calc_grad, objective, host seconds). Each call ends with the
-    objective (and gradient) on the host, so its time includes the device
-    work."""
+def elastic_fields(cfg, vp):
+    """Derive (vs, rho) for an elastic Marmousi run: vs = vp/sqrt(3)
+    (Poisson solid) with a fluid water column (vs = 0), rho from
+    Gardner's relation 0.31 (1000 vp)^0.25 g/cc (the reference's
+    empirical preset relation, ``seismic/preset_models.py:349-351``)
+    with water at 1.0 g/cc."""
+    vs = (vp / np.sqrt(3.0)).astype(np.float32)
+    vs[:, :cfg.bathy_rows] = 0.0
+    rho = (0.31 * (1e3 * vp) ** 0.25).astype(np.float32)
+    rho[:, :cfg.bathy_rows] = 1.0
+    return vs, rho
 
-    def __init__(self, device):
-        self.loss = partial(fwi_loss, device=device)
+
+def setup_elastic(cfg, args, nsources):
+    """Elastic counterpart of ``setup``: (true, init, water) models carry
+    (vs, b) so the staggered propagator drives them; one pinned dt keeps
+    all time axes aligned."""
+    origin = (0, 0)
+    true_vp, smooth_vp = load_models(cfg, args.data_dir)
+    constant_vp = np.ones(cfg.shape, dtype=np.float32) * 1.5
+
+    bathy_mask = np.ones(cfg.shape, dtype=np.float32)
+    bathy_mask[:, :cfg.bathy_rows] = 0
+    if not args.bathy:
+        bathy_mask = None
+
+    vs_t, rho_t = elastic_fields(cfg, true_vp)
+    vs_0, rho_0 = elastic_fields(cfg, smooth_vp)
+    vs_w = np.zeros(cfg.shape, np.float32)
+    rho_w = np.ones(cfg.shape, np.float32)
+
+    def model(vp, vs, rho, dt=None):
+        return SeismicModel(origin=origin, spacing=cfg.spacing,
+                            shape=cfg.shape, space_order=cfg.space_order,
+                            vp=vp, vs=vs, b=(1.0 / rho), nbl=cfg.nbl,
+                            fs=False, dt=dt, bcs="mask")
+
+    # CFL-safe for the inversion bound's ceiling (5.2 km/s), not just the
+    # true model: line-search trials may push the bounded vp above the
+    # true maximum, and a step past the pinned dt's CFL limit blows the
+    # staggered forward up
+    vmax_bound = 5.2
+    dt_e = float(model(true_vp, vs_t, rho_t).critical_dt)
+    dt_e *= min(1.0, float(true_vp.max()) / vmax_bound)
+    true_model = model(true_vp, vs_t, rho_t, dt=dt_e)
+    init_model = model(smooth_vp, vs_0, rho_0, dt=dt_e)
+    water_model = model(constant_vp, vs_w, rho_w, dt=dt_e)
+
+    src_coordinates = np.empty((nsources, 2))
+    src_coordinates[:, 0] = np.linspace(0, true_model.domain_size[0],
+                                        num=nsources)
+    src_coordinates[:, -1] = 2 * cfg.spacing[0]
+    nreceivers = cfg.shape[0]
+    rec_coordinates = np.empty((nreceivers, 2))
+    rec_coordinates[:, 0] = np.linspace(cfg.spacing[0],
+                                        true_model.domain_size[0]
+                                        - cfg.spacing[0], num=nreceivers)
+    rec_coordinates[:, 1] = 2 * cfg.spacing[0]
+
+    geoms = [AcquisitionGeometry(m, rec_coordinates, src_coordinates, 0.,
+                                 cfg.tn, f0=cfg.f0, src_type="Ricker")
+             for m in (true_model, init_model, water_model)]
+    return (true_model, init_model, water_model), geoms, \
+        (true_vp, smooth_vp, vs_0, rho_0), bathy_mask
+
+
+class TimedLoss:
+    """An objective (default: ``fwi_loss`` on ``device``) recording each
+    call in order as (calc_grad, objective, host seconds). Each call ends
+    with the objective (and gradient) on the host, so its time includes
+    the device work."""
+
+    def __init__(self, device, loss=None):
+        self.loss = loss or partial(fwi_loss, device=device)
         self.calls = []
 
     def __call__(self, x, geometry, obs, misfit_func, direct_wave=None,
@@ -180,16 +252,70 @@ def misfits(cfg):
 
 
 def _reject_unported(args, cfg):
-    if args.physics != "acoustic":
-        raise NotImplementedError("--physics %s is not ported yet "
-                                  "(ROADMAP.md queue A items 11-12)"
-                                  % args.physics)
+    if args.physics == "viscoacoustic":
+        raise NotImplementedError("--physics viscoacoustic is not ported "
+                                  "yet (ROADMAP.md queue A item 12)")
     if args.filter:
         raise NotImplementedError("--filter 1: Filter is not ported yet "
                                   "(ROADMAP.md queue A item 4)")
     if args.resample and args.resample != cfg.dt:
         raise NotImplementedError("--resample: trace resampling is not "
                                   "ported yet (ROADMAP.md queue A item 4)")
+
+
+def run_fwi_elastic(cfg, args):
+    """Elastic Marmousi FWI: velocity-stress propagator, vp inversion in
+    squared slowness with vs/rho pinned at the smooth model's fields (the
+    BASELINE.json "Marmousi2 elastic FWI" workload). Returns (m, stats)
+    as ``run_fwi`` does."""
+    result_dir = args.odir
+    misfit_type = args.misfit
+    models, geoms, fields, bathy_mask = setup_elastic(cfg, args, args.nsrc)
+    geometry1, geometry0, geometry2 = geoms
+    _, smooth_vp, vs_0, rho_0 = fields
+    print("elastic FWI %s: nsrc %d, misfit %d, device %s, dt %.4f ms"
+          % (cfg.name, args.nsrc, misfit_type, args.device,
+             geometry0.model.critical_dt))
+
+    t0 = perf_counter()
+    obs, _ = elastic_fm_multi(geometry1, device=args.device)
+    direct_wave, _ = elastic_fm_multi(geometry2, device=args.device)
+    model_s = perf_counter() - t0
+    misfit_func = misfits(cfg)[misfit_type]
+    loss = TimedLoss(args.device, ElasticFwiLoss(vs=vs_0, rho=rho_0,
+                                                 device=args.device))
+    vmin, vmax = 1.5, 5.2
+    bounds = [1.0 / vmax ** 2, 1.0 / vmin ** 2]
+    m0 = 1. / (smooth_vp.reshape(-1).astype(np.float64)) ** 2
+
+    if args.check_gradient:
+        f, g, _ = loss(m0, geometry0, obs, misfit_func, direct_wave,
+                       bathy_mask, args.precond, calc_grad=True)
+        np.asarray(g, np.float32).tofile(
+            os.path.join(result_dir, "marmousi_elastic_1st_grad_"
+                         + str(misfit_type)))
+        print("check-gradient: f=%.6e |g|max=%.3e" % (f, np.abs(g).max()))
+
+    tic = perf_counter()
+    log_path = os.path.join(result_dir, "log_el" + str(misfit_type))
+    optimizer = LBFGS(memory=10, ls_method="Bracket",
+                      step_len_init=args.steplen, max_ls=args.maxls,
+                      log_path=log_path)
+    minimizer = minimize(optimizer, maxIter=args.maxiter, ftol=args.ftol,
+                         gtol=args.gtol, batch_size=args.batch_size or None,
+                         checkpoint_freq=args.checkpoint_freq,
+                         resume=bool(args.resume), loss_fn=loss,
+                         log_path=log_path)
+    m = minimizer.run(m0, geometry0, obs, misfit_func, direct_wave,
+                      bathy_mask, args.precond, bounds)
+    print(f"\n Elapsed time: {perf_counter() - tic:.2f}s")
+
+    vp = 1.0 / np.sqrt(m.reshape(cfg.shape))
+    vp.astype(np.float32).tofile(
+        os.path.join(result_dir,
+                     "marmousi_elastic_result_misfit_" + str(misfit_type)))
+    print("final model range: %.3f %.3f km/s" % (vp.min(), vp.max()))
+    return m, dict(calls=loss.calls, model_s=model_s)
 
 
 def run_fwi(cfg, argv=None):
@@ -203,6 +329,8 @@ def run_fwi(cfg, argv=None):
     _reject_unported(args, cfg)
     result_dir = args.odir
     os.makedirs(result_dir, exist_ok=True)
+    if args.physics == "elastic":
+        return run_fwi_elastic(cfg, args)
     misfit_type = args.misfit
     print("---------------- Parameter Setting ------------\n",
           "\t Result dir: %s \t Misfit function: %d \t Precondition: %d\n"

@@ -27,7 +27,8 @@ and the illumination precondition and the mask follow on the device, so
 one field comes back to the host. Line-search trials and forward modeling
 run ``forward_rec_segments``. The explicit adjoint sweep is the gradient:
 no autograd is involved. ``stream`` picks the route: None streams when one
-shot's history fits in 80% of the card's free memory.
+shot's history fits ``_device_budget``, 80% of the largest block the
+caching allocator can hand out.
 
 Not ported yet (each raises ``NotImplementedError``): other misfits and
 trace resampling, which need the host-misfit path (ROADMAP.md queue A item
@@ -321,26 +322,48 @@ def _misfit_batch(misfit_func):
 
 
 def _device_budget(dev):
-    """80% of the memory the caching allocator can still hand out: the
-    card's free memory plus what the allocator holds unused."""
+    """80% of the largest single block the caching allocator can hand out:
+    the card's free memory plus the cached segments no live tensor holds
+    (the allocator returns those to the card before an allocation fails),
+    or the largest unused block of a segment a live tensor holds, whichever
+    is larger. The allocator's cached total would overstate it: a small
+    live tensor placed in a freed history's block pins the whole segment."""
     free, _ = torch.cuda.mem_get_info(dev)
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
-        dev)
-    return int(0.8 * (free + cached))
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    releasable = held = 0
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != index:
+            continue
+        unused = [b["size"] for b in seg["blocks"] if b["state"] == "inactive"]
+        if len(unused) == len(seg["blocks"]):
+            releasable += seg["total_size"]
+        elif unused:
+            held = max(held, max(unused))
+    return int(0.8 * max(free + releasable, held))
+
+
+def _shots_per_batch(nsrc, shot_chunk, per_shot, budget):
+    """Shots per batch: all, or fewer when ``shot_chunk`` asks for it or
+    ``per_shot`` bytes each would not fit ``budget`` (None: no limit); at
+    least one shot, and the batches as even as possible."""
+    chunk = min(nsrc, shot_chunk or nsrc)
+    if budget is not None:
+        chunk = min(chunk, max(1, budget // max(per_shot, 1)))
+    return -(-nsrc // -(-nsrc // chunk))
 
 
 def _route(nsrc, shot_chunk, calc_grad, stream, st, dev, itemsize,
            misfit_bytes):
     """(shots per batch, stream). A gradient streams the history when
     ``stream`` is True, or when it is None and one shot's history and
-    misfit fit in 80% of the card's free memory; otherwise it takes the
-    checkpoint route, which holds the segment pairs and one segment's
-    history per shot. The batch is all shots, or fewer when ``shot_chunk``
-    asks for it or the route's per-shot memory would not fit the budget
-    (at least one shot: nothing holds less than the checkpoint route)."""
-    chunk = min(nsrc, shot_chunk or nsrc)
+    misfit fit ``_device_budget``; otherwise it takes the checkpoint route,
+    which holds the segment pairs and one segment's history per shot. The
+    batch is ``_shots_per_batch`` of the route's per-shot memory (at least
+    one shot: nothing holds less than the checkpoint route)."""
     if dev.type != "cuda":
-        return chunk, stream is not False
+        return _shots_per_batch(nsrc, shot_chunk, 0, None), \
+            stream is not False
     budget = _device_budget(dev)
     field = st.nz * st.nx * itemsize
     hist = st.nseg * st.seg * field + misfit_bytes
@@ -352,7 +375,7 @@ def _route(nsrc, shot_chunk, calc_grad, stream, st, dev, itemsize,
         per_shot = hist
     else:
         per_shot = (2 * st.nseg + st.seg) * field + misfit_bytes
-    return min(chunk, max(1, budget // max(per_shot, 1))), bool(stream)
+    return _shots_per_batch(nsrc, shot_chunk, per_shot, budget), bool(stream)
 
 
 def _shot_objective(geometry, obs_stack, dw_stack, misfit_func, calc_grad,

@@ -1,6 +1,6 @@
-"""The CUDA kernels of devito_fwi_tpu_torch.ops.cuda_acoustic and
-ops.cuda_bfm against their plain torch twins, on the card (marked ``cuda``;
-each test skips without one). The file imports no JAX, so on a machine
+"""The CUDA kernels of devito_fwi_tpu_torch.ops.cuda_acoustic,
+ops.cuda_bfm and ops.cuda_staggered against their plain torch twins, on the
+card (marked ``cuda``; each test skips without one). The file imports no JAX, so on a machine
 without it run it as
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
@@ -13,7 +13,10 @@ Small case: circle-isotropic 61x61, nbl=10, 2 shots, space_order 4 and 8,
 with and without the free surface; the residual rows are seeded noise. The
 checkpoint-route gradient must equal the streamed one bitwise. The slab
 kernel runs on seeded planes that reach every row and lane offset it
-takes, in both layouts.
+takes, in both layouts. The elastic kernels run on a two-layer 61 x 48
+model (nbl 10, 2-3 shots, space order 4 and 8); the elastic objective on
+the card is held against its CPU twins, and ElasticWaveSolver against the
+reference goldens.
 """
 import numpy as np
 import pytest
@@ -161,3 +164,123 @@ def test_push_kernel_matches_twin(cuda, blocked):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (2, 5, 40, 128)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# elastic (ops.cuda_staggered, csrc/elastic2d.cu)
+# ---------------------------------------------------------------------------
+
+def _elastic_operands(space_order, dev, nsrc=2):
+    """A two-layer 61 x 48 elastic model (nbl 10), ``nsrc`` shots and 41
+    receivers on the card: the kernels' operands and keywords."""
+    from devito_fwi_tpu_torch.models.model import SeismicModel
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    shape = (61, 48)
+    vp = np.full(shape, 2.0, np.float32)
+    vp[:, 24:] = 2.6
+    vs = vp / np.float32(np.sqrt(3.0))
+    vs[:, :4] = 0.0
+    rho = (0.31 * (1e3 * vp) ** 0.25).astype(np.float32)
+    model = SeismicModel(origin=(0., 0.), spacing=(10., 10.), shape=shape,
+                         space_order=space_order, vp=vp, vs=vs, b=1.0 / rho,
+                         nbl=10, bcs="mask")
+    src = np.stack([np.linspace(50., 550., nsrc), np.full(nsrc, 20.)], 1)
+    rec = np.stack([np.linspace(0., 600., 41), np.full(41, 30.)], 1)
+    geom = AcquisitionGeometry(model, rec, src, 0., 250., f0=0.015,
+                               src_type="Ricker")
+    s_idx, s_w = interp_table(geom.src_positions, model.origin_pml,
+                              model.spacing)
+    r_idx, _ = interp_table(geom.rec_positions, model.origin_pml,
+                            model.spacing)
+    nx, nz = model.padded_shape
+    dt = float(model.critical_dt)
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    prm = cs.stagger_params(T(model.lam), T(model.mu), T(model.b),
+                            T(model.damp))
+    injT = cs.source_pattern(s_idx[:, None], s_w[:, None], dt, (nx, nz),
+                             torch.float32, dev).transpose(1, 2).contiguous()
+    kw = dict(nt=geom.nt, nx=nx, nz=nz, space_order=space_order,
+              spacing=model.spacing, z0=int(r_idx[..., 1].min()))
+    return model, geom, prm, injT, T(geom.src.data), dt, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+def test_elastic_kernels_match_twins(cuda, space_order):
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    _, _, prm, injT, wav, dt, kw = _elastic_operands(space_order, cuda)
+    nsteps = kw["nt"] - 1
+    seg = 16
+    nseg = -(-nsteps // seg)
+    wav10 = cs.pad_wavelet(wav, nsteps, nsteps)   # one segment
+    wav9 = cs.pad_wavelet(wav, nsteps, seg * nseg)
+    res = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, nseg, seg, 2, kw["nx"])), dtype=torch.float32, device=cuda)
+    cs.reset_counters()
+    rows10 = cs.elastic_segments(*prm, injT, wav10, dt, **kw)
+    fwd = cs.elastic_fwd_hist_segments(*prm, injT, wav9, dt, seg=seg, **kw)
+    imgs = cs.elastic_grad_stream_segments(*prm, fwd[1], res, dt, seg=seg,
+                                           **kw)
+    assert all(n == 1 for n in cs.LAUNCHES.values())
+    assert sum(cs.TWIN_CALLS.values()) == 0
+    torch.cuda.synchronize()
+    _close([rows10], [cs.elastic_segments_plain(*prm, injT, wav10, dt,
+                                                **kw)])
+    _close(fwd, cs.elastic_fwd_hist_plain(*prm, injT, wav9, dt, seg=seg,
+                                          **kw))
+    _close(imgs, cs.elastic_grad_stream_plain(*prm, fwd[1], res, dt,
+                                              seg=seg, **kw))
+    nx = kw["nx"]
+    a = rows10[:, :, :, 0].reshape(2, -1, 2, nx)[:, :nsteps]
+    assert torch.equal(a, fwd[0].reshape(2, -1, 2, nx)[:, :nsteps])
+
+
+@pytest.mark.cuda
+def test_elastic_solver_golden_on_the_card(cuda):
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.ops.elastic_wavesolver import ElasticWaveSolver
+    model = demo_model("layers-elastic", space_order=4, shape=(50, 50),
+                       nbl=40, dtype=np.float32, spacing=(20., 20.))
+    geometry = setup_geometry(model, 1000.)
+    rec1, rec2, _, _, _ = ElasticWaveSolver(model, geometry,
+                                            space_order=4).forward()
+    assert np.isclose(np.linalg.norm(rec1.data), 19.25636, atol=1e-3, rtol=0)
+    assert np.isclose(np.linalg.norm(rec2.data), 0.627606, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_elastic_objective_on_the_card_matches_the_twins(cuda):
+    """elastic_fwi_obj_multi on cuda (kernels) against device='cpu' (twins):
+    the sweeps agree bitwise, the traces' matrix products sum in another
+    order, so the objective and gradients agree to f32 rounding (1e-5)."""
+    from devito_fwi_tpu_torch import elastic_fwi as tel
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    model, geom, *_ = _elastic_operands(4, cuda, nsrc=3)
+    obs, _ = tel.elastic_fm_multi(geom, device="cpu")
+    vp, vs, rho = tel.model_vp_vs_rho(model)
+    vp0 = model.crop(vp) * 1.03
+    out = {}
+    cs.reset_counters()
+    for dev in ("cuda", "cpu"):
+        out[dev] = tel.elastic_fwi_obj_multi(geom, obs, calc_grad=True,
+                                             vp=vp0, device=dev)
+    assert cs.LAUNCHES["elastic_fwd_hist_segments"] == 1
+    assert cs.LAUNCHES["elastic_grad_stream_segments"] == 1
+    (fc, gc, _), (fp, gp, _) = out["cuda"], out["cpu"]
+    assert abs(fc - fp) <= 1e-5 * abs(fp)
+    for k in ("vp", "vs", "rho"):
+        assert np.abs(gc[k] - gp[k]).max() <= 1e-5 * np.abs(gp[k]).max(), k
+
+
+@pytest.mark.cuda
+def test_elastic_rejects_what_the_kernels_do_not_take(cuda):
+    from devito_fwi_tpu_torch import elastic_fwi as tel
+    model, geom, *_ = _elastic_operands(4, cuda)
+    obs, _ = tel.elastic_fm_multi(geom, device="cpu")
+    rec = np.stack([np.linspace(0., 600., 41), np.linspace(30., 200., 41)],
+                   1)
+    bad = AcquisitionGeometry(model, rec, geom.src_positions, 0., 250.,
+                              f0=0.015, src_type="Ricker")
+    with pytest.raises(ValueError, match="adjacent z-planes"):
+        tel.elastic_fm_multi(bad, device="cuda")

@@ -9,11 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from devito_fwi_tpu_torch import elastic_fwi as tel
 from devito_fwi_tpu_torch import fwi as tfwi
+from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
 from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
 from devito_fwi_tpu_torch.models.presets import demo_model
 from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
 from devito_fwi_tpu_torch.ops import cuda_bfm as cb
+from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+from devito_fwi_tpu_torch.ops.elastic_wavesolver import ElasticWaveSolver
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "devito_fwi_tpu_torch")
@@ -126,3 +130,56 @@ def test_ctypes_signatures_match_the_cuda_source():
 def test_ctypes_signatures_match_the_bfm_source():
     """The same for cuda_bfm.SIGNATURES and csrc/bfm_push.cu."""
     _check_signatures(cb, "bfm_push.cu")
+
+
+def test_ctypes_signatures_match_the_elastic_source():
+    """The same for cuda_staggered.SIGNATURES and csrc/elastic2d.cu."""
+    _check_signatures(cs, "elastic2d.cu")
+
+
+def _elastic_geometry():
+    model = demo_model("layers-elastic", shape=(21, 21), spacing=(10., 10.),
+                       nbl=4, space_order=4)
+    rec = np.stack([np.linspace(0., 200., 11), np.full(11, 20.)], 1)
+    return AcquisitionGeometry(model, rec, np.array([[100., 20.]]), 0.,
+                               50., f0=0.01, src_type="Ricker")
+
+
+@pytest.mark.parametrize("entry", ["elastic_fm_multi",
+                                   "elastic_fwi_obj_multi", "ElasticFwiLoss",
+                                   "ElasticWaveSolver", "physics_elastic"])
+def test_elastic_entry_points_raise_on_cuda_without_card(entry,
+                                                         monkeypatch,
+                                                         tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _elastic_geometry()
+    obs, _ = tel.elastic_fm_multi(g, device="cpu")
+    vp, vs, rho = (g.model.crop(f) for f in tel.model_vp_vs_rho(g.model))
+    x = 1.0 / vp.astype(np.float64).reshape(-1) ** 2
+    calls = {
+        "elastic_fm_multi": lambda: tel.elastic_fm_multi(g),
+        "elastic_fwi_obj_multi": lambda: tel.elastic_fwi_obj_multi(
+            g, obs, calc_grad=True),
+        "ElasticFwiLoss": lambda: tel.ElasticFwiLoss(vs, rho)(x, g, obs,
+                                                             None),
+        "ElasticWaveSolver": lambda: ElasticWaveSolver(g.model, g),
+        "physics_elastic": lambda: marm.run_fwi(marm.SMARM2, [
+            "--physics", "elastic", "--maxiter", "1", "--nsrc", "2",
+            "--odir", str(tmp_path)]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_viscoacoustic_physics_still_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        marm.run_fwi(marm.SMARM2, ["--physics", "viscoacoustic",
+                                   "--odir", str(tmp_path)])
+
+
+def test_elastic_wrappers_reject_other_devices():
+    t = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        cs.elastic_segments(*([t] * 9), torch.zeros((1, 4, 8), device="meta"),
+                            torch.zeros(5, device="meta"), 1.0, nt=6, nx=8,
+                            nz=4, space_order=4, spacing=(10., 10.), z0=1)

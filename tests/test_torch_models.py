@@ -156,3 +156,34 @@ def test_smarmn_misfits_and_flags_match_the_jax_driver():
                                 cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_marm._reject_unported(parser.parse_args(["--filter", "1"]), cfg)
+
+
+def test_smarm2_elastic_setup_equal():
+    """The port's SMARM2 configuration and elastic setup (vendored
+    model_data/SMARM2) build the JAX driver's elastic models: lam, mu, b,
+    the mask boundary, the dt pinned for the 5.2 km/s bound (3.1710 ms),
+    the geometries (nt 1421, receivers on padded rows 42-43) and the
+    smooth-model (vs, rho) the inversion pins."""
+    jmc = _jax_marmousi_common()
+    assert t_marm.SMARM2 == t_marm.MarmousiConfig(**vars(jmc.SMARM2))
+    args = SimpleNamespace(data_dir=t_marm.default_data_dir(), bathy=1)
+    tmodels, tgeoms, tfields, tmask = t_marm.setup_elastic(t_marm.SMARM2,
+                                                           args, 31)
+    jmodels, jgeoms, jfields, jmask = jmc.setup_elastic(jmc.SMARM2, args, 31)
+    assert np.array_equal(tmask, jmask)
+    for a, b in zip(tfields, jfields):
+        assert np.array_equal(a, b)
+    for tm, jm in zip(tmodels, jmodels):
+        for name in ("lam", "mu", "b", "damp"):
+            assert np.array_equal(getattr(tm, name), getattr(jm, name)), name
+        assert tm.critical_dt == jm.critical_dt
+    assert abs(tmodels[0].critical_dt - 3.1710) < 5e-5
+    for tg, jg in zip(tgeoms, jgeoms):
+        assert tg.nt == jg.nt == 1421
+        assert np.array_equal(tg.src_positions, jg.src_positions)
+        assert np.array_equal(tg.rec_positions, jg.rec_positions)
+        assert np.array_equal(tg.src.data, jg.src.data)
+    ri, _ = t_interp(tgeoms[0].rec_positions, tmodels[0].origin_pml,
+                     tmodels[0].spacing)
+    assert set(np.unique(ri[..., 1])) == {42, 43}
+    assert tmodels[0].padded_shape == (420, 220)
