@@ -61,8 +61,22 @@ result line is printed:
    the figure the chunks are sized with; the gradient in two chunks
    (``shot_chunk=16``, a smaller card's split) against the memory-sized
    one;
-15. a ``kernels`` JSON line; the card's name and power limit; and last
-   ``{"ok": true, "device": {...}}``.
+15. viscoacoustic kernel vs twin, quick gate: each sls/2 CUDA kernel
+   against its twin at the SMARMN viscoacoustic grid (380 x 186 padded,
+   nt 1338, 1336 steps) with 3 shots, on every output; the reference's
+   sls/2 example (``ViscoacousticWaveSolver``, golden norm 684.385);
+16. main path, viscoacoustic: the SMARMN viscoacoustic FWI driver (29
+   shots, ``--physics viscoacoustic --misfit 0 --maxiter 2``) on cuda:
+   finite and decreasing misfit, every visco kernel launched, no twin
+   called, the shot chunks of each gradient;
+17. viscoacoustic kernel vs twin at the main path's shapes (29 shots; the
+   history is 21.9 GB): kernel beside twin, CUDA events, with the card's
+   bound; the history forward's twin in shot chunks;
+18. viscoacoustic profile: one steady-state gradient and one trial under
+   ``torch.profiler``; the gradient's peak device bytes per shot against
+   the figure the chunks are sized with;
+19. a ``kernels`` JSON line; the card's name and power limit; the script's
+   total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -90,7 +104,7 @@ SEED = 0
 # operations one for one, so they should agree bitwise; 1e-6 of each
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
-SOURCES = ("acoustic2d", "bfm_push", "elastic2d")
+SOURCES = ("acoustic2d", "bfm_push", "elastic2d", "visco2d")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
@@ -103,6 +117,10 @@ REPLACES = {
     "elastic_fwd_hist_segments": "devito_fwi_tpu/ops/pallas_staggered.py:607",
     "elastic_grad_stream_segments":
         "devito_fwi_tpu/ops/pallas_staggered.py:763",
+    "visco_sls2_segments": "devito_fwi_tpu/ops/pallas_staggered.py:395",
+    "visco_fwd_hist_segments": "devito_fwi_tpu/ops/pallas_staggered.py:924",
+    "visco_grad_stream_segments":
+        "devito_fwi_tpu/ops/pallas_staggered.py:1052",
 }
 
 
@@ -258,6 +276,35 @@ def elastic_bounds(tb, B):
             params + B * nsteps * 4 * field * f + B * nsteps * 2 * tb.nx * f
             + 5 * cells * f,
             cells * nsteps * (48 * r + 52)),
+    }
+    return {name: bound(*w) for name, w in work.items()}
+
+
+def visco_bounds(tb, B):
+    """The viscoacoustic kernels' bounds at this run's shapes: inputs read
+    once, outputs written once. Per cell-step, with r = space_order/2 and a
+    staggered first derivative of 2r taps costing 4r operations: the
+    forward L (four derivatives, two b products, one sum) and the update,
+    16r + 18, plus 2 for the illumination; the reverse two L's and the
+    pointwise recursion and images, 32r + 31, plus the residual rows."""
+    f = 4
+    field = tb.nz * tb.nx
+    cells = B * field
+    r = tb.kw["space_order"] // 2
+    nsteps = tb.nsteps
+    params = 6 * field * f
+    rows = B * nsteps * 2 * tb.nx * f
+    hist = B * nsteps * 2 * field * f
+    work = {
+        "visco_sls2_segments": (
+            params + cells * f + nsteps * f + rows + cells * f,
+            cells * nsteps * (16 * r + 18)),
+        "visco_fwd_hist_segments": (
+            params + cells * f + nsteps * f + rows + hist + cells * f,
+            cells * nsteps * (16 * r + 20)),
+        "visco_grad_stream_segments": (
+            params + cells * f + hist + rows + nsteps * f + 5 * cells * f,
+            cells * nsteps * (32 * r + 31) + B * nsteps * 2 * tb.nx),
     }
     return {name: bound(*w) for name, w in work.items()}
 
@@ -532,17 +579,216 @@ def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
     torch.cuda.empty_cache()
 
 
+def visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
+                 plain_ms, err, bounds):
+    """Phases 15-18: the viscoacoustic kernels against their twins at 3
+    SMARMN shots and the sls/2 golden, the SMARMN viscoacoustic FWI driver,
+    the kernels against their twins at 29 shots with their times and
+    bounds, and the driver's profile."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    vargs = marm.make_parser(marm.SMARMN).parse_args(
+        ["--physics", "viscoacoustic", "--device", "cuda"])
+    _, geoms, smooth_vp, mask = marm.setup_visco(
+        marm.SMARMN, vargs, marm.SMARMN.nsrc_default)
+    g0 = geoms[1]
+    tb = visco_fwi._Tables(g0, dev)
+    vp = torch.as_tensor(visco_fwi._field(g0.model, "vp"), device=dev)
+    qp = torch.as_tensor(visco_fwi._field(g0.model, "qp"), device=dev)
+    prm, vp2 = tb.operands(vp, qp)
+    kw = tb.kw
+    seg = tb.nsteps   # the objective's layout: one segment of every step
+    wav = tb.wav_pad(seg)
+    s = torch.as_tensor(tb.dt, dtype=torch.float32, device=dev)
+    wavs2 = wav * (s * s)
+    B = g0.nsrc
+    qpc = g0.model.crop(g0.model.qp)
+    print(f"   SMARMN viscoacoustic: padded grid {tb.nx} x {tb.nz}, nt "
+          f"{tb.nt} ({tb.nsteps} steps, one segment), dt {tb.dt:.4f} ms, "
+          f"receivers on rows {tb.z0}, {tb.z0 + 1}, space_order "
+          f"{kw['space_order']}, qp {qpc.min():.1f}-{qpc.max():.1f}, {B} "
+          "shots")
+
+    def residual_rows(nb):
+        return torch.as_tensor(rng.standard_normal((nb, 1, seg, 2, tb.nx)),
+                               dtype=torch.float32, device=dev)
+
+    phase(f"15 viscoacoustic kernel vs twin (quick gate), {NSHOTS_CHECK} "
+          "shots at the SMARMN grid")
+    injT, injwT = tb.patterns(vp2, 0, NSHOTS_CHECK)
+    compare("visco_sls2_segments",
+            cv.visco_sls2_segments(*prm, injT, wav, tb.dt, **kw),
+            cv.visco_sls2_plain(*prm, injT, wav, tb.dt, **kw))
+    got = cv.visco_fwd_hist_segments(*prm, injT, wav, tb.dt, seg=seg, **kw)
+    compare("visco_fwd_hist_segments", got,
+            cv.visco_fwd_hist_plain(*prm, injT, wav, tb.dt, seg=seg, **kw))
+    gops = (*prm, injwT, got[1], residual_rows(NSHOTS_CHECK), wavs2, tb.dt)
+    compare("visco_grad_stream_segments",
+            cv.visco_grad_stream_segments(*gops, seg=seg, **kw),
+            cv.visco_grad_stream_plain(*gops, seg=seg, **kw))
+    del got, gops, injT, injwT
+    torch.cuda.empty_cache()
+    # the reference's sls/2 example through ViscoacousticWaveSolver
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.models.presets import demo_model
+    from devito_fwi_tpu_torch.ops.viscoacoustic_wavesolver import (
+        ViscoacousticWaveSolver)
+    model = demo_model("layers-viscoacoustic", space_order=4, shape=(50, 50),
+                       nbl=40, dtype=np.float32, spacing=(20., 20.))
+    before = cv.LAUNCHES["visco_sls2_segments"]
+    rec, _, _, _ = ViscoacousticWaveSolver(
+        model, setup_geometry(model, 1000.), space_order=4).forward()
+    n = np.linalg.norm(rec.data)
+    print(f"   ViscoacousticWaveSolver sls/2 golden (layers-viscoacoustic 50 "
+          f"x 50): |rec| = {n:.4f} (684.385, atol 1e-2), through the "
+          "modeling kernel: "
+          f"{cv.LAUNCHES['visco_sls2_segments'] == before + 1}")
+    if not (abs(n - 684.385) <= 1e-2 and
+            cv.LAUNCHES["visco_sls2_segments"] == before + 1):
+        raise AssertionError("the viscoacoustic golden disagrees or did not "
+                             "run the kernel")
+
+    phase(f"16 main path: SMARMN viscoacoustic FWI, {B} shots, --physics "
+          "viscoacoustic --misfit 0 --maxiter 2, on cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizing = []
+    shots_per_batch = visco_fwi._shots_per_batch
+
+    def spy(nsrc, shot_chunk, per_shot, budget):
+        out = shots_per_batch(nsrc, shot_chunk, per_shot, budget)
+        sizing.append((per_shot, budget, out))
+        return out
+
+    visco_fwi._shots_per_batch = spy
+    try:
+        stats = run_driver(marm, marm.SMARMN, ["--physics", "viscoacoustic",
+                                               "--misfit", "0"], counters)
+    finally:
+        visco_fwi._shots_per_batch = shots_per_batch
+    check_history(stats)
+    ngrad = sum(1 for c in stats["calls"] if c[0])
+    per = visco_fwi._bytes_per_shot(tb, True, "least_square")
+    grads = [(budget, n) for p, budget, n in sizing if p == per]
+    chunks = [-(-B // n) for _, n in grads]
+    print(f"   shot chunks per gradient: {chunks}, sized from {per / 1e9:.3f}"
+          " GB per shot and 80% of the largest block the allocator could "
+          f"hand out: {[round(b / 0.8 / 1e9, 2) for b, _ in grads]} GB")
+    if not (len(grads) == ngrad and sum(chunks) ==
+            cv.LAUNCHES["visco_fwd_hist_segments"] and
+            all(n == 1 or n * per <= b for b, n in grads)):
+        raise AssertionError(f"the gradients' chunks are not memory-sized: "
+                             f"{grads}")
+    report("viscoacoustic", cv.KERNELS)
+
+    phase(f"17 viscoacoustic kernel vs twin and kernel times, {B} shots "
+          "(main-path shapes)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    injT, injwT = tb.patterns(vp2, 0, B)
+    name = "visco_sls2_segments"
+    ms[name], got = cuda_ms(
+        lambda: cv.visco_sls2_segments(*prm, injT, wav, tb.dt, **kw), 3)
+    plain_ms[name], want = cuda_once(
+        lambda: cv.visco_sls2_plain(*prm, injT, wav, tb.dt, **kw))
+    err[name] = compare(name, got, want)
+    del got, want
+    name = "visco_fwd_hist_segments"
+    ms[name], fwd = cuda_ms(
+        lambda: cv.visco_fwd_hist_segments(*prm, injT, wav, tb.dt, seg=seg,
+                                           **kw), 2)
+    hist = fwd[1]
+    print(f"   history {tuple(hist.shape)}: {hist.numel():.4g} elements, "
+          f"{hist.numel() * 4 / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    plain_ms[name], worst = 0.0, [0.0, 0.0, 0.0]
+    scale = [float(torch.maximum(o.max(), -o.min())) for o in fwd]
+    for lo in range(0, B, TWIN_CHUNK):
+        hi = min(lo + TWIN_CHUNK, B)
+        t_ms, want = cuda_once(lambda: cv.visco_fwd_hist_plain(
+            *prm, injT[lo:hi], wav, tb.dt, seg=seg, **kw))
+        plain_ms[name] += t_ms
+        for k, (g, w) in enumerate(zip(fwd, want)):
+            worst[k] = max(worst[k], float(w.sub_(g[lo:hi]).abs_().max()))
+        del want
+    for k, what in enumerate(("rows", "history", "illumination")):
+        print(f"   {name} {what}: max|kernel-twin| = {worst[k]:.3e} "
+              f"(max|twin| = {scale[k]:.3e}, limit {RTOL:g} x max), twin in "
+              f"shot chunks of {TWIN_CHUNK}")
+        if not np.isfinite(worst[k]) or worst[k] > RTOL * scale[k]:
+            raise AssertionError(f"{name}: kernel disagrees with its twin")
+    err[name] = max(worst)
+    del fwd
+    torch.cuda.empty_cache()
+    name = "visco_grad_stream_segments"
+    gops = (*prm, injwT, hist, residual_rows(B), wavs2, tb.dt)
+    ms[name], got = cuda_ms(
+        lambda: cv.visco_grad_stream_segments(*gops, seg=seg, **kw), 2)
+    plain_ms[name], want = cuda_once(
+        lambda: cv.visco_grad_stream_plain(*gops, seg=seg, **kw))
+    err[name] = compare(name, got, want)
+    del hist, gops, got, want, injT, injwT
+    torch.cuda.empty_cache()
+    bounds.update(visco_bounds(tb, B))
+    for name in cv.KERNELS:
+        b_ms, by, nbytes, nops = bounds[name]
+        print(f"   {name}: kernel {ms[name]:.3f} ms, twin "
+              f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
+              f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
+              f"{b_ms / ms[name]:.1%} of the bound")
+
+    phase(f"18 viscoacoustic profile: one steady-state gradient and one "
+          f"trial, {B} shots")
+    obs = visco_fwi.visco_fm_multi(geoms[0], device="cuda")
+    dw = visco_fwi.visco_fm_multi(geoms[2], device="cuda")
+    loss = visco_fwi.ViscoFwiLoss(device="cuda")
+    x0 = 1.0 / smooth_vp.reshape(-1).astype(np.float64) ** 2
+    for calc_grad in (True, False):
+        def call():
+            return loss(x0, g0, obs, None, dw, mask, calc_grad=calc_grad)
+        call()  # warm: caches, allocator
+        wall, busy, by_name = profile_call(call)
+        what = f"viscoacoustic {'gradient' if calc_grad else 'trial'}"
+        if busy is None:
+            print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy share "
+                  "not measured (the profiler recorded no device events)")
+            continue
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
+              f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
+        for kname, sec in top:
+            print(f"      {sec * 1e3:9.3f} ms  {kname[:110]}")
+    cv.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    loss(x0, g0, obs, None, dw, mask, calc_grad=True)
+    torch.cuda.synchronize()
+    chunk = -(-B // cv.LAUNCHES["visco_fwd_hist_segments"])
+    per = (torch.cuda.max_memory_allocated(dev) - base) / chunk
+    sized = visco_fwi._bytes_per_shot(tb, True, "least_square")
+    print(f"   gradient peak: {per / 1e9:.4f} GB per shot (chunks of "
+          f"{chunk}); sized with {sized / 1e9:.4f} GB")
+    if per > sized:
+        raise AssertionError("the viscoacoustic gradient holds more per shot "
+                             "than visco_fwi._bytes_per_shot says")
+    del obs, dw
+    torch.cuda.empty_cache()
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    from devito_fwi_tpu_torch import elastic_fwi, fwi
+    from devito_fwi_tpu_torch import elastic_fwi, fwi, visco_fwi
     from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
     from devito_fwi_tpu_torch.misfit import bfm, least_square, qWasserstein
     from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
     from devito_fwi_tpu_torch.ops import cuda_bfm as cb
     from devito_fwi_tpu_torch.ops import cuda_build
     from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
 
     phase("1 card")
     card = card_line()
@@ -559,6 +805,7 @@ def main():
     ca._lib()
     cb._lib()
     cs._lib()
+    cv._lib()
     print(f"   nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     print(f"   built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -731,15 +978,16 @@ def main():
     torch.cuda.empty_cache()
 
     counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
-                bfm.reset_counts)
+                cv.reset_counters, bfm.reset_counts)
     launches = {}
 
     def report(path, names):
         """Read the counts just after a path: every kernel of ``names``
         launched, no twin called; the path's launches of ``names`` go into
         the kernels line."""
-        la = {**ca.LAUNCHES, **cb.LAUNCHES, **cs.LAUNCHES}
-        twins = {**ca.TWIN_CALLS, **cb.TWIN_CALLS, **cs.TWIN_CALLS}
+        la = {**ca.LAUNCHES, **cb.LAUNCHES, **cs.LAUNCHES, **cv.LAUNCHES}
+        twins = {**ca.TWIN_CALLS, **cb.TWIN_CALLS, **cs.TWIN_CALLS,
+                 **cv.TWIN_CALLS}
         print(f"   kernel launches: {la}")
         print(f"   twin calls: {twins}")
         if any(twins.values()) or min((la[n] for n in names),
@@ -893,18 +1141,22 @@ def main():
 
     elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
                    plain_ms, err, bounds)
+    visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
+                 plain_ms, err, bounds)
 
-    phase("15 result")
+    phase("19 result")
     rows = []
-    for n in ca.KERNELS + cb.KERNELS + cs.KERNELS:
+    for n in ca.KERNELS + cb.KERNELS + cs.KERNELS + cv.KERNELS:
         src = ("bfm_push" if n in cb.KERNELS else
-               "elastic2d" if n in cs.KERNELS else "acoustic2d")
+               "elastic2d" if n in cs.KERNELS else
+               "visco2d" if n in cv.KERNELS else "acoustic2d")
         rows.append(dict(
             name=n, route="cuda", source=f"devito_fwi_tpu_torch/csrc/{src}.cu",
             replaces=REPLACES[n], launches=launches[n], max_abs_err=err[n],
             ms=ms[n], plain_ms=plain_ms[n], bound_ms=bounds[n][0],
             bound_by=bounds[n][1], library_ms=library_ms.get(n)))
     print(json.dumps({"kernels": rows}))
+    print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,6 +4,7 @@ takes only numpy here.
 
     model = model_from_numpy(dict(vp=..., damp=..., origin=..., ...))
     model = model_from_numpy(dict(lam=..., mu=..., b=..., damp=..., ...))
+    model = model_from_numpy(dict(vp=..., qp=..., b=..., damp=..., ...))
     geometry = geometry_from_numpy(model, dict(rec_positions=..., ...))
 """
 from __future__ import annotations
@@ -29,20 +30,28 @@ def _elastic_velocities(d):
 
 
 def model_from_numpy(d):
-    """A ``SeismicModel`` from ``d``: either ``vp`` (acoustic) or ``lam``,
-    ``mu`` and optionally ``b`` and ``vs`` (elastic), each on the padded
-    grid (numpy; ``b`` may be a scalar); ``damp`` on the padded grid or a
-    scalar (the "damp" profile for acoustic models, the "mask" one for
-    elastic ones); ``origin``, ``spacing``, ``shape``, ``nbl``,
+    """A ``SeismicModel`` from ``d``: either ``vp`` (acoustic), ``vp`` and
+    ``qp`` and optionally ``b`` (viscoacoustic) or ``lam``, ``mu`` and
+    optionally ``b`` and ``vs`` (elastic), each on the padded grid (numpy;
+    ``b`` may be a scalar); ``damp`` on the padded grid or a scalar (the
+    "damp" profile for acoustic models, the "mask" one for viscoacoustic
+    and elastic ones); ``origin``, ``spacing``, ``shape``, ``nbl``,
     ``space_order``, ``fs`` and ``dt`` (the user time step, or None for
     the CFL one). The padded fields are copied as given, so a padding that
     is not an edge replication survives."""
     shape = tuple(int(s) for s in d["shape"])
     core = tuple(slice(0, n) for n in shape)
     elastic = "lam" in d
+    visco = not elastic and d.get("qp") is not None
     if elastic:
         vp, vs, b = _elastic_velocities(d)
         kw = dict(vp=vp[core], vs=vs[core], b=b[core], bcs="mask")
+    elif visco:
+        vp = np.asarray(d["vp"])
+        b = np.broadcast_to(np.asarray(d.get("b", 1.0), dtype=vp.dtype),
+                            vp.shape)
+        kw = dict(vp=vp[core], qp=np.asarray(d["qp"])[core], b=b[core],
+                  bcs="mask")
     else:
         vp = np.asarray(d["vp"])
         kw = dict(vp=vp[core], bcs="damp")
@@ -61,6 +70,11 @@ def model_from_numpy(d):
             model.vs = np.array(d["vs"])
     else:
         model.vp = vp.copy()
+    if visco:
+        model.qp = np.array(d["qp"])
+        b = d.get("b", 1.0)
+        model.b = np.array(b) if isinstance(b, np.ndarray) \
+            else vp.dtype.type(b)
     damp = d["damp"]
     model.damp = np.array(damp) if isinstance(damp, np.ndarray) \
         else vp.dtype.type(damp)

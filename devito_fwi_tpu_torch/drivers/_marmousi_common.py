@@ -1,7 +1,9 @@
 """Shared Marmousi driver logic (SMARMN and SMARM2): acoustic FWI with
 the L2 (``--misfit 0``), W2-1d (``--misfit 1``) or W2-2d (``--misfit 2``)
-misfit, and elastic FWI (``--physics elastic``: velocity-stress
-propagator, vp inverted with vs and rho pinned at the smooth model's
+misfit, elastic FWI (``--physics elastic``: velocity-stress propagator, vp
+inverted with vs and rho pinned at the smooth model's fields) and
+viscoacoustic FWI (``--physics viscoacoustic``: the SLS 2nd-order
+propagator, vp inverted with qp and rho pinned at the smooth model's
 fields).
 
 CLI/flow parity with ``drivers/_marmousi_common.py`` of the JAX package
@@ -11,9 +13,9 @@ plus ``--device`` (default "cuda"; "cpu" runs the plain torch twins). The
 raw velocity models are read from ``--data-dir`` (default: the vendored
 ``model_data/`` at the repo root).
 
-Not ported yet (each raises ``NotImplementedError``): ``--physics
-viscoacoustic`` (ROADMAP.md queue A item 12), ``--filter 1`` and
-``--resample`` (item 4), and the forward-modeling drivers (item 6).
+Not ported yet (each raises ``NotImplementedError``): ``--filter 1`` and
+``--resample`` (ROADMAP.md queue A item 4), and the forward-modeling
+drivers (item 6).
 """
 import argparse
 import os
@@ -29,6 +31,7 @@ from ..misfit import least_square, qWasserstein
 from ..models.geometry import AcquisitionGeometry
 from ..models.model import SeismicModel
 from ..optimize import LBFGS, minimize
+from ..visco_fwi import ViscoFwiLoss, visco_fm_multi
 
 
 @dataclass
@@ -84,8 +87,9 @@ def make_parser(cfg):
                    help="random shot subset per iteration (0 = all shots)")
     p.add_argument("--physics", type=str, default="acoustic",
                    choices=["acoustic", "elastic", "viscoacoustic"],
-                   help="propagator: acoustic, or elastic staggered-grid "
-                        "Vp/Vs/rho FWI (viscoacoustic is not ported)")
+                   help="propagator: acoustic, elastic staggered-grid "
+                        "Vp/Vs/rho FWI, or viscoacoustic SLS "
+                        "(Q-compensated) FWI")
     p.add_argument("--resume", type=int, default=0,
                    help="resume from the latest checkpoint under the log "
                         "dir")
@@ -222,6 +226,60 @@ def setup_elastic(cfg, args, nsources):
         (true_vp, smooth_vp, vs_0, rho_0), bathy_mask
 
 
+def visco_fields(cfg, vp):
+    """(qp, rho) of a viscoacoustic Marmousi run: qp from Li's empirical
+    relation 3.516 (1000 vp)^2.2 1e-6 (reference ``preset_models.py:349``),
+    rho from Gardner's relation with water at 1.0 g/cc."""
+    qp = (3.516 * ((vp * 1000.0) ** 2.2) * 1e-6).astype(np.float32)
+    rho = (0.31 * (1e3 * vp) ** 0.25).astype(np.float32)
+    rho[:, :cfg.bathy_rows] = 1.0
+    return qp, rho
+
+
+def setup_visco(cfg, args, nsources):
+    """Viscoacoustic counterpart of ``setup``: (true, init, water) models
+    carry (qp, b) derived from each model's vp (``visco_fields``) with the
+    mask boundary; one pinned dt (the true model's CFL) keeps all time axes
+    aligned."""
+    origin = (0, 0)
+    true_vp, smooth_vp = load_models(cfg, args.data_dir)
+    constant_vp = np.ones(cfg.shape, dtype=np.float32) * 1.5
+
+    bathy_mask = np.ones(cfg.shape, dtype=np.float32)
+    bathy_mask[:, :cfg.bathy_rows] = 0
+    if not args.bathy:
+        bathy_mask = None
+
+    def model(vp, dt=None):
+        qp, rho = visco_fields(cfg, vp)
+        return SeismicModel(origin=origin, spacing=cfg.spacing,
+                            shape=cfg.shape, space_order=cfg.space_order,
+                            vp=vp, qp=qp, b=(1.0 / rho), nbl=cfg.nbl,
+                            fs=False, dt=dt, bcs="mask")
+
+    dt_v = float(model(true_vp).critical_dt)
+    true_model = model(true_vp, dt=dt_v)
+    init_model = model(smooth_vp, dt=dt_v)
+    water_model = model(constant_vp, dt=dt_v)
+
+    src_coordinates = np.empty((nsources, 2))
+    src_coordinates[:, 0] = np.linspace(0, true_model.domain_size[0],
+                                        num=nsources)
+    src_coordinates[:, -1] = 2 * cfg.spacing[0]
+    nreceivers = cfg.shape[0]
+    rec_coordinates = np.empty((nreceivers, 2))
+    rec_coordinates[:, 0] = np.linspace(cfg.spacing[0],
+                                        true_model.domain_size[0]
+                                        - cfg.spacing[0], num=nreceivers)
+    rec_coordinates[:, 1] = 2 * cfg.spacing[0]
+
+    geoms = [AcquisitionGeometry(m, rec_coordinates, src_coordinates, 0.,
+                                 cfg.tn, f0=cfg.f0, src_type="Ricker")
+             for m in (true_model, init_model, water_model)]
+    return (true_model, init_model, water_model), geoms, smooth_vp, \
+        bathy_mask
+
+
 class TimedLoss:
     """An objective (default: ``fwi_loss`` on ``device``) recording each
     call in order as (calc_grad, objective, host seconds). Each call ends
@@ -252,9 +310,6 @@ def misfits(cfg):
 
 
 def _reject_unported(args, cfg):
-    if args.physics == "viscoacoustic":
-        raise NotImplementedError("--physics viscoacoustic is not ported "
-                                  "yet (ROADMAP.md queue A item 12)")
     if args.filter:
         raise NotImplementedError("--filter 1: Filter is not ported yet "
                                   "(ROADMAP.md queue A item 4)")
@@ -318,6 +373,51 @@ def run_fwi_elastic(cfg, args):
     return m, dict(calls=loss.calls, model_s=model_s)
 
 
+def run_fwi_visco(cfg, args):
+    """Viscoacoustic (SLS) Marmousi FWI: vp inversion in squared slowness
+    with qp and rho pinned at the smooth model's fields (Q-compensated FWI;
+    the reference's viscoacoustic solver has no gradient). Returns (m,
+    stats) as ``run_fwi`` does."""
+    result_dir = args.odir
+    misfit_type = args.misfit
+    models, geoms, smooth_vp, bathy_mask = setup_visco(cfg, args, args.nsrc)
+    geometry1, geometry0, geometry2 = geoms
+    print("viscoacoustic FWI %s: nsrc %d, misfit %d, device %s, dt %.4f ms"
+          % (cfg.name, args.nsrc, misfit_type, args.device,
+             geometry0.model.critical_dt))
+
+    t0 = perf_counter()
+    obs = visco_fm_multi(geometry1, device=args.device)
+    direct_wave = visco_fm_multi(geometry2, device=args.device)
+    model_s = perf_counter() - t0
+    misfit_func = misfits(cfg)[misfit_type]
+    loss = TimedLoss(args.device, ViscoFwiLoss(device=args.device))
+    vmin, vmax = 1.5, 5.2
+    bounds = [1.0 / vmax ** 2, 1.0 / vmin ** 2]
+    m0 = 1. / (smooth_vp.reshape(-1).astype(np.float64)) ** 2
+
+    tic = perf_counter()
+    log_path = os.path.join(result_dir, "log_va" + str(misfit_type))
+    optimizer = LBFGS(memory=10, ls_method="Bracket",
+                      step_len_init=args.steplen, max_ls=args.maxls,
+                      log_path=log_path)
+    minimizer = minimize(optimizer, maxIter=args.maxiter, ftol=args.ftol,
+                         gtol=args.gtol, batch_size=args.batch_size or None,
+                         checkpoint_freq=args.checkpoint_freq,
+                         resume=bool(args.resume), loss_fn=loss,
+                         log_path=log_path)
+    m = minimizer.run(m0, geometry0, obs, misfit_func, direct_wave,
+                      bathy_mask, args.precond, bounds)
+    print(f"\n Elapsed time: {perf_counter() - tic:.2f}s")
+
+    vp = 1.0 / np.sqrt(m.reshape(cfg.shape))
+    vp.astype(np.float32).tofile(
+        os.path.join(result_dir,
+                     "marmousi_visco_result_misfit_" + str(misfit_type)))
+    print("final model range: %.3f %.3f km/s" % (vp.min(), vp.max()))
+    return m, dict(calls=loss.calls, model_s=model_s)
+
+
 def run_fwi(cfg, argv=None):
     """Parse ``argv`` (default: the command line) and run the inversion.
     Returns (m, stats): the final squared slowness and a dict with the
@@ -331,6 +431,8 @@ def run_fwi(cfg, argv=None):
     os.makedirs(result_dir, exist_ok=True)
     if args.physics == "elastic":
         return run_fwi_elastic(cfg, args)
+    if args.physics == "viscoacoustic":
+        return run_fwi_visco(cfg, args)
     misfit_type = args.misfit
     print("---------------- Parameter Setting ------------\n",
           "\t Result dir: %s \t Misfit function: %d \t Precondition: %d\n"

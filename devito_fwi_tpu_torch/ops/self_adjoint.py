@@ -1,8 +1,8 @@
 """Half-cell-shifted first derivatives: the skew-adjoint pair the
 staggered-grid propagators are built from.
 
-Port of ``staggered_weights`` and ``shifted_derivative`` of
-``devito_fwi_tpu.ops.self_adjoint``. The self-adjoint visco-acoustic
+Port of ``staggered_weights``, ``shifted_derivative`` and ``laplacian_sa``
+of ``devito_fwi_tpu.ops.self_adjoint``. The self-adjoint visco-acoustic
 propagator of that module is not ported yet (ROADMAP.md queue A item 14).
 """
 from __future__ import annotations
@@ -12,7 +12,7 @@ import numpy as np
 from ..utils.fd import fd_weights
 from .acoustic import shift
 
-__all__ = ["staggered_weights", "shifted_derivative"]
+__all__ = ["staggered_weights", "shifted_derivative", "laplacian_sa"]
 
 
 def staggered_weights(space_order):
@@ -37,3 +37,17 @@ def shifted_derivative(u, w, offsets, axis, inv_h):
     for k in range(1, len(w)):
         out = out + w[k] * shift(u, int(offsets[k]), axis)
     return out * inv_h
+
+
+def laplacian_sa(u, b, wp, op, wm, om, inv_h):
+    """The self-adjoint spatial operator ``sum_d D-_d(b * D+_d(u))`` over the
+    trailing ``len(inv_h)`` axes, the x term first; ``b`` multiplies each
+    axis's inner derivative before the outer one."""
+    ndim_sp = len(inv_h)
+    offset = u.dim() - ndim_sp
+    out = 0.0
+    for d in range(ndim_sp):
+        axis = offset + d
+        g = shifted_derivative(u, wp, op, axis, inv_h[d])
+        out = out + shifted_derivative(b * g, wm, om, axis, inv_h[d])
+    return out

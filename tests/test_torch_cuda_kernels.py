@@ -16,7 +16,9 @@ kernel runs on seeded planes that reach every row and lane offset it
 takes, in both layouts. The elastic kernels run on a two-layer 61 x 48
 model (nbl 10, 2-3 shots, space order 4 and 8); the elastic objective on
 the card is held against its CPU twins, and ElasticWaveSolver against the
-reference goldens.
+reference goldens. The viscoacoustic kernels run on a two-layer 61 x 48
+model with qp 60/90 (nbl 10, 2-3 shots, space order 4 and 8) in the same
+way, with the sls/2 solver golden.
 """
 import numpy as np
 import pytest
@@ -284,3 +286,133 @@ def test_elastic_rejects_what_the_kernels_do_not_take(cuda):
                               f0=0.015, src_type="Ricker")
     with pytest.raises(ValueError, match="adjacent z-planes"):
         tel.elastic_fm_multi(bad, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# viscoacoustic (ops.cuda_visco, csrc/visco2d.cu)
+# ---------------------------------------------------------------------------
+
+def _visco_operands(space_order, dev, nsrc=2):
+    """A two-layer 61 x 48 viscoacoustic model (nbl 10), ``nsrc`` shots and
+    41 receivers on the card: the kernels' operands and keywords."""
+    from devito_fwi_tpu_torch.models.model import SeismicModel
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    shape = (61, 48)
+    vp = np.full(shape, 2.0, np.float32)
+    vp[:, 24:] = 2.6
+    qp = np.full(shape, 60.0, np.float32)
+    qp[:, 24:] = 90.0
+    rho = (0.31 * (1e3 * vp) ** 0.25).astype(np.float32)
+    model = SeismicModel(origin=(0., 0.), spacing=(10., 10.), shape=shape,
+                         space_order=space_order, vp=vp, qp=qp, b=1.0 / rho,
+                         nbl=10, bcs="mask")
+    src = np.stack([np.linspace(50., 550., nsrc), np.full(nsrc, 20.)], 1)
+    rec = np.stack([np.linspace(0., 600., 41), np.full(41, 30.)], 1)
+    geom = AcquisitionGeometry(model, rec, src, 0., 250., f0=0.015,
+                               src_type="Ricker")
+    s_idx, s_w = interp_table(geom.src_positions, model.origin_pml,
+                              model.spacing)
+    r_idx, _ = interp_table(geom.rec_positions, model.origin_pml,
+                            model.spacing)
+    nx, nz = model.padded_shape
+    dt = float(model.critical_dt)
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    prm, vp2 = cv.operands(T(model.vp), T(model.b), T(model.qp),
+                           T(model.damp), dt, geom.f0)
+    inj, injw = cv.source_patterns(s_idx[:, None], s_w[:, None], vp2, dt)
+    kw = dict(nt=geom.nt, nx=nx, nz=nz, space_order=space_order,
+              spacing=model.spacing, z0=int(r_idx[..., 1].min()))
+    return (model, geom, prm, inj.transpose(1, 2).contiguous(),
+            injw.transpose(1, 2).contiguous(), T(geom.src.data), dt, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+def test_visco_kernels_match_twins(cuda, space_order):
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    _, _, prm, injT, injwT, wav, dt, kw = _visco_operands(space_order, cuda)
+    nsteps = kw["nt"] - 2
+    seg = 16
+    nseg = -(-nsteps // seg)
+    wav12 = cv.pad_wavelet(wav, kw["nt"], nsteps)   # one segment
+    wav11 = cv.pad_wavelet(wav, kw["nt"], seg * nseg)
+    wavs2 = wav11 * (dt * dt)
+    res = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (2, nseg, seg, 2, kw["nx"])), dtype=torch.float32, device=cuda)
+    cv.reset_counters()
+    out12 = cv.visco_sls2_segments(*prm, injT, wav12, dt, **kw)
+    fwd = cv.visco_fwd_hist_segments(*prm, injT, wav11, dt, seg=seg, **kw)
+    imgs = cv.visco_grad_stream_segments(*prm, injwT, fwd[1], res, wavs2,
+                                         dt, seg=seg, **kw)
+    assert all(n == 1 for n in cv.LAUNCHES.values())
+    assert sum(cv.TWIN_CALLS.values()) == 0
+    torch.cuda.synchronize()
+    _close(out12, cv.visco_sls2_plain(*prm, injT, wav12, dt, **kw))
+    _close(fwd, cv.visco_fwd_hist_plain(*prm, injT, wav11, dt, seg=seg,
+                                        **kw))
+    _close(imgs, cv.visco_grad_stream_plain(*prm, injwT, fwd[1], res, wavs2,
+                                            dt, seg=seg, **kw))
+    nx = kw["nx"]
+    assert torch.equal(out12[0][:, 0],
+                       fwd[0].reshape(2, -1, 2, nx)[:, :nsteps])
+
+
+@pytest.mark.cuda
+def test_visco_solver_golden_on_the_card(cuda):
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    from devito_fwi_tpu_torch.ops.viscoacoustic_wavesolver import (
+        ViscoacousticWaveSolver)
+    model = demo_model("layers-viscoacoustic", space_order=4, shape=(50, 50),
+                       nbl=40, dtype=np.float32, spacing=(20., 20.))
+    geometry = setup_geometry(model, 1000.)
+    cv.reset_counters()
+    rec, _, _, _ = ViscoacousticWaveSolver(model, geometry,
+                                           space_order=4).forward()
+    assert cv.LAUNCHES["visco_sls2_segments"] == 1
+    assert np.isclose(np.linalg.norm(rec.data), 684.385, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_visco_rejects_what_the_kernels_do_not_take(cuda):
+    """Receivers off two adjacent z-planes: the sls/2 solver forward and the
+    batched modeling raise on the card rather than run the eager torch."""
+    from devito_fwi_tpu_torch import visco_fwi as tvf
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    from devito_fwi_tpu_torch.ops.viscoacoustic_wavesolver import (
+        ViscoacousticWaveSolver)
+    model, geom, *_ = _visco_operands(4, cuda, nsrc=1)
+    rec = np.stack([np.linspace(0., 600., 41), np.linspace(30., 200., 41)],
+                   1)
+    bad = AcquisitionGeometry(model, rec, geom.src_positions, 0., 250.,
+                              f0=0.015, src_type="Ricker")
+    cv.reset_counters()
+    with pytest.raises(ValueError, match="adjacent z-planes"):
+        ViscoacousticWaveSolver(model, bad, space_order=4).forward()
+    with pytest.raises(ValueError, match="adjacent z-planes"):
+        tvf.visco_fm_multi(bad, device="cuda")
+    assert sum(cv.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_visco_objective_on_the_card_matches_the_twins(cuda):
+    """visco_fwi_obj_multi on cuda (kernels) against device='cpu' (twins):
+    the sweeps agree bitwise, the traces' matrix products sum in another
+    order, so the objective and gradients agree to f32 rounding (1e-5)."""
+    from devito_fwi_tpu_torch import visco_fwi as tvf
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    model, geom, *_ = _visco_operands(4, cuda, nsrc=3)
+    obs = tvf.visco_fm_multi(geom, device="cpu")
+    vp0 = model.crop(model.vp) * 1.03
+    out = {}
+    cv.reset_counters()
+    for dev in ("cuda", "cpu"):
+        out[dev] = tvf.visco_fwi_obj_multi(geom, obs, calc_grad=True,
+                                           vp=vp0, device=dev)
+    assert cv.LAUNCHES["visco_fwd_hist_segments"] == 1
+    assert cv.LAUNCHES["visco_grad_stream_segments"] == 1
+    (fc, gc, _), (fp, gp, _) = out["cuda"], out["cpu"]
+    assert abs(fc - fp) <= 1e-5 * abs(fp)
+    for k in ("vp", "qp"):
+        assert np.abs(gc[k] - gp[k]).max() <= 1e-5 * np.abs(gp[k]).max(), k

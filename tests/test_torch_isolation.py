@@ -11,13 +11,17 @@ import torch
 
 from devito_fwi_tpu_torch import elastic_fwi as tel
 from devito_fwi_tpu_torch import fwi as tfwi
+from devito_fwi_tpu_torch import visco_fwi as tvf
 from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
 from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
 from devito_fwi_tpu_torch.models.presets import demo_model
 from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
 from devito_fwi_tpu_torch.ops import cuda_bfm as cb
 from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+from devito_fwi_tpu_torch.ops import cuda_visco as cv
 from devito_fwi_tpu_torch.ops.elastic_wavesolver import ElasticWaveSolver
+from devito_fwi_tpu_torch.ops.viscoacoustic_wavesolver import (
+    ViscoacousticWaveSolver)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "devito_fwi_tpu_torch")
@@ -171,10 +175,65 @@ def test_elastic_entry_points_raise_on_cuda_without_card(entry,
         calls[entry]()
 
 
-def test_viscoacoustic_physics_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+def test_viscoacoustic_physics_still_raises(tmp_path, monkeypatch):
+    """``--physics viscoacoustic`` is ported: without a card it raises only
+    for the missing device, not as an unported flag."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         marm.run_fwi(marm.SMARM2, ["--physics", "viscoacoustic",
                                    "--odir", str(tmp_path)])
+
+
+def test_ctypes_signatures_match_the_visco_source():
+    """The same for cuda_visco.SIGNATURES and csrc/visco2d.cu."""
+    _check_signatures(cv, "visco2d.cu")
+
+
+def _visco_geometry():
+    model = demo_model("layers-viscoacoustic", shape=(21, 21),
+                       spacing=(10., 10.), nbl=4, space_order=4)
+    rec = np.stack([np.linspace(0., 200., 11), np.full(11, 20.)], 1)
+    return AcquisitionGeometry(model, rec, np.array([[100., 20.]]), 0.,
+                               50., f0=0.01, src_type="Ricker")
+
+
+@pytest.mark.parametrize("entry", ["visco_fm_multi", "visco_fwi_obj_multi",
+                                   "ViscoFwiLoss",
+                                   "ViscoacousticWaveSolver",
+                                   "physics_viscoacoustic"])
+def test_visco_entry_points_raise_on_cuda_without_card(entry, monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _visco_geometry()
+    obs = tvf.visco_fm_multi(g, device="cpu")
+    x = 1.0 / np.asarray(g.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    calls = {
+        "visco_fm_multi": lambda: tvf.visco_fm_multi(g),
+        "visco_fwi_obj_multi": lambda: tvf.visco_fwi_obj_multi(
+            g, obs, calc_grad=True),
+        "ViscoFwiLoss": lambda: tvf.ViscoFwiLoss()(x, g, obs, None),
+        "ViscoacousticWaveSolver": lambda: ViscoacousticWaveSolver(g.model,
+                                                                   g),
+        "physics_viscoacoustic": lambda: marm.run_fwi(marm.SMARMN, [
+            "--physics", "viscoacoustic", "--maxiter", "1", "--nsrc", "2",
+            "--odir", str(tmp_path)]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_visco_wrappers_reject_other_devices():
+    t = torch.zeros((4, 8), device="meta")
+    b = torch.zeros((1, 4, 8), device="meta")
+    kw = dict(nt=7, nx=8, nz=4, space_order=4, spacing=(10., 10.), z0=1)
+    with pytest.raises(ValueError, match="meta"):
+        cv.visco_sls2_segments(*([t] * 6), b, torch.zeros(5, device="meta"),
+                               1.0, **kw)
+    with pytest.raises(ValueError, match="meta"):
+        cv.visco_grad_stream_segments(
+            *([t] * 6), b, torch.zeros((1, 1, 5, 2, 4, 8), device="meta"),
+            torch.zeros((1, 1, 5, 2, 8), device="meta"),
+            torch.zeros(5, device="meta"), 1.0, seg=5, **kw)
 
 
 def test_elastic_wrappers_reject_other_devices():

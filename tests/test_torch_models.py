@@ -187,3 +187,45 @@ def test_smarm2_elastic_setup_equal():
                      tmodels[0].spacing)
     assert set(np.unique(ri[..., 1])) == {42, 43}
     assert tmodels[0].padded_shape == (420, 220)
+
+
+def test_model_from_numpy_carries_qp():
+    """A viscoacoustic JAX model's fields (vp, qp, b and the mask damp)
+    carry across as numpy arrays, array for array."""
+    jm = j_demo_model("layers-viscoacoustic", shape=(41, 31),
+                      spacing=(10., 10.), nbl=8, space_order=4)
+    jm.qp[0, 0] = 7.5  # a padding cell that is not an edge replication
+    tm = model_from_numpy(dict(
+        vp=np.asarray(jm.vp), qp=np.asarray(jm.qp), b=np.asarray(jm.b),
+        damp=jm.damp, origin=jm.origin, spacing=jm.spacing, shape=jm.shape,
+        nbl=jm.nbl, space_order=jm.space_order, fs=jm.fs, dt=jm._dt))
+    for name in ("vp", "qp", "b", "damp"):
+        assert np.array_equal(getattr(tm, name), getattr(jm, name)), name
+    assert tm.critical_dt == jm.critical_dt
+    assert tm._bcs_type == "mask"
+    scalar_b = model_from_numpy(dict(
+        vp=np.asarray(jm.vp), qp=np.asarray(jm.qp), b=0.5, damp=jm.damp,
+        origin=jm.origin, spacing=jm.spacing, shape=jm.shape, nbl=jm.nbl,
+        space_order=jm.space_order, fs=jm.fs, dt=jm._dt))
+    assert scalar_b.b == np.float32(0.5)
+
+
+def test_smarmn_visco_setup_equal():
+    """The port's SMARMN viscoacoustic setup builds the JAX driver's
+    models (vp, qp from Li's relation, Gardner b, the mask boundary, the
+    true model's CFL dt 2.994 ms), geometries (nt 1338) and bathy mask."""
+    jmc = _jax_marmousi_common()
+    args = SimpleNamespace(data_dir=t_marm.default_data_dir(), bathy=1)
+    tmodels, tgeoms, tvp, tmask = t_marm.setup_visco(t_marm.SMARMN, args, 29)
+    jmodels, jgeoms, jvp, jmask = jmc.setup_visco(jmc.SMARMN, args, 29)
+    assert np.array_equal(tmask, jmask) and np.array_equal(tvp, jvp)
+    for tm, jm in zip(tmodels, jmodels):
+        for name in ("vp", "qp", "b", "damp"):
+            assert np.array_equal(getattr(tm, name), getattr(jm, name)), name
+        assert tm.critical_dt == jm.critical_dt
+    assert abs(tmodels[0].critical_dt - 2.994) < 5e-4
+    for tg, jg in zip(tgeoms, jgeoms):
+        assert tg.nt == jg.nt == 1338
+        assert np.array_equal(tg.src.data, jg.src.data)
+    qp = tmodels[0].qp
+    assert 34.0 < qp.min() < qp.max() < 527.0
