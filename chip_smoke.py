@@ -75,7 +75,23 @@ result line is printed:
 18. viscoacoustic profile: one steady-state gradient and one trial under
    ``torch.profiler``; the gradient's peak device bytes per shot against
    the figure the chunks are sized with;
-19. a ``kernels`` JSON line; the card's name and power limit; the script's
+19. TTI kernel vs twin, quick gate: each of the four TTI CUDA kernels
+   against its twin at bench config 4's grid (``marmousi-tti2d``, 380 x 186
+   padded, space order 8, nt 1583) with 3 shots, on every output; the
+   zero-anisotropy gate: with eps = delta = theta = 0 the TTI kernel's rows
+   equal twice the acoustic ``forward_rec_segments`` rows at the same dt;
+20. main path, TTI: bench config 4 (8 shots, 300 receivers, both at 60 m):
+   the observed data modeled through ``tti_forward_ckpt_segments``, the
+   batched gradient ``tti_gradient_batched`` of ``0.999 obs`` on the
+   streamed route (first call and steady state), the same with
+   ``stream=False`` (the checkpoint pair; equal bitwise), and
+   ``AnisotropicWaveSolver.gradient_checkpointed`` on one shot; every TTI
+   kernel launched, no twin called;
+21. TTI kernel vs twin at the main path's shapes (8 shots; the streamed
+   history is 7.15 GB): kernel beside twin, CUDA events, with the card's
+   bound; the checkpoint-route gradient against the streamed one, bitwise;
+22. TTI profile: one steady-state gradient under ``torch.profiler``;
+23. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -104,7 +120,7 @@ SEED = 0
 # operations one for one, so they should agree bitwise; 1e-6 of each
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
-SOURCES = ("acoustic2d", "bfm_push", "elastic2d", "visco2d")
+SOURCES = ("acoustic2d", "bfm_push", "elastic2d", "visco2d", "tti2d")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
@@ -121,7 +137,19 @@ REPLACES = {
     "visco_fwd_hist_segments": "devito_fwi_tpu/ops/pallas_staggered.py:924",
     "visco_grad_stream_segments":
         "devito_fwi_tpu/ops/pallas_staggered.py:1052",
+    "tti_forward_dt2_segments": "devito_fwi_tpu/ops/pallas_tti.py:539",
+    "tti_gradient_stream_segments": "devito_fwi_tpu/ops/pallas_tti.py:590",
+    "tti_forward_ckpt_segments": "devito_fwi_tpu/ops/pallas_tti.py:446",
+    "tti_jacobian_adjoint_segments": "devito_fwi_tpu/ops/pallas_tti.py:494",
 }
+# bench config 4 (``bench.py`` ``_bench_tti``): marmousi-tti2d, 8 shots and
+# 300 receivers at 60 m, tn 4000 ms, f0 7 Hz, 16 checkpoints
+TTI_SHOTS = 8
+TTI_CHECKPOINTS = 16
+# the zero-anisotropy gate: TTI rows against twice the acoustic ones, both
+# float32 over the same 1581 steps (u + v - 2 u_acoustic is rounding only;
+# measured 5e-7 of the max over 811 steps on the CPU twins)
+ZERO_ANISOTROPY_RTOL = 1e-4
 
 
 def phase(name):
@@ -192,6 +220,23 @@ def profile_call(fn):
         end = max(end, hi)
         by_name[e.name] = by_name.get(e.name, 0.0) + (hi - lo) * 1e-6
     return wall, busy * 1e-6, by_name
+
+
+def report_profile(what, call):
+    """Warm ``call`` once, run it under the profiler and print its wall
+    time, device busy time, idle share and the kernels that take the most
+    device time; returns the wall seconds."""
+    call()  # warm: caches, allocator
+    wall, busy, by_name = profile_call(call)
+    if busy is None:
+        print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy share not "
+              "measured (the profiler recorded no device events)")
+        return wall
+    print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
+          f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
+    for name, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"      {sec * 1e3:9.3f} ms  {name[:110]}")
+    return wall
 
 
 def bound(nbytes, ops):
@@ -520,20 +565,9 @@ def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
     loss = elastic_fwi.ElasticFwiLoss(vs0, rho0, device="cuda")
     x0 = 1.0 / smooth_vp.reshape(-1).astype(np.float64) ** 2
     for calc_grad in (True, False):
-        def call():
-            return loss(x0, g0, obs, None, dw, mask, calc_grad=calc_grad)
-        call()  # warm: caches, allocator
-        wall, busy, by_name = profile_call(call)
-        what = f"elastic {'gradient' if calc_grad else 'trial'}"
-        if busy is None:
-            print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy share "
-                  "not measured (the profiler recorded no device events)")
-            continue
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
-              f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
-        for kname, sec in top:
-            print(f"      {sec * 1e3:9.3f} ms  {kname[:110]}")
+        report_profile(f"elastic {'gradient' if calc_grad else 'trial'}",
+                       lambda: loss(x0, g0, obs, None, dw, mask,
+                                    calc_grad=calc_grad))
     cs.reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -744,20 +778,9 @@ def visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
     loss = visco_fwi.ViscoFwiLoss(device="cuda")
     x0 = 1.0 / smooth_vp.reshape(-1).astype(np.float64) ** 2
     for calc_grad in (True, False):
-        def call():
-            return loss(x0, g0, obs, None, dw, mask, calc_grad=calc_grad)
-        call()  # warm: caches, allocator
-        wall, busy, by_name = profile_call(call)
-        what = f"viscoacoustic {'gradient' if calc_grad else 'trial'}"
-        if busy is None:
-            print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy share "
-                  "not measured (the profiler recorded no device events)")
-            continue
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
-              f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
-        for kname, sec in top:
-            print(f"      {sec * 1e3:9.3f} ms  {kname[:110]}")
+        report_profile(
+            f"viscoacoustic {'gradient' if calc_grad else 'trial'}",
+            lambda: loss(x0, g0, obs, None, dw, mask, calc_grad=calc_grad))
     cv.reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -776,6 +799,312 @@ def visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
     torch.cuda.empty_cache()
 
 
+def tti_bounds(b, B):
+    """The TTI kernels' bounds at this run's shapes: inputs read once,
+    outputs written once, plus the histories. Per cell-step, with R =
+    space_order/2 and n1 the non-zero taps of the centred first derivative
+    (a D1 costs 2 n1 operations, a D2 6R/2 + 2): forward and reverse alike
+    16 n1 + 6R + 43 (four D1 in the gz phase, four D1 and two D2 in the
+    update, the products, sums and the two leapfrog updates), +6 for the
+    two d2/dt2 histories; u + v on the two receiver rows, and the residual
+    added to both fields there. The checkpoint reverse counts its recompute
+    too."""
+    f = 4
+    nx, nz = b.kw["nx"], b.kw["nz"]
+    field = nz * nx
+    cells = B * field
+    R = b.kw["space_order"] // 2
+    n1 = sum(1 for w in b.st.w1 if w != 0.0)
+    ops = 16 * n1 + 6 * R + 43
+    nsteps = b.nsteps
+    total_ck = b.nseg_ck * b.seg_ck
+    coeffs = 6 * field * f
+    inj = cells * f
+    row = B * 2 * nx
+    work = {
+        "tti_forward_dt2_segments": (
+            coeffs + (nsteps + 1) * f + inj + row * nsteps * f
+            + 2 * B * nsteps * field * f,
+            cells * nsteps * (ops + 6) + row * nsteps),
+        "tti_gradient_stream_segments": (
+            coeffs + 2 * B * nsteps * field * f + row * nsteps * f
+            + cells * f,
+            cells * nsteps * ops + 2 * row * nsteps),
+        "tti_forward_ckpt_segments": (
+            coeffs + (total_ck + 1) * f + inj + row * total_ck * f
+            + B * b.nseg_ck * 4 * field * f,
+            cells * total_ck * ops + row * total_ck),
+        "tti_jacobian_adjoint_segments": (
+            coeffs + (total_ck + 1) * f + inj
+            + B * b.nseg_ck * 4 * field * f + row * nsteps * f + cells * f,
+            cells * total_ck * (ops + 6) + cells * nsteps * ops
+            + 2 * row * nsteps),
+    }
+    return {name: bound(*w) for name, w in work.items()}
+
+
+class TtiCase:
+    """One marmousi-tti2d configuration on the card (bench config 4's grid
+    and acquisition, ``nsrc`` shots): the fields, the tables, and the
+    kernels' operands for shots lo..hi-1 on both layouts."""
+
+    def __init__(self, dev, nsrc, zero_anisotropy=False):
+        from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+        from devito_fwi_tpu_torch.models.model import SeismicModel
+        from devito_fwi_tpu_torch.models.presets import demo_model
+        from devito_fwi_tpu_torch.ops import cuda_tti as ct
+        from devito_fwi_tpu_torch.ops.acoustic import _ckpt_layout
+        from devito_fwi_tpu_torch.ops.interp import interp_table
+        model = demo_model("marmousi-tti2d", space_order=8, nbl=40)
+        if zero_anisotropy:
+            z = np.zeros(model.shape, np.float32)
+            model = SeismicModel(origin=model.origin, spacing=model.spacing,
+                                 shape=model.shape, space_order=8,
+                                 vp=model.crop(model.vp), nbl=40,
+                                 bcs="damp", epsilon=z, delta=z, theta=z)
+        self.model = model
+        xmax = model.domain_size[0]
+        src = np.stack([np.linspace(0., xmax, nsrc), np.full(nsrc, 60.)], 1)
+        nrec = model.shape[0]
+        rec = np.stack([np.linspace(0., xmax, nrec), np.full(nrec, 60.)], 1)
+        self.geom = AcquisitionGeometry(model, rec, src, 0.0, 4000.0,
+                                        f0=0.007, src_type="Ricker")
+        self.dev = dev
+        s_idx, s_w = interp_table(self.geom.src_positions, model.origin_pml,
+                                  model.spacing)
+        self.r_idx, self.r_w = interp_table(self.geom.rec_positions,
+                                            model.origin_pml, model.spacing)
+        self.s_idx, self.s_w = s_idx[:, None], s_w[:, None]
+        self.fields = [torch.as_tensor(np.asarray(getattr(model, n),
+                                                  np.float32), device=dev)
+                       for n in ("vp", "damp", "epsilon", "delta", "theta")]
+        self.wav = torch.as_tensor(self.geom.src.data[:, :1], device=dev)
+        self.dt = float(model.critical_dt)
+        self.nt = self.geom.nt
+        self.m, self.ops = ct.operands(*self.fields, self.dt)
+        nx, nz = model.padded_shape
+        self.z0 = int(self.r_idx[..., 1].min())
+        self.nsteps, _, _ = _ckpt_layout(self.nt, 1)
+        _, self.seg_ck, self.nseg_ck = _ckpt_layout(self.nt, TTI_CHECKPOINTS)
+        self.st = ct._statics(8, model.spacing, self.dt, torch.float32)
+        self.kw = dict(nt=self.nt, nx=nx, nz=nz, space_order=8,
+                       spacing=model.spacing, z0=self.z0)
+        s2 = self.dt ** 2
+        self.wavs = {1: ct.pack_wavelet(self.wav, s2, self.nt, self.nsteps),
+                     TTI_CHECKPOINTS: ct.pack_wavelet(
+                         self.wav, s2, self.nt, self.nseg_ck * self.seg_ck)}
+
+    def injT(self, lo, hi):
+        from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+        inj = ca.source_pattern(self.s_idx[lo:hi], self.s_w[lo:hi], self.m,
+                                self.dt ** 2)
+        return inj.transpose(1, 2).contiguous()
+
+    def kwargs(self, nck):
+        return dict(self.kw, n_checkpoints=nck)
+
+    def batched(self):
+        """The arguments of ``cuda_tti.tti_gradient_batched`` before obs."""
+        return (*self.fields, self.wav, self.s_idx, self.s_w, self.r_idx,
+                self.r_w)
+
+    def res_rows(self, rng, B):
+        """Seeded residual rows of nsteps steps on both layouts: (B, 1,
+        nsteps, 2, nx) and the same steps zero-padded to (B, nseg, seg, 2,
+        nx)."""
+        nx = self.kw["nx"]
+        r = torch.as_tensor(rng.standard_normal((B, self.nsteps, 2, nx)),
+                            dtype=torch.float32, device=self.dev)
+        ck = r.new_zeros((B, self.nseg_ck * self.seg_ck, 2, nx))
+        ck[:, :self.nsteps] = r
+        return (r.reshape(B, 1, self.nsteps, 2, nx),
+                ck.reshape(B, self.nseg_ck, self.seg_ck, 2, nx))
+
+
+def tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
+               bounds):
+    """Phases 19-22: the TTI kernels against their twins at 3 shots and the
+    zero-anisotropy gate, bench config 4's gradient on cuda, the kernels
+    against their twins at its 8 shots with their times and bounds, and a
+    profile of the gradient."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = TtiCase(dev, TTI_SHOTS)
+    kw1, kwc = tc.kwargs(1), tc.kwargs(TTI_CHECKPOINTS)
+    w1, wc = tc.wavs[1], tc.wavs[TTI_CHECKPOINTS]
+    print(f"   marmousi-tti2d: padded grid {kw1['nx']} x {kw1['nz']}, nt "
+          f"{tc.nt} ({tc.nsteps} steps; checkpoint route {tc.nseg_ck} x "
+          f"{tc.seg_ck}), dt {tc.dt:.4f} ms, receivers on rows {tc.z0}, "
+          f"{tc.z0 + 1}, space_order 8, {TTI_SHOTS} shots")
+
+    phase(f"19 TTI kernel vs twin (quick gate), {NSHOTS_CHECK} shots at the "
+          "marmousi-tti2d grid")
+    injT = tc.injT(0, NSHOTS_CHECK)
+    fwd = ct.tti_forward_dt2_segments(*tc.ops, injT, w1, tc.dt, **kw1)
+    compare("tti_forward_dt2_segments", fwd,
+            ct.tti_forward_dt2_plain(*tc.ops, injT, w1, tc.dt, **kw1))
+    res1, resc = tc.res_rows(rng, NSHOTS_CHECK)
+    g_s = ct.tti_gradient_stream_segments(*tc.ops, fwd[1], fwd[2], res1,
+                                          tc.dt, **kw1)
+    compare("tti_gradient_stream_segments", [g_s],
+            [ct.tti_gradient_stream_plain(*tc.ops, fwd[1], fwd[2], res1,
+                                          tc.dt, **kw1)])
+    del fwd
+    ck = ct.tti_forward_ckpt_segments(*tc.ops, injT, wc, tc.dt, **kwc)
+    compare("tti_forward_ckpt_segments", ck,
+            ct.tti_forward_ckpt_plain(*tc.ops, injT, wc, tc.dt, **kwc))
+    g_c = ct.tti_jacobian_adjoint_segments(*tc.ops, injT, wc, ck[1], resc,
+                                           tc.dt, **kwc)
+    compare("tti_jacobian_adjoint_segments", [g_c],
+            [ct.tti_jacobian_adjoint_plain(*tc.ops, injT, wc, ck[1], resc,
+                                           tc.dt, **kwc)])
+    same = torch.equal(g_c, g_s)
+    print(f"   checkpoint-route gradient == streamed gradient ({NSHOTS_CHECK}"
+          f" shots, same residual rows): {same}")
+    if not same:
+        raise AssertionError("the TTI recompute gradient differs from the "
+                             "streamed one")
+    del ck, g_c, g_s, res1, resc, injT
+    zc = TtiCase(dev, NSHOTS_CHECK, zero_anisotropy=True)
+    zkw = zc.kwargs(1)
+    injT = zc.injT(0, NSHOTS_CHECK)
+    rows_tti = ct.tti_forward_ckpt_segments(*zc.ops, injT, zc.wavs[1],
+                                            zc.dt, **zkw)[0]
+    rows_ac = ca.forward_rec_segments(
+        zc.ops[0], zc.ops[1], ca.pad_wavelet(zc.wav, zc.nt, zc.nsteps), injT,
+        zc.dt, **zkw)
+    e = float((rows_tti - 2.0 * rows_ac).abs().max())
+    scale = float((2.0 * rows_ac).abs().max())
+    print(f"   zero anisotropy (eps = delta = theta = 0, dt {zc.dt:.4f} ms, "
+          f"{zc.nsteps} steps): max|TTI rows - 2 acoustic rows| = {e:.3e} "
+          f"(max {scale:.3e}, limit {ZERO_ANISOTROPY_RTOL:g} x max)")
+    if not e <= ZERO_ANISOTROPY_RTOL * scale:
+        raise AssertionError("the isotropic limit of the TTI kernel "
+                             "disagrees with the acoustic kernel")
+    del zc, rows_tti, rows_ac, injT
+    torch.cuda.empty_cache()
+
+    phase(f"20 main path: bench config 4, marmousi-tti2d TTI gradient, "
+          f"{TTI_SHOTS} shots, on cuda")
+    for reset in counters:
+        reset()
+    common = dict(nt=tc.nt, spacing=tc.model.spacing, space_order=8,
+                  n_checkpoints=TTI_CHECKPOINTS)
+    t0 = time.perf_counter()
+    obs = ct.tti_forward_batched(*tc.batched(), tc.dt, **common)
+    torch.cuda.synchronize()
+    print(f"   observed data {tuple(obs.shape)} through "
+          f"tti_forward_ckpt_segments: {time.perf_counter() - t0:.3f} s")
+    obs_scaled = 0.999 * obs
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        grad = ct.tti_gradient_batched(*tc.batched(), obs_scaled, tc.dt,
+                                       **common)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    streamed = ct.LAUNCHES["tti_forward_dt2_segments"] == 3
+    print(f"   tti_gradient_batched (streamed route: {streamed}): first call "
+          f"{walls[0]:.4f} s, steady state {walls[1]:.4f}, {walls[2]:.4f} s;"
+          f" {tuple(grad.shape)}, finite: {bool(grad.isfinite().all())}")
+    t0 = time.perf_counter()
+    grad_c = ct.tti_gradient_batched(*tc.batched(), obs_scaled, tc.dt,
+                                     stream=False, **common)
+    torch.cuda.synchronize()
+    same = torch.equal(grad, grad_c)
+    print(f"   stream=False (checkpoint pair, {tc.nseg_ck} segments): "
+          f"{time.perf_counter() - t0:.4f} s; == streamed gradient: {same}")
+    if not (streamed and same and grad.isfinite().all()
+            and float(grad.abs().max()) > 0):
+        raise AssertionError("the TTI gradient is not finite, not streamed "
+                             "or differs between the routes")
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.ops.tti_wavesolver import AnisotropicWaveSolver
+    g1 = AcquisitionGeometry(tc.model, tc.geom.rec_positions,
+                             tc.geom.src_positions[:1], 0.0, 4000.0,
+                             f0=0.007, src_type="Ricker")
+    solver = AnisotropicWaveSolver(tc.model, g1, space_order=8)
+    res = g1.new_rec()
+    res.data[:] = (obs[0] - obs_scaled[0]).cpu().numpy()
+    t0 = time.perf_counter()
+    g_solver, _ = solver.gradient_checkpointed(
+        res, n_checkpoints=TTI_CHECKPOINTS)
+    g0 = grad[0].cpu().numpy()
+    rel = float(np.abs(g_solver - g0).max() / np.abs(g0).max())
+    print(f"   AnisotropicWaveSolver(device='cuda').gradient_checkpointed, "
+          f"one shot: {time.perf_counter() - t0:.3f} s; against shot 0 of "
+          f"the batch: {rel:.2e} of its max (limit 1e-5: the residual rows' "
+          "products sum one shot apart)")
+    if not rel <= 1e-5:
+        raise AssertionError("the solver's TTI gradient disagrees")
+    report("TTI", ct.KERNELS)
+    del grad, grad_c, obs_scaled, obs
+    torch.cuda.empty_cache()
+
+    phase(f"21 TTI kernel vs twin and kernel times, {TTI_SHOTS} shots "
+          "(main-path shapes)")
+    B = TTI_SHOTS
+    injT = tc.injT(0, B)
+    res1, resc = tc.res_rows(rng, B)
+    name = "tti_forward_dt2_segments"
+    ms[name], fwd = cuda_ms(lambda: ct.tti_forward_dt2_segments(
+        *tc.ops, injT, w1, tc.dt, **kw1), 2)
+    print(f"   histories 2 x {tuple(fwd[1].shape)}: "
+          f"{2 * fwd[1].numel():.4g} elements, "
+          f"{2 * fwd[1].numel() * 4 / 1e9:.2f} GB")
+    plain_ms[name], want = cuda_once(lambda: ct.tti_forward_dt2_plain(
+        *tc.ops, injT, w1, tc.dt, **kw1))
+    err[name] = compare(name, fwd, want)
+    del want
+    torch.cuda.empty_cache()
+    name = "tti_gradient_stream_segments"
+    gops = (*tc.ops, fwd[1], fwd[2], res1, tc.dt)
+    ms[name], g_s = cuda_ms(lambda: ct.tti_gradient_stream_segments(
+        *gops, **kw1), 2)
+    plain_ms[name], want = cuda_once(lambda: ct.tti_gradient_stream_plain(
+        *gops, **kw1))
+    err[name] = compare(name, [g_s], [want])
+    del fwd, gops, want
+    torch.cuda.empty_cache()
+    name = "tti_forward_ckpt_segments"
+    ms[name], ck = cuda_ms(lambda: ct.tti_forward_ckpt_segments(
+        *tc.ops, injT, wc, tc.dt, **kwc), 3)
+    plain_ms[name], want = cuda_once(lambda: ct.tti_forward_ckpt_plain(
+        *tc.ops, injT, wc, tc.dt, **kwc))
+    err[name] = compare(name, ck, want)
+    del want
+    name = "tti_jacobian_adjoint_segments"
+    jops = (*tc.ops, injT, wc, ck[1], resc, tc.dt)
+    ms[name], g_c = cuda_ms(lambda: ct.tti_jacobian_adjoint_segments(
+        *jops, **kwc), 2)
+    plain_ms[name], want = cuda_once(lambda: ct.tti_jacobian_adjoint_plain(
+        *jops, **kwc))
+    err[name] = compare(name, [g_c], [want])
+    same = torch.equal(g_c, g_s)
+    print(f"   checkpoint-route gradient == streamed gradient ({B} shots, "
+          f"same residual rows): {same}")
+    if not same:
+        raise AssertionError("the TTI recompute gradient differs from the "
+                             "streamed one")
+    del ck, jops, want, g_c, g_s, res1, resc, injT
+    torch.cuda.empty_cache()
+    bounds.update(tti_bounds(tc, B))
+    for name in ct.KERNELS:
+        b_ms, by, nbytes, nops = bounds[name]
+        print(f"   {name}: kernel {ms[name]:.3f} ms, twin "
+              f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
+              f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
+              f"{b_ms / ms[name]:.1%} of the bound")
+
+    phase(f"22 TTI profile: one steady-state gradient, {TTI_SHOTS} shots")
+    obs = ct.tti_forward_batched(*tc.batched(), tc.dt, **common)
+    obs_scaled = 0.999 * obs
+    report_profile("TTI gradient", lambda: ct.tti_gradient_batched(
+        *tc.batched(), obs_scaled, tc.dt, **common))
+    del obs, obs_scaled
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -788,6 +1117,7 @@ def main():
     from devito_fwi_tpu_torch.ops import cuda_bfm as cb
     from devito_fwi_tpu_torch.ops import cuda_build
     from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
     from devito_fwi_tpu_torch.ops import cuda_visco as cv
 
     phase("1 card")
@@ -806,6 +1136,7 @@ def main():
     cb._lib()
     cs._lib()
     cv._lib()
+    ct._lib()
     print(f"   nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     print(f"   built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -978,16 +1309,16 @@ def main():
     torch.cuda.empty_cache()
 
     counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
-                cv.reset_counters, bfm.reset_counts)
+                cv.reset_counters, ct.reset_counters, bfm.reset_counts)
+    modules = (ca, cb, cs, cv, ct)
     launches = {}
 
     def report(path, names):
         """Read the counts just after a path: every kernel of ``names``
         launched, no twin called; the path's launches of ``names`` go into
         the kernels line."""
-        la = {**ca.LAUNCHES, **cb.LAUNCHES, **cs.LAUNCHES, **cv.LAUNCHES}
-        twins = {**ca.TWIN_CALLS, **cb.TWIN_CALLS, **cs.TWIN_CALLS,
-                 **cv.TWIN_CALLS}
+        la = {k: v for mod in modules for k, v in mod.LAUNCHES.items()}
+        twins = {k: v for mod in modules for k, v in mod.TWIN_CALLS.items()}
         print(f"   kernel launches: {la}")
         print(f"   twin calls: {twins}")
         if any(twins.values()) or min((la[n] for n in names),
@@ -1076,23 +1407,10 @@ def main():
     walls = {}
     for label, misfit in (("L2", least_square), ("W2-2d", qw2d)):
         for calc_grad in (True, False):
-            def call():
-                return fwi.fwi_loss(x0, g0, obs, misfit, dw, mask,
-                                    calc_grad=calc_grad, device="cuda")
-            call()  # warm: caches, allocator
-            wall, busy, by_name = profile_call(call)
             what = f"{label} {'gradient' if calc_grad else 'trial'}"
-            if busy is None:
-                print(f"   {what}: {wall * 1e3:.3f} ms wall; device busy "
-                      "share not measured (the profiler recorded no device "
-                      "events)")
-                continue
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            print(f"   {what}: {wall * 1e3:.3f} ms wall, device busy "
-                  f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
-            for name, sec in top:
-                print(f"      {sec * 1e3:9.3f} ms  {name[:110]}")
-            walls[what] = wall
+            walls[what] = report_profile(what, lambda: fwi.fwi_loss(
+                x0, g0, obs, misfit, dw, mask, calc_grad=calc_grad,
+                device="cuda"))
 
     # the W2-2d objective's parts, each timed apart (CUDA events) on the
     # live state of its last call in a trial, times its calls per objective
@@ -1143,18 +1461,22 @@ def main():
                    plain_ms, err, bounds)
     visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
                  plain_ms, err, bounds)
+    tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
+               bounds)
 
-    phase("19 result")
+    phase("23 result")
     rows = []
-    for n in ca.KERNELS + cb.KERNELS + cs.KERNELS + cv.KERNELS:
-        src = ("bfm_push" if n in cb.KERNELS else
-               "elastic2d" if n in cs.KERNELS else
-               "visco2d" if n in cv.KERNELS else "acoustic2d")
-        rows.append(dict(
-            name=n, route="cuda", source=f"devito_fwi_tpu_torch/csrc/{src}.cu",
-            replaces=REPLACES[n], launches=launches[n], max_abs_err=err[n],
-            ms=ms[n], plain_ms=plain_ms[n], bound_ms=bounds[n][0],
-            bound_by=bounds[n][1], library_ms=library_ms.get(n)))
+    sources = {"acoustic2d": ca, "bfm_push": cb, "elastic2d": cs,
+               "visco2d": cv, "tti2d": ct}
+    for src, mod in sources.items():
+        for n in mod.KERNELS:
+            rows.append(dict(
+                name=n, route="cuda",
+                source=f"devito_fwi_tpu_torch/csrc/{src}.cu",
+                replaces=REPLACES[n], launches=launches[n],
+                max_abs_err=err[n], ms=ms[n], plain_ms=plain_ms[n],
+                bound_ms=bounds[n][0], bound_by=bounds[n][1],
+                library_ms=library_ms.get(n)))
     print(json.dumps({"kernels": rows}))
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(card)

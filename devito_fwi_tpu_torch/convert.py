@@ -5,6 +5,8 @@ takes only numpy here.
     model = model_from_numpy(dict(vp=..., damp=..., origin=..., ...))
     model = model_from_numpy(dict(lam=..., mu=..., b=..., damp=..., ...))
     model = model_from_numpy(dict(vp=..., qp=..., b=..., damp=..., ...))
+    model = model_from_numpy(dict(vp=..., epsilon=..., delta=...,
+                                  theta=..., damp=..., ...))
     geometry = geometry_from_numpy(model, dict(rec_positions=..., ...))
 """
 from __future__ import annotations
@@ -15,6 +17,9 @@ from .models.geometry import AcquisitionGeometry
 from .models.model import SeismicModel
 
 __all__ = ["model_from_numpy", "geometry_from_numpy"]
+
+# the TTI fields a model may carry beside vp (phi in 3-D only)
+TTI_FIELDS = ("epsilon", "delta", "theta", "phi")
 
 
 def _elastic_velocities(d):
@@ -30,7 +35,8 @@ def _elastic_velocities(d):
 
 
 def model_from_numpy(d):
-    """A ``SeismicModel`` from ``d``: either ``vp`` (acoustic), ``vp`` and
+    """A ``SeismicModel`` from ``d``: either ``vp`` (acoustic; with
+    ``epsilon``, ``delta``, ``theta`` and in 3-D ``phi``, TTI), ``vp`` and
     ``qp`` and optionally ``b`` (viscoacoustic) or ``lam``, ``mu`` and
     optionally ``b`` and ``vs`` (elastic), each on the padded grid (numpy;
     ``b`` may be a scalar); ``damp`` on the padded grid or a scalar (the
@@ -55,6 +61,9 @@ def model_from_numpy(d):
     else:
         vp = np.asarray(d["vp"])
         kw = dict(vp=vp[core], bcs="damp")
+    tti = [n for n in TTI_FIELDS if d.get(n) is not None]
+    kw.update({n: np.asarray(d[n])[core] if np.ndim(d[n]) else d[n]
+               for n in tti})
     model = SeismicModel(origin=tuple(d["origin"]),
                          spacing=tuple(d["spacing"]), shape=shape,
                          space_order=int(d["space_order"]),
@@ -75,6 +84,8 @@ def model_from_numpy(d):
         b = d.get("b", 1.0)
         model.b = np.array(b) if isinstance(b, np.ndarray) \
             else vp.dtype.type(b)
+    for n in tti:
+        setattr(model, n, np.array(d[n]))
     damp = d["damp"]
     model.damp = np.array(damp) if isinstance(damp, np.ndarray) \
         else vp.dtype.type(damp)

@@ -19,27 +19,9 @@ import torch
 from . import cuda_staggered as _cs
 from . import staggered as _st
 from .interp import interp_table
+from .wavesolver import PerfSummary
 
 __all__ = ["ElasticWaveSolver", "PerfSummary"]
-
-
-class PerfSummary:
-    """Per-operator performance summary (the reference consumes devito's
-    ``summary.gflopss/oi/timings``)."""
-
-    FLOPS_PER_CELL = 40.0   # nominal so=8 stencil+update flop count
-    BYTES_PER_CELL = 24.0   # nominal streamed bytes per cell and step
-
-    def __init__(self, elapsed, gpoints):
-        self.elapsed = elapsed
-        self.gpointss = gpoints / elapsed / 1e9 if elapsed > 0 else 0.0
-        self.gflopss = self.gpointss * self.FLOPS_PER_CELL
-        self.oi = self.FLOPS_PER_CELL / self.BYTES_PER_CELL
-        self.timings = {"kernel": elapsed}
-
-    def __repr__(self):
-        return f"PerfSummary(elapsed={self.elapsed:.4f}s, " \
-               f"gpoints/s={self.gpointss:.3f}, gflops/s~{self.gflopss:.1f})"
 
 
 class ElasticWaveSolver:

@@ -22,8 +22,8 @@ import torch
 from . import cuda_staggered as _cs
 from . import cuda_visco as _cv
 from . import viscoacoustic as _va
-from .elastic_wavesolver import PerfSummary
 from .interp import interp_table
+from .wavesolver import PerfSummary
 
 __all__ = ["ViscoacousticWaveSolver"]
 

@@ -1,5 +1,6 @@
 """The CUDA kernels of devito_fwi_tpu_torch.ops.cuda_acoustic,
-ops.cuda_bfm and ops.cuda_staggered against their plain torch twins, on the
+ops.cuda_bfm, ops.cuda_staggered, ops.cuda_visco and ops.cuda_tti against
+their plain torch twins, on the
 card (marked ``cuda``; each test skips without one). The file imports no JAX, so on a machine
 without it run it as
 
@@ -18,7 +19,9 @@ model (nbl 10, 2-3 shots, space order 4 and 8); the elastic objective on
 the card is held against its CPU twins, and ElasticWaveSolver against the
 reference goldens. The viscoacoustic kernels run on a two-layer 61 x 48
 model with qp 60/90 (nbl 10, 2-3 shots, space order 4 and 8) in the same
-way, with the sls/2 solver golden.
+way, with the sls/2 solver golden. The TTI sweeps run on layers-tti 61 x 48
+(nbl 10, 2 shots, space order 4 and 8, 7 segments) in the same way; their
+checkpoint-route gradient must equal the streamed one bitwise.
 """
 import numpy as np
 import pytest
@@ -416,3 +419,140 @@ def test_visco_objective_on_the_card_matches_the_twins(cuda):
     assert abs(fc - fp) <= 1e-5 * abs(fp)
     for k in ("vp", "qp"):
         assert np.abs(gc[k] - gp[k]).max() <= 1e-5 * np.abs(gp[k]).max(), k
+
+
+# ---------------------------------------------------------------------------
+# TTI (ops.cuda_tti, csrc/tti2d.cu)
+# ---------------------------------------------------------------------------
+
+def _tti_operands(space_order, dev, nsrc=2):
+    """layers-tti 61 x 48 (nbl 10), ``nsrc`` shots and 41 receivers at 30 m
+    on the card: the TTI sweeps' operands and keywords for 7 segments."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    from devito_fwi_tpu_torch.ops.acoustic import _ckpt_layout
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    model = demo_model("layers-tti", shape=(61, 48), spacing=(10., 10.),
+                       nbl=10, space_order=space_order, dtype=np.float32)
+    src = np.stack([np.linspace(50., 550., nsrc), np.full(nsrc, 20.)], 1)
+    rec = np.stack([np.linspace(0., 600., 41), np.full(41, 30.)], 1)
+    geom = AcquisitionGeometry(model, rec, src, 0., 250., f0=0.015,
+                               src_type="Ricker")
+    s_idx, s_w = interp_table(geom.src_positions, model.origin_pml,
+                              model.spacing)
+    r_idx, _ = interp_table(geom.rec_positions, model.origin_pml,
+                            model.spacing)
+    nx, nz = model.padded_shape
+    dt = float(model.critical_dt)
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    m, ops = ct.operands(*(T(getattr(model, n)) for n in (
+        "vp", "damp", "epsilon", "delta", "theta")), dt)
+    injT = ca.source_pattern(s_idx[:, None], s_w[:, None], m,
+                             dt ** 2).transpose(1, 2).contiguous()
+    nck = 7
+    nsteps, seg, nseg = _ckpt_layout(geom.nt, nck)
+    wav = ct.pack_wavelet(T(geom.src.data), dt ** 2, geom.nt, nseg * seg)
+    kw = dict(nt=geom.nt, nx=nx, nz=nz, space_order=space_order,
+              spacing=model.spacing, z0=int(r_idx[..., 1].min()),
+              n_checkpoints=nck)
+    return model, geom, ops, injT, wav, dt, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+def test_tti_kernels_match_twins(cuda, space_order):
+    """The four TTI sweeps against their twins (7 segments, the last padded);
+    the checkpoint-route gradient equals the streamed one bitwise."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    _, _, ops, injT, wav, dt, kw = _tti_operands(space_order, cuda)
+    B, nx = injT.shape[0], kw["nx"]
+    nsteps = kw["nt"] - 2
+    nseg = 7
+    seg = -(-nsteps // nseg)
+    res = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (B, nseg, seg, 2, nx)), dtype=torch.float32, device=cuda)
+    ct.reset_counters()
+    fwd = ct.tti_forward_dt2_segments(*ops, injT, wav, dt, **kw)
+    ck = ct.tti_forward_ckpt_segments(*ops, injT, wav, dt, **kw)
+    g_s = ct.tti_gradient_stream_segments(*ops, fwd[1], fwd[2], res, dt,
+                                          **kw)
+    g_c = ct.tti_jacobian_adjoint_segments(*ops, injT, wav, ck[1], res, dt,
+                                           **kw)
+    assert all(n == 1 for n in ct.LAUNCHES.values())
+    assert sum(ct.TWIN_CALLS.values()) == 0
+    torch.cuda.synchronize()
+    _close(fwd, ct.tti_forward_dt2_plain(*ops, injT, wav, dt, **kw))
+    _close(ck, ct.tti_forward_ckpt_plain(*ops, injT, wav, dt, **kw))
+    _close([g_s], [ct.tti_gradient_stream_plain(*ops, fwd[1], fwd[2], res,
+                                                dt, **kw)])
+    _close([g_c], [ct.tti_jacobian_adjoint_plain(*ops, injT, wav, ck[1],
+                                                 res, dt, **kw)])
+    assert torch.equal(g_c, g_s)
+    assert torch.equal(ck[0], fwd[0])
+
+
+@pytest.mark.cuda
+def test_tti_rejects_what_the_kernels_do_not_take(cuda):
+    """Receivers off two adjacent z-planes, or two source points: the TTI
+    entry points raise on the card rather than run the twins or the eager
+    torch."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    from devito_fwi_tpu_torch.ops.tti_wavesolver import AnisotropicWaveSolver
+    model, geom, *_ = _tti_operands(4, cuda, nsrc=1)
+    rec = np.stack([np.linspace(0., 600., 41), np.linspace(30., 200., 41)],
+                   1)
+    bad = AcquisitionGeometry(model, rec, geom.src_positions, 0., 250.,
+                              f0=0.015, src_type="Ricker")
+    ct.reset_counters()
+    solver = AnisotropicWaveSolver(model, bad, space_order=4)
+    with pytest.raises(ValueError, match="adjacent z-planes"):
+        solver.gradient_checkpointed(bad.rec)
+    two = AcquisitionGeometry(model, geom.rec_positions,
+                              np.array([[100., 20.], [300., 20.]]), 0., 250.,
+                              f0=0.015, src_type="Ricker")
+    solver = AnisotropicWaveSolver(model, two, space_order=4)
+    with pytest.raises(ValueError, match="one source point"):
+        solver.gradient_checkpointed(two.rec, src=two.src)
+    s_idx, s_w = interp_table(bad.src_positions, model.origin_pml,
+                              model.spacing)
+    r_idx, r_w = interp_table(bad.rec_positions, model.origin_pml,
+                              model.spacing)
+    fields = [torch.as_tensor(np.asarray(getattr(model, n), np.float32),
+                              device=cuda)
+              for n in ("vp", "damp", "epsilon", "delta", "theta")]
+    wav = torch.as_tensor(bad.src.data[:, :1], device=cuda)
+    obs = torch.zeros((1, bad.nt, 41), device=cuda)
+    with pytest.raises(ValueError, match="adjacent z-planes"):
+        ct.tti_gradient_batched(*fields, wav, s_idx[:, None], s_w[:, None],
+                                r_idx, r_w, obs, float(model.critical_dt),
+                                nt=bad.nt, spacing=model.spacing,
+                                space_order=4, n_checkpoints=4)
+    assert sum(ct.LAUNCHES.values()) == 0
+    assert sum(ct.TWIN_CALLS.values()) == 0
+
+
+@pytest.mark.cuda
+def test_tti_solver_gradient_on_the_card_matches_the_twins(cuda):
+    """AnisotropicWaveSolver.gradient_checkpointed on cuda (kernels, both
+    routes) against device='cpu' (twins): the sweeps agree bitwise, the
+    traces' and rows' matrix products sum in another order (1e-5)."""
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    from devito_fwi_tpu_torch.ops.tti_wavesolver import AnisotropicWaveSolver
+    model = demo_model("layers-tti", shape=(40, 36), spacing=(15., 15.),
+                       nbl=10, space_order=4, dtype=np.float32)
+    geometry = setup_geometry(model, 200.0)
+    cpu = AnisotropicWaveSolver(model, geometry, space_order=4, device="cpu")
+    rec, _, _, _ = cpu.forward()
+    rec.data[:] = 0.3 * rec.data
+    g_cpu, _ = cpu.gradient_checkpointed(rec, n_checkpoints=6)
+    ct.reset_counters()
+    card = AnisotropicWaveSolver(model, geometry, space_order=4)
+    g_s, _ = card.gradient_checkpointed(rec, n_checkpoints=6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ct, "_stream_fits", lambda *a: False)
+        g_c, _ = card.gradient_checkpointed(rec, n_checkpoints=6)
+    assert ct.LAUNCHES["tti_gradient_stream_segments"] == 1
+    assert ct.LAUNCHES["tti_jacobian_adjoint_segments"] == 1
+    assert np.array_equal(g_s, g_c)
+    assert np.abs(g_s - g_cpu).max() <= 1e-5 * np.abs(g_cpu).max()

@@ -242,3 +242,56 @@ def test_elastic_wrappers_reject_other_devices():
         cs.elastic_segments(*([t] * 9), torch.zeros((1, 4, 8), device="meta"),
                             torch.zeros(5, device="meta"), 1.0, nt=6, nx=8,
                             nz=4, space_order=4, spacing=(10., 10.), z0=1)
+
+
+TTI_MODULES = ("ops/wavesolver.py", "ops/tti.py", "ops/cuda_tti.py",
+               "ops/tti_wavesolver.py")
+
+
+@pytest.mark.parametrize("module", TTI_MODULES)
+def test_tti_modules_are_scanned(module):
+    """The TTI slice's modules are among the sources the scans above read
+    (and so import no JAX), beside their CUDA source."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+    assert os.path.exists(os.path.join(PKG, "csrc", "tti2d.cu"))
+
+
+def test_ctypes_signatures_match_the_tti_source():
+    """The same for cuda_tti.SIGNATURES and csrc/tti2d.cu."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    _check_signatures(ct, "tti2d.cu")
+
+
+def _tti_geometry():
+    model = demo_model("layers-tti", shape=(21, 21), spacing=(10., 10.),
+                       nbl=4, space_order=4)
+    rec = np.stack([np.linspace(0., 200., 11), np.full(11, 20.)], 1)
+    return AcquisitionGeometry(model, rec, np.array([[100., 20.]]), 0.,
+                               50., f0=0.01, src_type="Ricker")
+
+
+def test_tti_solver_raises_on_cuda_without_card(monkeypatch):
+    """``AnisotropicWaveSolver`` defaults to the card: without one it raises
+    for the missing device instead of running the twins on the CPU."""
+    from devito_fwi_tpu_torch.ops.tti_wavesolver import AnisotropicWaveSolver
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _tti_geometry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AnisotropicWaveSolver(g.model, g)
+    AnisotropicWaveSolver(g.model, g, device="cpu")
+
+
+def test_tti_wrappers_reject_other_devices():
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    t = torch.zeros((4, 8), device="meta")
+    b = torch.zeros((1, 4, 8), device="meta")
+    kw = dict(nt=7, nx=8, nz=4, space_order=4, spacing=(10., 10.), z0=1,
+              n_checkpoints=1)
+    with pytest.raises(ValueError, match="meta"):
+        ct.tti_forward_dt2_segments(*([t] * 6), b,
+                                    torch.zeros(6, device="meta"), 1.0, **kw)
+    h = torch.zeros((1, 1, 5, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ct.tti_gradient_stream_segments(
+            *([t] * 6), h, h, torch.zeros((1, 1, 5, 2, 8), device="meta"),
+            1.0, **kw)
