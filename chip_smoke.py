@@ -91,7 +91,33 @@ result line is printed:
    history is 7.15 GB): kernel beside twin, CUDA events, with the card's
    bound; the checkpoint-route gradient against the streamed one, bitwise;
 22. TTI profile: one steady-state gradient under ``torch.profiler``;
-23. a ``kernels`` JSON line; the card's name and power limit; the script's
+23. banded Legendre kernel vs twin, quick gate: the kernel
+   (``cuda_bfm.legendre_banded``, B6) against its twin, output and flag, on
+   both 1-D passes of a 2-D transform (rows of 300 traces at W/K = 24/8,
+   rows of 1357 samples at 48/16) of the first 3 shots of the live SMARMN
+   W2-2d state that phase 10 captured, on rows in band (flag True) and on
+   the same rows displaced past the band (flag False);
+24. the banded kernel at the main path's shapes (the 29-shot live state,
+   39353 and 8700 rows): kernel beside twin, CUDA events, with the card's
+   bound, and the anchored torch route on the same inputs; one 2-D
+   transform both ways;
+25. main path, banded W2-2d: a 29-shot gradient and trial through
+   ``fwi_loss`` with ``bfm_options={"legendre": "banded"}``: the kernel
+   launched, the certificate reads and fallbacks, loss and gradient held
+   against the anchored route's; the banded trial under ``torch.profiler``;
+26. main path, banded W2-2d FWI: the SMARMN driver (``--misfit 2
+   --maxiter 2``, ``run_fwi(..., bfm_options={"legendre": "banded"})``):
+   finite and decreasing misfit, the banded kernel and the sweeps launched,
+   no twin called;
+27. the native W2-2d solver: a 4-shot SMARMN gradient with
+   ``bfm_backend="native"`` (the host-misfit path, the sweeps on the card)
+   against the torch BFM route's;
+28. main path, the driver's data options: the SMARMN L2 driver with
+   ``--filter 1`` (finite and decreasing misfit) and with ``--resample 4``
+   (stops as the JAX driver does, on the observed data's length), and a
+   2-iteration L-BFGS of ``fwi_obj_multi(resample_dt=4)`` on the host-misfit
+   path at 4 shots;
+29. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -120,7 +146,8 @@ SEED = 0
 # operations one for one, so they should agree bitwise; 1e-6 of each
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
-SOURCES = ("acoustic2d", "bfm_push", "elastic2d", "visco2d", "tti2d")
+SOURCES = ("acoustic2d", "bfm_push", "bfm_legendre", "elastic2d",
+           "visco2d", "tti2d")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
@@ -129,6 +156,7 @@ REPLACES = {
     "gradient_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:453",
     "pushforward_slabs_nat": "devito_fwi_tpu/ops/pallas_bfm.py:369",
     "pushforward_slabs": "devito_fwi_tpu/ops/pallas_bfm.py:323",
+    "legendre_banded": "devito_fwi_tpu/ops/pallas_bfm.py:173",
     "elastic_segments": "devito_fwi_tpu/ops/pallas_staggered.py:173",
     "elastic_fwd_hist_segments": "devito_fwi_tpu/ops/pallas_staggered.py:607",
     "elastic_grad_stream_segments":
@@ -150,6 +178,9 @@ TTI_CHECKPOINTS = 16
 # float32 over the same 1581 steps (u + v - 2 u_acoustic is rounding only;
 # measured 5e-7 of the max over 811 steps on the CPU twins)
 ZERO_ANISOTROPY_RTOL = 1e-4
+# the driver's --resample value of phase 28 (ms): 1001 samples of the 4000 ms
+# window against the observed data's 1357
+RESAMPLE_DT = 4.0
 
 
 def phase(name):
@@ -365,7 +396,7 @@ def cuda_once(fn):
     return start.elapsed_time(end), out
 
 
-def run_driver(marm, cfg, argv, counters):
+def run_driver(marm, cfg, argv, counters, bfm_options=None):
     """Drive a Marmousi driver (``--maxiter 2``, the configuration's shots)
     on cuda with every counter set to 0 just before (``counters``: their
     reset functions); returns the driver's stats."""
@@ -373,7 +404,8 @@ def run_driver(marm, cfg, argv, counters):
         reset()
     with tempfile.TemporaryDirectory() as odir:
         _, stats = marm.run_fwi(cfg, argv + [
-            "--maxiter", "2", "--odir", odir, "--device", "cuda"])
+            "--maxiter", "2", "--odir", odir, "--device", "cuda"],
+            bfm_options=bfm_options)
     torch.cuda.synchronize()
     return stats
 
@@ -1105,6 +1137,274 @@ def tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
     torch.cuda.empty_cache()
 
 
+def legendre_bound(rows, n, W, K):
+    """(bytes, ops) of one banded Legendre launch: u read and the output
+    written once, the slope table and the row flags; per output the 2W+1
+    band taps (a product, a difference, a max), per row and certificate
+    sample the n lanes (a product, a difference, the max, the hit test, the
+    first/last update)."""
+    nsamp = -(-(n - 1) // K) + 1
+    return ((2 * rows * n + n + rows) * 4,
+            rows * n * (2 * W + 1) * 3 + rows * nsamp * n * 5)
+
+
+def bands(n):
+    """The banded route's W/K for rows of n (``misfit.bfm``)."""
+    return (48, 16) if n >= 512 else (24, 8)
+
+
+def legendre_passes(bfm, cb, u):
+    """The inputs of the two 1-D passes of one 2-D transform of the BFM
+    state u (B, nt, nrec), as ``bfm._legendre_2d`` forms them: rows of nrec,
+    then, from the first pass's output (the anchored route), rows of nt."""
+    B, nt, nrec = u.shape
+    a = bfm._legendre_last_anchor_fast(u, cb._grid(nrec, u.device))
+    return (u.reshape(-1, nrec).contiguous(),
+            (-a.transpose(-1, -2)).reshape(-1, nt).contiguous())
+
+
+def legendre_compare(cb, name, u, expect=None):
+    """The banded kernel against its twin on rows u: output (NaN where the
+    twin has NaN) and flag bitwise; ``expect``: the flag it must give."""
+    W, K = bands(u.shape[1])
+    out, ok = cb.legendre_banded(u, W, K)
+    want, ok_want = cb.legendre_banded_plain(u, W, K)
+    same_nan = torch.equal(torch.isnan(out), torch.isnan(want))
+    err = float((torch.nan_to_num(out) - torch.nan_to_num(want)).abs().max())
+    scale = float(torch.nan_to_num(want).abs().max())
+    print(f"   {name}: {tuple(u.shape)} at W/K {W}/{K}: max|kernel-twin| = "
+          f"{err:.3e} (max|twin| = {scale:.3e}, limit {RTOL:g} x max), flag "
+          f"{bool(ok)} (twin {bool(ok_want)})")
+    if not (same_nan and err <= RTOL * scale and bool(ok) == bool(ok_want)):
+        raise AssertionError(f"{name}: the banded Legendre kernel disagrees "
+                             "with its twin")
+    if expect is not None and bool(ok) != expect:
+        raise AssertionError(f"{name}: flag {bool(ok)}, expected {expect}")
+    return err
+
+
+def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
+                   w2_state, counters, report, modules, ms, plain_ms, err,
+                   bounds):
+    """Phases 23-28: the banded Legendre kernel against its twin at 3 shots
+    and on the 29-shot live W2 state with its times and bound, the banded
+    W2-2d gradient and trial against the anchored route, the banded W2-2d
+    FWI driver, the native W2-2d gradient, and the driver with --filter 1
+    and --resample, and L-BFGS on the host-misfit path with resampling."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"23 banded Legendre kernel vs twin (quick gate), {NSHOTS_CHECK} "
+          "shots of the live W2-2d state")
+    u = w2_state.to(dev)
+    B, nt, nrec = u.shape
+    print(f"   live state: the input of the last 2-D transform of a W2-2d "
+          f"trial, {tuple(u.shape)}")
+    small = legendre_passes(bfm, cb, u[:NSHOTS_CHECK].contiguous())
+    for k, rows in enumerate(small):
+        legendre_compare(cb, f"pass {k + 1}, live", rows)
+        legendre_compare(cb, f"pass {k + 1}, displaced 40 samples",
+                         torch.roll(rows, 40, dims=1).contiguous(), False)
+        n = rows.shape[1]
+        sg = cb._grid(n, dev)
+        # noise of 5e-4 (300/n)^2 moves an argmax of 0.5 s^2 by up to ~9
+        # samples, inside both bands
+        noise = torch.rand(rows.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        inband = (0.5 * sg * sg + 5e-4 * (300 / n) ** 2 * noise).contiguous()
+        legendre_compare(cb, f"pass {k + 1} shape, in band (0.5 s^2 + "
+                         "noise)", inband, True)
+    del small
+
+    phase(f"24 banded Legendre kernel vs twin and kernel times, {B} shots "
+          "(main-path shapes)")
+    name = "legendre_banded"
+    passes = legendre_passes(bfm, cb, u)
+    ms[name] = plain_ms[name] = err[name] = 0.0
+    nbytes = nops = 0
+    anchor_ms = 0.0
+    for k, rows in enumerate(passes):
+        W, K = bands(rows.shape[1])
+        k_ms, _ = cuda_ms(lambda: cb.legendre_banded(rows, W, K), 10)
+        t_ms, _ = cuda_ms(lambda: cb.legendre_banded_plain(rows, W, K), 1)
+        n = rows.shape[1]
+        sg = cb._grid(n, dev)
+        a_ms, _ = cuda_ms(lambda: bfm._legendre_last_anchor_fast(rows, sg),
+                          3)
+        e = legendre_compare(cb, f"pass {k + 1}", rows)
+        b = legendre_bound(rows.shape[0], n, W, K)
+        nbytes, nops = nbytes + b[0], nops + b[1]
+        ms[name] += k_ms
+        plain_ms[name] += t_ms
+        anchor_ms += a_ms
+        err[name] = max(err[name], e)
+        print(f"   pass {k + 1}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, "
+              f"anchored torch route {a_ms:.3f} ms, bound "
+              f"{bound(*b)[0]:.3f} ms by {bound(*b)[1]} ({b[0]:.4g} B, "
+              f"{b[1]:.4g} f32 ops)")
+    bounds[name] = bound(nbytes, nops)
+    print(f"   one 2-D transform (both passes): kernel {ms[name]:.3f} ms, "
+          f"twin {plain_ms[name]:.3f} ms, anchored torch route "
+          f"{anchor_ms:.3f} ms, bound {bounds[name][0]:.3f} ms by "
+          f"{bounds[name][1]}, {bounds[name][0] / ms[name]:.1%} of the bound")
+    xs, ys = cb._grid(nrec, dev), cb._grid(nt, dev)
+    two_d = {}
+    for leg in ("banded", "anchor"):
+        t_ms, two_d[leg] = cuda_ms(lambda: bfm._legendre_2d(
+            u, xs, ys, 32_000_000, leg), 3)
+        print(f"   _legendre_2d, legendre={leg!r}: {t_ms:.3f} ms")
+    if not torch.equal(two_d["banded"], two_d["anchor"]):
+        raise AssertionError("the banded 2-D transform differs from the "
+                             "anchored one")
+    del passes, two_d, u
+    torch.cuda.empty_cache()
+
+    phase(f"25 main path: banded W2-2d gradient and trial, {B} shots")
+    args = marm.make_parser(marm.SMARMN).parse_args(["--device", "cuda"])
+    _, geoms, vps, mask = marm.setup(marm.SMARMN, args, B)
+    g0 = geoms[1]
+    obs = fwi.fm_multi(geoms[0], device="cuda")
+    dw = fwi.fm_multi(geoms[2], device="cuda")
+    x0 = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    banded = marm.misfits(marm.SMARMN, {"legendre": "banded"})[2]
+    anchor = marm.misfits(marm.SMARMN)[2]
+    out = {}
+    for label, misfit in (("banded", banded), ("anchor", anchor)):
+        for reset in counters:
+            reset()
+        for calc_grad in (True, False):
+            t0 = time.perf_counter()
+            out[label, calc_grad] = fwi.fwi_loss(
+                x0, g0, obs, misfit, dw, mask, precond=False,
+                calc_grad=calc_grad, device="cuda")[:2]
+            print(f"   {label} {'gradient' if calc_grad else 'trial'}: "
+                  f"objective {out[label, calc_grad][0]!r}, "
+                  f"{time.perf_counter() - t0:.3f} s")
+        print(f"   {label}: legendre_banded launches "
+              f"{cb.LAUNCHES['legendre_banded']}, certificate reads "
+              f"{bfm.COUNTS['legendre_reads']}, fallbacks "
+              f"{bfm.COUNTS['legendre_fallbacks']}")
+        if label == "banded" and cb.LAUNCHES["legendre_banded"] < 1:
+            raise AssertionError("the banded W2-2d objective did not launch "
+                                 "the banded kernel")
+    for calc_grad in (True, False):
+        (fb, gb), (fa, ga) = out["banded", calc_grad], out["anchor",
+                                                           calc_grad]
+        rel_f = abs(fb - fa) / abs(fa)
+        rel_g = float(np.abs(gb - ga).max() / max(np.abs(ga).max(), 1e-300))
+        print(f"   banded vs anchored {'gradient' if calc_grad else 'trial'}"
+              f": objective {rel_f:.3e}, unpreconditioned gradient "
+              f"{rel_g:.3e} of its max (limit 1e-6)")
+        if not (rel_f <= 1e-6 and rel_g <= 1e-6):
+            raise AssertionError("the banded W2-2d objective disagrees with "
+                                 "the anchored one")
+    del out
+    report_profile("banded W2-2d trial", lambda: fwi.fwi_loss(
+        x0, g0, obs, banded, dw, mask, calc_grad=False, device="cuda"))
+
+    phase(f"26 main path: SMARMN W2-2d FWI with the banded Legendre kernel, "
+          f"{B} shots, --misfit 2 --maxiter 2, on cuda")
+    check_history(run_driver(marm, marm.SMARMN, ["--misfit", "2"], counters,
+                             bfm_options={"legendre": "banded"}))
+    print(f"   BFM host reads and branches: {dict(bfm.COUNTS)}")
+    reads = bfm.COUNTS["legendre_reads"]
+    print(f"   Legendre certificate fallbacks "
+          f"{bfm.COUNTS['legendre_fallbacks']} of {reads} reads "
+          f"({bfm.COUNTS['legendre_fallbacks'] / max(reads, 1):.1%})")
+    if min(ca.LAUNCHES[n] for n in ca.KERNELS[:3]) < 1:
+        raise AssertionError("the banded W2-2d path did not run the sweeps")
+    report("banded W2-2d", ("legendre_banded",))
+
+    phase("27 native W2-2d: a 4-shot SMARMN gradient, the sweeps on cuda")
+    args4 = marm.make_parser(marm.SMARMN).parse_args(["--device", "cuda"])
+    _, geoms4, _, mask4 = marm.setup(marm.SMARMN, args4, 4)
+    obs4 = fwi.fm_multi(geoms4[0], device="cuda")
+    dw4 = fwi.fm_multi(geoms4[2], device="cuda")
+    native = qWasserstein(gamma=1.01, method="2d",
+                          num_steps=marm.SMARMN.w2_num_steps,
+                          step_scale=marm.SMARMN.w2_step_scale,
+                          bfm_backend="native")
+    got = {}
+    for label, misfit in (("native", native), ("torch", anchor)):
+        for reset in counters:
+            reset()
+        t0 = time.perf_counter()
+        got[label] = fwi.fwi_loss(x0, geoms4[1], obs4, misfit, dw4, mask4,
+                                  precond=False, device="cuda")[:2]
+        sec = time.perf_counter() - t0
+        la = {k: v for mod in modules for k, v in mod.LAUNCHES.items()
+              if v}
+        twins = sum(v for mod in modules for v in mod.TWIN_CALLS.values())
+        print(f"   {label} BFM gradient: objective {got[label][0]!r}, "
+              f"{sec:.3f} s; kernel launches {la}, twin calls {twins}")
+        if twins or min(ca.LAUNCHES[n] for n in (
+                "forward_dt2_segments", "gradient_stream_segments")) < 1:
+            raise AssertionError(f"the {label} W2-2d gradient did not run "
+                                 "its sweeps on the card")
+    (fn, gn), (ft, gt) = got["native"], got["torch"]
+    rel_f = abs(fn - ft) / abs(ft)
+    rel_g = float(np.abs(gn - gt).max() / np.abs(gt).max())
+    # the W2 value is a small difference of O(1) terms, float64 in the C++
+    # solver and float32 in the torch one: the objectives are printed, the
+    # gradients held to tests/test_misfit.py's limit for the JAX native
+    # route against its device BFM
+    print(f"   native vs torch BFM: objective {rel_f:.3e} (not held), "
+          f"unpreconditioned gradient {rel_g:.3e} of its max (limit 1e-2)")
+    if not (np.isfinite(fn) and fn > 0 and np.isfinite(gn).all()
+            and rel_g <= 1e-2):
+        raise AssertionError("the native W2-2d gradient disagrees with the "
+                             "torch BFM's")
+    del got
+
+    phase(f"28 main path: SMARMN L2 FWI with --filter 1 and --resample "
+          f"{RESAMPLE_DT:g}, {B} shots, on cuda")
+    sweeps = ("forward_rec_segments", "forward_dt2_segments",
+              "gradient_stream_segments")
+    check_history(run_driver(marm, marm.SMARMN, ["--misfit", "0", "--filter",
+                                                 "1"], counters))
+    report("L2 --filter 1", sweeps, record=False)
+    try:
+        run_driver(marm, marm.SMARMN, ["--misfit", "0", "--resample",
+                                       str(RESAMPLE_DT)], counters)
+    except ValueError as e:
+        print(f"   --resample {RESAMPLE_DT:g}: stops as the JAX driver does: "
+              f"{e}")
+    else:
+        raise AssertionError("--resample ran where the JAX driver stops on "
+                             "the observed data's length")
+    from devito_fwi_tpu_torch.optimize import LBFGS, minimize
+
+    def resampled(x, geometry, obs, misfit_func, direct_wave=None,
+                  mask=None, precond=True, calc_grad=True,
+                  shot_indices=None):
+        geometry.model.update("vp", (1.0 / np.sqrt(x)).reshape(
+            geometry.model.shape))
+        return fwi.fwi_obj_multi(geometry, obs, misfit_func, direct_wave,
+                                 mask, precond, calc_grad,
+                                 resample_dt=RESAMPLE_DT,
+                                 shot_indices=shot_indices, device="cuda")
+
+    # the host resamples every trace by splines (~14 s an objective at 29
+    # shots on the card's host): 4 shots keep the phase short
+    loss = marm.TimedLoss("cuda", resampled)
+    m0 = 1.0 / vps[1].reshape(-1).astype(np.float64) ** 2
+    for reset in counters:
+        reset()
+    with tempfile.TemporaryDirectory() as odir:
+        opt = LBFGS(memory=10, ls_method="Bracket", step_len_init=0.1,
+                    max_ls=5, log_path=odir)
+        minimize(opt, maxIter=2, ftol=1e-5, gtol=1e-10, loss_fn=loss,
+                 log_path=odir).run(m0, geoms4[1], obs4, least_square, dw4,
+                                    mask4, 1, [1.0 / 5.2 ** 2,
+                                               1.0 / 1.5 ** 2])
+    torch.cuda.synchronize()
+    print(f"   L-BFGS of fwi_obj_multi(resample_dt={RESAMPLE_DT:g}) on the "
+          "host-misfit path, 4 shots:")
+    check_history(dict(calls=loss.calls, model_s=0.0))
+    report("L2 resample_dt", sweeps, record=False)
+    del obs, dw, obs4, dw4
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1134,6 +1434,7 @@ def main():
         paths = list(pool.map(cuda_build.build, SOURCES))
     ca._lib()
     cb._lib()
+    cb._legendre_lib()
     cs._lib()
     cv._lib()
     ct._lib()
@@ -1313,10 +1614,10 @@ def main():
     modules = (ca, cb, cs, cv, ct)
     launches = {}
 
-    def report(path, names):
+    def report(path, names, record=True):
         """Read the counts just after a path: every kernel of ``names``
-        launched, no twin called; the path's launches of ``names`` go into
-        the kernels line."""
+        launched, no twin called; with ``record``, the path's launches of
+        ``names`` go into the kernels line."""
         la = {k: v for mod in modules for k, v in mod.LAUNCHES.items()}
         twins = {k: v for mod in modules for k, v in mod.TWIN_CALLS.items()}
         print(f"   kernel launches: {la}")
@@ -1325,8 +1626,9 @@ def main():
                                       default=1) < 1:
             raise AssertionError(f"the {path} path did not run every "
                                  f"kernel of {names}, or ran a twin")
-        for n in names:
-            launches[n] = la[n]
+        if record:
+            for n in names:
+                launches[n] = la[n]
 
     phase(f"6 main path: SMARMN L2 FWI, {B} shots, --maxiter 2, on cuda")
     check_history(run_driver(marm, marm.SMARMN, ["--misfit", "0"], counters))
@@ -1455,6 +1757,9 @@ def main():
               "trial's wall)")
     print(f"   W2-2d parts in all: {total:.1f} ms of the trial's "
           f"{walls['W2-2d trial'] * 1e3:.1f} ms wall")
+    # the banded Legendre phases take this state again; on the host, so that
+    # it pins no device block the later phases' histories need
+    w2_state = live["_legendre_2d"][0][0].cpu()
     del obs, dw, live, dens
 
     elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
@@ -1463,8 +1768,11 @@ def main():
                  plain_ms, err, bounds)
     tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
                bounds)
+    w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
+                   w2_state, counters, report, modules, ms, plain_ms, err,
+                   bounds)
 
-    phase("23 result")
+    phase("29 result")
     rows = []
     sources = {"acoustic2d": ca, "bfm_push": cb, "elastic2d": cs,
                "visco2d": cv, "tti2d": ct}
@@ -1472,7 +1780,9 @@ def main():
         for n in mod.KERNELS:
             rows.append(dict(
                 name=n, route="cuda",
-                source=f"devito_fwi_tpu_torch/csrc/{src}.cu",
+                source="devito_fwi_tpu_torch/csrc/"
+                       f"{'bfm_legendre' if n == 'legendre_banded' else src}"
+                       ".cu",
                 replaces=REPLACES[n], launches=launches[n],
                 max_abs_err=err[n], ms=ms[n], plain_ms=plain_ms[n],
                 bound_ms=bounds[n][0], bound_by=bounds[n][1],

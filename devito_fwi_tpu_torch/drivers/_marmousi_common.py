@@ -11,11 +11,16 @@ CLI/flow parity with ``drivers/_marmousi_common.py`` of the JAX package
 and acquisition constants, misfit configurations and result-file layout,
 plus ``--device`` (default "cuda"; "cpu" runs the plain torch twins). The
 raw velocity models are read from ``--data-dir`` (default: the vendored
-``model_data/`` at the repo root).
+``model_data/`` at the repo root). ``--filter 1`` high-passes the source
+wavelet (3 Hz, 6 corners). ``--resample`` does what the JAX driver does: it
+sets the inverted geometry's dt, which only its time axis reads; the
+objective is not asked to resample (``fwi_loss`` has no such argument), so a
+dt that changes the number of samples makes the objective raise on the
+observed data's length, as in the JAX driver. The 2-D solver's backends are
+a keyword of ``run_fwi`` (``bfm_options``), not a flag: the JAX driver reads
+them from the environment.
 
-Not ported yet (each raises ``NotImplementedError``): ``--filter 1`` and
-``--resample`` (ROADMAP.md queue A item 4), and the forward-modeling
-drivers (item 6).
+Not ported yet: the forward-modeling drivers (ROADMAP.md queue A item 6).
 """
 import argparse
 import os
@@ -26,7 +31,7 @@ from time import perf_counter
 import numpy as np
 
 from ..elastic_fwi import ElasticFwiLoss, elastic_fm_multi
-from ..fwi import fm_multi, fwi_loss
+from ..fwi import Filter, fm_multi, fwi_loss
 from ..misfit import least_square, qWasserstein
 from ..models.geometry import AcquisitionGeometry
 from ..models.model import SeismicModel
@@ -153,8 +158,13 @@ def setup(cfg, args, nsources):
                                         - cfg.spacing[0], num=nreceivers)
     rec_coordinates[:, 1] = 2 * cfg.spacing[0]
 
+    filt_func = None
+    if args.filter:
+        filt_func = Filter(filter_type="highpass", freqmin=3, corners=6,
+                           df=1000 / cfg.dt)
     geoms = [AcquisitionGeometry(m, rec_coordinates, src_coordinates, 0.,
-                                 cfg.tn, f0=cfg.f0, src_type="Ricker")
+                                 cfg.tn, f0=cfg.f0, src_type="Ricker",
+                                 filter=filt_func)
              for m in (true_model, init_model, constant_model)]
     return (true_model, init_model, constant_model), geoms, \
         (true_vp, smooth_vp), bathy_mask
@@ -299,23 +309,15 @@ class TimedLoss:
         return out
 
 
-def misfits(cfg):
+def misfits(cfg, bfm_options=None):
     """[least_square, W2-1d, W2-2d], indexed by ``--misfit`` (the JAX
-    driver's configurations)."""
+    driver's configurations); ``bfm_options`` goes to the W2-2d solver."""
     return [least_square,
             qWasserstein(gamma=1.01, method="1d"),
             qWasserstein(gamma=1.01, method="2d",
                          num_steps=cfg.w2_num_steps,
-                         step_scale=cfg.w2_step_scale)]
-
-
-def _reject_unported(args, cfg):
-    if args.filter:
-        raise NotImplementedError("--filter 1: Filter is not ported yet "
-                                  "(ROADMAP.md queue A item 4)")
-    if args.resample and args.resample != cfg.dt:
-        raise NotImplementedError("--resample: trace resampling is not "
-                                  "ported yet (ROADMAP.md queue A item 4)")
+                         step_scale=cfg.w2_step_scale,
+                         bfm_options=bfm_options)]
 
 
 def run_fwi_elastic(cfg, args):
@@ -418,15 +420,15 @@ def run_fwi_visco(cfg, args):
     return m, dict(calls=loss.calls, model_s=model_s)
 
 
-def run_fwi(cfg, argv=None):
-    """Parse ``argv`` (default: the command line) and run the inversion.
-    Returns (m, stats): the final squared slowness and a dict with the
-    objective calls in order (``calls``: (calc_grad, objective, host
-    seconds); a gradient opens each iteration, the line-search trials
-    follow) and the time of the forward modeling of the observed data and
-    the direct wave (``model_s``)."""
+def run_fwi(cfg, argv=None, bfm_options=None):
+    """Parse ``argv`` (default: the command line) and run the inversion;
+    ``bfm_options`` are the W2-2d solver's keywords (``misfit.bfm``'s
+    backends, e.g. ``{"legendre": "banded"}``). Returns (m, stats): the
+    final squared slowness and a dict with the objective calls in order
+    (``calls``: (calc_grad, objective, host seconds); a gradient opens each
+    iteration, the line-search trials follow) and the time of the forward
+    modeling of the observed data and the direct wave (``model_s``)."""
     args = make_parser(cfg).parse_args(argv)
-    _reject_unported(args, cfg)
     result_dir = args.odir
     os.makedirs(result_dir, exist_ok=True)
     if args.physics == "elastic":
@@ -437,7 +439,9 @@ def run_fwi(cfg, argv=None):
     print("---------------- Parameter Setting ------------\n",
           "\t Result dir: %s \t Misfit function: %d \t Precondition: %d\n"
           % (result_dir, misfit_type, args.precond),
-          "\t Use mask: %d \t Device: %s\n" % (args.bathy, args.device),
+          "\t Use mask: %d \t Filtering source: %d \t Resample rate: %.2f\n"
+          % (args.bathy, args.filter, args.resample),
+          "\t Device: %s\n" % args.device,
           "\t ftol: %e \t gtol: %e \t nsrc: %d\n"
           % (args.ftol, args.gtol, args.nsrc),
           "\t maxiter:%d \t maxls: %d \t init step length: %.3f\n"
@@ -447,12 +451,13 @@ def run_fwi(cfg, argv=None):
     models, geoms, vps, bathy_mask = setup(cfg, args, args.nsrc)
     geometry1, geometry0, geometry2 = geoms
     _, smooth_vp = vps
+    geometry0.resample(args.resample or cfg.dt)
 
     t0 = perf_counter()
     obs = fm_multi(geometry1, device=args.device)
     direct_wave = fm_multi(geometry2, device=args.device)
     model_s = perf_counter() - t0
-    misfit_func = misfits(cfg)[misfit_type]
+    misfit_func = misfits(cfg, bfm_options)[misfit_type]
     loss = TimedLoss(args.device)
 
     if args.check_gradient:

@@ -30,26 +30,34 @@ no autograd is involved. ``stream`` picks the route: None streams when one
 shot's history fits ``_device_budget``, 80% of the largest block the
 caching allocator can hand out.
 
-Not ported yet (each raises ``NotImplementedError``): other misfits and
-trace resampling, which need the host-misfit path (ROADMAP.md queue A item
-4); geometries the kernels do not take (3-D, receivers off two adjacent
-z-planes; queue A items 2 and 16).
+Host misfits take the host-misfit path (``fwi_obj_multi`` picks it, as the
+JAX package does): misfits the device does not compute (custom numpy
+callables, ``qWasserstein`` 2-D on the native C++ solver) and trace
+resampling (``resample_dt`` other than ``geometry.dt``). The sweeps stay on
+the device, through the same kernels; only the gathers and the residuals
+cross to the host, once per shot chunk.
+
+Not ported yet (raises ``NotImplementedError``): geometries the kernels do
+not take (3-D, receivers off two adjacent z-planes; ROADMAP.md queue A items
+2 and 16).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy import interpolate
 
-from .misfit.w2 import least_square, least_square_torch, qWasserstein
+from .misfit.w2 import least_square, least_square_torch
 from .models.geometry import AcquisitionGeometry
 from .models.sources import PointSource
 from .ops import acoustic as _ac
 from .ops import cuda_acoustic as _ca
 from .ops.acoustic import _ckpt_layout
 from .ops.interp import interp_table
+from .utils.filters import bandpass, highpass, lowpass
 
-__all__ = ["fm_single", "fm_multi", "fwi_obj_multi", "fwi_loss",
-           "ResidualStack"]
+__all__ = ["seismic_filter", "Filter", "resample", "fm_single", "fm_multi",
+           "fwi_obj_multi", "fwi_loss", "ResidualStack"]
 
 
 def _resolve_device(device):
@@ -63,6 +71,61 @@ def _resolve_device(device):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device {dev}: expected cuda or cpu")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# filters / resampling (reference fwi.py:10-57)
+# ---------------------------------------------------------------------------
+
+def seismic_filter(data, filter_type, freqmin=None, freqmax=None, df=None,
+                   corners=16, zerophase=False, axis=-1):
+    filter_type = filter_type.lower()
+    assert filter_type in ("bandpass", "lowpass", "highpass")
+    if filter_type == "bandpass":
+        if freqmin and freqmax and df:
+            return bandpass(data, freqmin, freqmax, df, corners, zerophase,
+                            axis)
+        raise ValueError
+    if filter_type == "lowpass":
+        if freqmax and df:
+            return lowpass(data, freqmax, df, corners, zerophase, axis)
+        raise ValueError
+    if filter_type == "highpass":
+        if freqmin and df:
+            return highpass(data, freqmin, df, corners, zerophase, axis)
+        raise ValueError
+
+
+class Filter:
+    def __init__(self, filter_type, freqmin=None, freqmax=None, df=None,
+                 corners=10, zerophase=False, axis=-1):
+        self.filter_type = filter_type
+        self.freqmin = freqmin
+        self.freqmax = freqmax
+        self.df = df
+        self.corners = corners
+        self.zerophase = zerophase
+        self.axis = axis
+
+    def __call__(self, data):
+        return seismic_filter(data, self.filter_type, self.freqmin,
+                              self.freqmax, self.df, self.corners,
+                              self.zerophase, self.axis)
+
+
+def resample(x, t, t0, order=3):
+    """Spline trace resampling from time axis t0 to t
+    (reference ``fwi.py:47-57``)."""
+    dt = t[1] - t[0]
+    dt0 = t0[1] - t0[0]
+    if np.isclose(dt, dt0):
+        return x
+    nsamples, ntraces = x.shape
+    new_x = np.zeros((t.size, ntraces), dtype=np.float32)
+    for i in range(ntraces):
+        tck = interpolate.splrep(t0, x[:, i], k=order)
+        new_x[:, i] = interpolate.splev(t, tck)
+    return new_x
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +376,80 @@ def _misfit_batch(misfit_func):
     = d misfit / d syn), key of MISFIT_BYTES_PER_SAMPLE)."""
     if misfit_func is None or misfit_func is least_square:
         return least_square_torch, "least_square"
-    if isinstance(misfit_func, qWasserstein):
-        return misfit_func.torch_batch, misfit_func.method
-    raise NotImplementedError(
-        f"misfit {misfit_func!r}: the port runs least_square and "
-        "qWasserstein; other misfits need the host-misfit path, not ported "
-        "yet (ROADMAP.md queue A item 4)")
+    if not hasattr(misfit_func, "torch_batch"):
+        raise NotImplementedError(
+            f"misfit {misfit_func!r} has no batched torch form; only the "
+            "acoustic objective (fwi.fwi_obj_multi) runs host misfits")
+    return misfit_func.torch_batch, getattr(misfit_func, "method", "2d")
+
+
+def _host_misfit(misfit_func, resample_dt, geometry):
+    """True when the misfit runs on the host (the JAX package's host-misfit
+    cases): trace resampling, the native 2-D solver, and any misfit without
+    a batched torch form."""
+    if resample_dt not in (None, geometry.dt):
+        return True
+    if getattr(misfit_func, "method", None) == "2d" and \
+            getattr(misfit_func, "bfm_backend", None) == "native":
+        return True
+    return not (misfit_func is None or misfit_func is least_square
+                or hasattr(misfit_func, "torch_batch"))
+
+
+def _host_misfit_batch(misfit_func, syn_batch, obs_batch):
+    """A host misfit over a (chunk, nt, nrec) batch: the misfit's ``batch``
+    entry point when it has one (the native solver's OpenMP batch), else one
+    call per shot."""
+    batch_fn = getattr(misfit_func, "batch", None)
+    if batch_fn is not None:
+        losses, res = batch_fn(syn_batch, obs_batch)
+        return [float(v) for v in losses], list(res)
+    fvals, residuals = [], []
+    for syn, ob in zip(syn_batch, obs_batch):
+        f_i, res_i = misfit_func(syn, ob)
+        fvals.append(float(f_i))
+        residuals.append(np.asarray(res_i))
+    return fvals, residuals
+
+
+def _host_misfit_chunk(geometry, rec_host, obs, misfit_func, direct_wave,
+                       resample_dt, lo, hi):
+    """Host misfit of shots [lo, hi): direct-wave subtraction, optional
+    trace resampling to ``resample_dt`` and back, the (batched) misfit.
+    ``rec_host`` holds the chunk's synthetic gathers (hi-lo, nt, nrec).
+    Returns (fval sum, [residuals at the geometry's dt])."""
+    model = geometry.model
+    tvals = geometry.time_axis.time_values
+    syn_b, obs_b = [], []
+    t_m = tvals
+    for i in range(lo, hi):
+        syn = rec_host[i - lo]
+        ob = np.asarray(obs[i].data)
+        t_m = tvals
+        if resample_dt is not None and \
+                not np.isclose(resample_dt, geometry.dt):
+            n_new = int(round((tvals[-1] - tvals[0]) / resample_dt)) + 1
+            t_m = np.linspace(tvals[0], tvals[0]
+                              + (n_new - 1) * resample_dt, n_new)
+            syn = resample(syn, t_m, tvals)
+            ob = resample(ob, t_m, tvals)
+        if direct_wave is not None:
+            dw = np.asarray(direct_wave[i].data)
+            if t_m is not tvals:
+                dw = resample(dw, t_m, tvals)
+            syn = syn - dw
+            ob = ob - dw
+        syn_b.append(syn)
+        obs_b.append(ob)
+    fvals_c, res_c = _host_misfit_batch(misfit_func, np.stack(syn_b),
+                                        np.stack(obs_b))
+    residuals = []
+    for res_i in res_c:
+        res_i = np.asarray(res_i)
+        if t_m is not tvals:
+            res_i = resample(res_i, tvals, t_m)
+        residuals.append(res_i.astype(model.dtype))
+    return sum(fvals_c), residuals
 
 
 def _device_budget(dev):
@@ -378,23 +509,21 @@ def _route(nsrc, shot_chunk, calc_grad, stream, st, dev, itemsize,
     return _shots_per_batch(nsrc, shot_chunk, per_shot, budget), bool(stream)
 
 
-def _shot_objective(geometry, obs_stack, dw_stack, misfit_func, calc_grad,
-                    shot_chunk, shot_indices, stream, dev):
-    """Batched objective. Returns (fval tensor, grad sum, illum sum (both
+def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
+                    sel, stream, dev):
+    """Batched objective over the shots ``sel`` (None: all).
+    ``misfit_chunk(syn, lo, hi)`` takes the synthetic traces (hi-lo, nt,
+    nrec) of the selected shots lo..hi-1 on the device and returns (their
+    misfit, the residual on the device); ``kind`` keys its memory in
+    MISFIT_BYTES_PER_SAMPLE. Returns (fval, grad sum, illum sum (both
     cropped, fixed, float64, or None), residuals)."""
     model = geometry.model
     st = _Setup(geometry, dev)
     src_pos = np.asarray(geometry.src_positions)
-    if shot_indices is not None:
-        sel = np.asarray(shot_indices, dtype=np.int64)
+    if sel is not None:
         st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
         src_pos = src_pos[sel]
-        sel_t = torch.as_tensor(sel, device=dev)
-        obs_stack = obs_stack[sel_t]
-        if dw_stack.shape[0] > 1:
-            dw_stack = dw_stack[sel_t]
     nsrc = st.s_idx.shape[0]
-    misfit, kind = _misfit_batch(misfit_func)
     chunk, stream = _route(
         nsrc, shot_chunk, calc_grad, stream, st, dev, st.m.element_size(),
         MISFIT_BYTES_PER_SAMPLE[kind] * st.nt * st.r_idx.shape[0])
@@ -408,7 +537,6 @@ def _shot_objective(geometry, obs_stack, dw_stack, misfit_func, calc_grad,
     for lo in range(0, nsrc, chunk):
         hi = min(lo + chunk, nsrc)
         injT = st.injT(lo, hi)
-        dw = dw_stack[lo:hi] if dw_stack.shape[0] > 1 else dw_stack
         if not calc_grad:
             rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
                                                 injT, st.dt, **st.kw)
@@ -418,8 +546,8 @@ def _shot_objective(geometry, obs_stack, dw_stack, misfit_func, calc_grad,
         else:
             rec_rows, pairs, illumT = _ca.forward_ckpt_segments(
                 st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
-        fvals, res = misfit(st.traces(rec_rows) - dw, obs_stack[lo:hi] - dw)
-        fval = fval + torch.sum(fvals)
+        f_c, res = misfit_chunk(st.traces(rec_rows), lo, hi)
+        fval = fval + f_c
         residuals.append(res)
         if not calc_grad:
             continue
@@ -452,30 +580,60 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
     """Multi-shot objective and gradient (reference ``fwi.py:175-205``):
     returns (fval, grad (flat float64 numpy or zeros), residuals).
 
-    ``misfit_func``: ``least_square`` (or None) or a ``qWasserstein``.
-    ``shot_indices`` evaluates only that shot subset (random-batch FWI);
-    ``shot_chunk`` caps the shots per batch (default: as many as the
-    device memory holds). ``stream`` picks the gradient route: True the
-    streamed history, False the checkpoint-and-recompute pair, None (the
-    default) streams when one shot's history fits the card's memory."""
-    if resample_dt not in (None, geometry.dt):
-        raise NotImplementedError(
-            "trace resampling (resample_dt != geometry.dt) needs the "
-            "host-misfit path, not ported yet (ROADMAP.md queue A item 4)")
+    ``misfit_func``: ``least_square`` (or None), a ``qWasserstein``, or any
+    callable ``(syn, obs) -> (fval, residual)`` on numpy (nt, nrec) gathers,
+    which runs on the host, as do the native 2-D solver and trace resampling
+    to ``resample_dt``. ``shot_indices`` evaluates only that shot subset
+    (random-batch FWI); ``shot_chunk`` caps the shots per batch (default: as
+    many as the device memory holds). ``stream`` picks the gradient route:
+    True the streamed history, False the checkpoint-and-recompute pair, None
+    (the default) streams when one shot's history fits the card's memory."""
     dev = _resolve_device(device)
-    obs_stack = _device_stack(obs, dev)
-    if obs_stack.shape[1] != geometry.nt:
-        raise ValueError(
-            "observed data has %d time samples but the geometry's time "
-            "axis has %d — resample the traces or rebuild the geometry with "
-            "a matching dt" % (obs_stack.shape[1], geometry.nt))
-    if direct_wave is not None:
-        dw_stack = _device_stack(direct_wave, dev)
+    sel = None if shot_indices is None else \
+        np.asarray(shot_indices, dtype=np.int64)
+    if _host_misfit(misfit_func, resample_dt, geometry):
+        # the gathers cross to the host anyway: the shot subset is taken
+        # from the host lists
+        if sel is not None:
+            obs = [obs[i] for i in sel]
+            if direct_wave is not None:
+                direct_wave = [direct_wave[i] for i in sel]
+
+        def misfit_chunk(syn, lo, hi):
+            f_c, res = _host_misfit_chunk(
+                geometry, syn.cpu().numpy(), obs, misfit_func, direct_wave,
+                resample_dt, lo, hi)
+            return f_c, torch.as_tensor(np.stack(res), device=dev)
+
+        # on the device only the traces and the residual: least_square's
+        # figure bounds them
+        kind = "least_square"
     else:
-        dw_stack = obs_stack.new_zeros((obs_stack.shape[0], 1, 1))
+        misfit, kind = _misfit_batch(misfit_func)
+        obs_stack = _device_stack(obs, dev)
+        if obs_stack.shape[1] != geometry.nt:
+            raise ValueError(
+                "observed data has %d time samples but the geometry's time "
+                "axis has %d — resample the traces or rebuild the geometry "
+                "with a matching dt" % (obs_stack.shape[1], geometry.nt))
+        if direct_wave is not None:
+            dw_stack = _device_stack(direct_wave, dev)
+        else:
+            dw_stack = obs_stack.new_zeros((obs_stack.shape[0], 1, 1))
+        if sel is not None:
+            sel_t = torch.as_tensor(sel, device=dev)
+            obs_stack = obs_stack[sel_t]
+            if dw_stack.shape[0] > 1:
+                dw_stack = dw_stack[sel_t]
+
+        def misfit_chunk(syn, lo, hi):
+            dw = dw_stack[lo:hi] if dw_stack.shape[0] > 1 else dw_stack
+            fvals, res = misfit(syn - dw, obs_stack[lo:hi] - dw)
+            return torch.sum(fvals), res
+
     fval, grad, illum, residuals = _shot_objective(
-        geometry, obs_stack, dw_stack, misfit_func, calc_grad, shot_chunk,
-        shot_indices, stream, dev)
+        geometry, misfit_chunk, kind, calc_grad, shot_chunk, sel, stream,
+        dev)
     if not calc_grad:
         return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
                 residuals)

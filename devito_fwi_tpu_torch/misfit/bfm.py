@@ -25,15 +25,17 @@ reads, the Legendre fallbacks and the pushforwards by tier.
 Backends are keywords (``resolve_backends``) with the JAX package's
 values: push "pallas" (the slab kernel first) or "xla" (banded product,
 then scatter); prep "nat" or "blocked" (the slab kernel's plane layout);
-Legendre "anchor" or "full". The banded Legendre kernel ("banded",
-ROADMAP.md queue B item 6) and the vectorized slab fold ("vec", a negative
-result the JAX package keeps for comparisons; queue A item 9) are not
-ported and raise ``NotImplementedError``.
+Legendre "anchor" (the default, as in the JAX package), "banded" (the banded
+kernel ``ops.cuda_bfm.legendre_banded`` with its certificate, the full
+transform where it fails) or "full". The vectorized slab fold ("vec", a
+negative result the JAX package keeps for comparisons) is not ported and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,13 +71,9 @@ def resolve_backends(push="pallas", prep="nat", legendre="anchor"):
                          "'xla'")
     if prep not in ("nat", "blocked"):
         raise ValueError(f"prep {prep!r}: expected 'nat' or 'blocked'")
-    if legendre == "banded":
-        raise NotImplementedError(
-            "the banded Legendre kernel is not ported yet (ROADMAP.md queue "
-            "B item 6)")
-    if legendre not in ("anchor", "full"):
-        raise ValueError(f"legendre {legendre!r}: expected 'anchor' or "
-                         "'full'")
+    if legendre not in ("anchor", "banded", "full"):
+        raise ValueError(f"legendre {legendre!r}: expected 'anchor', "
+                         "'banded' or 'full'")
     return push, prep, legendre
 
 
@@ -169,11 +167,35 @@ def _legendre_last_anchor_fast(u, s, max_tmp_elems=32_000_000):
     return _legendre_last(u, s, max_tmp_elems)
 
 
+def _legendre_last_fast(u, s, max_tmp_elems=2_000_000):
+    """Legendre transform along the last axis through the banded kernel
+    (``ops.cuda_bfm.legendre_banded``), with the full transform where its
+    certificate fails (one host read of the flag). The bands are the JAX
+    package's, W/K = 48/16 for n >= 512 and 24/8 below; the certificate
+    needs W >= K + the largest displacement. Rows too short for the band to
+    save work, and types other than float32, take the full transform. The
+    kernel uses its own grid ``s_i = (i + 0.5)/n``, so the endpoints of
+    ``s`` are checked in float32 and folded into the flag: other slopes
+    fall back to the full transform, which honours ``s``."""
+    n = s.shape[0]
+    W, K = (48, 16) if n >= 512 else (24, 8)
+    if n <= 2 * W + 1 + n // K or u.dtype != torch.float32:
+        return _legendre_last(u, s, max_tmp_elems)
+    out, ok = _cb.legendre_banded(u.reshape(-1, n).contiguous(), W, K)
+    s_ok = (s[0] == float(np.float32(0.5) / np.float32(n))) & \
+        (s[-1] == float((np.float32(n - 1) + np.float32(0.5))
+                        / np.float32(n)))
+    if _read(ok & s_ok, "legendre_reads"):
+        return out.reshape(u.shape)
+    COUNTS["legendre_fallbacks"] += 1
+    return _legendre_last(u, s, max_tmp_elems)
+
+
 def _legendre_2d(u, sx, sy, max_tmp_elems=2_000_000, legendre="anchor"):
     """out[..., iy, ix] = max_{jx, jy} (x_ix x_jx + y_iy y_jy - u[.., jy, jx])
     as two 1-D passes (fot2d.c:151-173)."""
-    fn = _legendre_last_anchor_fast if legendre == "anchor" \
-        else _legendre_last
+    fn = {"anchor": _legendre_last_anchor_fast,
+          "banded": _legendre_last_fast}.get(legendre, _legendre_last)
     a = fn(u, sx, max_tmp_elems)                            # max over jx
     b = fn(-a.transpose(-1, -2), sy, max_tmp_elems)         # max over jy
     return b.transpose(-1, -2).contiguous()
@@ -578,8 +600,12 @@ def bfm_batch(f_b, g_b, num_steps=10, step_scale=1.0, nsub=2, dmax=127,
     one = torch.ones_like(maxd)
     sigma = torch.where(live, step_scale / torch.where(live, maxd, one), one)
 
-    xs = (torch.arange(n1, dtype=dtype, device=dev) + 0.5) / n1
-    ys = (torch.arange(n2, dtype=dtype, device=dev) + 0.5) / n2
+    # grid coordinates divided on the host: torch on the card divides by a
+    # scalar through its reciprocal, which can round one ulp off (i+0.5)/n,
+    # and the banded kernel's table and the other routes must see the same
+    # slopes
+    xs = ((torch.arange(n1, dtype=dtype) + 0.5) / n1).to(dev)
+    ys = ((torch.arange(n2, dtype=dtype) + 0.5) / n2).to(dev)
     quad = 0.5 * (xs[None, :] ** 2 + ys[:, None] ** 2)
     quad_b = quad.expand(B, n2, n1)
 

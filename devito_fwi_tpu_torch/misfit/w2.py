@@ -9,10 +9,10 @@
   ``torch.searchsorted`` on the monotone CDF, the same index as the JAX
   package's dense count without its (nt, nt) temporary;
 * 2-D W2 through the batch back-and-forth solver of ``misfit.bfm``
-  (``misfit/misfit.py:69-79``).
-
-The native C++ BFM (``bfm_backend="native"``) is not ported yet (ROADMAP.md
-queue A item 9): asking for it raises ``NotImplementedError``.
+  (``misfit/misfit.py:69-79``), or with ``bfm_backend="native"`` through
+  the C++ solver of ``misfit.native`` on the host (the gathers make one
+  round trip; the FWI objective sends this misfit to its host-misfit
+  path).
 """
 from __future__ import annotations
 
@@ -109,8 +109,10 @@ class qWasserstein:
     ``__call__`` takes numpy (nt, ntraces) shot gathers and returns
     ``(loss, grad)``; ``batch`` a numpy (nb, nt, ntraces) stack;
     ``torch_batch`` the same on torch tensors on any device, as the FWI
-    objective calls it. ``bfm_options`` holds keywords of the 2-D solver
-    ``misfit.bfm.bfm_batch`` (its backends: push, prep, legendre)."""
+    objective calls it. ``bfm_backend`` "torch" runs the 2-D method on the
+    batch solver ``misfit.bfm.bfm_batch``, whose keywords ``bfm_options``
+    holds (its backends: push, prep, legendre); "native" on the C++ solver
+    of ``misfit.native``, on the host."""
 
     def __init__(self, trans_type="linear", gamma=1.0, method="1d",
                  num_steps=10, step_scale=1.0, bfm_backend="torch",
@@ -121,20 +123,24 @@ class qWasserstein:
         self.trans_type = trans_type
         self.num_steps = num_steps
         self.step_scale = step_scale
-        if bfm_backend == "native":
-            raise NotImplementedError(
-                "bfm_backend='native' (the C++ BFM through ctypes) is not "
-                "ported yet (ROADMAP.md queue A item 9)")
-        if bfm_backend != "torch":
+        if bfm_backend not in ("torch", "native"):
             raise ValueError(f"bfm_backend {bfm_backend!r}: expected "
-                             "'torch'")
+                             "'torch' or 'native'")
         self.bfm_backend = bfm_backend
         self.bfm_options = dict(bfm_options or {})
+
+    def _native(self):
+        return self.method == "2d" and self.bfm_backend == "native"
 
     def torch_batch(self, f_b, g_b):
         """Batched misfit of (B, nt, ntraces) tensors: (fvals (B,),
         gradients (B, nt, ntraces)), the gradient being the residual the
-        adjoint sweep injects."""
+        adjoint sweep injects. The native solver takes a round trip through
+        the host."""
+        if self._native():
+            losses, grads = self.batch(f_b.cpu().numpy(), g_b.cpu().numpy())
+            return (torch.as_tensor(losses, device=f_b.device),
+                    torch.as_tensor(grads, device=f_b.device))
         mus, nus, ds = transform_torch(f_b, g_b, self.trans_type, self.gamma)
         if self.method == "1d":
             losses, grads = w2_1d_torch(mus.transpose(-1, -2),
@@ -157,6 +163,17 @@ class qWasserstein:
         ntr = 1 if f.ndim == 1 else shape[1]
         if self.method == "2d" and ntr <= 1:
             raise ValueError("Can not use 2d method for 1D input.")
+        if self._native():
+            from .native import bfm_gradient
+            mu, nu, d = _transform_np_batch(f[None], g[None],
+                                            self.trans_type, self.gamma)
+            mass = float(np.sum(mu[0]) / mu[0].size)
+            if mass <= 0:  # dead gather: the solver's gradient is 0
+                mass = 1.0
+            loss, grad = bfm_gradient(mu[0], nu[0], num_steps=self.num_steps,
+                                      step_scale=self.step_scale)
+            grad = (grad / mass) * d[0]
+            return float(loss), grad.reshape(shape)
         fb = torch.as_tensor(f.reshape(shape[0], ntr))[None]
         gb = torch.as_tensor(g.reshape(shape[0], ntr))[None]
         loss, grad = self.torch_batch(fb, gb)
@@ -164,8 +181,41 @@ class qWasserstein:
 
     def batch(self, f_b, g_b):
         """Misfit of a numpy (nb, nt, ntraces) stack: (losses (nb,), grads
-        (nb, nt, ntraces)), one batched solve."""
+        (nb, nt, ntraces)), one batched solve (the native one spreads the
+        gathers over OpenMP threads, the mpibfm2d analog)."""
+        if self._native():
+            from .native import bfm_gradient_batch
+            f_b, g_b = np.asarray(f_b), np.asarray(g_b)
+            mu, nu, d = _transform_np_batch(f_b, g_b, self.trans_type,
+                                            self.gamma)
+            mass = mu.reshape(mu.shape[0], -1).sum(axis=1) \
+                / float(mu[0].size)
+            mass = np.where(mass > 0, mass, 1.0)  # dead-gather guard
+            losses, grads = bfm_gradient_batch(mu, nu,
+                                               num_steps=self.num_steps,
+                                               step_scale=self.step_scale)
+            return losses, (grads / mass[:, None, None]) * d
         losses, grads = self.torch_batch(torch.as_tensor(np.asarray(f_b)),
                                          torch.as_tensor(np.asarray(g_b)))
         return losses.numpy(), grads.numpy()
 
+
+def _transform_np_batch(f, g, trans_type, gamma):
+    """Per-gather positivity transform of numpy (nb, nt, ntraces) stacks:
+    the numpy twin of ``transform_torch``, as the JAX package's native
+    route computes it."""
+    if trans_type == "linear":
+        mn = np.minimum(f.min(axis=(1, 2)), g.min(axis=(1, 2)))
+        c = (np.where(mn < 0, -mn, 0.0) * gamma)[:, None, None]
+        return f + c, g + c, np.ones_like(f)
+    if trans_type == "square":
+        return f * f, g * g, 2 * f
+    if trans_type == "exp":
+        mu = np.exp(gamma * f)
+        return mu, np.exp(gamma * g), gamma * mu
+    if trans_type == "softplus":
+        mu = np.log(np.exp(gamma * f) + 1)
+        nu = np.log(np.exp(gamma * g) + 1)
+        # the true derivative (see transform_torch)
+        return mu, nu, gamma / (1.0 + np.exp(-gamma * f))
+    return f, g, np.ones_like(f)

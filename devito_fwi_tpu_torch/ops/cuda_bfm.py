@@ -1,38 +1,50 @@
-"""The BFM pushforward slab kernel, on the card and as its plain torch twin.
-Counterpart of ``devito_fwi_tpu.ops.pallas_bfm``'s ``pushforward_slabs_nat``
-and ``pushforward_slabs`` (the banded Legendre kernel, ROADMAP.md queue B
-item 6, is not ported yet).
+"""The BFM's two kernels, on the card and as their plain torch twins: the
+pushforward slab kernel, counterpart of ``devito_fwi_tpu.ops.pallas_bfm``'s
+``pushforward_slabs_nat`` and ``pushforward_slabs``, and the banded Legendre
+transform with its certificate, counterpart of its ``legendre_banded``.
 
-Both compute, for every (shot, block of R rows), the bilinear supersample
-pushforward of the block into an (R + G, lanes) slab: each subsample cell
-adds ``wx * wy`` at slab row ``i + rel`` (``wy0``) or ``i + rel + 1``
-(``wy1 = mass - wy0``) and lane ``l + dxr`` (``wx0``) or ``l + dxr + 1``
-(``wx1 = 1 - wx0``), with ``DX = 2*dxmax + 2`` lane offsets and ``G`` row
-offsets. ``misfit.bfm`` prepares the planes (``_slab_planes``) and
-overlap-adds the slabs at their blocks' runtime bases (``_slab_push``).
-
+The slab kernels compute, for every (shot, block of R rows), the bilinear
+supersample pushforward of the block into an (R + G, lanes) slab: each
+subsample cell adds ``wx * wy`` at slab row ``i + rel`` (``wy0``) or
+``i + rel + 1`` (``wy1 = mass - wy0``) and lane ``l + dxr`` (``wx0``) or
+``l + dxr + 1`` (``wx1 = 1 - wx0``), with ``DX = 2*dxmax + 2`` lane offsets
+and ``G`` row offsets. ``misfit.bfm`` prepares the planes (``_slab_planes``)
+and overlap-adds the slabs at their blocks' runtime bases (``_slab_push``).
 ``pushforward_slabs_nat`` takes natural-layout (B, Q, n2p, lanes) planes,
 ``pushforward_slabs`` blocked (B, nblk, Q, R, lanes) planes; both return
-slabs (B, nblk, R + G, lanes). For CUDA tensors each wrapper launches the
-kernel of ``csrc/bfm_push.cu`` (one launch, the plane strides as
-arguments) and adds one to ``LAUNCHES[name]``; for CPU tensors it runs the
-plain twin, which repeats ``_push_block``'s sums in its order (g, then e,
-then q), so that the kernel equals it bitwise. On another device it raises.
+slabs (B, nblk, R + G, lanes).
+
+``legendre_banded(u, W, K)`` takes a (rows, n) float32 ``u`` and returns
+``out[r, i] = max_d (s_i s_{i+d} - u[r, i+d])`` over the Pallas kernel's
+offsets d = -W .. ND-1-W (ND = 8 ceil((2W+1)/8); columns outside the row
+count as ``-FLT_MAX/8``), ``s_i = (i + 0.5)/n``, and a device flag that is
+True iff every row passes the total-monotonicity certificate, so that
+``out`` is the full transform (see ``csrc/bfm_legendre.cu``).
+
+For CUDA tensors each wrapper launches its kernel (``csrc/bfm_push.cu``, one
+launch, the plane strides as arguments; ``csrc/bfm_legendre.cu``, one block
+a row) and adds one to ``LAUNCHES[name]``; for CPU tensors it runs the plain
+twin, which repeats the kernel's arithmetic (the slabs in ``_push_block``'s
+order, g, then e, then q), so that the kernel equals it bitwise. On another
+device it raises.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 
 __all__ = ["pushforward_slabs_nat", "pushforward_slabs",
            "pushforward_slabs_nat_plain", "pushforward_slabs_plain",
-           "KERNELS", "LAUNCHES", "TWIN_CALLS", "reset_counters",
-           "SIGNATURES"]
+           "legendre_banded", "legendre_banded_plain", "KERNELS",
+           "LAUNCHES", "TWIN_CALLS", "reset_counters", "SIGNATURES",
+           "LEGENDRE_SIGNATURES"]
 
-KERNELS = ("pushforward_slabs_nat", "pushforward_slabs")
+KERNELS = ("pushforward_slabs_nat", "pushforward_slabs", "legendre_banded")
 # launches of each kernel and calls of each plain twin
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 TWIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -55,15 +67,30 @@ SIGNATURES = {
 }
 
 
-def _lib():
-    lib = cuda_build.load("bfm_push")
+# (argtypes, restype) of the C entry points of csrc/bfm_legendre.cu
+LEGENDRE_SIGNATURES = {
+    "bfm_legendre_banded": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "bfm_legendre_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _load(source, signatures):
+    lib = cuda_build.load(source)
     if not getattr(lib, "_argtypes_set", False):
-        for name, (argtypes, restype) in SIGNATURES.items():
+        for name, (argtypes, restype) in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
         lib._argtypes_set = True
     return lib
+
+
+def _lib():
+    return _load("bfm_push", SIGNATURES)
+
+
+def _legendre_lib():
+    return _load("bfm_legendre", LEGENDRE_SIGNATURES)
 
 
 def _blocks(planes, blocked, R):
@@ -189,3 +216,100 @@ def pushforward_slabs_plain(rel, dxr, wy0, mass, wx0, *, G, dxmax, R):
     """Plain torch twin of ``pushforward_slabs``."""
     return _run("pushforward_slabs", True, True, rel, dxr, wy0, mass, wx0,
                 G=G, dxmax=dxmax, R=R)
+
+
+# ---------------------------------------------------------------------------
+# banded Legendre transform
+# ---------------------------------------------------------------------------
+
+_BIG = float(torch.finfo(torch.float32).max / 8)
+
+
+def _grid(n, dev):
+    """s_i = (i + 0.5)/n, formed in float32 on the host as the Pallas
+    wrapper forms its table (an f64 table cast to f32 can sit one ulp off
+    the certificate's slopes)."""
+    s = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+    return torch.as_tensor(s, device=dev)
+
+
+def _legendre_plain(u, s, W, K):
+    """The band as ND full-row maxima over shifted copies of the padded row,
+    the certificate as one full-row argmax per sample; (out, ok)."""
+    rows, n = u.shape
+    ND = -(-(2 * W + 1) // 8) * 8     # the Pallas kernel's chunks of 8
+    npad = -(-n // 128) * 128
+    up = F.pad(u, (W, ND - W), value=_BIG)            # up[:, k]: u[:, k - W]
+    sp = F.pad(s, (W, ND - W))
+    acc = torch.full_like(u, -_BIG)
+    for d in range(ND):
+        acc = torch.maximum(acc, s * sp[d:d + n] - up[:, d:d + n])
+    uc = F.pad(u, (0, npad - n), value=_BIG)
+    sc = F.pad(s, (0, npad - n))
+    lane = torch.arange(npad, device=u.device)
+
+    def first_last(i):
+        v = s[i] * sc - uc
+        hit = v >= v.amax(1, keepdim=True)
+        return (torch.where(hit, lane, n).amin(1),
+                torch.where(hit, lane, -1).amax(1))
+
+    ok = torch.ones((), dtype=torch.bool, device=u.device)
+    prev_first, _ = first_last(0)
+    for m in range(1, -(-(n - 1) // K) + 1):
+        i, prev = min(m * K, n - 1), min((m - 1) * K, n - 1)
+        first, last = first_last(i)
+        ok = ok & torch.all(prev_first >= i - W) & torch.all(last <= prev + W)
+        prev_first = first
+    return acc, ok
+
+
+def _legendre_cuda(u, s, W, K):
+    lib = _legendre_lib()
+    rows, n = u.shape
+    out = torch.empty_like(u)
+    row_ok = torch.empty(rows, dtype=torch.int32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.bfm_legendre_banded(
+            u.data_ptr(), s.data_ptr(), out.data_ptr(), row_ok.data_ptr(),
+            rows, n, W, K, torch.cuda.current_stream(u.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"bfm_legendre_banded: CUDA error {err} "
+                           f"({lib.bfm_legendre_error_string(err).decode()})")
+    return out, torch.all(row_ok == 1)
+
+
+def _legendre_run(plain, u, W, K):
+    fn = "legendre_banded"
+    dev = u.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{fn}: tensor on {dev}; expected cuda or cpu")
+    if u.dim() != 2 or u.shape[0] < 1 or u.shape[1] < 2:
+        raise ValueError(f"{fn}: u of shape {tuple(u.shape)}; expected "
+                         "(rows, n) with rows >= 1 and n >= 2")
+    if u.dtype != torch.float32:
+        raise TypeError(f"{fn}: u of dtype {u.dtype}; expected float32")
+    if not u.is_contiguous():
+        raise ValueError(f"{fn}: u is not contiguous")
+    if W < 0 or K < 1:
+        raise ValueError(f"{fn}: W = {W}, K = {K}; expected W >= 0, K >= 1")
+    s = _grid(u.shape[1], dev)
+    if dev.type == "cuda" and not plain:
+        out = _legendre_cuda(u, s, W, K)
+        LAUNCHES[fn] += 1
+        return out
+    TWIN_CALLS[fn] += 1
+    return _legendre_plain(u, s, W, K)
+
+
+def legendre_banded(u, W, K):
+    """Banded Legendre transform of a (rows, n) float32 ``u`` along its last
+    axis and the certificate: ``(out, ok)``, ``ok`` a 0-dim bool tensor on
+    ``u``'s device; ``out`` equals ``max_j (s_i s_j - u[:, j])`` when ``ok``
+    is True."""
+    return _legendre_run(False, u, W, K)
+
+
+def legendre_banded_plain(u, W, K):
+    """Plain torch twin of ``legendre_banded``, on any device."""
+    return _legendre_run(True, u, W, K)

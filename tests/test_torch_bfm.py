@@ -5,6 +5,14 @@ kernel's plain twin (ops.cuda_bfm) against the JAX package, on the CPU:
   n < 512 and n >= 512 and for a state whose certificate fails: 1e-6 of
   the max (the JAX transform may contract s_i*s_j - u_j into a
   multiply-add; the port does not);
+* the banded Legendre kernel's twin (``cuda_bfm.legendre_banded``) against
+  the Pallas kernel in interpret mode, for both bands, in band and
+  displaced: the flag identical, the output within 1e-6 of the max
+  (measured 1.2e-7: the interpreter contracts the product and the
+  subtraction into one multiply-add, the twin rounds twice as the card
+  kernel does), and bitwise the full transform where the flag holds; the
+  banded route (``_legendre_last_fast``) against the JAX one; ``bfm_batch``
+  on it bitwise the anchored route;
 * the map, the subsamples and the adaptive mask: the integer planes equal,
   the float planes to 1e-6 of their max;
 * the slab twins (natural and blocked layouts) against the Pallas kernels
@@ -109,6 +117,75 @@ def test_legendre_2d_matches_jax():
     got = T._legendre_2d(torch.tensor(u), torch.tensor(xs), torch.tensor(ys),
                          32_000_000, "anchor")
     _close(got, want, 1e-6)
+
+
+def _f32_grid(n):
+    """s_i = (i + 0.5)/n formed in float32, as the banded kernel's table."""
+    return (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+
+
+@pytest.mark.parametrize("shift", [0, 30], ids=["in_band", "displaced"])
+@pytest.mark.parametrize("W,K,n,rows", [(24, 8, 300, 37), (48, 16, 600, 45)],
+                         ids=["W24K8", "W48K16"])
+def test_legendre_banded_twin_matches_pallas_interpret(W, K, n, rows,
+                                                       shift):
+    rng = np.random.RandomState(0)
+    u = (0.5 * _f32_grid(n)[None, :].astype(np.float64) ** 2
+         + 5e-4 * rng.rand(rows, n)).astype(np.float32)
+    u = np.roll(u, shift, axis=-1)
+    out_j, ok_j = PB.legendre_banded(jnp.asarray(u), W, K, interpret=True)
+    cb.reset_counters()
+    out_t, ok_t = cb.legendre_banded(torch.tensor(u), W, K)
+    assert cb.TWIN_CALLS["legendre_banded"] == 1
+    assert sum(cb.LAUNCHES.values()) == 0
+    assert ok_t.dtype == torch.bool and ok_t.dim() == 0
+    assert bool(ok_t) == bool(ok_j) == (shift == 0)
+    _close(out_t, out_j, 1e-6)
+    if shift == 0:
+        full = T._legendre_last(torch.tensor(u), torch.tensor(_f32_grid(n)))
+        assert torch.equal(out_t, full)
+
+
+@pytest.mark.parametrize("n,shift", [(300, 0), (640, 0), (640, 300),
+                                     (50, 0)])
+def test_legendre_last_fast_matches_jax(n, shift, monkeypatch):
+    """The banded route: the certificate read once, the full transform
+    where it fails, and below 2W+1+n//K samples the full transform
+    without a read, as the JAX route (its kernel in interpret mode)."""
+    monkeypatch.setenv("DEVITO_FWI_TPU_PALLAS_INTERPRET", "1")
+    s, u = _legendre_input(n, shift)
+    want = JB._legendre_last_fast(jnp.asarray(u), jnp.asarray(s),
+                                  32_000_000)
+    T.reset_counts()
+    got = T._legendre_last_fast(torch.tensor(u), torch.tensor(s),
+                                32_000_000)
+    _close(got, want, 1e-6)
+    reads = 0 if n == 50 else 1
+    assert T.COUNTS["legendre_reads"] == reads
+    assert T.COUNTS["legendre_fallbacks"] == (1 if shift else 0)
+    # slopes off the kernel's grid fail the endpoint check
+    T.reset_counts()
+    s2 = torch.tensor(s) * 1.01
+    _close(T._legendre_last_fast(torch.tensor(u), s2),
+           T._legendre_last(torch.tensor(u), s2), 0)
+    assert T.COUNTS["legendre_fallbacks"] == reads
+
+
+def test_bfm_batch_banded_equals_anchor():
+    """The banded route (its twin here) gives the anchored route's loss and
+    gradient bitwise: both are exact where their certificates hold."""
+    mu, nu = _blobs(np.float32)
+    out = {}
+    for leg in ("anchor", "banded"):
+        T.reset_counts()
+        cb.reset_counters()
+        out[leg] = T.bfm_batch(torch.tensor(mu), torch.tensor(nu),
+                               num_steps=6, step_scale=1.0, legendre=leg)
+        assert T.COUNTS["legendre_fallbacks"] == 0
+    assert T.COUNTS["legendre_reads"] == \
+        cb.TWIN_CALLS["legendre_banded"] > 0
+    assert torch.equal(out["banded"][0], out["anchor"][0])
+    assert torch.equal(out["banded"][1], out["anchor"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -428,5 +505,10 @@ def test_dead_shot_gives_zero():
 
 @pytest.mark.parametrize("kw", [dict(legendre="banded"), dict(push="vec")])
 def test_unported_backends_raise(kw):
+    """The vectorized fold stays unported; the banded Legendre kernel, which
+    raised until it was ported, resolves."""
+    if kw.get("legendre") == "banded":
+        assert T.resolve_backends(**kw) == ("pallas", "nat", "banded")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.resolve_backends(**kw)

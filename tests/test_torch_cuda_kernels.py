@@ -14,14 +14,17 @@ Small case: circle-isotropic 61x61, nbl=10, 2 shots, space_order 4 and 8,
 with and without the free surface; the residual rows are seeded noise. The
 checkpoint-route gradient must equal the streamed one bitwise. The slab
 kernel runs on seeded planes that reach every row and lane offset it
-takes, in both layouts. The elastic kernels run on a two-layer 61 x 48
-model (nbl 10, 2-3 shots, space order 4 and 8); the elastic objective on
-the card is held against its CPU twins, and ElasticWaveSolver against the
-reference goldens. The viscoacoustic kernels run on a two-layer 61 x 48
-model with qp 60/90 (nbl 10, 2-3 shots, space order 4 and 8) in the same
-way, with the sls/2 solver golden. The TTI sweeps run on layers-tti 61 x 48
-(nbl 10, 2 shots, space order 4 and 8, 7 segments) in the same way; their
-checkpoint-route gradient must equal the streamed one bitwise.
+takes, in both layouts. The banded Legendre kernel runs at both of its
+bands on seeded rows in band, displaced past the band and holding a NaN,
+and inside the W2 misfit against the anchored route. The elastic kernels
+run on a two-layer 61 x 48 model (nbl 10, 2-3 shots, space order 4 and
+8); the elastic objective on the card is held against its CPU twins, and
+ElasticWaveSolver against the reference goldens. The viscoacoustic kernels
+run on a two-layer 61 x 48 model with qp 60/90 (nbl 10, 2-3 shots, space
+order 4 and 8) in the same way, with the sls/2 solver golden. The TTI
+sweeps run on layers-tti 61 x 48 (nbl 10, 2 shots, space order 4 and 8, 7
+segments) in the same way; their checkpoint-route gradient must equal the
+streamed one bitwise.
 """
 import numpy as np
 import pytest
@@ -169,6 +172,64 @@ def test_push_kernel_matches_twin(cuda, blocked):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (2, 5, 40, 128)
     assert torch.equal(got, want)
+
+
+def _legendre_rows(dev, rows, n, shift, nan=False):
+    """Seeded rows near the convex 0.5 s^2 (the BFM's potentials), rolled by
+    ``shift`` samples (past the band when large), optionally with a NaN."""
+    rng = np.random.default_rng(4)
+    s = (np.arange(n) + 0.5) / n
+    u = (0.5 * s[None, :] ** 2 + 5e-4 * rng.uniform(size=(rows, n)))
+    u = np.roll(u.astype(np.float32), shift, axis=-1)
+    if nan:
+        u[rows // 2, n // 3] = np.nan
+    return torch.as_tensor(u, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,K,n,rows", [(24, 8, 300, 131),
+                                        (48, 16, 1357, 70)])
+@pytest.mark.parametrize("case", ["in_band", "displaced", "nan"])
+def test_legendre_kernel_matches_twin(cuda, W, K, n, rows, case):
+    """The banded Legendre kernel against its twin at both bands of the W2
+    route (300 traces, 1357 samples): output and flag bitwise, NaN where
+    the twin has NaN."""
+    u = _legendre_rows(cuda, rows, n, 40 if case == "displaced" else 0,
+                       nan=case == "nan")
+    cb.reset_counters()
+    out, ok = cb.legendre_banded(u, W, K)
+    assert cb.LAUNCHES["legendre_banded"] == 1
+    assert sum(cb.TWIN_CALLS.values()) == 0
+    want, ok_want = cb.legendre_banded_plain(u, W, K)
+    torch.cuda.synchronize()
+    assert bool(ok) == bool(ok_want) == (case != "displaced")
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(want))
+
+
+@pytest.mark.cuda
+def test_banded_w2_route_equals_anchor_on_the_card(cuda):
+    """``bfm_batch(legendre="banded")`` launches the kernel and gives the
+    anchored route's loss and gradient bitwise."""
+    from devito_fwi_tpu_torch.misfit import bfm
+    t = np.arange(200)[:, None]
+    x = np.arange(64)[None, :]
+
+    def blob(t0, x0):
+        return np.exp(-((t - t0) ** 2 / 80.0 + (x - x0) ** 2 / 40.0))
+
+    mu = torch.as_tensor(np.stack([blob(60, 20) + blob(140, 40),
+                                   blob(80, 28) + blob(170, 16)]) + 1e-3,
+                         dtype=torch.float32, device=cuda)
+    nu = torch.roll(mu, 6, 1)
+    out = {}
+    for leg in ("anchor", "banded"):
+        cb.reset_counters()
+        out[leg] = bfm.bfm_batch(mu, nu, num_steps=4, legendre=leg)
+    assert cb.LAUNCHES["legendre_banded"] > 0
+    assert sum(cb.TWIN_CALLS.values()) == 0
+    assert torch.equal(out["banded"][0], out["anchor"][0])
+    assert torch.equal(out["banded"][1], out["anchor"][1])
 
 
 # ---------------------------------------------------------------------------

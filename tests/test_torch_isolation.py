@@ -295,3 +295,50 @@ def test_tti_wrappers_reject_other_devices():
         ct.tti_gradient_stream_segments(
             *([t] * 6), h, h, torch.zeros((1, 1, 5, 2, 8), device="meta"),
             1.0, **kw)
+
+
+W2_MODULES = ("misfit/native.py", "utils/filters.py", "ops/cuda_bfm.py",
+              "misfit/bfm.py", "misfit/w2.py", "fwi.py")
+
+
+@pytest.mark.parametrize("module", W2_MODULES)
+def test_w2_and_host_misfit_modules_are_scanned(module):
+    """The banded Legendre, native BFM and host-misfit modules are among the
+    sources the scans above read (and so import no JAX), beside the banded
+    kernel's CUDA source and the native solver's C++ source."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+    assert os.path.exists(os.path.join(PKG, "csrc", "bfm_legendre.cu"))
+    assert os.path.exists(os.path.join(REPO, "native", "bfm2d.cpp"))
+
+
+def test_ctypes_signatures_match_the_legendre_source():
+    """The same for cuda_bfm.LEGENDRE_SIGNATURES and csrc/bfm_legendre.cu."""
+    from types import SimpleNamespace
+    _check_signatures(SimpleNamespace(SIGNATURES=cb.LEGENDRE_SIGNATURES),
+                      "bfm_legendre.cu")
+
+
+def test_legendre_wrapper_rejects_what_the_kernel_does_not_take():
+    """Another device, another type, a strided view, a short row: the
+    wrapper raises before any kernel or twin runs."""
+    cb.reset_counters()
+    with pytest.raises(ValueError, match="meta"):
+        cb.legendre_banded(torch.zeros((4, 8), device="meta"), 2, 2)
+    with pytest.raises(TypeError, match="float32"):
+        cb.legendre_banded(torch.zeros((4, 8), dtype=torch.float64), 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.legendre_banded(torch.zeros((8, 4)).T, 2, 2)
+    with pytest.raises(ValueError, match="rows, n"):
+        cb.legendre_banded(torch.zeros((4, 1)), 2, 2)
+    assert not any(cb.TWIN_CALLS.values()) and not any(cb.LAUNCHES.values())
+
+
+def test_host_misfit_entry_point_raises_on_cuda_without_card(monkeypatch):
+    """The host-misfit path asks for the card like the device path: without
+    one it raises for the missing device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _geometry()
+    obs = tfwi.fm_multi(g, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfwi.fwi_obj_multi(g, obs, lambda a, b: (0.0, a - b),
+                           calc_grad=True)

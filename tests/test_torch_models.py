@@ -1,6 +1,7 @@
 """The port's numpy layers (devito_fwi_tpu_torch.models, utils.fd,
 ops.interp, convert, the SMARMN driver setup) are the JAX package's,
 array for array: every comparison here is ``np.array_equal``."""
+import importlib
 import importlib.util
 import os
 from types import SimpleNamespace
@@ -138,8 +139,8 @@ def test_smarmn_setup_equal():
 def test_smarmn_misfits_and_flags_match_the_jax_driver():
     """``--misfit 0/1/2`` pick the JAX driver's misfits (least_square, W2-1d
     and W2-2d with gamma 1.01 and the configuration's BFM steps and step
-    scale); the port's driver admits them and still rejects what it does
-    not run."""
+    scale; ``bfm_options`` reaches the W2-2d solver); ``--filter 1``
+    high-passes the JAX driver's source wavelets, bitwise."""
     jmc = _jax_marmousi_common()
     cfg = t_marm.SMARMN
     assert (cfg.w2_num_steps, cfg.w2_step_scale) == (
@@ -150,12 +151,21 @@ def test_smarmn_misfits_and_flags_match_the_jax_driver():
         assert (q.method, q.gamma, q.trans_type) == (method, 1.01, "linear")
     assert (w1.num_steps, w1.step_scale) == (10, 1.0)
     assert (w2.num_steps, w2.step_scale) == (15, 1.0)
+    assert w2.bfm_options == {}
+    banded = t_marm.misfits(cfg, {"legendre": "banded"})[2]
+    assert banded.bfm_options == {"legendre": "banded"}
     parser = t_marm.make_parser(cfg)
-    for misfit in (0, 1, 2):
-        t_marm._reject_unported(parser.parse_args(["--misfit", str(misfit)]),
-                                cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_marm._reject_unported(parser.parse_args(["--filter", "1"]), cfg)
+    args = parser.parse_args(["--filter", "1", "--resample", "4"])
+    assert (args.filter, args.resample) == (1, 4.0)
+    args = SimpleNamespace(data_dir=t_marm.default_data_dir(), bathy=1,
+                           filter=1)
+    _, tgeoms, _, _ = t_marm.setup(cfg, args, 3)
+    _, jgeoms, _, _ = jmc.setup(jmc.SMARMN, args, 3)
+    for tg, jg in zip(tgeoms, jgeoms):
+        assert np.array_equal(tg.src.data, jg.src.data)
+    unfiltered = t_marm.setup(cfg, SimpleNamespace(
+        data_dir=t_marm.default_data_dir(), bathy=1, filter=0), 3)[1]
+    assert not np.array_equal(tgeoms[0].src.data, unfiltered[0].src.data)
 
 
 def test_smarm2_elastic_setup_equal():
@@ -229,3 +239,76 @@ def test_smarmn_visco_setup_equal():
         assert np.array_equal(tg.src.data, jg.src.data)
     qp = tmodels[0].qp
     assert 34.0 < qp.min() < qp.max() < 527.0
+
+
+def _cut_down_smarmn(tmp_path):
+    """SMARMN cut down for the CPU: the vendored models subsampled to 30 x 11
+    (written under ``tmp_path``), nbl 8, space order 4, tn 400 ms."""
+    import dataclasses
+    full = t_marm.SMARMN
+    true_vp, smooth_vp = t_marm.load_models(full, t_marm.default_data_dir())
+    data = tmp_path / "data" / full.name
+    data.mkdir(parents=True)
+    for name, v in (("vp.true", true_vp), ("vp.smooth_20", smooth_vp)):
+        (np.asarray(v[::10, ::10], np.float32) * 1000).tofile(data / name)
+    return dataclasses.replace(full, shape=(30, 11), tn=400., nbl=8,
+                               space_order=4, bathy_rows=1)
+
+
+@pytest.mark.parametrize("flags", [["--filter", "1"], ["--resample", "4"]],
+                         ids=["filter", "resample"])
+def test_driver_flags_match_the_jax_driver(flags, tmp_path, monkeypatch):
+    """The cut-down SMARMN L2 driver (2 shots, 2 L-BFGS iterations) with
+    ``--filter 1`` makes the JAX driver's objective calls, each value within
+    1e-5 (the port's f32 twins against the JAX f32 objective through its
+    Pallas kernels in interpret mode; measured 3.8e-6); with
+    ``--resample 4`` both drivers stop with the same error: the JAX driver
+    sets the inverted geometry's dt, its objective is not asked to resample,
+    and the 137 observed samples meet a 101-sample time axis."""
+    import sys
+    import torch
+    jmin = importlib.import_module("devito_fwi_tpu.optimize.minimize")
+    jcalls = []
+    jloss = jmin.fwi_loss
+
+    def recorded(*a, **k):
+        out = jloss(*a, **k)
+        jcalls.append((bool(a[7] if len(a) > 7 else k.get("calc_grad",
+                                                          True)), out[0]))
+        return out
+
+    monkeypatch.setattr(jmin, "fwi_loss", recorded)
+    monkeypatch.setenv("DEVITO_FWI_TPU_PALLAS", "1")
+    monkeypatch.setenv("DEVITO_FWI_TPU_PALLAS_INTERPRET", "1")
+    cfg = _cut_down_smarmn(tmp_path)
+    jmc = _jax_marmousi_common()
+    argv = ["--misfit", "0", "--maxiter", "2", "--nsrc", "2", "--data-dir",
+            str(tmp_path / "data")] + flags
+    monkeypatch.setattr(sys, "argv", ["marmousi_fwi"] + argv +
+                        ["--odir", str(tmp_path / "jax")])
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        for name, run in (("jax", lambda: jmc.run_fwi(cfg)),
+                          ("port", lambda: t_marm.run_fwi(cfg, argv + [
+                              "--odir", str(tmp_path / "port"), "--device",
+                              "cpu"])[1]["calls"])):
+            try:
+                out[name] = run()
+            except ValueError as e:
+                out[name] = str(e)
+    finally:
+        torch.set_num_threads(saved)
+    if flags[0] == "--resample":
+        assert out["jax"] == out["port"]
+        assert "137 time samples" in out["port"] and "has 101" in \
+            out["port"]
+        return
+    port = [(c[0], c[1]) for c in out["port"]]
+    assert [c[0] for c in port] == [c[0] for c in jcalls]
+    ft = np.array([c[1] for c in port])
+    fj = np.array([c[1] for c in jcalls])
+    grads = [i for i, c in enumerate(port) if c[0]]
+    assert len(grads) == 2 and ft[grads[1]] < ft[grads[0]]
+    assert np.allclose(ft, fj, rtol=1e-5, atol=0)

@@ -10,7 +10,8 @@ against the JAX package's, on the CPU, on seeded gathers:
   three, to 1e-10 at float64 (the JAX 2-D route on its XLA pushforward
   tiers; the port takes the same tier, the slab kernel serving float32
   only);
-* the native BFM raises, naming its ROADMAP item.
+* the 2-D backends: "torch" and "native" (tests/test_torch_native.py)
+  are taken, the JAX package's "jax" is not.
 """
 import numpy as np
 import pytest
@@ -96,5 +97,10 @@ def test_qwasserstein_call_and_batch_match_jax(method, monkeypatch):
 
 
 def test_native_bfm_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TW.qWasserstein(method="2d", bfm_backend="native")
+    """The native backend, which raised before its binding was ported, is
+    taken now; a backend the port does not have still raises."""
+    q = TW.qWasserstein(method="2d", bfm_backend="native")
+    assert q.bfm_backend == "native" and q._native()
+    assert not TW.qWasserstein(method="1d", bfm_backend="native")._native()
+    with pytest.raises(ValueError, match="'torch' or 'native'"):
+        TW.qWasserstein(method="2d", bfm_backend="jax")
