@@ -117,7 +117,25 @@ result line is printed:
    (stops as the JAX driver does, on the observed data's length), and a
    2-iteration L-BFGS of ``fwi_obj_multi(resample_dt=4)`` on the host-misfit
    path at 4 shots;
-29. a ``kernels`` JSON line; the card's name and power limit; the script's
+29. 3-D kernel vs twin, quick gate: at bench config 5's grid (96^3 at 15
+   m, space order 8, nbl 16, padded 128^3, 333 steps) with 3 shots, the
+   three streamed 3-D CUDA kernels against their twins on every output,
+   without and with the free surface, and the step kernel against its twin
+   on one 128^3 step;
+30. main path, 3-D: bench config 5 (4 shots, 48 receivers, tn 500 ms, L2)
+   on cuda: the observed data through ``forward_rec3`` (no reflection
+   arrives within tn, so the path inverts them scaled by 0.9), the
+   stream-route gradient (first call and steady state) and trial of
+   ``fwi_loss``, the saved-history route (``saved3=True``, stepped by the
+   step kernel) held against the stream route, and two L-BFGS iterations of
+   ``fwi_loss`` (finite, decreasing misfit); every 3-D kernel launched, no
+   twin called;
+31. 3-D kernel vs twin and kernel times at the main path's 4 shots (the
+   history 11.17 GB, 2.79e9 elements): kernel beside twin, CUDA events,
+   with the card's bound; the 3-D phases' own seconds;
+32. 3-D profile: one steady-state gradient and one trial under
+   ``torch.profiler``;
+33. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -147,7 +165,7 @@ SEED = 0
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
 SOURCES = ("acoustic2d", "bfm_push", "bfm_legendre", "elastic2d",
-           "visco2d", "tti2d")
+           "visco2d", "tti2d", "acoustic3d")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
@@ -169,6 +187,10 @@ REPLACES = {
     "tti_gradient_stream_segments": "devito_fwi_tpu/ops/pallas_tti.py:590",
     "tti_forward_ckpt_segments": "devito_fwi_tpu/ops/pallas_tti.py:446",
     "tti_jacobian_adjoint_segments": "devito_fwi_tpu/ops/pallas_tti.py:494",
+    "step3": "devito_fwi_tpu/ops/pallas_acoustic3.py:143",
+    "forward_dt2_stream3": "devito_fwi_tpu/ops/pallas_acoustic3d.py:301",
+    "forward_rec3": "devito_fwi_tpu/ops/pallas_acoustic3d.py:444",
+    "gradient_stream3": "devito_fwi_tpu/ops/pallas_acoustic3d.py:596",
 }
 # bench config 4 (``bench.py`` ``_bench_tti``): marmousi-tti2d, 8 shots and
 # 300 receivers at 60 m, tn 4000 ms, f0 7 Hz, 16 checkpoints
@@ -181,10 +203,29 @@ ZERO_ANISOTROPY_RTOL = 1e-4
 # the driver's --resample value of phase 28 (ms): 1001 samples of the 4000 ms
 # window against the observed data's 1357
 RESAMPLE_DT = 4.0
+# bench config 5 (``bench.py`` ``_bench_3d``): layers-isotropic 96^3, 4
+# shots and 48 receivers along x at y = extent/2, z = 30 m, tn 500 ms
+C5_SHOTS = 4
+# the saved route against the stream route on config 5, both float32: the
+# two associate the stencil differently (dt^2 folded into the per-axis
+# scales, or applied after the Laplacian) and sum the gradient per step or
+# at the end, so they agree to float32 rounding over 333 steps, not bitwise
+C5_ROUTE_RTOL = (1e-5, 1e-4)     # objective (relative), gradient (of max)
+# Config 5's layer interface lies 480 m down: no reflection reaches the
+# receivers within tn 500 ms, so its true data equal the starting model's
+# to float32 rounding, their L2 misfit measures rounding (1.4e-10), and
+# L-BFGS finds no descent from it. The main path inverts the true data
+# scaled by this factor instead: a residual of 0.1 of the traces.
+C5_DATA_SCALE = 0.9
+
+
+T_START = time.perf_counter()
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's header, with the script's seconds so far."""
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def card_line():
@@ -1405,6 +1446,233 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
     torch.cuda.empty_cache()
 
 
+def acoustic3d_bounds(st, B):
+    """The 3-D kernels' bounds at this run's shapes: inputs read once,
+    outputs written once. Per cell-step, r = space_order/2: the Laplacian
+    three axes of (1 + 3r) and the three scales and two sums, 9r + 8; the
+    update 5; the history 3 and the illumination 2; the reverse the
+    gradient's product and sum 2; the step kernel s2 lap and 2m + hd, 2
+    more."""
+    f = 4
+    ny, nz, nx = st.m3.shape
+    field = nx * ny * nz
+    cells = B * field
+    r = st.kw["space_order"] // 2
+    lap = 9 * r + 8
+    nsteps = st.nsteps
+    common_in = (2 * field + B * nsteps + B * 2 * nz * nx) * f
+    slab = B * nsteps * ny * 2 * nx * f
+    hist = B * nsteps * field * f
+    work = {
+        "forward_rec3": (common_in + slab, cells * nsteps * (lap + 5)),
+        "forward_dt2_stream3": (common_in + slab + hist + cells * f,
+                                cells * nsteps * (lap + 10)),
+        "gradient_stream3": (2 * field * f + hist + slab + cells * f,
+                             cells * nsteps * (lap + 7)),
+        # one step of one field: u, u_prev, m, hd, 1/(m + hd) in, one out
+        "step3": (6 * field * f, field * (lap + 7)),
+    }
+    return {name: bound(*w) for name, w in work.items()}
+
+
+def config5(nlayers):
+    """Bench config 5's geometry (``bench.py`` ``_bench_3d``) on the
+    port's models: ``nlayers`` 3 for the true model, 1 for the start."""
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.models.presets import demo_model
+    model = demo_model("layers-isotropic", nlayers=nlayers,
+                       shape=(96, 96, 96), spacing=(15., 15., 15.),
+                       space_order=8, nbl=16, dt=1.5)
+    ext = model.domain_size[0]
+    src = np.stack([np.linspace(0, ext, C5_SHOTS),
+                    np.full(C5_SHOTS, ext / 2), np.full(C5_SHOTS, 30.0)], 1)
+    rec = np.stack([np.linspace(0, ext, 48), np.full(48, ext / 2),
+                    np.full(48, 30.0)], 1)
+    return AcquisitionGeometry(model, rec, src, 0.0, 500.0, f0=0.012,
+                               src_type="Ricker")
+
+
+def acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
+                      report, ms, plain_ms, err, bounds):
+    """Phases 29-32: the 3-D kernels against their twins at 3 config-5
+    shots, config 5's gradient, trial, saved route and L-BFGS on cuda, the
+    kernels against their twins at 4 shots with their times and bounds,
+    and a profile of the gradient and the trial."""
+    t_3d = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g1, g0 = config5(3), config5(1)
+    st = fwi._Setup3(g0, dev)
+    ny, nz, nx = st.m3.shape
+    print(f"   bench config 5: padded grid {nx} x {ny} x {nz}, nt {st.nt} "
+          f"({st.nsteps} steps), dt {st.dt:.4f} ms, receivers on z-planes "
+          f"{st.z0}, {st.z0 + 1}, space_order {st.kw['space_order']}, "
+          f"{C5_SHOTS} shots, 48 receivers")
+
+    def res_slabs(B):
+        res = torch.as_tensor(rng.standard_normal((B, st.nt, 48)),
+                              dtype=torch.float32, device=dev)
+        return c3d.residual_slabs3(res, st.r_idx, st.r_w, st.m,
+                                   st.dt * st.dt, st.z0, st.nsteps)
+
+    # the step kernel's operands on the main path: one (nx, ny, nz) field
+    # pair and the eager update's constants
+    w, ih2, _, s2, hd, inv_mhd = fwi._ac._prep(
+        st.vp, st.damp, st.dt, st.kw["spacing"], st.kw["space_order"])
+    u, up = (torch.as_tensor(rng.standard_normal((nx, ny, nz)),
+                             dtype=torch.float32, device=dev)
+             for _ in range(2))
+    step_ops = (u, up, st.m, hd, float(s2))
+    step_kw = dict(w=tuple(float(v) for v in w),
+                   inv_h2=tuple(float(v) for v in ih2), inv_mhd=inv_mhd)
+
+    phase(f"29 3-D kernel vs twin (quick gate), {NSHOTS_CHECK} shots at "
+          "bench config 5's grid")
+    ops = (st.m3, st.hd3, *st.planes(0, NSHOTS_CHECK), st.dt)
+    for fs in (False, True):
+        kw = dict(st.kw, fs=fs)
+        compare(f"forward_rec3 (fs {fs})", [c3d.forward_rec3(*ops, **kw)],
+                [c3d.forward_rec3_plain(*ops, **kw)])
+        got = c3d.forward_dt2_stream3(*ops, **kw)
+        compare(f"forward_dt2_stream3 (fs {fs})", got,
+                c3d.forward_dt2_stream3_plain(*ops, **kw))
+        slabs = res_slabs(NSHOTS_CHECK)
+        gops = (st.m3, st.hd3, got[1], slabs, st.dt)
+        compare(f"gradient_stream3 (fs {fs})",
+                [c3d.gradient_stream3(*gops, **kw)],
+                [c3d.gradient_stream3_plain(*gops, **kw)])
+        del got, gops, slabs
+        torch.cuda.empty_cache()
+    compare("step3", [c3.step3(*step_ops, **step_kw)],
+            [c3.step3_plain(*step_ops, **step_kw)])
+
+    phase(f"30 main path: bench config 5, 3-D L2 FWI, {C5_SHOTS} shots, on "
+          "cuda")
+    for reset in counters:
+        reset()
+    t0 = time.perf_counter()
+    obs = fwi.fm_multi(g1, device="cuda")
+    print(f"   observed data ({C5_SHOTS} x {st.nt} x 48) through "
+          f"forward_rec3: {time.perf_counter() - t0:.3f} s")
+    x0 = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    f_true, _, _ = fwi.fwi_loss(x0, g0, obs, least_square, calc_grad=False,
+                                device="cuda")
+    from devito_fwi_tpu_torch.models.sources import PointSource
+    data = []
+    for shot in obs:
+        p = PointSource(name="rec", time_range=g0.time_axis,
+                        coordinates=g0.rec_positions, dtype=g0.model.dtype)
+        p.data[:] = C5_DATA_SCALE * shot.data
+        data.append(p)
+    print(f"   misfit of the true data at the starting model {f_true!r} "
+          "(no reflection within tn: float32 rounding); the main path "
+          f"inverts the true data scaled by {C5_DATA_SCALE:g}")
+    out = {}
+    for label, kw in (("stream", {}), ("saved", dict(saved3=True))):
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            f, g, _ = fwi.fwi_loss(x0, g0, data, least_square,
+                                   device="cuda", **kw)
+            walls.append(time.perf_counter() - t0)
+        out[label] = fwi.fwi_obj_multi(g0, data, least_square,
+                                       precond=False, calc_grad=True,
+                                       device="cuda", **kw)
+        print(f"   {label} route gradient: first {walls[0]:.4f} s, steady "
+              f"{walls[1]:.4f} s; objective {f!r}, finite: "
+              f"{bool(np.isfinite(g).all())}")
+    t0 = time.perf_counter()
+    f_t, _, _ = fwi.fwi_loss(x0, g0, data, least_square, calc_grad=False,
+                             device="cuda")
+    print(f"   trial (forward_rec3): {time.perf_counter() - t0:.4f} s, "
+          f"objective {f_t!r}")
+    (f_s, g_s, _), (f_v, g_v, _) = out["stream"], out["saved"]
+    rel_f = abs(f_v - f_s) / abs(f_s)
+    rel_g = float(np.abs(g_v - g_s).max() / np.abs(g_s).max())
+    print(f"   saved route against stream route (unpreconditioned; "
+          f"objectives {f_s!r}, {f_v!r}): objective {rel_f:.3e} relative "
+          f"[{C5_ROUTE_RTOL[0]:g}], gradient {rel_g:.3e} of its max "
+          f"[{C5_ROUTE_RTOL[1]:g}]")
+    if not (np.isfinite(g_s).all() and np.abs(g_s).max() > 0
+            and rel_f <= C5_ROUTE_RTOL[0] and rel_g <= C5_ROUTE_RTOL[1]):
+        raise AssertionError("the 3-D routes disagree or the gradient is "
+                             "not finite")
+    del out, g_s, g_v
+    from devito_fwi_tpu_torch.optimize import LBFGS, minimize
+    loss = marm.TimedLoss("cuda")
+    with tempfile.TemporaryDirectory() as odir:
+        opt = LBFGS(memory=10, ls_method="Bracket", step_len_init=0.1,
+                    max_ls=5, log_path=odir)
+        minimize(opt, maxIter=2, ftol=1e-5, gtol=1e-10, loss_fn=loss,
+                 log_path=odir).run(x0, g0, data, least_square, None, None,
+                                    1, [1.0 / 3.5 ** 2, 1.0 / 1.5 ** 2])
+    torch.cuda.synchronize()
+    print(f"   L-BFGS of fwi_loss, {C5_SHOTS} shots, 2 iterations:")
+    check_history(dict(calls=loss.calls, model_s=0.0))
+    report("3-D", c3d.KERNELS + c3.KERNELS)
+    g0.model.update("vp", (1.0 / np.sqrt(x0)).reshape(g0.model.shape))
+    del loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B = C5_SHOTS
+    phase(f"31 3-D kernel vs twin and kernel times, {B} shots (main-path "
+          "shapes)")
+    st = fwi._Setup3(g0, dev)
+    ops = (st.m3, st.hd3, *st.planes(0, B), st.dt)
+    kw = st.kw
+    name = "forward_rec3"
+    ms[name], got = cuda_ms(lambda: c3d.forward_rec3(*ops, **kw), 3)
+    plain_ms[name], want = cuda_once(lambda: c3d.forward_rec3_plain(*ops,
+                                                                     **kw))
+    err[name] = compare(name, [got], [want])
+    del got, want
+    name = "forward_dt2_stream3"
+    ms[name], fwd = cuda_ms(lambda: c3d.forward_dt2_stream3(*ops, **kw), 2)
+    print(f"   history {tuple(fwd[1].shape)}: {fwd[1].numel():.4g} "
+          f"elements, {fwd[1].numel() * 4 / 1e9:.2f} GB")
+    plain_ms[name], want = cuda_once(lambda: c3d.forward_dt2_stream3_plain(
+        *ops, **kw))
+    err[name] = compare(name, fwd, want)
+    del want
+    torch.cuda.empty_cache()
+    name = "gradient_stream3"
+    gops = (st.m3, st.hd3, fwd[1], res_slabs(B), st.dt)
+    ms[name], got = cuda_ms(lambda: c3d.gradient_stream3(*gops, **kw), 2)
+    plain_ms[name], want = cuda_once(lambda: c3d.gradient_stream3_plain(
+        *gops, **kw))
+    err[name] = compare(name, [got], [want])
+    del fwd, gops, got, want
+    torch.cuda.empty_cache()
+    name = "step3"
+    ms[name], got = cuda_ms(lambda: c3.step3(*step_ops, **step_kw), 50)
+    plain_ms[name], want = cuda_ms(lambda: c3.step3_plain(*step_ops,
+                                                          **step_kw), 5)
+    err[name] = compare(name, [got], [want])
+    del got, want
+    bounds.update(acoustic3d_bounds(st, B))
+    for name in c3d.KERNELS + c3.KERNELS:
+        b_ms, by, nbytes, nops = bounds[name]
+        print(f"   {name}: kernel {ms[name]:.3f} ms, twin "
+              f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
+              f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
+              f"{b_ms / ms[name]:.1%} of the bound")
+
+    phase(f"32 3-D profile: one steady-state gradient and one trial, {B} "
+          "shots")
+    for calc_grad in (True, False):
+        report_profile(f"config 5 {'gradient' if calc_grad else 'trial'}",
+                       lambda: fwi.fwi_loss(x0, g0, data, least_square,
+                                            calc_grad=calc_grad,
+                                            device="cuda"))
+    report_profile("config 5 saved-route gradient", lambda: fwi.fwi_loss(
+        x0, g0, data, least_square, device="cuda", saved3=True))
+    del obs, data, st, ops, step_ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"   3-D phases 29-32: {time.perf_counter() - t_3d:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1414,6 +1682,8 @@ def main():
     from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
     from devito_fwi_tpu_torch.misfit import bfm, least_square, qWasserstein
     from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3 as c3
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
     from devito_fwi_tpu_torch.ops import cuda_bfm as cb
     from devito_fwi_tpu_torch.ops import cuda_build
     from devito_fwi_tpu_torch.ops import cuda_staggered as cs
@@ -1438,6 +1708,8 @@ def main():
     cs._lib()
     cv._lib()
     ct._lib()
+    c3._lib()
+    c3d._lib()
     print(f"   nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     print(f"   built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1610,8 +1882,9 @@ def main():
     torch.cuda.empty_cache()
 
     counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
-                cv.reset_counters, ct.reset_counters, bfm.reset_counts)
-    modules = (ca, cb, cs, cv, ct)
+                cv.reset_counters, ct.reset_counters, c3.reset_counters,
+                c3d.reset_counters, bfm.reset_counts)
+    modules = (ca, cb, cs, cv, ct, c3, c3d)
     launches = {}
 
     def report(path, names, record=True):
@@ -1771,12 +2044,15 @@ def main():
     w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
                    w2_state, counters, report, modules, ms, plain_ms, err,
                    bounds)
+    acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
+                      report, ms, plain_ms, err, bounds)
 
-    phase("29 result")
+    phase("33 result")
     rows = []
-    sources = {"acoustic2d": ca, "bfm_push": cb, "elastic2d": cs,
-               "visco2d": cv, "tti2d": ct}
-    for src, mod in sources.items():
+    sources = (("acoustic2d", ca), ("bfm_push", cb), ("elastic2d", cs),
+               ("visco2d", cv), ("tti2d", ct), ("acoustic3d", c3d),
+               ("acoustic3d", c3))
+    for src, mod in sources:
         for n in mod.KERNELS:
             rows.append(dict(
                 name=n, route="cuda",

@@ -1,0 +1,471 @@
+// 3-D acoustic OT2 kernels for Hopper (sm_90a), plain C interface for
+// ctypes. Four entry points:
+//
+//   acoustic3d_forward(..., dt2 = NULL, illum = NULL)
+//       replaces forward_rec3 (devito_fwi_tpu/ops/pallas_acoustic3d.py:425,
+//       _rec3_kernel :354): a streamed 3-D forward over all time steps of a
+//       shot batch that records the two receiver z-planes of u at every
+//       step.
+//   acoustic3d_forward(..., dt2 != NULL, illum != NULL)
+//       replaces forward_dt2_stream3 (pallas_acoustic3d.py:274,
+//       _fwd3_kernel :190): the same forward, plus the d2u/dt2 history
+//       un - 2u + up of every step (the source included) and the
+//       illumination sum of un^2.
+//   acoustic3d_gradient
+//       replaces gradient_stream3 (pallas_acoustic3d.py:571, _grad3_kernel
+//       :492): the reverse sweep over that history, grad += dt2[t] * v, v
+//       stepped backward, the residual planes added on z0, z0 + 1 of the
+//       new v; one final scale by -1/s^2.
+//   acoustic3d_step
+//       replaces step3 (devito_fwi_tpu/ops/pallas_acoustic3.py:120,
+//       _step3_kernel :68): one leapfrog step
+//       un = (s2 lap(u) + (2m + hd) u - m up) / (m + hd) of one
+//       (nx, ny, nz) field, zero-Dirichlet, for the eager saved-history
+//       route (ops/acoustic.py's step hook).
+//
+// Layouts. The streamed sweeps keep the JAX kernels' transposed layout
+// (B, ny, nz, nx) with x contiguous: the two receiver z-planes of a y-plane
+// are two contiguous rows. m, two_m_hd = 2m + hd and denom = 1/(m + hd) are
+// (ny, nz, nx) and shared by all shots; the wavelet is (B, nsteps); the
+// source planes (B, 2, nz, nx) are added on the y-planes iy[b], iy[b] + 1;
+// receiver and residual slabs are (B, nsteps, ny, 2, nx); the history is
+// (B, nsteps, ny, nz, nx), 2.79e9 elements at bench config 5 (4 shots of
+// 128^3 over 333 steps), so every offset is 64-bit. The step kernel keeps
+// the model's (nx, ny, nz) layout with z contiguous.
+//
+// What bounds it on the card: the forward with history writes
+// B * nsteps * ny * nz * nx * 4 bytes (11.2 GB at config 5) and the reverse
+// sweep reads them back, so both are bound by device-memory bandwidth
+// (~3.3 ms each at 3.35 TB/s); the receivers-only forward moves almost
+// nothing beyond its state and is bound by the ~55 float operations per
+// cell and step (~2.3 ms at 67 TFLOP/s). The state of a batch (u, up and
+// the illumination, 8.4 MB a field and shot) does not fit the 50 MB L2 at
+// four shots, so the stencil's y neighbours, a plane of 64 KB apart, are
+// re-read from L2 or device memory.
+//
+// What the design does about it: a simple first design. One thread per
+// cell and one launch per time step for the whole batch (blockIdx.z is the
+// shot), so the history is written once, coalesced along x,
+// as it is produced. The new field overwrites u_prev in place (each cell
+// reads its own u_prev before writing it and no other thread reads it), so
+// two state buffers per shot take the place of the TPU kernels' HBM double
+// buffer and parity trick; the grid runs the y-blocks in parallel instead
+// of in order. Neighbours come through L1/L2 rather than a shared-memory
+// tile; 2.5-D marching in y with a register queue, shared-memory tiles and
+// several steps per launch are the next steps (times in PERF.md).
+//
+// Numerics: each kernel keeps its own TPU counterpart's association. The
+// streamed sweeps fold dt^2 into the per-axis scales (ih2 = s^2/h^2) and
+// update as (lap + two_m_hd u - m up) denom, the source added after; the
+// step kernel scales lap with unscaled 1/h^2 and multiplies by s2, as the
+// eager update does. Both sum each shift pair before the weight multiply
+// and add the x, then the y, then the z term. The library is compiled with
+// -fmad=false so no multiply-add is contracted: the kernels round exactly
+// like their plain torch twins (ops/cuda_acoustic3d.py,
+// ops/cuda_acoustic3.py). Neighbours beyond the grid are zero; under a free
+// surface rows 0..r of the z-derivative use the odd-mirrored stencil.
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kMaxR = 8;
+constexpr int kBX = 32;
+constexpr int kBZ = 8;
+
+struct Stencil {
+  float w[kMaxR + 1];
+  float ih2x;
+  float ih2y;
+  float ih2z;
+};
+
+// z-derivative (unscaled) of one column: the plain pair stencil, or under a
+// free surface on rows 0..R the plain +k term then the odd mirror.
+template <int R, bool FS>
+__device__ __forceinline__ float d2_z(const float* __restrict__ u,
+                                      size_t cell, int z, int nz,
+                                      size_t zstride, const Stencil& s) {
+  const float c = u[cell];
+  float acc = s.w[0] * c;
+  if (FS && z <= R) {
+    const size_t col = cell - (size_t)z * zstride;  // row 0 of the column
+#pragma unroll
+    for (int k = 1; k <= R; ++k) {
+      const float up = (z + k < nz) ? u[col + (size_t)(z + k) * zstride]
+                                    : 0.0f;
+      acc = acc + s.w[k] * up;
+      const int i = z - k;
+      if (i > 0) {
+        acc = acc + s.w[k] * u[col + (size_t)i * zstride];
+      } else if (i < 0) {
+        acc = acc - s.w[k] * u[col + (size_t)(-i) * zstride];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 1; k <= R; ++k) {
+      const float sp = (z + k < nz) ? u[cell + (size_t)k * zstride] : 0.0f;
+      const float sm = (z - k >= 0) ? u[cell - (size_t)k * zstride] : 0.0f;
+      acc = acc + s.w[k] * (sp + sm);
+    }
+  }
+  return acc;
+}
+
+// Unscaled second derivative along an axis of stride ``stride`` at index i
+// of n: w0 u + sum_k w_k (u[i + k] + u[i - k]), zero beyond the axis.
+template <int R>
+__device__ __forceinline__ float d2_axis(const float* __restrict__ u,
+                                         size_t cell, int i, int n,
+                                         size_t stride, const Stencil& s) {
+  float acc = s.w[0] * u[cell];
+#pragma unroll
+  for (int k = 1; k <= R; ++k) {
+    const float sp = (i + k < n) ? u[cell + (size_t)k * stride] : 0.0f;
+    const float sm = (i - k >= 0) ? u[cell - (size_t)k * stride] : 0.0f;
+    acc = acc + s.w[k] * (sp + sm);
+  }
+  return acc;
+}
+
+// Laplacian of one shot's (ny, nz, nx) field at (y, z, x), dt^2 folded into
+// the per-axis scales: x, then y, then z.
+template <int R, bool FS>
+__device__ __forceinline__ float laplacian_yzx(const float* __restrict__ u,
+                                               size_t cell, int y, int z,
+                                               int x, int ny, int nz, int nx,
+                                               const Stencil& s) {
+  const size_t plane = (size_t)nz * nx;
+  const float accx = d2_axis<R>(u, cell, x, nx, 1, s);
+  const float accy = d2_axis<R>(u, cell, y, ny, plane, s);
+  const float accz = d2_z<R, FS>(u, cell, z, nz, (size_t)nx, s);
+  return accx * s.ih2x + accy * s.ih2y + accz * s.ih2z;
+}
+
+// One forward step t for all shots: up <- un in place; the receiver rows of
+// u, and with HIST the history value and the illumination.
+template <int R, bool FS, bool HIST>
+__global__ void forward_step(const float* __restrict__ u,
+                             float* __restrict__ up,
+                             const float* __restrict__ m,
+                             const float* __restrict__ two_m_hd,
+                             const float* __restrict__ denom,
+                             const float* __restrict__ wav,
+                             const float* __restrict__ injp,
+                             const int* __restrict__ iy,
+                             float* __restrict__ rec,
+                             float* __restrict__ dt2,
+                             float* __restrict__ illum, int t, int nsteps,
+                             int ny, int nz, int nx, int z0, Stencil s) {
+  const int nxb = (nx + kBX - 1) / kBX;
+  const int x = (blockIdx.x % nxb) * kBX + threadIdx.x;
+  const int y = blockIdx.x / nxb;
+  const int z = blockIdx.y * kBZ + threadIdx.y;
+  const int b = blockIdx.z;
+  if (x >= nx || z >= nz) return;
+  const size_t field = (size_t)ny * nz * nx;
+  const size_t cell = ((size_t)y * nz + z) * nx + x;
+  const size_t o = (size_t)b * field + cell;
+  const size_t bt = (size_t)b * nsteps + t;
+  const float* ub = u + (size_t)b * field;
+
+  const float uc = ub[cell];
+  if (z == z0 || z == z0 + 1)
+    rec[((bt * ny + y) * 2 + (z - z0)) * nx + x] = uc;
+  const float upc = up[o];
+  const float lap = laplacian_yzx<R, FS>(ub, cell, y, z, x, ny, nz, nx, s);
+  float un = (lap + two_m_hd[cell] * uc - m[cell] * upc) * denom[cell];
+  const int p = y - iy[b];
+  if (p == 0 || p == 1)
+    un = un + wav[bt] * injp[(((size_t)b * 2 + p) * nz + z) * nx + x];
+  if (HIST) {
+    dt2[bt * field + cell] = un - 2.0f * uc + upc;
+    illum[o] = illum[o] + un * un;
+  }
+  up[o] = un;
+}
+
+// One reverse step t for all shots: grad += dt2[b, t] * v, vn <- v_new in
+// place with the residual rows of step t added on z0 and z0 + 1.
+template <int R, bool FS>
+__global__ void adjoint_step(const float* __restrict__ v,
+                             float* __restrict__ vn,
+                             const float* __restrict__ m,
+                             const float* __restrict__ two_m_hd,
+                             const float* __restrict__ denom,
+                             const float* __restrict__ dt2,
+                             const float* __restrict__ res,
+                             float* __restrict__ grad, int t, int nsteps,
+                             int ny, int nz, int nx, int z0, Stencil s) {
+  const int nxb = (nx + kBX - 1) / kBX;
+  const int x = (blockIdx.x % nxb) * kBX + threadIdx.x;
+  const int y = blockIdx.x / nxb;
+  const int z = blockIdx.y * kBZ + threadIdx.y;
+  const int b = blockIdx.z;
+  if (x >= nx || z >= nz) return;
+  const size_t field = (size_t)ny * nz * nx;
+  const size_t cell = ((size_t)y * nz + z) * nx + x;
+  const size_t o = (size_t)b * field + cell;
+  const size_t bt = (size_t)b * nsteps + t;
+  const float* vb = v + (size_t)b * field;
+
+  const float vc = vb[cell];
+  grad[o] = grad[o] + dt2[bt * field + cell] * vc;
+  const float lap = laplacian_yzx<R, FS>(vb, cell, y, z, x, ny, nz, nx, s);
+  float vnew = (lap + two_m_hd[cell] * vc - m[cell] * vn[o]) * denom[cell];
+  if (z == z0 || z == z0 + 1)
+    vnew = vnew + res[((bt * ny + y) * 2 + (z - z0)) * nx + x];
+  vn[o] = vnew;
+}
+
+__global__ void scale_inplace(float* __restrict__ a, size_t n, float c) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) a[i] = a[i] * c;
+}
+
+// One leapfrog step of an (nx, ny, nz) field, z contiguous: the eager
+// update's association, lap = x term, then + y term, then + z term, each
+// scaled by its unscaled 1/h^2, and s2 * lap.
+template <int R>
+__global__ void step_kernel(const float* __restrict__ u,
+                            const float* __restrict__ up,
+                            const float* __restrict__ m,
+                            const float* __restrict__ hd,
+                            const float* __restrict__ inv_mhd,
+                            float* __restrict__ out, int nx, int ny, int nz,
+                            float s2, Stencil s) {
+  const int z = blockIdx.x * kBX + threadIdx.x;
+  const int y = blockIdx.y * kBZ + threadIdx.y;
+  const int x = blockIdx.z;
+  if (z >= nz || y >= ny) return;
+  const size_t cell = ((size_t)x * ny + y) * nz + z;
+  const float accx = d2_axis<R>(u, cell, x, nx, (size_t)ny * nz, s);
+  const float accy = d2_axis<R>(u, cell, y, ny, (size_t)nz, s);
+  const float accz = d2_axis<R>(u, cell, z, nz, 1, s);
+  float lap = accx * s.ih2x;
+  lap = lap + accy * s.ih2y;
+  lap = lap + accz * s.ih2z;
+  const float mc = m[cell];
+  out[cell] = (s2 * lap + (2.0f * mc + hd[cell]) * u[cell] - mc * up[cell]) *
+              inv_mhd[cell];
+}
+
+Stencil make_stencil(const float* w, int r, float ih2x, float ih2y,
+                     float ih2z) {
+  Stencil s = {};
+  for (int k = 0; k <= r; ++k) s.w[k] = w[k];
+  s.ih2x = ih2x;
+  s.ih2y = ih2y;
+  s.ih2z = ih2z;
+  return s;
+}
+
+struct SweepArgs {
+  const float *m, *two_m_hd, *denom, *wav, *injp, *dt2c, *res;
+  const int* iy;
+  float *rec, *dt2, *illum, *grad, *a, *b;
+  int B, ny, nz, nx, nsteps, z0;
+  float neg_inv_s2;
+  Stencil s;
+  cudaStream_t stream;
+};
+
+// blockIdx.x walks the x-blocks of every y-plane, blockIdx.y the z-blocks,
+// blockIdx.z the shots
+dim3 sweep_grid(const SweepArgs& a) {
+  return dim3((unsigned)(((a.nx + kBX - 1) / kBX) * (long long)a.ny),
+              (a.nz + kBZ - 1) / kBZ, a.B);
+}
+
+template <int R, bool FS, bool HIST>
+int run_forward(const SweepArgs& a) {
+  const dim3 block(kBX, kBZ);
+  const dim3 grid = sweep_grid(a);
+  float* u = a.a;
+  float* up = a.b;
+  for (int t = 0; t < a.nsteps; ++t) {
+    forward_step<R, FS, HIST><<<grid, block, 0, a.stream>>>(
+        u, up, a.m, a.two_m_hd, a.denom, a.wav, a.injp, a.iy, a.rec, a.dt2,
+        a.illum, t, a.nsteps, a.ny, a.nz, a.nx, a.z0, a.s);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    float* tmp = u;
+    u = up;
+    up = tmp;
+  }
+  return 0;
+}
+
+template <int R, bool FS>
+int run_adjoint(const SweepArgs& a) {
+  const dim3 block(kBX, kBZ);
+  const dim3 grid = sweep_grid(a);
+  float* v = a.a;
+  float* vn = a.b;
+  for (int t = a.nsteps - 1; t >= 0; --t) {
+    adjoint_step<R, FS><<<grid, block, 0, a.stream>>>(
+        v, vn, a.m, a.two_m_hd, a.denom, a.dt2c, a.res, a.grad, t, a.nsteps,
+        a.ny, a.nz, a.nx, a.z0, a.s);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    float* tmp = v;
+    v = vn;
+    vn = tmp;
+  }
+  const size_t n = (size_t)a.B * a.ny * a.nz * a.nx;
+  const int threads = 256;
+  scale_inplace<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                  a.stream>>>(a.grad, n, a.neg_inv_s2);
+  return (int)cudaGetLastError();
+}
+
+template <int R, bool FS, int MODE>
+struct Sweep {
+  static int run(const SweepArgs& a) {
+    if (MODE == 0) return run_forward<R, FS, false>(a);
+    if (MODE == 1) return run_forward<R, FS, true>(a);
+    return run_adjoint<R, FS>(a);
+  }
+};
+
+// Dispatch the runtime radius and free-surface flag onto the unrolled
+// instantiations.
+template <int MODE>
+int dispatch(int r, int fs, const SweepArgs& a) {
+#define ACOUSTIC3D_CASE(RR)                                             \
+  case RR:                                                              \
+    return fs ? Sweep<RR, true, MODE>::run(a) : Sweep<RR, false, MODE>::run(a);
+  switch (r) {
+    ACOUSTIC3D_CASE(1)
+    ACOUSTIC3D_CASE(2)
+    ACOUSTIC3D_CASE(3)
+    ACOUSTIC3D_CASE(4)
+    ACOUSTIC3D_CASE(5)
+    ACOUSTIC3D_CASE(6)
+    ACOUSTIC3D_CASE(7)
+    ACOUSTIC3D_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ACOUSTIC3D_CASE
+}
+
+bool sweep_shape_ok(int r, int B, int ny, int nz, int nx, int nsteps,
+                    int z0) {
+  return r >= 1 && r <= kMaxR && B >= 1 && B <= 65535 && ny >= 1 &&
+         nz >= 2 && nz <= 65535 * kBZ && nx >= 1 && nsteps >= 0 &&
+         (long long)((nx + kBX - 1) / kBX) * ny <= 2147483647LL && z0 >= 0 &&
+         z0 + 2 <= nz;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward sweep over t = 0 .. nsteps-1 from the zero state in u, up
+// ((B, ny, nz, nx) scratch holding zeros). rec is (B, nsteps, ny, 2, nx).
+// dt2 (B, nsteps, ny, nz, nx) and illum (B, ny, nz, nx, zeros on entry) are
+// both set or both NULL. Returns the first CUDA error of a launch, or 0.
+int acoustic3d_forward(const float* m, const float* two_m_hd,
+                       const float* denom, const float* wav,
+                       const float* injp, const int* iy, float* rec,
+                       float* dt2, float* illum, float* u, float* up, int B,
+                       int ny, int nz, int nx, int nsteps, int z0, int fs,
+                       int r, const float* w, float ih2x, float ih2y,
+                       float ih2z, void* stream) {
+  if (!sweep_shape_ok(r, B, ny, nz, nx, nsteps, z0) ||
+      (dt2 == NULL) != (illum == NULL))
+    return (int)cudaErrorInvalidValue;
+  SweepArgs a = {};
+  a.m = m;
+  a.two_m_hd = two_m_hd;
+  a.denom = denom;
+  a.wav = wav;
+  a.injp = injp;
+  a.iy = iy;
+  a.rec = rec;
+  a.dt2 = dt2;
+  a.illum = illum;
+  a.a = u;
+  a.b = up;
+  a.B = B;
+  a.ny = ny;
+  a.nz = nz;
+  a.nx = nx;
+  a.nsteps = nsteps;
+  a.z0 = z0;
+  a.s = make_stencil(w, r, ih2x, ih2y, ih2z);
+  a.stream = (cudaStream_t)stream;
+  return dt2 != NULL ? dispatch<1>(r, fs, a) : dispatch<0>(r, fs, a);
+}
+
+// Reverse sweep over t = nsteps-1 .. 0 of the history dt2
+// (B, nsteps, ny, nz, nx) with the residual slabs res (B, nsteps, ny, 2,
+// nx), then grad *= neg_inv_s2. grad, v and vn are (B, ny, nz, nx) and hold
+// zeros on entry.
+int acoustic3d_gradient(const float* m, const float* two_m_hd,
+                        const float* denom, const float* dt2,
+                        const float* res, float* grad, float* v, float* vn,
+                        int B, int ny, int nz, int nx, int nsteps, int z0,
+                        int fs, int r, const float* w, float ih2x,
+                        float ih2y, float ih2z, float neg_inv_s2,
+                        void* stream) {
+  if (!sweep_shape_ok(r, B, ny, nz, nx, nsteps, z0))
+    return (int)cudaErrorInvalidValue;
+  SweepArgs a = {};
+  a.m = m;
+  a.two_m_hd = two_m_hd;
+  a.denom = denom;
+  a.dt2c = dt2;
+  a.res = res;
+  a.grad = grad;
+  a.a = v;
+  a.b = vn;
+  a.B = B;
+  a.ny = ny;
+  a.nz = nz;
+  a.nx = nx;
+  a.nsteps = nsteps;
+  a.z0 = z0;
+  a.neg_inv_s2 = neg_inv_s2;
+  a.s = make_stencil(w, r, ih2x, ih2y, ih2z);
+  a.stream = (cudaStream_t)stream;
+  return dispatch<2>(r, fs, a);
+}
+
+// One leapfrog step of (nx, ny, nz) fields into out (no free surface).
+int acoustic3d_step(const float* u, const float* up, const float* m,
+                    const float* hd, const float* inv_mhd, float* out,
+                    int nx, int ny, int nz, float s2, int r, const float* w,
+                    float ih2x, float ih2y, float ih2z, void* stream) {
+  if (r < 1 || r > kMaxR || nx < 1 || nx > 65535 || ny < 1 || nz < 1)
+    return (int)cudaErrorInvalidValue;
+  const Stencil s = make_stencil(w, r, ih2x, ih2y, ih2z);
+  const dim3 block(kBX, kBZ);
+  const dim3 grid((nz + kBX - 1) / kBX, (ny + kBZ - 1) / kBZ, nx);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (r) {
+#define ACOUSTIC3D_STEP(RR)                                                \
+  case RR:                                                                 \
+    step_kernel<RR><<<grid, block, 0, st>>>(u, up, m, hd, inv_mhd, out, nx, \
+                                            ny, nz, s2, s);                 \
+    break;
+    ACOUSTIC3D_STEP(1)
+    ACOUSTIC3D_STEP(2)
+    ACOUSTIC3D_STEP(3)
+    ACOUSTIC3D_STEP(4)
+    ACOUSTIC3D_STEP(5)
+    ACOUSTIC3D_STEP(6)
+    ACOUSTIC3D_STEP(7)
+    ACOUSTIC3D_STEP(8)
+#undef ACOUSTIC3D_STEP
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* acoustic3d_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,13 +1,14 @@
 """FWI objective layer on torch: multi-shot modeling, the L2 and
 quadratic-Wasserstein misfits and the adjoint-state gradient of the 2-D
-acoustic wave equation.
+and 3-D acoustic wave equation.
 
-Port of the 2-D acoustic route of ``devito_fwi_tpu.fwi``. ``fm_single``,
+Port of the acoustic routes of ``devito_fwi_tpu.fwi``. ``fm_single``,
 ``fm_multi``, ``fwi_obj_multi`` and ``fwi_loss`` keep their signatures and
 add ``device``: "cuda" (the default) runs the CUDA kernels of
-``ops.cuda_acoustic`` (and of ``ops.cuda_bfm`` inside the W2-2d misfit)
+``ops.cuda_acoustic`` (3-D: ``ops.cuda_acoustic3d`` and
+``ops.cuda_acoustic3``; and ``ops.cuda_bfm`` inside the W2-2d misfit)
 and raises when no card is present; "cpu" runs their plain torch twins.
-One gradient evaluation of a shot chunk is
+One 2-D gradient evaluation of a shot chunk is
 
 1. the batched forward: ``forward_dt2_segments`` records the receiver
    rows, streams the d2u/dt2 history and sums the illumination; on the
@@ -37,9 +38,21 @@ resampling (``resample_dt`` other than ``geometry.dt``). The sweeps stay on
 the device, through the same kernels; only the gathers and the residuals
 cross to the host, once per shot chunk.
 
+3-D geometries (counterpart of the JAX package's ``_shots_fused_pallas3``
+and saved-history route) run ``_shot_objective3``: by default the streamed
+pair of ``ops.cuda_acoustic3d`` (``forward_dt2_stream3`` with the receiver
+slabs, the traces, the batched misfit, ``residual_slabs3``,
+``gradient_stream3``, then the crop and illumination fix per shot);
+``saved3=True`` takes the saved-history route instead (the eager
+``ops.acoustic.forward(save=True)`` and ``gradient(with_illum=True)`` with
+the receiver-slab injection, stepped by the CUDA step kernel of
+``ops.cuda_acoustic3``). Trials and ``fm_multi`` run ``forward_rec3``.
+
 Not ported yet (raises ``NotImplementedError``): geometries the kernels do
-not take (3-D, receivers off two adjacent z-planes; ROADMAP.md queue A items
-2 and 16).
+not take (receivers off two adjacent z-planes, 3-D sources off the y grid,
+and on cuda a saved-route grid the step kernel does not take: a free
+surface, float64, a padded nx ``pick_xb`` does not block; ROADMAP.md queue
+A items 2 and 4), and a 3-D checkpoint route (``stream=False``).
 """
 from __future__ import annotations
 
@@ -52,6 +65,8 @@ from .models.geometry import AcquisitionGeometry
 from .models.sources import PointSource
 from .ops import acoustic as _ac
 from .ops import cuda_acoustic as _ca
+from .ops import cuda_acoustic3 as _c3
+from .ops import cuda_acoustic3d as _c3d
 from .ops.acoustic import _ckpt_layout
 from .ops.interp import interp_table
 from .utils.filters import bandpass, highpass, lowpass
@@ -229,6 +244,49 @@ class _Setup:
         return _traces_from_rows(rec_rows, self.W, self.nt, self.nsteps)
 
 
+class _Setup3:
+    """A 3-D modeling or objective call's operands on the device: the
+    streamed kernels' transposed (ny, nz, nx) model, the wavelet and the
+    receiver tables. Raises for a geometry the kernels do not take."""
+
+    def __init__(self, geometry, dev):
+        model = geometry.model
+        reason = _c3d.unsupported_reason(geometry)
+        if reason is not None:
+            raise NotImplementedError(
+                f"the 3-D kernels do not take this geometry: {reason} "
+                "(ROADMAP.md queue A item 4)")
+        self.s_idx, self.s_w, self.r_idx, r_w, src_wav = \
+            _batched_tables(geometry)
+        self.z0 = int(self.r_idx[..., 2].min())
+        self.nt = geometry.nt
+        self.nsteps = self.nt - 2
+        self.dt = float(_solver_dt(geometry))
+        self.vp = torch.as_tensor(np.asarray(model.vp), device=dev)
+        self.damp = _damp(model, dev)
+        self.m = 1.0 / (self.vp * self.vp)
+        self.m3 = self.m.permute(1, 2, 0).contiguous()
+        hd = torch.broadcast_to(self.dt * self.damp, self.vp.shape)
+        self.hd3 = hd.permute(1, 2, 0).contiguous()
+        self.src_wav = torch.as_tensor(src_wav, device=dev)
+        self.r_w_np = r_w
+        self.r_w = torch.as_tensor(r_w, device=dev)
+        self.kw = dict(nt=self.nt, space_order=model.space_order,
+                       spacing=model.spacing, z0=self.z0, fs=model.fs)
+
+    def planes(self, lo, hi):
+        """(wavelet (hi-lo, nsteps), source planes, their y-planes) of
+        shots lo..hi-1."""
+        injp, iy = _c3d.source_planes3(self.s_idx[lo:hi], self.s_w[lo:hi],
+                                       self.m, self.dt * self.dt)
+        wav = self.src_wav[1:self.nt - 1, 0].expand(hi - lo, -1).contiguous()
+        return wav, injp, iy
+
+    def traces(self, rec_slab):
+        return _c3d.traces_from_slabs3(rec_slab, self.r_idx, self.r_w,
+                                       self.m, self.z0, self.nt)
+
+
 def _traces_from_rows(rec_rows, W, nt, nsteps):
     """Receiver rows (B, nseg, seg, 2, nx) -> traces (B, nt, nrec):
     rec[1+g] = sum_c w_c * row[g, plane_c, x_c] as one product against the
@@ -264,6 +322,35 @@ def _illum_fix_factors(src_pos, rec_positions, spacing, shape, dev):
     rmasks = torch.exp(-.5 * ((xx[None] - rx) ** 2 + (zz[None] - rz) ** 2)
                        / sigma ** 2)
     return 1. - smask, torch.prod(1. - rmasks, dim=0)
+
+
+class _IllumFix3:
+    """The 3-D source/receiver illumination fix (the 3-D branch of the JAX
+    package's ``_fix_illum_jax``, same Gaussian masks with sigma = dx + dz),
+    in float64: ``keep(p)`` is 1 - the source mask of a source at p, and
+    ``rec_prod`` the product of (1 - receiver mask) taken over the
+    receivers one at a time."""
+
+    def __init__(self, rec_positions, spacing, shape, dev):
+        f64 = torch.float64
+        axes = [torch.arange(n, dtype=f64, device=dev) * h
+                for n, h in zip(shape, spacing)]
+        self.grid = torch.meshgrid(*axes, indexing="ij")
+        self.inv2s2 = -.5 / (spacing[0] + spacing[2]) ** 2
+        prod = torch.ones(tuple(shape), dtype=f64, device=dev)
+        for p in np.asarray(rec_positions, np.float64):
+            prod = prod * (1. - self._gauss(p))
+        self.rec_prod = prod
+
+    def _gauss(self, p):
+        xx, yy, zz = self.grid
+        return torch.exp(((xx - p[0]) ** 2 + (yy - p[1]) ** 2
+                          + (zz - p[2]) ** 2) * self.inv2s2)
+
+    def keep(self, src_pos):
+        """(B, nx, ny, nz) of 1 - source mask, one per source position."""
+        return torch.stack([1. - self._gauss(p)
+                            for p in np.asarray(src_pos, np.float64)])
 
 
 class ResidualStack:
@@ -339,16 +426,23 @@ def fm_single(geometry, save=False, device="cuda"):
 
 def fm_multi(geometry, save=False, device="cuda"):
     """Model all shots of ``geometry`` in one batch through
-    ``forward_rec_segments``; returns a list of PointSource shot records.
+    ``forward_rec_segments`` (3-D: ``forward_rec3``); returns a list of
+    PointSource shot records.
     ``save`` is accepted for signature parity and changes nothing (the
     reference's ``fm_multi`` discards the saved wavefield too)."""
     dev = _resolve_device(device)
     model = geometry.model
-    st = _Setup(geometry, dev)
-    rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
-                                        st.injT(0, geometry.nsrc), st.dt,
-                                        **st.kw)
-    rec_all = st.traces(rec_rows).cpu().numpy()
+    if model.dim == 3:
+        st = _Setup3(geometry, dev)
+        rec_all = st.traces(_c3d.forward_rec3(
+            st.m3, st.hd3, *st.planes(0, geometry.nsrc), st.dt,
+            **st.kw)).cpu().numpy()
+    else:
+        st = _Setup(geometry, dev)
+        rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
+                                            st.injT(0, geometry.nsrc),
+                                            st.dt, **st.kw)
+        rec_all = st.traces(rec_rows).cpu().numpy()
     shots = []
     for i in range(geometry.nsrc):
         shot = PointSource(name="rec", time_range=geometry.time_axis,
@@ -510,7 +604,7 @@ def _route(nsrc, shot_chunk, calc_grad, stream, st, dev, itemsize,
 
 
 def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
-                    sel, stream, dev):
+                    sel, stream, dev, saved3=False):
     """Batched objective over the shots ``sel`` (None: all).
     ``misfit_chunk(syn, lo, hi)`` takes the synthetic traces (hi-lo, nt,
     nrec) of the selected shots lo..hi-1 on the device and returns (their
@@ -518,6 +612,12 @@ def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     MISFIT_BYTES_PER_SAMPLE. Returns (fval, grad sum, illum sum (both
     cropped, fixed, float64, or None), residuals)."""
     model = geometry.model
+    if model.dim == 3:
+        return _shot_objective3(geometry, misfit_chunk, kind, calc_grad,
+                                shot_chunk, sel, stream, dev, saved3)
+    if saved3:
+        raise ValueError("saved3 picks a 3-D gradient route; this model is "
+                         f"{model.dim}-D")
     st = _Setup(geometry, dev)
     src_pos = np.asarray(geometry.src_positions)
     if sel is not None:
@@ -573,10 +673,154 @@ def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     return fval, grad, illum, ResidualStack(residuals)
 
 
+def _rec_box(r_idx, padded_shape):
+    """Trailing-axis starts of the 2-wide windows that hold every receiver
+    corner (the saved route's slab injection), or None when the corners do
+    not fit such windows inside the grid (the per-step scatter then)."""
+    box = []
+    for d in range(1, len(padded_shape)):
+        vals = np.unique(r_idx[..., d])
+        lo = int(vals.min())
+        if len(vals) > 2 or vals.max() > lo + 1 or lo < 0 or \
+                lo + 2 > padded_shape[d]:
+            return None
+        box.append(lo)
+    return tuple(box)
+
+
+def _saved_step3(model, dtype, dev):
+    """The ``step3`` keyword of the saved route's eager operators: True
+    (the step kernel on cuda, its twin on the CPU) where the kernel takes
+    the grid, False (the eager update) on the CPU elsewhere; on cuda a grid
+    the kernel does not take raises."""
+    reason = _c3.unsupported_reason(tuple(model.padded_shape),
+                                    model.space_order, model.fs, dtype)
+    if reason is None:
+        return True
+    if dev.type == "cuda":
+        raise NotImplementedError(
+            f"the saved route's step kernel does not take this grid: {reason}"
+            " (ROADMAP.md queue A item 4)")
+    return False
+
+
+def _bytes_per_shot3(st, calc_grad, saved, misfit_bytes):
+    """Device bytes one shot of a 3-D chunk holds at its peak: the receiver
+    slab of a trial; on the stream route the history, the receiver and
+    residual slabs and the illumination, gradient and state fields; on the
+    saved route the wavefield history and the reverse sweep's fields."""
+    item = st.m.element_size()
+    nx, ny, nz = st.m.shape
+    field = nx * ny * nz * item
+    slab = st.nsteps * ny * 2 * nx * item
+    if not calc_grad:
+        return slab + misfit_bytes
+    if saved:
+        return st.nt * field + 8 * field + misfit_bytes
+    return st.nsteps * field + 2 * slab + 5 * field + misfit_bytes
+
+
+def _saved_chunk(st, saved_kw, lo, hi):
+    """Forward of shots lo..hi-1 with the wavefield saved: (traces
+    (hi-lo, nt, nrec), [history (nt, nx, ny, nz) per shot])."""
+    recs, hists = [], []
+    for i in range(lo, hi):
+        rec, u = _ac.forward(st.vp, st.damp, st.src_wav, st.s_idx[i],
+                             st.s_w[i], st.r_idx, st.r_w_np, st.dt,
+                             save=True, **saved_kw)
+        recs.append(rec)
+        hists.append(u)
+    return torch.stack(recs), hists
+
+
+def _shot_objective3(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
+                     sel, stream, dev, saved3):
+    """``_shot_objective`` of a 3-D geometry: the streamed kernel pair by
+    default, the saved-history route with ``saved3`` (gradients only;
+    trials always run ``forward_rec3``)."""
+    model = geometry.model
+    st = _Setup3(geometry, dev)
+    if calc_grad and stream is False:
+        raise NotImplementedError(
+            "3-D gradients have no checkpoint route on the port (ROADMAP.md "
+            "queue A item 2); saved3=True takes the saved-history route")
+    src_pos = np.asarray(geometry.src_positions)
+    if sel is not None:
+        st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
+        src_pos = src_pos[sel]
+    nsrc = st.s_idx.shape[0]
+    saved = calc_grad and saved3
+    if saved:
+        saved_kw = dict(nt=st.nt, spacing=model.spacing,
+                        space_order=model.space_order, fs=model.fs,
+                        step3=_saved_step3(model, st.m.dtype, dev))
+        rec_box = _rec_box(st.r_idx, model.padded_shape)
+    per_shot = _bytes_per_shot3(
+        st, calc_grad, saved,
+        MISFIT_BYTES_PER_SAMPLE[kind] * st.nt * st.r_idx.shape[0])
+    chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
+                             _device_budget(dev) if dev.type == "cuda"
+                             else None)
+    pads, shape = _pads(model), model.shape
+    if calc_grad:
+        fix = _IllumFix3(geometry.rec_positions, model.spacing, shape, dev)
+    fval = 0.0
+    residuals = []
+    grad = illum = None
+    for lo in range(0, nsrc, chunk):
+        hi = min(lo + chunk, nsrc)
+        if not calc_grad:
+            rec = st.traces(_c3d.forward_rec3(st.m3, st.hd3,
+                                              *st.planes(lo, hi), st.dt,
+                                              **st.kw))
+        elif saved:
+            rec, hists = _saved_chunk(st, saved_kw, lo, hi)
+        else:
+            rec_slab, hist, il = _c3d.forward_dt2_stream3(
+                st.m3, st.hd3, *st.planes(lo, hi), st.dt, **st.kw)
+            rec = st.traces(rec_slab)
+            del rec_slab
+        f_c, res = misfit_chunk(rec, lo, hi)
+        fval = fval + f_c
+        residuals.append(res)
+        if not calc_grad:
+            continue
+        if saved:
+            gs, ils = [], []
+            for i in range(hi - lo):
+                g_i, _, il_i = _ac.gradient(
+                    st.vp, st.damp, hists[i], res[i], st.r_idx, st.r_w_np,
+                    st.dt, rec_box=rec_box, with_illum=True, **saved_kw)
+                # free this shot's history before the next reverse sweep
+                hists[i] = None
+                gs.append(g_i)
+                ils.append(il_i)
+            g, il = torch.stack(gs), torch.stack(ils)
+        else:
+            slabs = _c3d.residual_slabs3(res, st.r_idx, st.r_w, st.m,
+                                         st.dt * st.dt, st.z0, st.nsteps)
+            g = _c3d.gradient_stream3(st.m3, st.hd3, hist, slabs, st.dt,
+                                      **st.kw)
+            # free this chunk's history before the next forward allocates
+            # one
+            del hist, slabs
+            # (B, ny, nz, nx) -> (B, nx, ny, nz)
+            g, il = g.permute(0, 3, 1, 2), il.permute(0, 3, 1, 2)
+        # crop + illumination fix per shot, in float64: (g*(1-smask))*rprod
+        keep = fix.keep(src_pos[lo:hi])
+        g = torch.sum(_crop(g, pads, shape).double() * keep * fix.rec_prod,
+                      dim=0)
+        il = torch.sum(_crop(il, pads, shape).double() * keep
+                       * fix.rec_prod, dim=0)
+        grad = g if grad is None else grad + g
+        illum = il if illum is None else illum + il
+    return fval, grad, illum, ResidualStack(residuals)
+
+
 def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
                   precond=True, calc_grad=False, resample_dt=None,
                   shot_chunk=None, shot_indices=None, device="cuda",
-                  stream=None):
+                  stream=None, saved3=False):
     """Multi-shot objective and gradient (reference ``fwi.py:175-205``):
     returns (fval, grad (flat float64 numpy or zeros), residuals).
 
@@ -587,7 +831,10 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
     (random-batch FWI); ``shot_chunk`` caps the shots per batch (default: as
     many as the device memory holds). ``stream`` picks the gradient route:
     True the streamed history, False the checkpoint-and-recompute pair, None
-    (the default) streams when one shot's history fits the card's memory."""
+    (the default) streams when one shot's history fits the card's memory.
+    A 3-D gradient streams through ``ops.cuda_acoustic3d``; ``saved3=True``
+    takes the saved-history route instead (the JAX package's
+    ``DEVITO_FWI_TPU_SAVED3`` / ``DEVITO_FWI_TPU_PALLAS3D`` switches)."""
     dev = _resolve_device(device)
     sel = None if shot_indices is None else \
         np.asarray(shot_indices, dtype=np.int64)
@@ -633,7 +880,7 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
 
     fval, grad, illum, residuals = _shot_objective(
         geometry, misfit_chunk, kind, calc_grad, shot_chunk, sel, stream,
-        dev)
+        dev, saved3)
     if not calc_grad:
         return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
                 residuals)
@@ -649,11 +896,11 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
 
 def fwi_loss(x, geometry, obs, misfit_func, direct_wave=None, mask=None,
              precond=True, calc_grad=True, shot_indices=None, device="cuda",
-             stream=None):
+             stream=None, saved3=False):
     """Objective in squared-slowness parameterization
     (reference ``fwi.py:236-246``)."""
     v = 1.0 / np.sqrt(x.reshape(geometry.model.shape))
     geometry.model.update("vp", v.reshape(geometry.model.shape))
     return fwi_obj_multi(geometry, obs, misfit_func, direct_wave, mask,
                          precond, calc_grad, shot_indices=shot_indices,
-                         device=device, stream=stream)
+                         device=device, stream=stream, saved3=saved3)

@@ -1,8 +1,8 @@
 """The CUDA kernels of devito_fwi_tpu_torch.ops.cuda_acoustic,
-ops.cuda_bfm, ops.cuda_staggered, ops.cuda_visco and ops.cuda_tti against
-their plain torch twins, on the
-card (marked ``cuda``; each test skips without one). The file imports no JAX, so on a machine
-without it run it as
+ops.cuda_bfm, ops.cuda_staggered, ops.cuda_visco, ops.cuda_tti,
+ops.cuda_acoustic3d and ops.cuda_acoustic3 against their plain torch twins,
+on the card (marked ``cuda``; each test skips without one). The file
+imports no JAX, so on a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 
@@ -24,7 +24,11 @@ run on a two-layer 61 x 48 model with qp 60/90 (nbl 10, 2-3 shots, space
 order 4 and 8) in the same way, with the sls/2 solver golden. The TTI
 sweeps run on layers-tti 61 x 48 (nbl 10, 2 shots, space order 4 and 8, 7
 segments) in the same way; their checkpoint-route gradient must equal the
-streamed one bitwise.
+streamed one bitwise. The 3-D sweeps run on layers-isotropic 24 x 20 x 16
+(nbl 8, 2 shots, space order 4 and 8, with and without the free surface)
+and the step kernel on seeded 48 x 20 x 36 fields; the 3-D objective on
+the card, on both routes, is held against its CPU twins. Select them
+with ``-k 3d``.
 """
 import numpy as np
 import pytest
@@ -617,3 +621,100 @@ def test_tti_solver_gradient_on_the_card_matches_the_twins(cuda):
     assert ct.LAUNCHES["tti_jacobian_adjoint_segments"] == 1
     assert np.array_equal(g_s, g_c)
     assert np.abs(g_s - g_cpu).max() <= 1e-5 * np.abs(g_cpu).max()
+
+
+def _setup3(fs, space_order, dev):
+    model = demo_model("layers-isotropic", nlayers=3, shape=(24, 20, 16),
+                       spacing=(15., 15., 15.), space_order=space_order,
+                       nbl=8, dt=1.5, fs=fs)
+    ext, eyt = model.domain_size[0], model.domain_size[1]
+    src = np.stack([np.linspace(0, ext, 2), np.linspace(eyt * .3, eyt * .7, 2),
+                    np.full(2, 30.)], 1)
+    rec = np.stack([np.linspace(0, ext, 12), np.full(12, eyt / 2),
+                    np.full(12, 37.)], 1)
+    geom = AcquisitionGeometry(model, rec, src, 0., 120., f0=0.015,
+                               src_type="Ricker")
+    return geom, fwi._Setup3(geom, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+@pytest.mark.parametrize("fs", [False, True])
+def test_3d_stream_kernels_match_twins(cuda, fs, space_order):
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
+    _, st = _setup3(fs, space_order, cuda)
+    ops = (st.m3, st.hd3, *st.planes(0, 2), st.dt)
+    c3d.reset_counters()
+    rec = c3d.forward_rec3(*ops, **st.kw)
+    got = c3d.forward_dt2_stream3(*ops, **st.kw)
+    rng = np.random.default_rng(0)
+    res = torch.as_tensor(rng.standard_normal((2, st.nt, 12)),
+                          dtype=torch.float32, device=cuda)
+    slabs = c3d.residual_slabs3(res, st.r_idx, st.r_w, st.m, st.dt * st.dt,
+                                st.z0, st.nsteps)
+    grad = c3d.gradient_stream3(st.m3, st.hd3, got[1], slabs, st.dt,
+                                **st.kw)
+    assert all(c3d.LAUNCHES[n] == 1 for n in c3d.KERNELS)
+    assert sum(c3d.TWIN_CALLS.values()) == 0
+    torch.cuda.synchronize()
+    _close([rec], [c3d.forward_rec3_plain(*ops, **st.kw)])
+    _close(got, c3d.forward_dt2_stream3_plain(*ops, **st.kw))
+    _close([grad], [c3d.gradient_stream3_plain(st.m3, st.hd3, got[1], slabs,
+                                               st.dt, **st.kw)])
+    assert torch.equal(rec, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+def test_3d_step_kernel_matches_twin(cuda, space_order):
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3 as c3
+    from devito_fwi_tpu_torch.utils.fd import second_derivative_weights
+    rng = np.random.default_rng(0)
+    shape = (48, 20, 36)
+    u, up = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                             device=cuda) for _ in range(2))
+    vp = torch.as_tensor(1.5 + rng.random(shape), dtype=torch.float32,
+                         device=cuda)
+    hd = torch.as_tensor(0.05 * rng.random(shape), dtype=torch.float32,
+                         device=cuda)
+    m = 1.0 / (vp * vp)
+    w_full = second_derivative_weights(space_order)
+    kw = dict(w=tuple(float(v) for v in w_full[space_order // 2:]),
+              inv_h2=tuple(1.0 / h ** 2 for h in (10., 12., 14.)))
+    c3.reset_counters()
+    got = c3.step3(u, up, m, hd, 1.21, **kw)
+    assert c3.LAUNCHES["step3"] == 1 and c3.TWIN_CALLS["step3"] == 0
+    torch.cuda.synchronize()
+    _close([got], [c3.step3_plain(u, up, m, hd, 1.21, **kw)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saved3", [False, True])
+def test_3d_objective_on_the_card_matches_the_twins(cuda, saved3):
+    """fwi_obj_multi on cuda (the kernels) against device="cpu" (the
+    twins): objective 1e-5 relative, gradient 1e-4 of the max (float32
+    sums of products run in another order on the two devices)."""
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3 as c3
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
+    geom, _ = _setup3(False, 4, cuda)
+    obs = fwi.fm_multi(geom, device="cpu")
+    model0 = demo_model("layers-isotropic", nlayers=1, shape=(24, 20, 16),
+                        spacing=(15., 15., 15.), space_order=4, nbl=8,
+                        dt=1.5)
+    g0 = AcquisitionGeometry(model0, geom.rec_positions, geom.src_positions,
+                             0., 120., f0=0.015, src_type="Ricker")
+    c3.reset_counters()
+    c3d.reset_counters()
+    f_c, g_c, _ = fwi.fwi_obj_multi(g0, obs, None, calc_grad=True,
+                                    precond=False, device="cuda",
+                                    saved3=saved3)
+    assert sum(c3d.TWIN_CALLS.values()) == 0 and c3.TWIN_CALLS["step3"] == 0
+    if saved3:
+        assert c3.LAUNCHES["step3"] > 0
+    else:
+        assert c3d.LAUNCHES["gradient_stream3"] == 1
+    f_p, g_p, _ = fwi.fwi_obj_multi(g0, obs, None, calc_grad=True,
+                                    precond=False, device="cpu",
+                                    saved3=saved3)
+    assert abs(f_c - f_p) <= 1e-5 * abs(f_p)
+    assert np.abs(g_c - g_p).max() <= 1e-4 * np.abs(g_p).max()

@@ -342,3 +342,54 @@ def test_host_misfit_entry_point_raises_on_cuda_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tfwi.fwi_obj_multi(g, obs, lambda a, b: (0.0, a - b),
                            calc_grad=True)
+
+
+ACOUSTIC3D_MODULES = ("ops/acoustic.py", "ops/cuda_acoustic3.py",
+                      "ops/cuda_acoustic3d.py", "fwi.py")
+
+
+@pytest.mark.parametrize("module", ACOUSTIC3D_MODULES)
+def test_acoustic3d_modules_are_scanned(module):
+    """The 3-D slice's modules are among the sources the scans above read
+    (and so import no JAX), beside their CUDA source."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+    assert os.path.exists(os.path.join(PKG, "csrc", "acoustic3d.cu"))
+
+
+@pytest.mark.parametrize("module", ["cuda_acoustic3", "cuda_acoustic3d"])
+def test_ctypes_signatures_match_the_acoustic3d_source(module):
+    """The same for the step and the sweep entry points of
+    csrc/acoustic3d.cu."""
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3, cuda_acoustic3d
+    _check_signatures({"cuda_acoustic3": cuda_acoustic3,
+                       "cuda_acoustic3d": cuda_acoustic3d}[module],
+                      "acoustic3d.cu")
+
+
+def _geometry3():
+    model = demo_model("layers-isotropic", nlayers=2, shape=(12, 10, 10),
+                       spacing=(15., 15., 15.), nbl=4, space_order=4,
+                       dt=1.5)
+    rec = np.stack([np.linspace(0., 165., 6), np.full(6, 60.),
+                    np.full(6, 37.)], 1)
+    return AcquisitionGeometry(model, rec, np.array([[80., 70., 30.]]), 0.,
+                               30., f0=0.015, src_type="Ricker")
+
+
+@pytest.mark.parametrize("entry", ["fm_multi", "fwi_obj_multi",
+                                   "fwi_obj_multi_saved3", "fwi_loss"])
+def test_3d_entry_points_raise_on_cuda_without_card(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _geometry3()
+    obs = tfwi.fm_multi(g, device="cpu")
+    x = 1.0 / np.asarray(g.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    calls = {
+        "fm_multi": lambda: tfwi.fm_multi(g),
+        "fwi_obj_multi": lambda: tfwi.fwi_obj_multi(g, obs, None,
+                                                    calc_grad=True),
+        "fwi_obj_multi_saved3": lambda: tfwi.fwi_obj_multi(
+            g, obs, None, calc_grad=True, saved3=True),
+        "fwi_loss": lambda: tfwi.fwi_loss(x, g, obs, None),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
