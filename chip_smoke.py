@@ -35,9 +35,10 @@ result line is printed:
 9. the misfits' device memory per gather sample (peak allocation around
    the batched misfit of the 29 SMARMN gathers), held against the figures
    ``fwi.MISFIT_BYTES_PER_SAMPLE`` sizes shot chunks with;
-10. profile: one steady-state gradient and one trial of the L2 and of the
-   W2-2d objective under ``torch.profiler``: wall time, device-busy time
-   and idle share, the kernels that take the most device time; then the
+10. profile: one steady-state gradient and one trial of the L2 objective
+   and one trial of the W2-2d objective under ``torch.profiler``: wall
+   time, device-busy time and idle share, the kernels that take the most
+   device time; then the
    W2-2d objective's parts (2-D Legendre transform, pushforward, DCT
    products) timed apart on its live state, times their calls;
 11. elastic kernel vs twin, quick gate: each elastic CUDA kernel against
@@ -135,7 +136,25 @@ result line is printed:
    with the card's bound; the 3-D phases' own seconds;
 32. 3-D profile: one steady-state gradient and one trial under
    ``torch.profiler``;
-33. a ``kernels`` JSON line; the card's name and power limit; the script's
+33. B15 kernel vs twin, quick gate: ``cuda_legacy.forward_rows`` (the
+   whole-nt 2-D forward of ``pallas_legacy``) against its twin on the
+   operands of the first 3 SMARMN shots, every row bitwise, the two
+   trailing rows zero;
+34. main path, B15: ``cuda_legacy.forward_traces`` on the 29 SMARMN shots
+   on cuda (B15 launched, no twin called), its traces against
+   ``fm_multi``'s (B1) within 1e-5 of the max; at 29 shots kernel against
+   twin bitwise, CUDA events after a warm-up beside the bound;
+35. main path, the camembert FWI: ``examples.inversion_fwi.main`` on cuda
+   (9 shots, 101 receivers, 5 gradient-descent iterations through
+   ``AcousticWaveSolver``) with the reference's goldens 39113 / -821 / 2442
+   and 3828 (atol 10); the time per 9-shot gradient; the checkpointed
+   ``jacobian_adjoint`` against the saved one on one shot; the born /
+   gradient dot test at float32;
+36. the solver in 3-D (layers-isotropic 50^3, nbl 40, tn 1000 ms): the
+   free-surface forward's norm against 369.955, the fs=False forward
+   through the B14 step hook bitwise equal to ``step3=False`` and its norm
+   against 459.1678 (rtol 1e-3 each); the seconds of phases 33-36;
+37. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -165,7 +184,7 @@ SEED = 0
 # output's max leaves room only for a compiler or libm difference.
 RTOL = 1e-6
 SOURCES = ("acoustic2d", "bfm_push", "bfm_legendre", "elastic2d",
-           "visco2d", "tti2d", "acoustic3d")
+           "visco2d", "tti2d", "acoustic3d", "acoustic2d_legacy")
 REPLACES = {
     "forward_rec_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:221",
     "forward_dt2_segments": "devito_fwi_tpu/ops/pallas_acoustic.py:569",
@@ -191,6 +210,7 @@ REPLACES = {
     "forward_dt2_stream3": "devito_fwi_tpu/ops/pallas_acoustic3d.py:301",
     "forward_rec3": "devito_fwi_tpu/ops/pallas_acoustic3d.py:444",
     "gradient_stream3": "devito_fwi_tpu/ops/pallas_acoustic3d.py:596",
+    "forward_rows": "devito_fwi_tpu/ops/pallas_legacy.py:107",
 }
 # bench config 4 (``bench.py`` ``_bench_tti``): marmousi-tti2d, 8 shots and
 # 300 receivers at 60 m, tn 4000 ms, f0 7 Hz, 16 checkpoints
@@ -1673,6 +1693,181 @@ def acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
     print(f"   3-D phases 29-32: {time.perf_counter() - t_3d:.1f} s")
 
 
+def legacy_bound(m, inj, nt, r):
+    """B15's bound at this run's shapes: m, hd, the wavelet and the
+    patterns read once, the record written once; 8r + 8 operations per
+    cell-step (the stencil c0 u and four products and sums a tap, 8r + 1;
+    the update and the injection, 7)."""
+    f = 4
+    B, nx, nz = inj.shape
+    nbytes = (2 * m.numel() + (nt - 2) + inj.numel() + B * nt * 2 * nx) * f
+    return bound(nbytes, B * (nt - 2) * nx * nz * (8 * r + 8))
+
+
+def legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
+                         plain_ms, err, bounds):
+    """Phases 33-36: B15 against its twin at 3 SMARMN shots;
+    ``forward_traces`` on the 29 SMARMN shots on cuda, against B1 and
+    against the twin, timed beside its bound; the camembert FWI through
+    ``AcousticWaveSolver`` with its goldens, the checkpointed gradient and
+    the born/gradient dot test; the solver's 3-D forwards."""
+    from devito_fwi_tpu_torch import AcousticWaveSolver
+    from devito_fwi_tpu_torch.examples import inversion_fwi as ex
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.models.presets import demo_model
+    t_new = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = "forward_rows"
+    m, hd, wav, inj, dt, kw = cl.operands(g0, device="cuda")
+    B = inj.shape[0]
+
+    def rows_pair(shots):
+        """kernel and twin rows of the first ``shots`` shots, bitwise."""
+        ops = (m, hd, wav, inj[:shots].contiguous(), dt)
+        got = cl.forward_rows(*ops, **kw)
+        want = cl.forward_rows_plain(*ops, **kw)
+        same = torch.equal(got, want)
+        e = float((got - want).abs().max())
+        print(f"   {name}, {shots} shots: kernel == twin on every row: "
+              f"{same} (max|kernel-twin| {e:.3e}); rows nt-2, nt-1 zero: "
+              f"{not got[:, kw['nt'] - 2:].any()}")
+        if not same or got[:, kw["nt"] - 2:].any():
+            raise AssertionError(f"{name} differs from its twin")
+        return e
+
+    phase(f"33 B15 kernel vs twin (quick gate), {NSHOTS_CHECK} SMARMN shots")
+    rows_pair(NSHOTS_CHECK)
+
+    phase(f"34 main path: cuda_legacy.forward_traces, {B} SMARMN shots, on "
+          "cuda")
+    for reset in counters:
+        reset()
+    t0 = time.perf_counter()
+    tr = cl.forward_traces(g0, device="cuda")
+    print(f"   forward_traces ({B} x {kw['nt']} x {tr.shape[2]}): "
+          f"{time.perf_counter() - t0:.3f} s (first call)")
+    report("forward_traces", cl.KERNELS)
+    ref = np.stack([s.data for s in fwi.fm_multi(g0, device="cuda")])
+    rel = float(np.abs(tr - ref).max() / np.abs(ref).max())
+    print(f"   traces against fm_multi's (B1): {rel:.3e} of the max "
+          "[1e-5; the two kernels associate the stencil differently]")
+    if not (np.isfinite(tr).all() and rel <= 1e-5):
+        raise AssertionError("forward_traces disagrees with fm_multi")
+    err[name] = rows_pair(B)
+    ops = (m, hd, wav, inj, dt)
+    ms[name], _ = cuda_ms(lambda: cl.forward_rows(*ops, **kw), 5)
+    plain_ms[name], _ = cuda_ms(lambda: cl.forward_rows_plain(*ops, **kw), 1)
+    bounds[name] = legacy_bound(m, inj, kw["nt"], kw["space_order"] // 2)
+    b_ms, by, nbytes, nops = bounds[name]
+    print(f"   {name}: kernel {ms[name]:.3f} ms, twin {plain_ms[name]:.3f} "
+          f"ms, bound {b_ms:.3f} ms by {by} ({nbytes:.4g} B, {nops:.4g} f32 "
+          f"ops), {b_ms / ms[name]:.1%} of the bound; "
+          f"{ms[name] * 1e3 / (kw['nt'] - 2):.2f} us a step")
+    del m, hd, wav, inj, ops, tr, ref
+    torch.cuda.empty_cache()
+
+    phase("35 main path: the camembert FWI (examples.inversion_fwi, 9 "
+          "shots, 5 iterations) on cuda")
+    for reset in counters:
+        reset()
+    walls = []
+    gradient = ex.fwi_gradient
+
+    def timed_gradient(*a, **k):
+        t0 = time.perf_counter()
+        out = gradient(*a, **k)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    ex.fwi_gradient = timed_gradient
+    try:
+        t0 = time.perf_counter()
+        history, gmin, gmax, ff = ex.main(device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        ex.fwi_gradient = gradient
+    got = dict(objective=ff, grad_min=gmin, grad_max=gmax,
+               last_misfit=history[-1])
+    print(f"   misfit history {history.tolist()}; {wall:.2f} s")
+    print(f"   time per gradient (9 shots): first {walls[0]:.3f} s (with "
+          f"the observed data), then {[round(w, 3) for w in walls[1:]]} s")
+    for key, want in ex.GOLDEN.items():
+        print(f"   {key}: {got[key]!r} (golden {want:g}, atol {ex.ATOL:g})")
+        if not abs(got[key] - want) <= ex.ATOL:
+            raise AssertionError(f"camembert {key} off its golden")
+    report("camembert", (), record=False)
+    model, model0, solver, locs = ex.setup("cuda")
+    solver.geometry.src_positions[0, :] = locs[4]
+    d_obs = solver.forward(vp=model.vp)[0]
+    d_syn, u0, _ = solver.forward(vp=model0.vp, save=True)
+    res = solver.geometry.rec
+    res.data[:] = d_syn.data - d_obs.data
+    g_saved, _ = solver.jacobian_adjoint(res, u0, vp=model0.vp)
+    g_ck, _ = solver.jacobian_adjoint(res, None, vp=model0.vp,
+                                      checkpointing=True)
+    rel = float(np.abs(g_ck - g_saved).max() / np.abs(g_saved).max())
+    print(f"   checkpointed gradient against the saved one (shot 5): "
+          f"{rel:.3e} of the max [1e-5; float32, the two routes sum "
+          "d2u/dt2 v in another association]")
+    rng = np.random.default_rng(SEED)
+    dm = np.zeros(model.padded_shape, np.float32)
+    nbl = model.nbl
+    dm[nbl:-nbl, nbl:-nbl] = rng.standard_normal(model.shape)
+    rec_lin, _ = solver.jacobian(dm, vp=model0.vp)
+    rec_res = solver.geometry.rec
+    rec_res.data[:] = rng.standard_normal(rec_res.data.shape)
+    grad, _ = solver.jacobian_adjoint(rec_res, u0, vp=model0.vp)
+    term1 = float(np.dot(rec_lin.data.ravel().astype(np.float64),
+                         rec_res.data.ravel().astype(np.float64)))
+    term2 = float(np.dot(dm.ravel().astype(np.float64),
+                         grad.ravel().astype(np.float64)))
+    dot = abs(term1 - term2) / abs(term1)
+    print(f"   born/gradient dot test at float32: <J dm, r> {term1!r}, "
+          f"<dm, J^T r> {term2!r}, {dot:.3e} relative [1e-4]")
+    if not (rel <= 1e-5 and dot <= 1e-4):
+        raise AssertionError("the checkpointed gradient or the dot test "
+                             "is off")
+    del solver, u0, d_obs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("36 the solver in 3-D: layers-isotropic 50^3 at 20 m, nbl 40, "
+          "tn 1000 ms, on cuda")
+    norms = {}
+    for fs in (True, False):
+        model = demo_model("layers-isotropic", space_order=4,
+                           shape=(50, 50, 50), nbl=40, dtype=np.float32,
+                           spacing=(20., 20., 20.), fs=fs)
+        geometry = setup_geometry(model, 1000.0)
+        solver = AcousticWaveSolver(model, geometry, kernel="OT2",
+                                    space_order=4, device="cuda")
+        for reset in counters:
+            reset()
+        rec, _, summary = solver.forward()
+        norms[fs] = float(np.linalg.norm(rec.data))
+        print(f"   fs {fs}: padded {model.padded_shape}, nt {solver.nt}, "
+              f"norm(rec) {norms[fs]!r}, {summary.elapsed:.3f} s, step "
+              f"kernel launches {c3.LAUNCHES['step3']}")
+        if fs:
+            continue
+        report("3-D solver forward", c3.KERNELS, record=False)
+        eager = solver.forward(step3=False)[0].data
+        same = np.array_equal(rec.data, eager)
+        print(f"   the forward through the step kernel == step3=False: "
+              f"{same}")
+        if not same:
+            raise AssertionError("the step hook changes the 3-D forward")
+    for fs, want in ((True, 369.955), (False, 459.1678)):
+        rel = abs(norms[fs] - want) / want
+        print(f"   fs {fs}: norm {norms[fs]!r} against the reference's "
+              f"{want} ({'f32' if fs else 'f64'} golden): {rel:.3e} "
+              "relative [1e-3]")
+        if not rel <= 1e-3:
+            raise AssertionError("3-D forward norm off the golden")
+    print(f"   phases 33-36: {time.perf_counter() - t_new:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1686,6 +1881,7 @@ def main():
     from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
     from devito_fwi_tpu_torch.ops import cuda_bfm as cb
     from devito_fwi_tpu_torch.ops import cuda_build
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
     from devito_fwi_tpu_torch.ops import cuda_staggered as cs
     from devito_fwi_tpu_torch.ops import cuda_tti as ct
     from devito_fwi_tpu_torch.ops import cuda_visco as cv
@@ -1710,6 +1906,7 @@ def main():
     ct._lib()
     c3._lib()
     c3d._lib()
+    cl._lib()
     print(f"   nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     print(f"   built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1883,8 +2080,8 @@ def main():
 
     counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
                 cv.reset_counters, ct.reset_counters, c3.reset_counters,
-                c3d.reset_counters, bfm.reset_counts)
-    modules = (ca, cb, cs, cv, ct, c3, c3d)
+                c3d.reset_counters, cl.reset_counters, bfm.reset_counts)
+    modules = (ca, cb, cs, cv, ct, c3, c3d, cl)
     launches = {}
 
     def report(path, names, record=True):
@@ -1980,8 +2177,11 @@ def main():
 
     phase(f"10 profile: one steady-state gradient and one trial, {B} shots")
     walls = {}
-    for label, misfit in (("L2", least_square), ("W2-2d", qw2d)):
-        for calc_grad in (True, False):
+    # W2-2d: the trial only; its gradient adds one sweep pair to the same
+    # kernels (both profiles read within 4% of each other on the H100)
+    for label, misfit, grads in (("L2", least_square, (True, False)),
+                                 ("W2-2d", qw2d, (False,))):
+        for calc_grad in grads:
             what = f"{label} {'gradient' if calc_grad else 'trial'}"
             walls[what] = report_profile(what, lambda: fwi.fwi_loss(
                 x0, g0, obs, misfit, dw, mask, calc_grad=calc_grad,
@@ -2046,12 +2246,14 @@ def main():
                    bounds)
     acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
                       report, ms, plain_ms, err, bounds)
+    legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
+                         plain_ms, err, bounds)
 
-    phase("33 result")
+    phase("37 result")
     rows = []
     sources = (("acoustic2d", ca), ("bfm_push", cb), ("elastic2d", cs),
                ("visco2d", cv), ("tti2d", ct), ("acoustic3d", c3d),
-               ("acoustic3d", c3))
+               ("acoustic3d", c3), ("acoustic2d_legacy", cl))
     for src, mod in sources:
         for n in mod.KERNELS:
             rows.append(dict(

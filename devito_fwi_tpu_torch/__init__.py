@@ -15,5 +15,7 @@ from .models.sources import PointSource, Receiver, RickerSource
 from .models.model import SeismicModel
 from .models.geometry import AcquisitionGeometry
 from .models.presets import demo_model
+from .ops.wavesolver import AcousticWaveSolver
+from .inversion import compute_residual, update_with_box
 
 __version__ = "0.1.0"

@@ -2,7 +2,9 @@
 quadratic-Wasserstein misfits and the adjoint-state gradient of the 2-D
 and 3-D acoustic wave equation.
 
-Port of the acoustic routes of ``devito_fwi_tpu.fwi``. ``fm_single``,
+Port of the acoustic routes of ``devito_fwi_tpu.fwi``. ``fm_single`` and
+``fwi_obj_single`` run one shot through ``ops.wavesolver.AcousticWaveSolver``
+(the eager operators of ``ops.acoustic``), as the JAX ones do.
 ``fm_multi``, ``fwi_obj_multi`` and ``fwi_loss`` keep their signatures and
 add ``device``: "cuda" (the default) runs the CUDA kernels of
 ``ops.cuda_acoustic`` (3-D: ``ops.cuda_acoustic3d`` and
@@ -52,7 +54,8 @@ Not ported yet (raises ``NotImplementedError``): geometries the kernels do
 not take (receivers off two adjacent z-planes, 3-D sources off the y grid,
 and on cuda a saved-route grid the step kernel does not take: a free
 surface, float64, a padded nx ``pick_xb`` does not block; ROADMAP.md queue
-A items 2 and 4), and a 3-D checkpoint route (``stream=False``).
+A item 4, which runs them on the eager operators), and a 3-D checkpoint
+route (``stream=False``).
 """
 from __future__ import annotations
 
@@ -69,10 +72,12 @@ from .ops import cuda_acoustic3 as _c3
 from .ops import cuda_acoustic3d as _c3d
 from .ops.acoustic import _ckpt_layout
 from .ops.interp import interp_table
+from .ops.wavesolver import AcousticWaveSolver
 from .utils.filters import bandpass, highpass, lowpass
 
 __all__ = ["seismic_filter", "Filter", "resample", "fm_single", "fm_multi",
-           "fwi_obj_multi", "fwi_loss", "ResidualStack"]
+           "fix_source_illumination", "fwi_obj_single", "fwi_obj_multi",
+           "fwi_loss", "ResidualStack"]
 
 
 def _resolve_device(device):
@@ -209,7 +214,7 @@ class _Setup:
             raise NotImplementedError(
                 "only 2-D geometries with all receivers on two adjacent "
                 "z-planes run on the port so far (3-D and general receiver "
-                "layouts: ROADMAP.md queue A items 2 and 16)")
+                "layouts: ROADMAP.md queue A item 4)")
         self.s_idx, self.s_w, self.r_idx, r_w, src_wav = \
             _batched_tables(geometry)
         self.z0 = int(self.r_idx[..., 1].min())
@@ -404,24 +409,13 @@ def _device_stack(objs, dev):
 # ---------------------------------------------------------------------------
 
 def fm_single(geometry, save=False, device="cuda"):
-    """Model one shot with the plain torch propagator; returns (rec
-    PointSource, wavefield array)."""
-    dev = _resolve_device(device)
-    model = geometry.model
-    s_idx, s_w = interp_table(geometry.src_positions, model.origin_pml,
-                              model.spacing, dtype=model.dtype)
-    r_idx, r_w = interp_table(geometry.rec_positions, model.origin_pml,
-                              model.spacing, dtype=model.dtype)
-    rec, u = _ac.forward(
-        torch.as_tensor(np.asarray(model.vp), device=dev),
-        _damp(model, dev), torch.as_tensor(geometry.src.data, device=dev),
-        s_idx, s_w, r_idx, r_w, _solver_dt(geometry), nt=geometry.nt,
-        spacing=model.spacing, space_order=model.space_order, fs=model.fs,
-        save=save)
-    shot = PointSource(name="rec", time_range=geometry.time_axis,
-                       coordinates=geometry.rec_positions, dtype=model.dtype)
-    shot.data[:] = rec.cpu().numpy()
-    return shot, u.cpu().numpy()
+    """Model one shot through ``AcousticWaveSolver`` (the eager operators);
+    returns (rec PointSource, wavefield ``Wavefield`` on the device)."""
+    solver = AcousticWaveSolver(geometry.model, geometry,
+                                space_order=geometry.model.space_order,
+                                device=device)
+    rec, u, _ = solver.forward(vp=geometry.model.vp, save=save)
+    return rec, u
 
 
 def fm_multi(geometry, save=False, device="cuda"):
@@ -456,6 +450,70 @@ def fm_multi(geometry, save=False, device="cuda"):
 # ---------------------------------------------------------------------------
 # objective + gradient (reference fwi.py:131-246)
 # ---------------------------------------------------------------------------
+
+def fix_source_illumination(geometry, g):
+    """Gaussian-mask damping of a one-shot field ``g`` (the physical grid)
+    at the source and receiver locations (reference ``fwi.py:104-129``,
+    its meshgrid axis convention kept), in float64 on the host."""
+    if geometry.src_positions.shape[0] > 1:
+        raise ValueError("Only single source valid.")
+    model = geometry.model
+    cpu = torch.device("cpu")
+    g = torch.as_tensor(np.asarray(g, np.float64))
+    if model.dim == 3:
+        fix = _IllumFix3(geometry.rec_positions, model.spacing, model.shape,
+                         cpu)
+        return (g * fix.keep(geometry.src_positions)[0]
+                * fix.rec_prod).numpy()
+    keep_src, rec_prod = _illum_fix_factors(
+        geometry.src_positions, geometry.rec_positions, model.spacing,
+        model.shape, cpu)
+    return (g * keep_src[0] * rec_prod).numpy()
+
+
+def fwi_obj_single(geometry, obs, misfit_func, direct_wave=None,
+                   resample_dt=None, calc_grad=False, device="cuda"):
+    """Single-shot objective through ``AcousticWaveSolver`` (API parity
+    with reference ``fwi.py:131-173``), with trace resampling for the
+    misfit when ``resample_dt`` is given. ``misfit_func(syn, obs)`` takes
+    and returns host arrays. Returns (fval, cropped gradient, residual
+    data, cropped illumination); the last three None-free only with
+    ``calc_grad`` (the residual always)."""
+    from copy import deepcopy
+    solver = AcousticWaveSolver(geometry.model, geometry,
+                                space_order=geometry.model.space_order,
+                                device=device)
+    pred, wfd, _ = solver.forward(vp=geometry.model.vp, save=calc_grad)
+    if resample_dt is not None:
+        obs = deepcopy(obs).resample(resample_dt)
+        pred = pred.resample(resample_dt)
+        if direct_wave is not None:
+            direct_wave = deepcopy(direct_wave).resample(resample_dt)
+    syn_data = pred.data
+    obs_data = obs.data
+    if direct_wave is not None:
+        syn_data = syn_data - direct_wave.data
+        obs_data = obs_data - direct_wave.data
+    fval, residual_data = misfit_func(syn_data, obs_data)
+
+    residual = PointSource(name="rec", time_range=geometry.time_axis,
+                           coordinates=geometry.rec_positions,
+                           dtype=geometry.model.dtype)
+    residual.data[:] = resample(np.asarray(residual_data),
+                                geometry.time_axis.time_values,
+                                pred.time_values)[:]
+    illum, crop_grad = None, None
+    if calc_grad:
+        grad, _ = solver.jacobian_adjoint(residual, wfd,
+                                          vp=geometry.model.vp)
+        pads, shp = _pads(geometry.model), geometry.model.shape
+        crop_grad = fix_source_illumination(geometry,
+                                            _crop(grad, pads, shp))
+        illum = (wfd.data * wfd.data).sum(dim=0).cpu().numpy()
+        illum = fix_source_illumination(geometry, _crop(illum, pads, shp))
+    return fval, crop_grad, residual.data, illum
+
+
 
 # Device bytes the batched misfit holds per gather sample (nt x nrec) of
 # one shot at its peak: torch.cuda.max_memory_allocated around the misfit
@@ -743,7 +801,7 @@ def _shot_objective3(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     if calc_grad and stream is False:
         raise NotImplementedError(
             "3-D gradients have no checkpoint route on the port (ROADMAP.md "
-            "queue A item 2); saved3=True takes the saved-history route")
+            "queue A item 4); saved3=True takes the saved-history route")
     src_pos = np.asarray(geometry.src_positions)
     if sel is not None:
         st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]

@@ -718,3 +718,42 @@ def test_3d_objective_on_the_card_matches_the_twins(cuda, saved3):
                                     saved3=saved3)
     assert abs(f_c - f_p) <= 1e-5 * abs(f_p)
     assert np.abs(g_c - g_p).max() <= 1e-4 * np.abs(g_p).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+def test_legacy_kernel_matches_twin_bitwise(cuda, space_order):
+    """B15 (``cuda_legacy.forward_rows``) against its twin on the card:
+    every row equal, the two trailing rows zero; ``forward_traces`` on cuda
+    launches the kernel and no twin and meets the B1 traces of
+    ``fm_multi`` within 1e-5 of the max (the two kernels associate the
+    stencil differently)."""
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    st = _setup(False, space_order, cuda)
+    nt, nx, nz = st.nt, st.nx, st.nz
+    inj = st.injT(0, 2).transpose(1, 2).contiguous()
+    wav = st.wav_pad[:nt - 2].contiguous()
+    hd = st.hdT.T.contiguous()
+    kw = dict(nt=nt, nx=nx, nz=nz, space_order=space_order,
+              spacing=(10., 10.), z0=st.z0)
+    cl.reset_counters()
+    got = cl.forward_rows(st.m, hd, wav, inj, st.dt, **kw)
+    assert cl.LAUNCHES["forward_rows"] == 1
+    assert cl.TWIN_CALLS["forward_rows"] == 0
+    torch.cuda.synchronize()
+    want = cl.forward_rows_plain(st.m, hd, wav, inj, st.dt, **kw)
+    assert torch.equal(got, want)
+    assert not got[:, nt - 2:].any()
+    model = demo_model("circle-isotropic", vp_circle=3.0, vp_background=2.5,
+                       origin=(0., 0.), shape=(61, 61), spacing=(10., 10.),
+                       nbl=10, space_order=space_order)
+    src = np.stack([np.linspace(0., 600., 2), np.full(2, 20.)], 1)
+    rec = np.stack([np.linspace(0., 600., 41), np.full(41, 20.)], 1)
+    geom = AcquisitionGeometry(model, rec, src, 0., 300., f0=0.010,
+                               src_type="Ricker")
+    cl.reset_counters()
+    tr = cl.forward_traces(geom, device="cuda")
+    assert cl.LAUNCHES["forward_rows"] == 1
+    assert cl.TWIN_CALLS["forward_rows"] == 0
+    ref = np.stack([s.data for s in fwi.fm_multi(geom, device="cuda")])
+    assert np.abs(tr - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -393,3 +393,59 @@ def test_3d_entry_points_raise_on_cuda_without_card(entry, monkeypatch):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+LEGACY_SOLVER_MODULES = ("ops/cuda_legacy.py", "ops/acoustic.py",
+                         "ops/wavesolver.py", "inversion.py", "fwi.py",
+                         "examples/inversion_fwi.py")
+
+
+@pytest.mark.parametrize("module", LEGACY_SOLVER_MODULES)
+def test_legacy_and_solver_modules_are_scanned(module):
+    """B15's module, the solver, the inversion utilities and the camembert
+    example are among the sources the scans above read (and so import no
+    JAX), beside B15's CUDA source."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+    assert os.path.exists(os.path.join(PKG, "csrc", "acoustic2d_legacy.cu"))
+
+
+def test_ctypes_signatures_match_the_legacy_source():
+    """The same for cuda_legacy.SIGNATURES and csrc/acoustic2d_legacy.cu."""
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    _check_signatures(cl, "acoustic2d_legacy.cu")
+
+
+@pytest.mark.parametrize("entry", ["forward_traces", "AcousticWaveSolver",
+                                   "fm_single", "fwi_obj_single",
+                                   "inversion_fwi"])
+def test_legacy_and_solver_entry_points_raise_on_cuda_without_card(
+        entry, monkeypatch):
+    """B15's host wrapper, the solver, the objectives on it and the
+    camembert example default to the card: without one they raise for the
+    missing device instead of running on the CPU."""
+    from devito_fwi_tpu_torch import AcousticWaveSolver
+    from devito_fwi_tpu_torch.examples import inversion_fwi
+    from devito_fwi_tpu_torch.misfit import least_square
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _geometry()
+    obs = tfwi.fm_single(g, device="cpu")[0]
+    calls = {
+        "forward_traces": lambda: cl.forward_traces(g),
+        "AcousticWaveSolver": lambda: AcousticWaveSolver(g.model, g),
+        "fm_single": lambda: tfwi.fm_single(g),
+        "fwi_obj_single": lambda: tfwi.fwi_obj_single(g, obs, least_square),
+        "inversion_fwi": lambda: inversion_fwi.main(iterations=0),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    AcousticWaveSolver(g.model, g, device="cpu")
+
+
+def test_legacy_wrapper_rejects_other_devices():
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    t = torch.zeros((8, 4), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        cl.forward_rows(t, t, torch.zeros(4, device="meta"),
+                        torch.zeros((1, 8, 4), device="meta"), 1.0, nt=6,
+                        nx=8, nz=4, space_order=4, spacing=(10., 10.), z0=1)
