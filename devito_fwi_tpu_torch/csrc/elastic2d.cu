@@ -1,13 +1,13 @@
 // 2-D velocity-stress elastic sweeps for Hopper (sm_90a), plain C interface
 // for ctypes. Two entry points, each one sweep over all time steps of a shot
-// batch, two kernel launches per step on the caller's stream:
+// batch on the caller's stream:
 //
-//   elastic2d_forward(..., rec2 = 1, hist = NULL)
+//   elastic2d_forward(..., hist = NULL)
 //       replaces _elastic_segments (devito_fwi_tpu/ops/pallas_staggered.py
 //       :173, _elastic_kernel :79): forward modeling that records, at every
 //       step, the two receiver rows of tau_zz and of div v (the centred
 //       derivative of each velocity component on its own grid).
-//   elastic2d_forward(..., rec2 = 0, hist != NULL)
+//   elastic2d_forward(..., hist != NULL)
 //       replaces elastic_fwd_hist_segments (pallas_staggered.py:607,
 //       _elastic_fwd_hist_kernel :508): the same forward recording only the
 //       tau_zz rows, plus the history (vx', vz', dtau_x, dtau_z) of every
@@ -24,47 +24,55 @@
 // Layout: fields are (B, nz, nx) float32 with x contiguous (the transposed
 // layout of the JAX kernels); the nine parameter fields lam, mu, b0, b1,
 // damp, d0, d1, mu01, d01 are (nz, nx) and shared by all shots (b0, d0 are
-// averaged to +h/2 in x, b1, d1 in z, mu01, d01 in both); the source
-// pattern inj (w * dt at the source's corners) is (B, nz, nx); receiver rows
-// are (B, total, 2, 2, nx) for the modeling forward and (B, total, 2, nx)
-// otherwise; the history is (B, total, 4, nz, nx).
+// averaged to +h/2 in x, b1, d1 in z, mu01, d01 in both); the forward takes
+// the source pattern (w * dt at the source's corners) as each shot's
+// non-zero cells; receiver rows are (B, total, 2, 2, nx) for the modeling
+// forward and (B, total, 2, nx) otherwise; the history is
+// (B, total, 4, nz, nx).
 //
-// What bounds it on the card: the history forward writes
-// B * total * 4 * nz * nx * 4 bytes (65 GB for the 31-shot SMARM2 batch) and
-// the adjoint reads them back, so both are bound by device-memory bandwidth
-// (about 19 ms each way at 3.35 TB/s); the modeling forward moves almost
-// nothing and is bound by its ~100 float operations per cell and step (six
-// eight-tap staggered derivatives and the updates). The state of all shots
-// (7 forward or 13 reverse fields of 370 KB each for each of 31 shots,
-// 80-150 MB) does not fit the 50 MB L2, so neighbour reads go partly to
-// device memory.
+// What bounds the forward on the card: at the 31-shot SMARM2 batch (420 x
+// 220 padded, 1420 steps, space order 8) its operations bound it at
+// 9.673 ms if the state never left the chip, and the history forward's
+// 65 GB write at 19.5 ms (3.35 TB/s). But one field of the batch is
+// 11.46 MB and the state (5 fields, twice for old and new) is past the
+// 50 MB L2, so every step streams it through device memory: the floor of
+// such a design is its traffic a step, 16 fields (183 MB, 77.7 ms over the
+// sweep) for the first design's two launches a step, 10 fields (115 MB,
+// 48.6 ms) for one.
 //
-// What the design does about it: one thread per cell, one launch per phase
-// per step for the whole batch (blockIdx.z is the shot). A step has two
-// phases because the stress update reads the new velocities at stencil
-// distance: velocity (reads the stresses' neighbours, writes the new
-// velocities into a second pair of buffers, the history and the receiver
-// rows), then stress (reads the new velocities' neighbours, updates the
-// stresses in place, since no thread of that phase reads another cell's
-// stress). The reverse has two phases too: the velocity adjoint (reads the
+// What the forward's design does about it: one launch a step, a block a
+// kTX x kTZ tile of one shot (forward_step). The block loads the old
+// stresses on its tile and a 2R halo into shared memory once, computes the
+// new velocities on the tile and an R halo from them (the halo repeats the
+// neighbours' arithmetic, so it rounds alike), then the tile's stresses
+// from the velocities in shared memory; old and new state are two buffers,
+// swapped every step. The source adds only at its cells. Measured
+// (chip_smoke.py phase 13, H100 80GB HBM3 at 700 W; PERF.md, kernel table
+// rows 18 and 20): the modeling sweep 128.5 ms against the first design's
+// 170.9 ms, 90.5 us a step against the fused floor's 34.2 us, and the
+// history sweep 165.0 ms against 226.4 ms: 1.33x and 1.37x, short of the
+// 2x aimed at. The step runs about 400 instructions a cell (four 8-tap
+// derivatives a side at two float operations a tap under -fmad=false, the
+// halo's recompute, the tile and parameter loads) and is bound by that
+// instruction rate and latency, not bytes: shot groups that fit the L2
+// and a padded row pitch made it no faster.
+//
+// The adjoint: one thread per cell, two launches a step for the whole
+// batch (blockIdx.z is the shot): the velocity adjoint (reads the
 // history's and three derived tau-adjoint fields' neighbours, updates the
 // velocity adjoint and the five images in place), then the stress adjoint
 // (reads the velocity adjoint's neighbours, updates the stress adjoint in
 // place and writes, for the next step, the three derived fields
 // (s lam) sum + (2 s mu) th_i and (s mu01) th_xz that the velocity phase
-// reads at stencil distance). The fields of one step (5 carries + 9
-// parameters of 370 KB each) do not fit a block's shared memory, so the
-// neighbours come through L1/L2. Several steps per launch, shared-memory
-// tiles and thread-block clusters are the next steps.
+// reads at stencil distance). The neighbours come through L1/L2.
 //
 // Numerics: each update keeps the association of the Pallas kernels term
 // for term ((s*b0)*dtau_x; (2s*mu)*dvx with 2s formed first; (s*div)*sum;
 // every shifted derivative summed tap by tap in offset order, then scaled
 // by 1/h; a zero tap, which the twins skip, adds nothing), and the library
-// is compiled with
-// -fmad=false, so the kernels round exactly like the plain torch twins in
-// ops/cuda_staggered.py. Neighbours beyond the padded grid are zero. Offsets
-// into the history and the rows are 64-bit.
+// is compiled with -fmad=false, so the kernels round exactly like the plain
+// torch twins in ops/cuda_staggered.py. Neighbours beyond the padded grid
+// are zero. Offsets into the history and the rows are 64-bit.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -139,103 +147,231 @@ __device__ __forceinline__ float ddz(const float* __restrict__ u, int z,
                         weights<KIND>(c), c.ihz);
 }
 
-// Velocity phase of forward step t: vx, vz -> vxn, vzn (other buffers).
-template <int R, int FLAGS>
-__global__ void velocity_step(Params p, const float* __restrict__ vx,
-                              const float* __restrict__ vz,
-                              float* __restrict__ vxn_out,
-                              float* __restrict__ vzn_out,
-                              const float* __restrict__ txx,
-                              const float* __restrict__ tzz,
-                              const float* __restrict__ txz,
-                              float* __restrict__ rec,
-                              float* __restrict__ hist,
-                              float* __restrict__ illum, int t, int total,
-                              int nsteps, int nz, int nx, int z0, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)b * field + cell;
-  const size_t bt = (size_t)b * total + t;
-  const float* txx_b = txx + (size_t)b * field;
-  const float* tzz_b = tzz + (size_t)b * field;
-  const float* txz_b = txz + (size_t)b * field;
+// Forward step t of a shot batch, one launch: a block takes a kTX x kTZ
+// tile of one shot. It loads the old stresses on the tile and a 2R halo
+// into shared memory (zeros beyond the grid), computes the new velocities
+// on the tile and an R halo from them (the halo repeats the neighbouring
+// blocks' arithmetic, so it rounds the same), writes the tile's velocities
+// and what FLAGS ask for, then updates the tile's stresses from the
+// velocities in shared memory. Old and new state are separate buffers: a
+// neighbour's halo reads the old stresses.
+constexpr int kTX = 32;
+constexpr int kTZ = 32;
+constexpr int kFThreads = 512;
 
-  if (z == z0 || z == z0 + 1) {
-    const int plane = z - z0;
-    if (FLAGS & kRows) {
-      const float* vx_b = vx + (size_t)b * field;
-      const float* vz_b = vz + (size_t)b * field;
-      rec[((bt * 2 + 0) * 2 + plane) * nx + x] = tzz[o];
-      const float div_c =
-          ddx<R, kC>(vx_b, z, x, nx, c) + ddz<R, kC>(vz_b, z, x, nz, nx, c);
-      rec[((bt * 2 + 1) * 2 + plane) * nx + x] = div_c;
-    } else {
-      rec[(bt * 2 + plane) * nx + x] = tzz[o];
-    }
-  }
+template <int R>
+struct FwdTile {
+  static constexpr int SX = kTX + 4 * R;  // stresses: the tile + 2R halo
+  static constexpr int SZ = kTZ + 4 * R;
+  static constexpr int VX = kTX + 2 * R;  // velocities: the tile + R halo
+  static constexpr int VZ = kTZ + 2 * R;
+  static constexpr int kRing = 2 * R * VX + 2 * R * kTZ;
+  static constexpr size_t kBytes =
+      sizeof(float) * (3 * SX * SZ + 2 * VX * VZ);
+};
 
-  const float dtau_x =
-      ddx<R, kP>(txx_b, z, x, nx, c) + ddz<R, kM>(txz_b, z, x, nz, nx, c);
-  const float dtau_z =
-      ddz<R, kP>(tzz_b, z, x, nz, nx, c) + ddx<R, kM>(txz_b, z, x, nx, c);
-  const float vxn = p.d0[cell] * (vx[o] + (c.s * p.b0[cell]) * dtau_x);
-  const float vzn = p.d1[cell] * (vz[o] + (c.s * p.b1[cell]) * dtau_z);
-  vxn_out[o] = vxn;
-  vzn_out[o] = vzn;
-  if (FLAGS & kHist) {
-    float* h = hist + bt * 4 * field + cell;
-    h[0] = vxn;
-    h[field] = vzn;
-    h[2 * field] = dtau_x;
-    h[3 * field] = dtau_z;
-    if (t < nsteps) {
-      float il = illum[o];
-      il = il + vxn * vxn;
-      il = il + vzn * vzn;
-      illum[o] = il;
-    }
+// The shifted derivative from a shared-memory tile: the taps at
+// s[tap(k) * stride] around the centre s, summed in tap order, times ih;
+// the tile holds zeros beyond the grid, as deriv reads them.
+template <int R, int KIND>
+__device__ __forceinline__ float sderiv(const float* s, int stride,
+                                        const float* w, float ih) {
+  constexpr int kTaps = KIND == kC ? 2 * R + 1 : 2 * R;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+    const float term = w[k] * s[tap<R, KIND>(k) * stride];
+    acc = k == 0 ? term : acc + term;
   }
+  return acc * ih;
 }
 
-// Stress phase of forward step t: the stresses in place from the new
-// velocities, then the source at step t.
-template <int R>
-__global__ void stress_step(Params p, const float* __restrict__ vxn,
-                            const float* __restrict__ vzn,
-                            float* __restrict__ txx, float* __restrict__ tzz,
-                            float* __restrict__ txz,
-                            const float* __restrict__ wav,
-                            const float* __restrict__ inj, int t, int nz,
-                            int nx, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)b * field + cell;
-  const float* vx_b = vxn + (size_t)b * field;
-  const float* vz_b = vzn + (size_t)b * field;
+struct Vel {
+  float vx, vz, dtau_x, dtau_z;
+};
 
-  const float dvx = ddx<R, kM>(vx_b, z, x, nx, c);
-  const float dvz = ddz<R, kM>(vz_b, z, x, nz, nx, c);
-  const float div = dvx + dvz;
-  const float s_lam = c.s * p.lam[cell];
-  const float two_s_mu = c.two_s * p.mu[cell];
-  const float damp = p.damp[cell];
-  const float txxn = damp * ((txx[o] + s_lam * div) + two_s_mu * dvx);
-  const float tzzn = damp * ((tzz[o] + s_lam * div) + two_s_mu * dvz);
-  const float g =
-      ddz<R, kP>(vx_b, z, x, nz, nx, c) + ddx<R, kP>(vz_b, z, x, nx, c);
-  const float txzn = p.d01[cell] * (txz[o] + (c.s * p.mu01[cell]) * g);
+// The new velocities at stress-tile index si, grid cell ``cell`` of a shot
+// whose old velocities are vx_b, vz_b.
+template <int R>
+__device__ __forceinline__ Vel velocity_at(const Params& p,
+                                           const float* sxx,
+                                           const float* szz,
+                                           const float* sxz,
+                                           const float* __restrict__ vx_b,
+                                           const float* __restrict__ vz_b,
+                                           int si, size_t cell,
+                                           const Coefs& c) {
+  constexpr int SX = FwdTile<R>::SX;
+  Vel v;
+  v.dtau_x = sderiv<R, kP>(sxx + si, 1, c.wp, c.ihx) +
+             sderiv<R, kM>(sxz + si, SX, c.wm, c.ihz);
+  v.dtau_z = sderiv<R, kP>(szz + si, SX, c.wp, c.ihz) +
+             sderiv<R, kM>(sxz + si, 1, c.wm, c.ihx);
+  v.vx = p.d0[cell] * (vx_b[cell] + (c.s * p.b0[cell]) * v.dtau_x);
+  v.vz = p.d1[cell] * (vz_b[cell] + (c.s * p.b1[cell]) * v.dtau_z);
+  return v;
+}
+
+template <int R, int FLAGS>
+__global__ void __launch_bounds__(kFThreads)
+forward_step(Params p, const float* __restrict__ vx,
+             const float* __restrict__ vz, const float* __restrict__ txx,
+             const float* __restrict__ tzz, const float* __restrict__ txz,
+             float* __restrict__ vx_out, float* __restrict__ vz_out,
+             float* __restrict__ txx_out, float* __restrict__ tzz_out,
+             float* __restrict__ txz_out, const float* __restrict__ wav,
+             const int* __restrict__ src_cell,
+             const float* __restrict__ src_val, int K,
+             float* __restrict__ rec, float* __restrict__ hist,
+             float* __restrict__ illum, int t, int total, int nsteps, int nz,
+             int nx, int z0, Coefs c) {
+  using T = FwdTile<R>;
+  extern __shared__ float sm[];
+  float* sxx = sm;
+  float* szz = sxx + T::SX * T::SZ;
+  float* sxz = szz + T::SX * T::SZ;
+  float* svx = sxz + T::SX * T::SZ;
+  float* svz = svx + T::VX * T::VZ;
+  const int xt = blockIdx.x * kTX;
+  const int zt = blockIdx.y * kTZ;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t field = (size_t)nz * nx;
+  const size_t off = (size_t)b * field;
+  const float* vx_b = vx + off;
+  const float* vz_b = vz + off;
+
+  // 1. the old stresses on the tile and its 2R halo
+  for (int k = tid; k < T::SX * T::SZ; k += kFThreads) {
+    const int gx = xt - 2 * R + k % T::SX;
+    const int gz = zt - 2 * R + k / T::SX;
+    float axx = 0.0f, azz = 0.0f, axz = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const size_t o = off + (size_t)gz * nx + gx;
+      axx = txx[o];
+      azz = tzz[o];
+      axz = txz[o];
+    }
+    sxx[k] = axx;
+    szz[k] = azz;
+    sxz[k] = axz;
+  }
+  __syncthreads();
+
+  // 2a. the new velocities on the tile: to shared memory and out, with the
+  // receiver rows, the history and the illumination
+  const size_t bt = (size_t)b * total + t;
+  for (int k = tid; k < kTX * kTZ; k += kFThreads) {
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    const int vi = (tz + R) * T::VX + tx + R;
+    if (gx >= nx || gz >= nz) {
+      svx[vi] = 0.0f;
+      svz[vi] = 0.0f;
+      continue;
+    }
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    const int si = (tz + 2 * R) * T::SX + tx + 2 * R;
+    const Vel v = velocity_at<R>(p, sxx, szz, sxz, vx_b, vz_b, si, cell, c);
+    svx[vi] = v.vx;
+    svz[vi] = v.vz;
+    vx_out[o] = v.vx;
+    vz_out[o] = v.vz;
+    if (gz == z0 || gz == z0 + 1) {
+      const int plane = gz - z0;
+      if (FLAGS & kRows) {
+        rec[((bt * 2 + 0) * 2 + plane) * nx + gx] = szz[si];
+        const float div_c = ddx<R, kC>(vx_b, gz, gx, nx, c) +
+                            ddz<R, kC>(vz_b, gz, gx, nz, nx, c);
+        rec[((bt * 2 + 1) * 2 + plane) * nx + gx] = div_c;
+      } else {
+        rec[(bt * 2 + plane) * nx + gx] = szz[si];
+      }
+    }
+    if (FLAGS & kHist) {
+      float* h = hist + bt * 4 * field + cell;
+      h[0] = v.vx;
+      h[field] = v.vz;
+      h[2 * field] = v.dtau_x;
+      h[3 * field] = v.dtau_z;
+      if (t < nsteps) {
+        float il = illum[o];
+        il = il + v.vx * v.vx;
+        il = il + v.vz * v.vz;
+        illum[o] = il;
+      }
+    }
+  }
+  // 2b. the new velocities on the R halo around the tile, to shared memory
+  for (int k = tid; k < T::kRing; k += kFThreads) {
+    int lx, lz;
+    if (k < 2 * R * T::VX) {  // the R rows above and below the tile
+      const int kk = k % (R * T::VX);
+      lz = kk / T::VX + (k / (R * T::VX)) * (R + kTZ);
+      lx = kk % T::VX;
+    } else {  // the R columns left and right of it
+      const int kk = k - 2 * R * T::VX;
+      const int k2 = kk % (kTZ * R);
+      lz = R + k2 / R;
+      lx = (kk / (kTZ * R)) * (R + kTX) + k2 % R;
+    }
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    const int vi = lz * T::VX + lx;
+    if (gx < 0 || gx >= nx || gz < 0 || gz >= nz) {
+      svx[vi] = 0.0f;
+      svz[vi] = 0.0f;
+      continue;
+    }
+    const size_t cell = (size_t)gz * nx + gx;
+    const int si = (lz + R) * T::SX + lx + R;
+    const Vel v = velocity_at<R>(p, sxx, szz, sxz, vx_b, vz_b, si, cell, c);
+    svx[vi] = v.vx;
+    svz[vi] = v.vz;
+  }
+  __syncthreads();
+
+  // 3. the stresses on the tile from the new velocities, then the source
+  // at step t on inj's non-zero cells of the shot (adding wt * 0 elsewhere
+  // would change no value)
   const float wt = wav[t];
-  txx[o] = txxn + wt * inj[o];
-  tzz[o] = tzzn + wt * inj[o];
-  txz[o] = txzn;
+  const int* cells_b = src_cell + (size_t)b * K;
+  const float* vals_b = src_val + (size_t)b * K;
+  for (int k = tid; k < kTX * kTZ; k += kFThreads) {
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    const int vi = (tz + R) * T::VX + tx + R;
+    const int si = (tz + 2 * R) * T::SX + tx + 2 * R;
+    const float dvx = sderiv<R, kM>(svx + vi, 1, c.wm, c.ihx);
+    const float dvz = sderiv<R, kM>(svz + vi, T::VX, c.wm, c.ihz);
+    const float div = dvx + dvz;
+    const float s_lam = c.s * p.lam[cell];
+    const float two_s_mu = c.two_s * p.mu[cell];
+    const float damp = p.damp[cell];
+    float txxn = damp * ((sxx[si] + s_lam * div) + two_s_mu * dvx);
+    float tzzn = damp * ((szz[si] + s_lam * div) + two_s_mu * dvz);
+    const float g = sderiv<R, kP>(svx + vi, T::VX, c.wp, c.ihz) +
+                    sderiv<R, kP>(svz + vi, 1, c.wp, c.ihx);
+    const float txzn = p.d01[cell] * (sxz[si] + (c.s * p.mu01[cell]) * g);
+    for (int q = 0; q < K; ++q) {
+      if (cells_b[q] == (int)cell) {
+        const float w = wt * vals_b[q];
+        txxn = txxn + w;
+        tzzn = tzzn + w;
+      }
+    }
+    txx_out[o] = txxn;
+    tzz_out[o] = tzzn;
+    txz_out[o] = txzn;
+  }
 }
 
 // Velocity-adjoint phase of reverse step t (history step th of ht):
@@ -367,35 +503,40 @@ __global__ void adjoint_tau_step(Params p, const float* __restrict__ vxb,
 
 struct ForwardArgs {
   Params p;
-  const float *wav, *inj;
-  float *rec, *hist, *illum;
-  float *vx, *vz, *vx2, *vz2, *txx, *tzz, *txz;
-  int B, nz, nx, total, nsteps, z0;
+  const float* wav;
+  const int* src_cell;
+  const float* src_val;
+  float *rec, *hist, *illum, *scratch;
+  int K, B, nz, nx, total, nsteps, z0;
   Coefs c;
   cudaStream_t stream;
 };
 
+// The batch stepped from zero state through all steps; scratch holds two
+// states (vx, vz, txx, tzz, txz), swapped every step.
 template <int R, int FLAGS>
-int run_forward(ForwardArgs a) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
+int run_forward(const ForwardArgs& a) {
+  using T = FwdTile<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      forward_step<R, FLAGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)a.B * a.nz * a.nx;
+  float* st[2][5];
+  for (int k = 0; k < 2; ++k)
+    for (int f = 0; f < 5; ++f) st[k][f] = a.scratch + (5 * k + f) * n;
+  err = cudaMemsetAsync(st[0][0], 0, 5 * n * sizeof(float), a.stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.nx + kTX - 1) / kTX, (a.nz + kTZ - 1) / kTZ, a.B);
   for (int t = 0; t < a.total; ++t) {
-    velocity_step<R, FLAGS><<<grid, block, 0, a.stream>>>(
-        a.p, a.vx, a.vz, a.vx2, a.vz2, a.txx, a.tzz, a.txz, a.rec, a.hist,
+    float* const* cur = st[t & 1];
+    float* const* nxt = st[(t & 1) ^ 1];
+    forward_step<R, FLAGS><<<grid, kFThreads, T::kBytes, a.stream>>>(
+        a.p, cur[0], cur[1], cur[2], cur[3], cur[4], nxt[0], nxt[1], nxt[2],
+        nxt[3], nxt[4], a.wav, a.src_cell, a.src_val, a.K, a.rec, a.hist,
         a.illum, t, a.total, a.nsteps, a.nz, a.nx, a.z0, a.c);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    stress_step<R><<<grid, block, 0, a.stream>>>(
-        a.p, a.vx2, a.vz2, a.txx, a.tzz, a.txz, a.wav, a.inj, t, a.nz, a.nx,
-        a.c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    float* tmp = a.vx;
-    a.vx = a.vx2;
-    a.vx2 = tmp;
-    tmp = a.vz;
-    a.vz = a.vz2;
-    a.vz2 = tmp;
   }
   return 0;
 }
@@ -488,37 +629,36 @@ extern "C" {
 // Forward sweep over t = 0 .. total-1 from zero fields. With hist == NULL
 // (modeling) rec is (B, total, 2, 2, nx) and illum is NULL; otherwise rec
 // is (B, total, 2, nx), hist (B, total, 4, nz, nx) and illum (B, nz, nx)
-// holding zeros on entry. scratch is 7 (B, nz, nx) fields holding zeros:
-// vx, vz, the second velocity pair, txx, tzz, txz. wp and wm are the 2r
-// taps of the D+ and D- stencils, wc the 2r+1 of the centred one. Returns
-// the first CUDA error of a launch, or 0.
+// holding zeros on entry. The source pattern inj (B, nz, nx) comes as its
+// non-zero cells: src_cell (B, K) cell indices z * nx + x (-1 pads) and
+// src_val (B, K) their values. scratch is 10 (B, nz, nx) fields, two
+// states of vx, vz, txx, tzz, txz (the sweep zeroes them). wp and wm are the 2r taps of the D+ and D-
+// stencils, wc the 2r+1 of the centred one. Returns the first CUDA error
+// of a launch, or 0.
 int elastic2d_forward(const float* lam, const float* mu, const float* b0,
                       const float* b1, const float* damp, const float* d0,
                       const float* d1, const float* mu01, const float* d01,
-                      const float* wav, const float* inj, float* rec,
-                      float* hist, float* illum, float* scratch, int B,
-                      int nz, int nx, int total, int nsteps, int z0, int r,
+                      const float* wav, const int* src_cell,
+                      const float* src_val, int K, float* rec, float* hist,
+                      float* illum, float* scratch, int B, int nz, int nx,
+                      int total, int nsteps, int z0, int r,
                       const float* wp, const float* wm, const float* wc,
                       float ihx, float ihz, float s, float two_s,
                       void* stream) {
   if (r < 1 || r > kMaxR || (hist == NULL) != (illum == NULL) ||
-      z0 < 0 || z0 + 2 > nz || nsteps > total)
+      z0 < 0 || z0 + 2 > nz || nsteps > total || K < 1 || B < 1 ||
+      (size_t)nz * nx > 0x7fffffffu)
     return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)B * nz * nx;
   ForwardArgs a = {};
   a.p = make_params(lam, mu, b0, b1, damp, d0, d1, mu01, d01);
   a.wav = wav;
-  a.inj = inj;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
   a.rec = rec;
   a.hist = hist;
   a.illum = illum;
-  a.vx = scratch;
-  a.vz = scratch + n;
-  a.vx2 = scratch + 2 * n;
-  a.vz2 = scratch + 3 * n;
-  a.txx = scratch + 4 * n;
-  a.tzz = scratch + 5 * n;
-  a.txz = scratch + 6 * n;
+  a.scratch = scratch;
+  a.K = K;
   a.B = B;
   a.nz = nz;
   a.nx = nx;

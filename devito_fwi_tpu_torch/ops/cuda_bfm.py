@@ -27,10 +27,22 @@ a row) and adds one to ``LAUNCHES[name]``; for CPU tensors it runs the plain
 twin, which repeats the kernel's arithmetic (the slabs in ``_push_block``'s
 order, g, then e, then q), so that the kernel equals it bitwise. On another
 device it raises.
+
+The slab kernel must read the five planes and write the slabs once, which
+bounds it by device-memory bandwidth (0.407 ms at the 29-shot SMARMN state
+on an H100). Each active cell adds to at most four slab elements, so the
+kernel does not gather: a block takes one (shot, row block, 32-lane tile),
+lists its cells' non-zero products in shared memory (counted, placed by a
+prefix sum, sorted per output by (g, e, q)) and sums each output's few
+entries in ``_push_block``'s nesting. ``push_launch`` gives its launch and
+shared memory (4 Q R (32 + DX - 1) entries of 8 bytes, the worst case; the
+wrapper raises beyond Q = 8 or past a block's 232,448 bytes). Its time on
+the card is in ``PERF.md`` (kernel table, rows 12-13).
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -42,7 +54,7 @@ __all__ = ["pushforward_slabs_nat", "pushforward_slabs",
            "pushforward_slabs_nat_plain", "pushforward_slabs_plain",
            "legendre_banded", "legendre_banded_plain", "KERNELS",
            "LAUNCHES", "TWIN_CALLS", "reset_counters", "SIGNATURES",
-           "LEGENDRE_SIGNATURES"]
+           "LEGENDRE_SIGNATURES", "push_launch"]
 
 KERNELS = ("pushforward_slabs_nat", "pushforward_slabs", "legendre_banded")
 # launches of each kernel and calls of each plain twin
@@ -62,7 +74,7 @@ _L = ctypes.c_longlong
 
 # (argtypes, restype) of the C entry points of csrc/bfm_push.cu
 SIGNATURES = {
-    "bfm_push_slabs": ([_P] * 6 + [_I] * 7 + [_L] * 4 + [_P], _I),
+    "bfm_push_slabs": ([_P] * 6 + [_I] * 7 + [_L] * 5 + [_P], _I),
     "bfm_push_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -134,8 +146,38 @@ def _slabs_plain(planes, blocked, *, G, DX, R):
     return slab
 
 
+# the slab kernel's launch (csrc/bfm_push.cu kTile, kThreads, kMaxQ)
+PUSH_TILE = 32
+PUSH_THREADS = 512
+PUSH_MAX_Q = 8
+SMEM_LIMIT = 232448     # a block's shared memory on an H100 (sm_90)
+
+
+def push_launch(B, nblk, Q, R, G, DX, lanes):
+    """The slab kernel's launch at these shapes: one block per (shot, row
+    block, tile of ``PUSH_TILE`` lanes), its threads and its shared-memory
+    bytes (8 bytes for each of the 4 Q R (tile + DX - 1) contributions the
+    tile's cells can make, 4 for each of its (R + G) x tile outputs, 4 for
+    each warp's scan sum). Raises ValueError for what the kernel does not
+    take."""
+    if not 1 <= Q <= PUSH_MAX_Q:
+        raise ValueError(f"slab kernel: Q = {Q} subsamples; it takes 1 .. "
+                         f"{PUSH_MAX_Q}")
+    if min(B, nblk, R, G, DX, lanes) < 1 or B * nblk >= 2 ** 31 \
+            or G * DX * Q >= 2 ** 16:
+        raise ValueError(f"slab kernel: B = {B}, nblk = {nblk}, R = {R}, "
+                         f"G = {G}, DX = {DX}, lanes = {lanes}")
+    cells = Q * R * (PUSH_TILE + DX - 1)
+    smem = 8 * 4 * cells + 4 * (R + G) * PUSH_TILE + 4 * (PUSH_THREADS // 32)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"slab kernel: Q = {Q}, R = {R}, G = {G}, DX = {DX}"
+                         f" need {smem} bytes of shared memory a block; the "
+                         f"card has {SMEM_LIMIT}")
+    return SimpleNamespace(grid=(B * nblk, -(-lanes // PUSH_TILE)),
+                           threads=PUSH_THREADS, smem=smem)
+
+
 def _slabs_cuda(planes, blocked, *, G, DX, R):
-    lib = _lib()
     rel, dxr, wy0, mass, wx0 = planes
     if blocked:
         B, nblk, Q, _, lanes = wy0.shape
@@ -144,12 +186,15 @@ def _slabs_cuda(planes, blocked, *, G, DX, R):
         B, Q, n2p, lanes = wy0.shape
         nblk = n2p // R
         strides = (Q * n2p * lanes, R * lanes, n2p * lanes, lanes)
+    launch = push_launch(B, nblk, Q, R, G, DX, lanes)
+    lib = _lib()
     out = wy0.new_empty((B, nblk, R + G, lanes))
     with torch.cuda.device(wy0.device):
         err = lib.bfm_push_slabs(
             rel.data_ptr(), dxr.data_ptr(), wy0.data_ptr(), mass.data_ptr(),
             wx0.data_ptr(), out.data_ptr(), B, nblk, Q, R, G, DX, lanes,
-            *strides, torch.cuda.current_stream(wy0.device).cuda_stream)
+            *strides, launch.smem,
+            torch.cuda.current_stream(wy0.device).cuda_stream)
     if err:
         raise RuntimeError(f"bfm_push_slabs: CUDA error {err} "
                            f"({lib.bfm_push_error_string(err).decode()})")

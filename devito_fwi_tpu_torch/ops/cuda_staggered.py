@@ -25,11 +25,24 @@ The nine parameter operands ``lam, mu, b0, b1, damp, d0, d1, mu01, d01``
 (``stagger_params``) are (nz, nx) and shared by the batch; ``inj`` (B, nz,
 nx) is each shot's source pattern w * dt (``source_pattern``). Each wrapper
 checks its operands and, for CUDA tensors, launches the kernels of
-``csrc/elastic2d.cu`` (one ctypes call per sweep, two launches per step on
-the current stream) and adds one to ``LAUNCHES[name]``; for CPU tensors it
-runs the plain twin, a Python loop over the steps with the Pallas kernels'
-association (``_make_sd``). On another device it raises. The twins take
-float32 or float64; the kernels float32.
+``csrc/elastic2d.cu`` (one ctypes call per sweep on the current stream: the
+forwards one launch a step, the adjoint two) and adds one to
+``LAUNCHES[name]``; for CPU tensors it runs the plain twin, a Python loop
+over the steps with the Pallas kernels' association (``_make_sd``). On
+another device it raises. The twins take float32 or float64; the kernels
+float32.
+
+The forward sweeps stream the batch state through device memory every
+step (31 SMARM2 shots: 11.46 MB a field, past the 50 MB L2). Their bound
+if the state never left the chip is 9.673 ms by operations (modeling) and
+19.5 ms by the 65 GB history write; the floor of a design that streams the
+state is its traffic a step: 16 fields for the first design's two phases
+(77.7 ms over 1420 steps on an H100), 10 for the fused step (48.6 ms). The
+fused step (``forward_launch``) takes a 32 x 32 tile a block: the old
+stresses with a 2r halo and the new velocities with an r halo (recomputed
+at the halo, the same arithmetic) in shared memory, ping-pong state, the
+source as ``inj``'s non-zero cells (``_source_list``). Its times on the card
+are in ``PERF.md`` (kernel table, rows 18 and 20).
 """
 from __future__ import annotations
 
@@ -53,7 +66,7 @@ __all__ = ["elastic_segments", "elastic_fwd_hist_segments",
            "elastic_forward_segments", "elastic_supported",
            "elastic_grad_stream_supported", "unsupported_reason",
            "stagger_params", "source_pattern", "pad_wavelet",
-           "zplane_weight_matrix", "LAUNCHES",
+           "zplane_weight_matrix", "forward_launch", "LAUNCHES",
            "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("elastic_segments", "elastic_fwd_hist_segments",
@@ -329,8 +342,8 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/elastic2d.cu; every
 # pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "elastic2d_forward": ([_P] * 15 + [_I] * 7 + [_P] * 3 + [_F] * 4 + [_P],
-                          _I),
+    "elastic2d_forward": ([_P] * 12 + [_I] + [_P] * 4 + [_I] * 7 + [_P] * 3
+                          + [_F] * 4 + [_P], _I),
     "elastic2d_adjoint": ([_P] * 13 + [_I] * 7 + [_P] * 2 + [_F] * 4 + [_P],
                           _I),
     "elastic2d_error_string": ([_I], ctypes.c_char_p),
@@ -369,9 +382,55 @@ def _taps32(st, name):
                       np.float32)
 
 
+# the forward step kernel's tile (csrc/elastic2d.cu kTX x kTZ, kFThreads)
+FWD_TILE = (32, 32)
+FWD_THREADS = 512
+MAX_RADIUS = 8
+
+
+def forward_launch(B, nz, nx, r):
+    """The forward step kernel's launch at these shapes: the tile, threads,
+    grid of one step and shared-memory bytes of a block (the old stresses
+    on the tile and a 2r halo, the new velocities on the tile and an r
+    halo). Raises ValueError for what the kernel does not take."""
+    if not 1 <= r <= MAX_RADIUS:
+        raise ValueError(f"elastic forward: stencil radius {r}; the kernel "
+                         f"takes 1 .. {MAX_RADIUS}")
+    if min(B, nz, nx) < 1 or nz * nx >= 2 ** 31:
+        raise ValueError(f"elastic forward: {B} shots of {nz} x {nx}; the "
+                         "kernel takes a positive grid of fewer than 2^31 "
+                         "cells")
+    tx, tz = FWD_TILE
+    # at most 67,584 bytes (r = 8) of a block's 232,448
+    smem = 4 * (3 * (tx + 4 * r) * (tz + 4 * r) + 2 * (tx + 2 * r)
+                * (tz + 2 * r))
+    return SimpleNamespace(tile=FWD_TILE, threads=FWD_THREADS,
+                           grid=(-(-nx // tx), -(-nz // tz), B), smem=smem)
+
+
+def _source_list(inj):
+    """inj's non-zero cells per shot: (cells (B, K) int32 z * nx + x, -1
+    where a shot has fewer, values (B, K)), K at least 1. Adding wt * 0 at
+    the other cells would change no value, only the sign of a zero."""
+    B = inj.shape[0]
+    flat = inj.reshape(B, -1)
+    hit = flat != 0
+    count = hit.sum(1)
+    K = max(int(count.max()), 1)
+    b, cell = hit.nonzero(as_tuple=True)
+    pos = torch.arange(b.numel(), device=inj.device) - \
+        (torch.cumsum(count, 0) - count)[b]
+    cells = torch.full((B, K), -1, dtype=torch.int32, device=inj.device)
+    vals = inj.new_zeros((B, K))
+    cells[b, pos] = cell.to(torch.int32)
+    vals[b, pos] = flat[b, cell]
+    return cells, vals, K
+
+
 def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
-    lib = _lib()
     B, nz, nx = inj.shape
+    forward_launch(B, nz, nx, st.r)
+    lib = _lib()
     total = wav_pad.shape[0]
     if hist:
         # the history first, so that it takes the largest free block
@@ -381,14 +440,16 @@ def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
     else:
         rec = inj.new_empty((B, total, 2, 2, nx))
         H = illum = None
-    scratch = inj.new_zeros((7, B, nz, nx))
+    cells, vals, K = _source_list(inj)
+    scratch = inj.new_empty((10, B, nz, nx))
     wp, wm, wc = (_taps32(st, k) for k in ("P", "M", "C"))
     with torch.cuda.device(inj.device):
         err = lib.elastic2d_forward(
-            *(p.data_ptr() for p in prm), wav_pad.data_ptr(), inj.data_ptr(),
-            rec.data_ptr(), H.data_ptr() if hist else None,
-            illum.data_ptr() if hist else None, scratch.data_ptr(), B, nz, nx,
-            total, nsteps, z0, st.r, wp.ctypes.data, wm.ctypes.data,
+            *(p.data_ptr() for p in prm), wav_pad.data_ptr(),
+            cells.data_ptr(), vals.data_ptr(), K, rec.data_ptr(),
+            H.data_ptr() if hist else None,
+            illum.data_ptr() if hist else None, scratch.data_ptr(), B, nz,
+            nx, total, nsteps, z0, st.r, wp.ctypes.data, wm.ctypes.data,
             wc.ctypes.data, st.ihx, st.ihz, st.s, st.two_s,
             torch.cuda.current_stream(inj.device).cuda_stream)
     _check(lib, "elastic2d_forward", err)

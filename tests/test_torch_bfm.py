@@ -21,6 +21,10 @@ kernel's plain twin (ops.cuda_bfm) against the JAX package, on the CPU:
   ``_pallas_push`` at row shifts 0 and 40: 1e-6 of the max (the same sums
   in the same order; the interpreter may round a multiply-add
   differently);
+* the card slab kernel's order (csrc/bfm_push.cu: each output's non-zero
+  products sorted by (g, e, q), then v over q, acc over e, slab over g)
+  replayed in numpy on seeded planes and on a pile-up: bitwise the twin in
+  both layouts; its launch helper against a block's shared memory;
 * the banded-product tier and the scatter against their JAX counterparts
   (1e-5 of the max, the products summing in another order), the tier
   choice against the JAX predicates on the same states, and the adaptive
@@ -300,6 +304,116 @@ def test_slab_twin_matches_pallas_interpret(prep):
     planes = _planes(blocked, Q=4, B=1, nblk=2)
     _close(twin(*planes, G=24, dxmax=7, R=16),
            _direct_slabs(planes, blocked), 1e-6)
+
+
+def _pile_planes(blocked, Q, B=1, nblk=2, R=16, lanes=128, G=24, dxmax=7):
+    """Planes whose cells pile up: every cell of block row i has
+    rel = G - 2 - i, so that the whole block lands on slab rows G - 2 and
+    G - 1, and lanes 26..40 all have dxr = 40 - l (lanes 40 and 41): the
+    longest lists, 16 rows x 15 lanes x Q cells an output."""
+    planes = _planes(blocked, Q, B=B, nblk=nblk, R=R, lanes=lanes, G=G,
+                     dxmax=dxmax)
+    shape = tuple(planes[0].shape)
+    l = np.arange(lanes)
+    dxr = np.broadcast_to(np.clip(40 - l, 0, 2 * dxmax), shape)
+    i = (np.arange(R).reshape(1, 1, 1, R, 1) if blocked
+         else (np.arange(shape[2]) % R).reshape(1, 1, -1, 1))
+    rel = np.broadcast_to(G - 2 - i, shape)
+    return [torch.tensor(rel, dtype=torch.int32),
+            torch.tensor(dxr, dtype=torch.int32)] + planes[2:]
+
+
+def _list_order_slabs(planes, blocked, G=24, dxmax=7, R=16):
+    """A numpy replay of csrc/bfm_push.cu's order, in float32: every
+    cell's non-zero products wx * wy as entries (output, key (g, e, q)),
+    sorted by key within each output, then summed as the kernel sums them:
+    v over q, acc over e, slab over g."""
+    rel, dxr, wy0, mass, wx0 = [_np(p) for p in planes]
+    if not blocked:
+        B, Q, n2p, L = rel.shape
+        rel, dxr, wy0, mass, wx0 = [
+            a.reshape(B, Q, n2p // R, R, L).swapaxes(1, 2)
+            for a in (rel, dxr, wy0, mass, wx0)]
+    B, nblk, Q, R, L = rel.shape
+    DX, S = 2 * dxmax + 2, R + G
+    b, j, q, i, l = np.indices(rel.shape)
+    outs, keys, vals = [], [], []
+    for gs, wy in ((0, wy0), (1, mass - wy0)):
+        for es, wx in ((0, wx0), (1, np.float32(1) - wx0)):
+            g, e, v = rel + gs, dxr + es, wx * wy
+            ok = (g >= 0) & (g < G) & (e >= 0) & (e < DX) & (l + e < L) \
+                & (v != 0)
+            outs.append((((b * nblk + j) * S + i + g) * L + l + e)[ok])
+            keys.append(((g * DX + e) * Q + q)[ok])
+            vals.append(v[ok])
+    out, key, val = (np.concatenate(a) for a in (outs, keys, vals))
+    order = np.lexsort((key, out))
+    out, key, val = out[order], key[order], val[order]
+    uniq, first, inv = np.unique(out, return_index=True, return_inverse=True)
+    rank = np.arange(out.size) - first[inv]
+    K = np.full((uniq.size, rank.max() + 1), -1)
+    V = np.zeros(K.shape, np.float32)
+    K[inv, rank], V[inv, rank] = key, val
+    zero = np.float32(0)
+    s, acc, v = (np.zeros(uniq.size, np.float32) for _ in range(3))
+    cg = ce = np.full(uniq.size, -1)
+    for c in range(K.shape[1]):
+        k = K[:, c]
+        has = k >= 0
+        g, e = k // (DX * Q), (k // Q) % DX
+        newg = has & (g != cg)
+        newe = has & ~newg & (e != ce)
+        flush = newg & (cg >= 0)
+        acc = np.where(flush, acc + v, acc)
+        s = np.where(flush, s + acc, s)
+        acc = np.where(newg, zero, acc)
+        v = np.where(newg, zero, v)
+        acc = np.where(newe, acc + v, acc)
+        v = np.where(newe, zero, v)
+        cg, ce = np.where(newg, g, cg), np.where(newg | newe, e, ce)
+        v = np.where(has, v + V[:, c], v)
+    acc = acc + v
+    s = np.where(cg >= 0, s + acc, s)
+    slabs = np.zeros(B * nblk * S * L, np.float32)
+    slabs[uniq] = s
+    return slabs.reshape(B, nblk, S, L)
+
+
+@pytest.mark.parametrize("prep", ["nat", "blocked"])
+@pytest.mark.parametrize("case", ["Q4", "Q8", "pile-up"])
+def test_slab_list_order_equals_twin_bitwise(prep, case):
+    """The redesigned card kernel's order (the entries of each output sorted
+    by (g, e, q), zero products skipped, nested sums) gives the plain twin's
+    slabs bit for bit, on seeded planes over every offset and on a pile-up
+    of 240 Q cells onto one output."""
+    blocked = prep == "blocked"
+    if case == "pile-up":
+        planes = _pile_planes(blocked, Q=4)
+    else:
+        planes = _planes(blocked, Q=int(case[1:]), B=2, nblk=2)
+    twin = cb.pushforward_slabs_plain if blocked \
+        else cb.pushforward_slabs_nat_plain
+    want = twin(*planes, G=24, dxmax=7, R=16).numpy()
+    got = _list_order_slabs(planes, blocked)
+    assert got.shape == want.shape
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    if case == "pile-up":
+        assert np.count_nonzero(want[:, :, 22:24, 40:42]) == 8
+
+
+def test_push_launch_fits_shared_memory():
+    """The slab kernel's launch at the main path's shapes (29 SMARMN shots,
+    Q = 4, R = 16, G = 24, DX = 16, 384 lanes) and at its limits fits a
+    block's 232,448 bytes; beyond them the helper refuses."""
+    main = cb.push_launch(29, 85, 4, 16, 24, 16, 384)
+    assert main.smem == 101_440 and main.grid == (2465, 12)
+    assert main.threads == 512 and 2 * main.smem <= 232_448
+    assert cb.push_launch(29, 85, 8, 16, 24, 16, 384).smem == 197_696
+    assert cb.push_launch(1, 1, 8, 18, 24, 16, 128).smem <= 232_448
+    for args in ((1, 1, 8, 19, 24, 16, 128), (1, 1, 9, 16, 24, 16, 128),
+                 (1, 1, 0, 16, 24, 16, 128), (1, 1, 4, 16, 0, 16, 128)):
+        with pytest.raises(ValueError):
+            cb.push_launch(*args)
 
 
 @pytest.mark.parametrize("prep", ["nat", "blocked"])

@@ -14,11 +14,17 @@ Small case: circle-isotropic 61x61, nbl=10, 2 shots, space_order 4 and 8,
 with and without the free surface; the residual rows are seeded noise. The
 checkpoint-route gradient must equal the streamed one bitwise. The slab
 kernel runs on seeded planes that reach every row and lane offset it
-takes, in both layouts. The banded Legendre kernel runs at both of its
+takes, in both layouts, at Q 1, 4 and 8, 128 and 384 lanes, odd shot and
+block counts and on pile-ups of whole columns onto one output, equal to
+its twin exactly; it raises, launching nothing, for Q = 9 and for shared
+memory past a block's. The banded Legendre kernel runs at both of its
 bands on seeded rows in band, displaced past the band and holding a NaN,
 and inside the W2 misfit against the anchored route. The elastic kernels
-run on a two-layer 61 x 48 model (nbl 10, 2-3 shots, space order 4 and
-8); the elastic objective on the card is held against its CPU twins, and
+run on a two-layer 61 x 48 model (nbl 10, 1-5 shots, space order 4 and
+8; the padded 81 x 68 grid is no multiple of the forward step's 32 x 32
+tile), the two forward sweeps equal to their twins exactly, and raise,
+launching nothing, past radius 8; the elastic objective on the card is
+held against its CPU twins, and
 ElasticWaveSolver against the reference goldens. The viscoacoustic kernels
 run on a two-layer 61 x 48 model with qp 60/90 (nbl 10, 2-3 shots, space
 order 4 and 8) in the same way, with the sls/2 solver golden. The TTI
@@ -144,38 +150,72 @@ def test_checkpoint_kernels_match_twins(cuda, fs, space_order):
                                                    st.dt, **st.kw), grad)
 
 
-def _planes(dev, blocked, B=2, Q=4, nblk=5, R=16, lanes=128, G=24, dxmax=7):
-    """Seeded planes over every offset the kernel takes: rel in [-1, G-1],
-    dxr in [0, 2*dxmax+1], weights in [0, 1] with some cells empty."""
+def _planes(dev, blocked, B=2, Q=4, nblk=5, R=16, lanes=128, G=24, dxmax=7,
+            pile=False):
+    """Seeded planes over every offset the kernel takes: rel in [-1, G-1]
+    (0 and G-2 included), dxr in [0, 2*dxmax+1], weights in [0, 1] with
+    some cells empty. With ``pile`` every cell of block row i has
+    rel = G-2-i and lanes 26..40 have dxr = 40-l: whole columns of cells
+    land on slab rows G-2, G-1 at lanes 40, 41 (the longest lists)."""
     rng = np.random.default_rng(2)
     shape = (B, nblk, Q, R, lanes) if blocked else (B, Q, nblk * R, lanes)
     rel = rng.integers(-1, G, shape)
     dxr = rng.integers(0, 2 * dxmax + 2, shape)
+    if pile:
+        i = (np.arange(R).reshape(1, 1, 1, R, 1) if blocked
+             else (np.arange(nblk * R) % R).reshape(1, 1, -1, 1))
+        rel = np.broadcast_to(G - 2 - i, shape)
+        dxr = np.broadcast_to(np.clip(40 - np.arange(lanes), 0, 2 * dxmax),
+                              shape)
     mass = rng.uniform(0, 1, shape) * (rng.uniform(0, 1, shape) > 0.2)
     wy0 = mass * rng.uniform(0, 1, shape)
     wx0 = rng.uniform(0, 1, shape)
-    ints = [torch.as_tensor(a, dtype=torch.int32, device=dev)
-            for a in (rel, dxr)]
+    ints = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                            device=dev) for a in (rel, dxr)]
     return ints + [torch.as_tensor(a, dtype=torch.float32, device=dev)
                    for a in (wy0, mass, wx0)]
 
 
+def _push_pair(blocked):
+    return ((cb.pushforward_slabs, cb.pushforward_slabs_plain,
+             "pushforward_slabs") if blocked else
+            (cb.pushforward_slabs_nat, cb.pushforward_slabs_nat_plain,
+             "pushforward_slabs_nat"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocked", [False, True])
-def test_push_kernel_matches_twin(cuda, blocked):
-    planes = _planes(cuda, blocked)
-    kernel, twin, name = (
-        (cb.pushforward_slabs, cb.pushforward_slabs_plain,
-         "pushforward_slabs") if blocked else
-        (cb.pushforward_slabs_nat, cb.pushforward_slabs_nat_plain,
-         "pushforward_slabs_nat"))
+@pytest.mark.parametrize("Q,lanes,B,nblk,pile", [
+    (4, 128, 2, 5, False), (1, 384, 3, 7, False), (8, 128, 3, 5, False),
+    (4, 384, 1, 3, False), (4, 128, 3, 3, True), (8, 384, 1, 1, True)])
+def test_push_kernel_matches_twin(cuda, blocked, Q, lanes, B, nblk, pile):
+    planes = _planes(cuda, blocked, B=B, Q=Q, nblk=nblk, lanes=lanes,
+                     pile=pile)
+    kernel, twin, name = _push_pair(blocked)
     cb.reset_counters()
     got = kernel(*planes, G=24, dxmax=7, R=16)
     assert cb.LAUNCHES[name] == 1 and sum(cb.TWIN_CALLS.values()) == 0
     want = twin(*planes, G=24, dxmax=7, R=16)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (2, 5, 40, 128)
+    assert got.shape == want.shape == (B, nblk, 40, lanes)
     assert torch.equal(got, want)
+    if pile:
+        assert bool((want[:, :, 22:24, 40:42] > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_push_kernel_raises_for_what_it_does_not_take(cuda, blocked):
+    """Q = 9 subsamples (the kernel takes 1..8) and R = 32 rows at Q = 8
+    (past a block's shared memory) raise before any launch."""
+    kernel, _, _ = _push_pair(blocked)
+    cb.reset_counters()
+    for Q, R in ((9, 16), (8, 32)):
+        planes = _planes(cuda, blocked, B=1, Q=Q, nblk=1, R=R)
+        with pytest.raises(ValueError):
+            kernel(*planes, G=24, dxmax=7, R=R)
+    assert sum(cb.LAUNCHES.values()) == 0
+    assert sum(cb.TWIN_CALLS.values()) == 0
 
 
 def _legendre_rows(dev, rows, n, shift, nan=False):
@@ -276,17 +316,23 @@ def _elastic_operands(space_order, dev, nsrc=2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nsrc", [1, 2, 5])
 @pytest.mark.parametrize("space_order", [4, 8])
-def test_elastic_kernels_match_twins(cuda, space_order):
+def test_elastic_kernels_match_twins(cuda, space_order, nsrc):
+    """On the 81 x 68 padded grid (no multiple of the forward step's 32 x 32
+    tile): the modeling rows and the history forward equal their twins
+    exactly, the adjoint within 1e-6 of each image's max."""
     from devito_fwi_tpu_torch.ops import cuda_staggered as cs
-    _, _, prm, injT, wav, dt, kw = _elastic_operands(space_order, cuda)
+    _, _, prm, injT, wav, dt, kw = _elastic_operands(space_order, cuda,
+                                                     nsrc=nsrc)
+    assert kw["nx"] % 32 and kw["nz"] % 32
     nsteps = kw["nt"] - 1
     seg = 16
     nseg = -(-nsteps // seg)
     wav10 = cs.pad_wavelet(wav, nsteps, nsteps)   # one segment
     wav9 = cs.pad_wavelet(wav, nsteps, seg * nseg)
     res = torch.as_tensor(np.random.default_rng(4).standard_normal(
-        (2, nseg, seg, 2, kw["nx"])), dtype=torch.float32, device=cuda)
+        (nsrc, nseg, seg, 2, kw["nx"])), dtype=torch.float32, device=cuda)
     cs.reset_counters()
     rows10 = cs.elastic_segments(*prm, injT, wav10, dt, **kw)
     fwd = cs.elastic_fwd_hist_segments(*prm, injT, wav9, dt, seg=seg, **kw)
@@ -295,15 +341,36 @@ def test_elastic_kernels_match_twins(cuda, space_order):
     assert all(n == 1 for n in cs.LAUNCHES.values())
     assert sum(cs.TWIN_CALLS.values()) == 0
     torch.cuda.synchronize()
-    _close([rows10], [cs.elastic_segments_plain(*prm, injT, wav10, dt,
-                                                **kw)])
-    _close(fwd, cs.elastic_fwd_hist_plain(*prm, injT, wav9, dt, seg=seg,
-                                          **kw))
+    assert torch.equal(rows10, cs.elastic_segments_plain(
+        *prm, injT, wav10, dt, **kw))
+    for got, want in zip(fwd, cs.elastic_fwd_hist_plain(
+            *prm, injT, wav9, dt, seg=seg, **kw)):
+        assert torch.equal(got, want)
     _close(imgs, cs.elastic_grad_stream_plain(*prm, fwd[1], res, dt,
                                               seg=seg, **kw))
     nx = kw["nx"]
-    a = rows10[:, :, :, 0].reshape(2, -1, 2, nx)[:, :nsteps]
-    assert torch.equal(a, fwd[0].reshape(2, -1, 2, nx)[:, :nsteps])
+    a = rows10[:, :, :, 0].reshape(nsrc, -1, 2, nx)[:, :nsteps]
+    assert torch.equal(a, fwd[0].reshape(nsrc, -1, 2, nx)[:, :nsteps])
+
+
+@pytest.mark.cuda
+def test_elastic_forward_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9; the forward step takes 1..8) raises before
+    any launch, on both forward sweeps."""
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    _, _, prm, injT, wav, dt, kw = _elastic_operands(4, cuda)
+    kw = dict(kw, space_order=18)
+    nsteps = kw["nt"] - 1
+    cs.reset_counters()
+    with pytest.raises(ValueError):
+        cs.elastic_segments(*prm, injT, cs.pad_wavelet(wav, nsteps, nsteps),
+                            dt, **kw)
+    with pytest.raises(ValueError):
+        cs.elastic_fwd_hist_segments(
+            *prm, injT, cs.pad_wavelet(wav, nsteps, nsteps), dt, seg=nsteps,
+            **kw)
+    assert sum(cs.LAUNCHES.values()) == 0
+    assert sum(cs.TWIN_CALLS.values()) == 0
 
 
 @pytest.mark.cuda

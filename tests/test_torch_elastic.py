@@ -20,7 +20,10 @@ elastic_fwi and convert) against the JAX package, on the CPU:
   call's objective; the shot chunks the card's memory allows;
 * the kernels' geometry gates against the JAX ones;
 * two L-BFGS iterations of ``ElasticFwiLoss`` match the JAX history;
-* an f64 central-difference check of the vp gradient.
+* an f64 central-difference check of the vp gradient;
+* the fused forward step's launch helper against a block's shared memory,
+  and its source operand (the pattern's non-zero cells) against the
+  pattern.
 
 Small case (as tests/test_elastic_grad.py): a two-layer 41 x 36 model at
 10 m, nbl 8, space order 4, dt 1 ms, 2 shots, 21 receivers. The port's
@@ -603,3 +606,40 @@ def test_chunks_follow_the_largest_allocation(monkeypatch):
     # on the CPU every shot in one batch unless asked otherwise
     assert tfwi._shots_per_batch(31, None, per, None) == 31
     assert tfwi._shots_per_batch(31, 10, per, None) == 8
+
+
+def test_forward_launch_fits_shared_memory():
+    """The fused forward step's launch at the SMARM2 main path (31 shots,
+    220 x 420 padded, space order 8) and at the largest radius the kernel
+    takes fits a block's 232,448 bytes; beyond the radius it refuses."""
+    main = cs.forward_launch(31, 220, 420, 4)
+    assert main.smem == 40_448 and main.grid == (14, 7, 31)
+    assert main.threads == 512
+    assert cs.forward_launch(31, 220, 420, 8).smem == 67_584 <= 232_448
+    for r in (0, 9):
+        with pytest.raises(ValueError):
+            cs.forward_launch(31, 220, 420, r)
+    with pytest.raises(ValueError):
+        cs.forward_launch(0, 220, 420, 4)
+
+
+def test_source_list_holds_the_pattern():
+    """The forward kernel's source operand: each shot's non-zero cells of
+    the dense pattern, padded with -1, rebuild the pattern exactly."""
+    rng = np.random.default_rng(7)
+    inj = np.zeros((3, 12, 20), np.float32)
+    for b, n in enumerate((4, 1, 2)):
+        cells = rng.choice(12 * 20, n, replace=False)
+        inj[b].reshape(-1)[cells] = rng.standard_normal(n)
+    cells, vals, K = cs._source_list(torch.as_tensor(inj))
+    assert K == 4 and cells.dtype == torch.int32
+    assert tuple(cells.shape) == tuple(vals.shape) == (3, 4)
+    back = np.zeros((3, 12 * 20), np.float32)
+    for b in range(3):
+        for c, v in zip(cells[b].tolist(), vals[b].tolist()):
+            if c >= 0:
+                back[b, c] = v
+            else:
+                assert v == 0.0
+    assert np.array_equal(back.reshape(inj.shape), inj)
+    assert (cells >= 0).sum().item() == 7
