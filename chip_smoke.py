@@ -69,15 +69,16 @@ result line is printed:
    one;
 15. viscoacoustic kernel vs twin, quick gate: each sls/2 CUDA kernel
    against its twin at the SMARMN viscoacoustic grid (380 x 186 padded,
-   nt 1338, 1336 steps) with 3 shots, on every output; the reference's
-   sls/2 example (``ViscoacousticWaveSolver``, golden norm 684.385);
+   nt 1338, 1336 steps) with 3 shots, on every output (the reverse sweep
+   exactly: max|kernel-twin| must be 0); the reference's sls/2 example (``ViscoacousticWaveSolver``, golden norm 684.385);
 16. main path, viscoacoustic: the SMARMN viscoacoustic FWI driver (29
    shots, ``--physics viscoacoustic --misfit 0 --maxiter 2``) on cuda:
    finite and decreasing misfit, every visco kernel launched, no twin
    called, the shot chunks of each gradient;
 17. viscoacoustic kernel vs twin at the main path's shapes (29 shots; the
    history is 21.9 GB): kernel beside twin, CUDA events, with the card's
-   bound; the history forward's twin in shot chunks;
+   bound; the history forward's twin in shot chunks; the reverse sweep
+   exactly, with its launch and per-step traffic floors;
 18. viscoacoustic profile: one steady-state gradient and one trial under
    ``torch.profiler``; the gradient's peak device bytes per shot against
    the figure the chunks are sized with;
@@ -102,14 +103,15 @@ result line is printed:
    both 1-D passes of a 2-D transform (rows of 300 traces at W/K = 24/8,
    rows of 1357 samples at 48/16) of the first 3 shots of the live SMARMN
    W2-2d state that phase 10 captured, on rows in band (flag True) and on
-   the same rows displaced past the band (flag False);
+   the same rows displaced past the band (flag False): values, NaN
+   positions and flag exactly;
 24. the banded kernel at the main path's shapes (the 29-shot live state,
-   39353 and 8700 rows): kernel beside twin, CUDA events, with the card's
-   bound, and the anchored torch route on the same inputs; one 2-D
-   transform both ways;
+   39353 and 8700 rows): the launch the helper chose, kernel beside twin,
+   CUDA events, with the card's bound, and the anchored torch route on the
+   same inputs, exactly; one 2-D transform both ways;
 25. main path, banded W2-2d: a 29-shot gradient and trial through
    ``fwi_loss`` with ``bfm_options={"legendre": "banded"}``: the kernel
-   launched, the certificate reads and fallbacks, loss and gradient held
+   launched and no twin called, the certificate reads and fallbacks, loss and gradient held
    against the anchored route's; the banded trial under ``torch.profiler``;
 26. main path, banded W2-2d FWI: the SMARMN driver (``--misfit 2
    --maxiter 2``, ``run_fwi(..., bfm_options={"legendre": "banded"})``):
@@ -282,7 +284,7 @@ def cuda_ms(fn, reps):
 # the kernels redesigned for the H100 keep their twins' sums term for term
 # and in order: their outputs must equal the twins' exactly
 EXACT = ("pushforward_slabs_nat", "pushforward_slabs", "elastic_segments",
-         "elastic_fwd_hist_segments")
+         "elastic_fwd_hist_segments", "visco_grad_stream_segments")
 
 
 def compare(name, got, want):
@@ -440,6 +442,20 @@ def elastic_step_floors(tb, B):
     per_ms = field * tb.nsteps / PEAK_BYTES_PER_S * 1e3
     return {"elastic_segments": (10 * per_ms, 16 * per_ms),
             "elastic_fwd_hist_segments": (14 * per_ms, 20 * per_ms)}
+
+
+def visco_step_floors(tb, B):
+    """The reverse sweep's per-step traffic floor (ms over the sweep): its
+    state through device memory once a step at 3.35 TB/s. The fused step
+    reads lp and lr in both buffers, the history's two fields and the four
+    images and writes lp, lr and the images: 16 fields. The first design's
+    two launches moved 31: the flux launch 6 (lp and lr, four fluxes), the
+    update 25 (the fluxes, the history, the dense source weights, lp, lpp,
+    lr, pendR and the five images read; lp, lpp, lr, pendR and the images
+    written)."""
+    field = B * tb.nz * tb.nx * 4
+    per_ms = field * tb.nsteps / PEAK_BYTES_PER_S * 1e3
+    return {"visco_grad_stream_segments": (16 * per_ms, 31 * per_ms)}
 
 
 def visco_bounds(tb, B):
@@ -896,6 +912,15 @@ def visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
+    launch = cv.adjoint_launch(B, tb.nz, tb.nx, kw["space_order"] // 2)
+    print(f"   fused reverse step: tile {launch.tile}, {launch.threads} "
+          f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
+          "memory a block")
+    for name, (fused, two) in visco_step_floors(tb, B).items():
+        print(f"   {name}: per-step traffic floor {fused:.3f} ms (the fused "
+              f"step's 16 fields, {fused / tb.nsteps * 1e3:.1f} us a step); "
+              f"{two:.3f} ms for the first design's two launches (31 "
+              f"fields); kernel {ms[name] / tb.nsteps * 1e3:.1f} us a step")
 
     phase(f"18 viscoacoustic profile: one steady-state gradient and one "
           f"trial, {B} shots")
@@ -1234,12 +1259,12 @@ def tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
 def legendre_bound(rows, n, W, K):
     """(bytes, ops) of one banded Legendre launch: u read and the output
     written once, the slope table and the row flags; per output the 2W+1
-    band taps (a product, a difference, a max), per row and certificate
-    sample the n lanes (a product, a difference, the max, the hit test, the
-    first/last update)."""
+    band taps and per row and certificate sample the n lanes, a product, a
+    difference and a max each (the hit test and the first/last update fold
+    into maxima of the regions left and right of the band)."""
     nsamp = -(-(n - 1) // K) + 1
     return ((2 * rows * n + n + rows) * 4,
-            rows * n * (2 * W + 1) * 3 + rows * nsamp * n * 5)
+            rows * n * (2 * W + 1) * 3 + rows * nsamp * n * 3)
 
 
 def bands(n):
@@ -1259,7 +1284,9 @@ def legendre_passes(bfm, cb, u):
 
 def legendre_compare(cb, name, u, expect=None):
     """The banded kernel against its twin on rows u: output (NaN where the
-    twin has NaN) and flag bitwise; ``expect``: the flag it must give."""
+    twin has NaN), flag and values bitwise (limit 0: a max is exact, so the
+    redesign's order of taps changes no value); ``expect``: the flag it
+    must give."""
     W, K = bands(u.shape[1])
     out, ok = cb.legendre_banded(u, W, K)
     want, ok_want = cb.legendre_banded_plain(u, W, K)
@@ -1267,9 +1294,10 @@ def legendre_compare(cb, name, u, expect=None):
     err = float((torch.nan_to_num(out) - torch.nan_to_num(want)).abs().max())
     scale = float(torch.nan_to_num(want).abs().max())
     print(f"   {name}: {tuple(u.shape)} at W/K {W}/{K}: max|kernel-twin| = "
-          f"{err:.3e} (max|twin| = {scale:.3e}, limit {RTOL:g} x max), flag "
-          f"{bool(ok)} (twin {bool(ok_want)})")
-    if not (same_nan and err <= RTOL * scale and bool(ok) == bool(ok_want)):
+          f"{err:.3e} (max|twin| = {scale:.3e}, limit 0), flag "
+          f"{bool(ok)} (twin {bool(ok_want)}), NaN positions equal "
+          f"{same_nan}")
+    if not (same_nan and err == 0.0 and bool(ok) == bool(ok_want)):
         raise AssertionError(f"{name}: the banded Legendre kernel disagrees "
                              "with its twin")
     if expect is not None and bool(ok) != expect:
@@ -1318,6 +1346,14 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
     anchor_ms = 0.0
     for k, rows in enumerate(passes):
         W, K = bands(rows.shape[1])
+        launch = cb.legendre_launch(rows.shape[0], rows.shape[1], W, K)
+        print(f"   pass {k + 1} launch: {launch.grid} blocks of "
+              f"{launch.threads} threads, {launch.rows_a_block} rows a "
+              f"block, {launch.tiles} column tile(s) of {launch.tile} lanes:"
+              f" {launch.band_blocks} band blocks ({launch.band_smem} bytes "
+              f"of shared memory), {launch.cert_blocks} certificate blocks "
+              f"({launch.samples} samples a lane, {launch.passes} group(s) "
+              f"a row block, {launch.cert_smem} bytes)")
         k_ms, _ = cuda_ms(lambda: cb.legendre_banded(rows, W, K), 10)
         t_ms, _ = cuda_ms(lambda: cb.legendre_banded_plain(rows, W, K), 1)
         n = rows.shape[1]
@@ -1374,12 +1410,14 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
                   f"objective {out[label, calc_grad][0]!r}, "
                   f"{time.perf_counter() - t0:.3f} s")
         print(f"   {label}: legendre_banded launches "
-              f"{cb.LAUNCHES['legendre_banded']}, certificate reads "
+              f"{cb.LAUNCHES['legendre_banded']}, twin calls "
+              f"{sum(cb.TWIN_CALLS.values())}, certificate reads "
               f"{bfm.COUNTS['legendre_reads']}, fallbacks "
               f"{bfm.COUNTS['legendre_fallbacks']}")
-        if label == "banded" and cb.LAUNCHES["legendre_banded"] < 1:
+        if label == "banded" and (cb.LAUNCHES["legendre_banded"] < 1
+                                  or any(cb.TWIN_CALLS.values())):
             raise AssertionError("the banded W2-2d objective did not launch "
-                                 "the banded kernel")
+                                 "the banded kernel, or called a twin")
     for calc_grad in (True, False):
         (fb, gb), (fa, ga) = out["banded", calc_grad], out["anchor",
                                                            calc_grad]

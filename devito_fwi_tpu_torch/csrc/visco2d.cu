@@ -1,6 +1,7 @@
 // 2-D viscoacoustic SLS 2nd-order sweeps for Hopper (sm_90a), plain C
 // interface for ctypes. Two entry points, each one sweep over all time steps
-// of a shot batch, two kernel launches per step on the caller's stream:
+// of a shot batch on the caller's stream (the forwards two kernel launches
+// a step, the adjoint one):
 //
 //   visco2d_forward(..., hist = NULL, pout != NULL)
 //       replaces _visco_sls2_segments (devito_fwi_tpu/ops/pallas_staggered.py
@@ -44,20 +45,42 @@
 // and the adjoint reads them back, so both are bound by device-memory
 // bandwidth (about 6.5 ms each way at 3.35 TB/s); the modeling forward moves
 // almost nothing and is bound by its ~80 float operations per cell and step
-// (four eight-tap staggered derivatives and the update).
+// (four eight-tap staggered derivatives and the update). But a field of the
+// batch is 8.2 MB and the reverse's state and images are past the 50 MB
+// L2, so a sweep's floor is its traffic a step through device memory.
 //
-// What the design does about it: one thread per cell, one launch per phase
-// per step for the whole batch (blockIdx.z is the shot). L is a derivative
-// of b times a derivative, so a step has two phases: the flux phase writes
-// b D+x p and b D+z p (forward), or b D+x(C P), b D+z(C P), b D+x(A R),
-// b D+z(A R) with P and R formed pointwise at each neighbour (reverse), into
-// scratch fields; the update phase reads those fluxes at stencil distance
-// and only its own cell of every other field, so it updates the state in
-// place (the forward writes pn over pp and swaps the two). Both derivatives
-// see zeros beyond the padded grid: the inner one reads zero p (or C P,
-// A R), the outer one zero flux. The fields of one step do not fit a block's
-// shared memory; neighbours come through L1/L2. Several steps per launch,
-// shared-memory tiles and thread-block clusters are the next steps.
+// The forwards: one thread per cell, one launch per phase per step for the
+// whole batch (blockIdx.z is the shot). L is a derivative of b times a
+// derivative, so a step has two phases: the flux phase writes b D+x p and
+// b D+z p into scratch fields; the update phase reads those fluxes at
+// stencil distance and only its own cell of every other field, so it
+// updates the state in place (pn over pp, then the two swap). Both
+// derivatives see zeros beyond the padded grid: the inner one reads zero p,
+// the outer one zero flux.
+//
+// The adjoint: one fused launch a step, a block a kATX x kATZ tile of one
+// shot (adjoint_step). The first design ran the reverse step as the
+// forwards do, a flux launch (b D+(C P) and b D+(A R) on both axes, with P
+// and R formed again at each of the 16 neighbours of a flux) and an update
+// launch: 31 fields a step through device memory (6 and 25, the dense
+// source weights and lpp and pendR read and written among them), 101 ms
+// over the 1336-step SMARMN sweep at 3.35 TB/s, and it took 468.7 ms. The
+// fused step loads lp and lr on its tile with a 2R halo along each axis
+// once, forms P, R, C P and A R once a cell in shared memory, the four
+// fluxes on the tile with an R halo there too, then the images and the new
+// state of the tile. lp and lr ping-pong between two buffers, since a
+// neighbour's halo reads this step's old values; lpp and pendR are not
+// stored: they are (-damp)(damp lp) and damp (lr - D (damp lp)) of the
+// state step t + 1 read, which the buffer this step writes still holds at
+// the cell's own place - the same operations, so the same values. gsrc is
+// added only at the shot's source cells. 16 fields a step: lp and lr read
+// in both buffers and written, the history's two, the four images read and
+// written (52.3 ms over the sweep). 512 threads a block, two cells a thread
+// in the last phase, whose images are loaded before the first, so that the
+// four loads' latency, exposed at the step's end when they sat in the last
+// phase, hides under the halo phases; the shots are the grid's fastest
+// axis, so that a tile's coefficients stay in L1 across its shots. Its
+// time against that floor is in PERF.md (kernel table, row 23).
 //
 // Numerics: each update keeps the Pallas kernels' association term for term
 // (every shifted derivative summed tap by tap in offset order, then scaled
@@ -190,93 +213,207 @@ __global__ void update_step(Params q, const float* __restrict__ gx,
   r[o] = rn;
 }
 
-// Flux phase of reverse step t: b D+x(C P), b D+z(C P), b D+x(A R) and
-// b D+z(A R), with P = damp lp and R = damp (lr - D P) formed at each
-// neighbour.
+// The fused reverse step's tile (adjoint_step): kATX x kATZ cells of one
+// shot. C P and A R on the tile and a 2R halo along each axis (the corners
+// are not needed), the four fluxes on the tile and an R halo along their
+// axis, and P, R on the tile, in shared memory. The shot is blockIdx.x, so
+// that the blocks of one tile run together and share its coefficients in
+// L1.
+constexpr int kATX = 32;
+constexpr int kATZ = 32;
+constexpr int kAThreads = 512;
+static_assert(kATX * kATZ % kAThreads == 0, "whole cells a thread");
+
 template <int R>
-__global__ void adjoint_flux(Params q, const float* __restrict__ lp,
-                             const float* __restrict__ lr,
-                             float* __restrict__ f1x, float* __restrict__ f1z,
-                             float* __restrict__ f2x, float* __restrict__ f2z,
-                             int nz, int nx, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int s = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)s * field + cell;
-  const float* lps = lp + (size_t)s * field;
-  const float* lrs = lr + (size_t)s * field;
-  auto cp = [&](size_t j) { return q.C[j] * (q.damp[j] * lps[j]); };
-  auto ar = [&](size_t j) {
-    const float pj = q.damp[j] * lps[j];
-    return q.A[j] * (q.damp[j] * (lrs[j] - q.D[j] * pj));
-  };
-  const size_t row = (size_t)z * nx;
-  const float bc = q.b[cell];
-  f1x[o] = bc * deriv<R, kP>([&](int j) { return cp(row + j); }, x, nx,
-                             c.wp, c.ihx);
-  f1z[o] = bc * deriv<R, kP>([&](int j) { return cp((size_t)j * nx + x); },
-                             z, nz, c.wp, c.ihz);
-  f2x[o] = bc * deriv<R, kP>([&](int j) { return ar(row + j); }, x, nx,
-                             c.wp, c.ihx);
-  f2z[o] = bc * deriv<R, kP>([&](int j) { return ar((size_t)j * nx + x); },
-                             z, nz, c.wp, c.ihz);
+struct AdjTile {
+  static constexpr int SX = kATX + 4 * R;    // C P, A R: SZ rows x SX
+  static constexpr int SZ = kATZ + 4 * R;
+  static constexpr int FXW = kATX + 2 * R;   // x fluxes: kATZ rows x FXW
+  static constexpr int FZH = kATZ + 2 * R;   // z fluxes: FZH rows x kATX
+  static constexpr int kFloats =
+      2 * SX * SZ + 2 * kATZ * FXW + 2 * FZH * kATX + 2 * kATX * kATZ;
+  static constexpr size_t kBytes = kFloats * sizeof(float);
+};
+
+// sum_k w[k] * u[tap(k) * stride] in tap order, times ih: deriv on a tile
+// in shared memory, which holds zeros beyond the grid
+template <int R, int KIND>
+__device__ __forceinline__ float sderiv(const float* u, int stride,
+                                        const float* w, float ih) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 2 * R; ++k) {
+    const float term = w[k] * u[tap<R, KIND>(k) * stride];
+    acc = k == 0 ? term : acc + term;
+  }
+  return acc * ih;
 }
 
-// Update phase of reverse step t: the images, then lp, lpp, lr and pendR in
-// place (each thread reads only its own cell of them).
+// Reverse step t over one tile of one shot: reads lp, lr of step t + 1's
+// output (cur) with halos, writes lp, lr (nxt), and at the tile's own cells
+// reads the state step t + 1 read, which nxt still holds, for lpp =
+// (-damp) (damp lp) and pendR = damp (lr - D (damp lp)) (zero at the first
+// step); the images in place; gsrc at the shot's source cells.
 template <int R>
-__global__ void adjoint_update(Params q, const float* __restrict__ hist,
-                               const float* __restrict__ res,
-                               const float* __restrict__ wavs2,
-                               const float* __restrict__ injw,
-                               const float* __restrict__ f1x,
-                               const float* __restrict__ f1z,
-                               const float* __restrict__ f2x,
-                               const float* __restrict__ f2z,
-                               float* __restrict__ lp,
-                               float* __restrict__ lpp,
-                               float* __restrict__ lr,
-                               float* __restrict__ pend,
-                               float* __restrict__ ga1,
-                               float* __restrict__ ga2,
-                               float* __restrict__ ga3,
-                               float* __restrict__ ga4,
-                               float* __restrict__ gsrc, int t, int total,
-                               int nz, int nx, int z0, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int s = blockIdx.z;
-  if (x >= nx || z >= nz) return;
+__global__ void __launch_bounds__(kAThreads)
+adjoint_step(Params q, const float* __restrict__ lp,
+             const float* __restrict__ lr, float* __restrict__ lp_n,
+             float* __restrict__ lr_n, const float* __restrict__ hist,
+             const float* __restrict__ res, const float* __restrict__ wavs2,
+             const int* __restrict__ src_cell,
+             const float* __restrict__ src_val, int K,
+             float* __restrict__ ga1, float* __restrict__ ga2,
+             float* __restrict__ ga3, float* __restrict__ ga4,
+             float* __restrict__ gsrc, int t, int total, int nz, int nx,
+             int z0, int first, Coefs c) {
+  using T = AdjTile<R>;
+  extern __shared__ float sm[];
+  float* scp = sm;                         // C P
+  float* sar = scp + T::SX * T::SZ;        // A R
+  float* f1x = sar + T::SX * T::SZ;        // b D+x (C P)
+  float* f2x = f1x + kATZ * T::FXW;        // b D+x (A R)
+  float* f1z = f2x + kATZ * T::FXW;        // b D+z (C P)
+  float* f2z = f1z + T::FZH * kATX;        // b D+z (A R)
+  float* sP = f2z + T::FZH * kATX;         // P on the tile
+  float* sR = sP + kATX * kATZ;            // R on the tile
+  const int b = blockIdx.x;                // the shots of a tile adjoin
+  const int xt = blockIdx.y * kATX;
+  const int zt = blockIdx.z * kATZ;
+  const int tid = threadIdx.x;
   const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)s * field + cell;
-  const float* h = hist + ((size_t)s * total + t) * 2 * field;
-  const float L = h[cell];
-  const float rn = h[field + cell];
-  const float damp = q.damp[cell];
-  const float lpv = lp[o];
-  const float pa = damp * lpv;
-  const float ra = damp * (lr[o] - q.D[cell] * pa);
-  ga3[o] = ga3[o] + L * pa;
-  ga4[o] = ga4[o] - rn * pa;
-  ga1[o] = ga1[o] + L * ra;
-  ga2[o] = ga2[o] - rn * pend[o];
-  gsrc[o] = gsrc[o] + (wavs2[t] * injw[o]) * lpv;
-  const size_t so = (size_t)s * field;
-  const float lsa_cp = ddx<R, kM>(f1x + so, z, x, nx, c) +
-                       ddz<R, kM>(f1z + so, z, x, nz, nx, c);
-  const float lsa_ar = ddx<R, kM>(f2x + so, z, x, nx, c) +
-                       ddz<R, kM>(f2z + so, z, x, nz, nx, c);
-  float lpn = ((2.0f * pa + lsa_cp) + lsa_ar) + lpp[o];
-  if (z == z0 || z == z0 + 1)
-    lpn = lpn + res[(((size_t)s * total + t) * 2 + (z - z0)) * nx + x];
-  lpp[o] = (-damp) * pa;
-  lr[o] = ra - q.B[cell] * ra;
-  lp[o] = lpn;
-  pend[o] = ra;
+  const size_t off = (size_t)b * field;
+
+  // 0. the images of the tile's own cells, kCells a thread, read first:
+  // their loads' latency hides under phases 1 and 2
+  constexpr int kCells = kATX * kATZ / kAThreads;
+  float g1[kCells], g2[kCells], g3[kCells], g4[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int gx = xt + k % kATX;
+    const int gz = zt + k / kATX;
+    g1[i] = g2[i] = g3[i] = g4[i] = 0.0f;
+    if (gx < nx && gz < nz) {
+      const size_t o = off + (size_t)gz * nx + gx;
+      g1[i] = ga1[o];
+      g2[i] = ga2[o];
+      g3[i] = ga3[o];
+      g4[i] = ga4[o];
+    }
+  }
+
+  // 1. P, R, C P and A R on the tile and its halos, zero beyond the grid
+  for (int k = tid; k < T::SX * T::SZ; k += kAThreads) {
+    const int lx = k % T::SX;
+    const int lz = k / T::SX;
+    const bool xin = lx >= 2 * R && lx < 2 * R + kATX;
+    const bool zin = lz >= 2 * R && lz < 2 * R + kATZ;
+    if (!xin && !zin) continue;
+    const int gx = xt - 2 * R + lx;
+    const int gz = zt - 2 * R + lz;
+    float cpv = 0.0f, arv = 0.0f, pv = 0.0f, rv = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      const float damp = q.damp[cell];
+      pv = damp * lp[off + cell];
+      rv = damp * (lr[off + cell] - q.D[cell] * pv);
+      cpv = q.C[cell] * pv;
+      arv = q.A[cell] * rv;
+    }
+    scp[k] = cpv;
+    sar[k] = arv;
+    if (xin && zin) {
+      const int ti = (lz - 2 * R) * kATX + lx - 2 * R;
+      sP[ti] = pv;
+      sR[ti] = rv;
+    }
+  }
+  __syncthreads();
+
+  // 2. the fluxes: x on the tile's rows and an R halo in x, z on its
+  // columns and an R halo in z; zero beyond the grid
+  for (int k = tid; k < kATZ * T::FXW; k += kAThreads) {
+    const int fx = k % T::FXW;
+    const int fz = k / T::FXW;
+    const int gx = xt - R + fx;
+    const int gz = zt + fz;
+    float v1 = 0.0f, v2 = 0.0f;
+    if (gx >= 0 && gx < nx && gz < nz) {
+      const float bc = q.b[(size_t)gz * nx + gx];
+      const int ci = (fz + 2 * R) * T::SX + fx + R;
+      v1 = bc * sderiv<R, kP>(scp + ci, 1, c.wp, c.ihx);
+      v2 = bc * sderiv<R, kP>(sar + ci, 1, c.wp, c.ihx);
+    }
+    f1x[k] = v1;
+    f2x[k] = v2;
+  }
+  for (int k = tid; k < T::FZH * kATX; k += kAThreads) {
+    const int fx = k % kATX;
+    const int fz = k / kATX;
+    const int gx = xt + fx;
+    const int gz = zt - R + fz;
+    float v1 = 0.0f, v2 = 0.0f;
+    if (gz >= 0 && gz < nz && gx < nx) {
+      const float bc = q.b[(size_t)gz * nx + gx];
+      const int ci = (fz + R) * T::SX + fx + 2 * R;
+      v1 = bc * sderiv<R, kP>(scp + ci, T::SX, c.wp, c.ihz);
+      v2 = bc * sderiv<R, kP>(sar + ci, T::SX, c.wp, c.ihz);
+    }
+    f1z[k] = v1;
+    f2z[k] = v2;
+  }
+  // gsrc += (wavs2[t] injw) lp at the shot's source cells in this tile
+  // (adding (wavs2[t] * 0) lp elsewhere would change no finite value)
+  for (int k = tid; k < K; k += kAThreads) {
+    const int cidx = src_cell[(size_t)b * K + k];
+    if (cidx < 0) continue;
+    const int gz = cidx / nx;
+    const int gx = cidx - gz * nx;
+    if (gx < xt || gx >= xt + kATX || gz < zt || gz >= zt + kATZ) continue;
+    const size_t o = off + cidx;
+    gsrc[o] = gsrc[o] + (wavs2[t] * src_val[(size_t)b * K + k]) * lp[o];
+  }
+  __syncthreads();
+
+  // 3. the images and the new state on the tile
+  const float* h = hist + ((size_t)b * total + t) * 2 * field;
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int tx = k % kATX;
+    const int tz = k / kATX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    const int xi = tz * T::FXW + tx + R;
+    const int zi = (tz + R) * kATX + tx;
+    const float lsa_cp = sderiv<R, kM>(f1x + xi, 1, c.wm, c.ihx) +
+                         sderiv<R, kM>(f1z + zi, kATX, c.wm, c.ihz);
+    const float lsa_ar = sderiv<R, kM>(f2x + xi, 1, c.wm, c.ihx) +
+                         sderiv<R, kM>(f2z + zi, kATX, c.wm, c.ihz);
+    const float L = h[cell];
+    const float rn = h[field + cell];
+    const float damp = q.damp[cell];
+    const float pa = sP[k];
+    const float ra = sR[k];
+    float lpp = 0.0f, pend = 0.0f;
+    if (!first) {
+      const float po = damp * lp_n[o];
+      lpp = (-damp) * po;
+      pend = damp * (lr_n[o] - q.D[cell] * po);
+    }
+    ga3[o] = g3[i] + L * pa;
+    ga4[o] = g4[i] - rn * pa;
+    ga1[o] = g1[i] + L * ra;
+    ga2[o] = g2[i] - rn * pend;
+    float lpn = ((2.0f * pa + lsa_cp) + lsa_ar) + lpp;
+    if (gz == z0 || gz == z0 + 1)
+      lpn = lpn + res[(((size_t)b * total + t) * 2 + (gz - z0)) * nx + gx];
+    lp_n[o] = lpn;
+    lr_n[o] = ra - q.B[cell] * ra;
+  }
 }
 
 struct ForwardArgs {
@@ -319,28 +456,37 @@ int run_forward(ForwardArgs a) {
 
 struct AdjointArgs {
   Params q;
-  const float *injw, *hist, *res, *wavs2;
-  float *ga1, *ga2, *ga3, *ga4, *gsrc;
-  float *lp, *lpp, *lr, *pend, *f1x, *f1z, *f2x, *f2z;
-  int B, nz, nx, total, nsteps, z0;
+  const int* src_cell;
+  const float *src_val, *hist, *res, *wavs2;
+  float *ga1, *ga2, *ga3, *ga4, *gsrc, *scratch;
+  int K, B, nz, nx, total, nsteps, z0;
   Coefs c;
   cudaStream_t stream;
 };
 
+// One fused launch a step; scratch holds two states (lp, lr), swapped every
+// step, the first zero.
 template <int R>
-int run_adjoint(AdjointArgs a) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
+int run_adjoint(const AdjointArgs& a) {
+  using T = AdjTile<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      adjoint_step<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)a.B * a.nz * a.nx;
+  float* st[2][2] = {{a.scratch, a.scratch + n},
+                     {a.scratch + 2 * n, a.scratch + 3 * n}};
+  err = cudaMemsetAsync(a.scratch, 0, 2 * n * sizeof(float), a.stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B, (a.nx + kATX - 1) / kATX, (a.nz + kATZ - 1) / kATZ);
   // padded tail steps (t >= nsteps) are skipped in reverse
-  for (int t = a.nsteps - 1; t >= 0; --t) {
-    adjoint_flux<R><<<grid, block, 0, a.stream>>>(
-        a.q, a.lp, a.lr, a.f1x, a.f1z, a.f2x, a.f2z, a.nz, a.nx, a.c);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    adjoint_update<R><<<grid, block, 0, a.stream>>>(
-        a.q, a.hist, a.res, a.wavs2, a.injw, a.f1x, a.f1z, a.f2x, a.f2z,
-        a.lp, a.lpp, a.lr, a.pend, a.ga1, a.ga2, a.ga3, a.ga4, a.gsrc, t,
-        a.total, a.nz, a.nx, a.z0, a.c);
+  for (int t = a.nsteps - 1, k = 0; t >= 0; --t, ++k) {
+    float* const* cur = st[k & 1];
+    float* const* nxt = st[(k & 1) ^ 1];
+    adjoint_step<R><<<grid, kAThreads, T::kBytes, a.stream>>>(
+        a.q, cur[0], cur[1], nxt[0], nxt[1], a.hist, a.res, a.wavs2,
+        a.src_cell, a.src_val, a.K, a.ga1, a.ga2, a.ga3, a.ga4, a.gsrc, t,
+        a.total, a.nz, a.nx, a.z0, k == 0, a.c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -443,23 +589,26 @@ int visco2d_forward(const float* damp, const float* b, const float* A,
 
 // Reverse sweep over t = nsteps-1 .. 0 of a history of total steps, with
 // the residual rows res (B, total, 2, nx), wavs2 (total,) the wavelet times
-// dt^2 and injw (B, nz, nx) the source weights. grads is 5 (B, nz, nx)
-// images (ga1, ga2, ga3, ga4, gsrc) and scratch 8 (B, nz, nx) fields (lp,
-// lpp, lr, pendR and the four fluxes), all holding zeros on entry. Returns
-// the first CUDA error of a launch, or 0.
+// dt^2 and the source weights as each shot's non-zero cells: src_cell
+// (B, K) int32 z * nx + x, -1 past a shot's last, src_val (B, K). grads is
+// 5 (B, nz, nx) images (ga1, ga2, ga3, ga4, gsrc) holding zeros on entry;
+// scratch 4 (B, nz, nx) fields (two states lp, lr). Returns the first CUDA
+// error of a launch, or 0.
 int visco2d_adjoint(const float* damp, const float* b, const float* A,
                     const float* Bc, const float* C, const float* D,
-                    const float* injw, const float* hist, const float* res,
-                    const float* wavs2, float* grads, float* scratch, int B,
-                    int nz, int nx, int total, int nsteps, int z0, int r,
-                    const float* wp, const float* wm, float ihx, float ihz,
-                    void* stream) {
-  if (r < 1 || r > kMaxR || z0 < 0 || z0 + 2 > nz || nsteps > total)
+                    const int* src_cell, const float* src_val, int K,
+                    const float* hist, const float* res, const float* wavs2,
+                    float* grads, float* scratch, int B, int nz, int nx,
+                    int total, int nsteps, int z0, int r, const float* wp,
+                    const float* wm, float ihx, float ihz, void* stream) {
+  if (r < 1 || r > kMaxR || z0 < 0 || z0 + 2 > nz || nsteps > total ||
+      K < 1 || B < 1 || (long long)nz * nx >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   AdjointArgs a = {};
   a.q = make_params(damp, b, A, Bc, C, D);
-  a.injw = injw;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
   a.hist = hist;
   a.res = res;
   a.wavs2 = wavs2;
@@ -468,14 +617,8 @@ int visco2d_adjoint(const float* damp, const float* b, const float* A,
   a.ga3 = grads + 2 * n;
   a.ga4 = grads + 3 * n;
   a.gsrc = grads + 4 * n;
-  a.lp = scratch;
-  a.lpp = scratch + n;
-  a.lr = scratch + 2 * n;
-  a.pend = scratch + 3 * n;
-  a.f1x = scratch + 4 * n;
-  a.f1z = scratch + 5 * n;
-  a.f2x = scratch + 6 * n;
-  a.f2z = scratch + 7 * n;
+  a.scratch = scratch;
+  a.K = K;
   a.B = B;
   a.nz = nz;
   a.nx = nx;

@@ -22,8 +22,9 @@ True iff every row passes the total-monotonicity certificate, so that
 ``out`` is the full transform (see ``csrc/bfm_legendre.cu``).
 
 For CUDA tensors each wrapper launches its kernel (``csrc/bfm_push.cu``, one
-launch, the plane strides as arguments; ``csrc/bfm_legendre.cu``, one block
-a row) and adds one to ``LAUNCHES[name]``; for CPU tensors it runs the plain
+launch, the plane strides as arguments; ``csrc/bfm_legendre.cu``, one launch
+of 32-row blocks, ``legendre_launch``) and adds one to ``LAUNCHES[name]``;
+for CPU tensors it runs the plain
 twin, which repeats the kernel's arithmetic (the slabs in ``_push_block``'s
 order, g, then e, then q), so that the kernel equals it bitwise. On another
 device it raises.
@@ -38,6 +39,14 @@ entries in ``_push_block``'s nesting. ``push_launch`` gives its launch and
 shared memory (4 Q R (32 + DX - 1) entries of 8 bytes, the worst case; the
 wrapper raises beyond Q = 8 or past a block's 232,448 bytes). Its time on
 the card is in ``PERF.md`` (kernel table, rows 12-13).
+
+The banded transform is bound by its float operations, a product, a
+difference and a max for each band tap and each certificate lane; its
+kernel takes 32 rows a block, one a lane, so that the slopes, the same for
+every row, and each lane's shared loads serve many evaluations, and checks
+the certificate as maxima of the regions left and right of each sample's
+band (``csrc/bfm_legendre.cu``). Its time on the card is in ``PERF.md``
+(kernel table, row 11).
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ __all__ = ["pushforward_slabs_nat", "pushforward_slabs",
            "pushforward_slabs_nat_plain", "pushforward_slabs_plain",
            "legendre_banded", "legendre_banded_plain", "KERNELS",
            "LAUNCHES", "TWIN_CALLS", "reset_counters", "SIGNATURES",
-           "LEGENDRE_SIGNATURES", "push_launch"]
+           "LEGENDRE_SIGNATURES", "push_launch", "legendre_launch"]
 
 KERNELS = ("pushforward_slabs_nat", "pushforward_slabs", "legendre_banded")
 # launches of each kernel and calls of each plain twin
@@ -81,7 +90,7 @@ SIGNATURES = {
 
 # (argtypes, restype) of the C entry points of csrc/bfm_legendre.cu
 LEGENDRE_SIGNATURES = {
-    "bfm_legendre_banded": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "bfm_legendre_banded": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "bfm_legendre_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -309,19 +318,78 @@ def _legendre_plain(u, s, W, K):
     return acc, ok
 
 
+# the banded kernel's launch (csrc/bfm_legendre.cu kRows, kWarps, kV,
+# kMaxTile, kMaxS)
+LEGENDRE_ROWS = 32
+LEGENDRE_WARPS = 8
+LEGENDRE_OUTPUTS = 8
+LEGENDRE_MAX_TILE = 384
+LEGENDRE_MAX_SAMPLES = 8
+
+
+def legendre_launch(rows, n, W, K):
+    """The banded kernel's launch at these shapes: one grid of ``grid``
+    blocks of ``threads`` threads, each block ``LEGENDRE_ROWS`` rows, one a
+    lane, the row cut into ``tiles`` column tiles of ``tile`` lanes (a
+    multiple of 8, at most ``LEGENDRE_MAX_TILE``). ``band_blocks`` blocks
+    take a (row block, tile) of the band, needing ``band_smem`` bytes of
+    shared memory (the tile of 32 rows and its band halo at an odd pitch,
+    the slopes, a staging tile a warp); ``cert_blocks`` take a (row block,
+    group of 8 x ``samples`` samples) of the certificate, ``passes`` groups
+    a row block, needing ``cert_smem`` (a tile, the slopes, a NaN word a
+    warp); ``smem`` is the larger. Raises ValueError for what the kernel
+    does not take: no row, rows of fewer than 2 or more than 2^30 lanes,
+    grids of 2^31 blocks, K < 1, K > W (the certificate's walk needs
+    a < c + 1) and bands too wide for a block's shared memory."""
+    if rows < 1 or not 2 <= n <= 2 ** 30:
+        raise ValueError(f"banded Legendre: {rows} rows of {n}; the kernel "
+                         "takes at least one row of 2 .. 2^30 lanes")
+    if not 1 <= K <= W:
+        raise ValueError(f"banded Legendre: W = {W}, K = {K}; the kernel "
+                         "takes 1 <= K <= W")
+    ND = -(-(2 * W + 1) // 8) * 8
+    nsamp = -(-(n - 1) // K) + 1
+    V, R, warps = LEGENDRE_OUTPUTS, LEGENDRE_ROWS, LEGENDRE_WARPS
+    # the fewest tiles of at most LEGENDRE_MAX_TILE lanes, evened out
+    tile = -(-(-(-n // -(-n // LEGENDRE_MAX_TILE))) // V) * V
+    tiles = -(-n // tile)
+    passes = -(-nsamp // (warps * LEGENDRE_MAX_SAMPLES))
+    samples = -(-nsamp // (warps * passes))
+    band_smem = 4 * (R * (tile + ND + 1) + tile + ND + warps * R * (V + 1))
+    cert_smem = 4 * (R * (tile + 1) + tile + warps)
+    blocks = -(-rows // R)
+    if blocks * (tiles + passes) >= 2 ** 31:
+        raise ValueError(f"banded Legendre: {rows} rows of {n} need "
+                         f"{blocks * (tiles + passes)} blocks; the grid "
+                         "takes fewer than 2^31")
+    if band_smem > SMEM_LIMIT:
+        raise ValueError(f"banded Legendre: W = {W} needs {band_smem} bytes "
+                         "of shared memory a block; the card has "
+                         f"{SMEM_LIMIT}")
+    return SimpleNamespace(rows_a_block=R, threads=32 * warps, tile=tile,
+                           tiles=tiles, samples=samples, passes=passes,
+                           band_blocks=blocks * tiles,
+                           cert_blocks=blocks * passes,
+                           grid=blocks * (tiles + passes),
+                           band_smem=band_smem, cert_smem=cert_smem,
+                           smem=max(band_smem, cert_smem))
+
+
 def _legendre_cuda(u, s, W, K):
-    lib = _legendre_lib()
     rows, n = u.shape
+    launch = legendre_launch(rows, n, W, K)
+    lib = _legendre_lib()
     out = torch.empty_like(u)
-    row_ok = torch.empty(rows, dtype=torch.int32, device=u.device)
+    row_bad = torch.zeros(rows, dtype=torch.int32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.bfm_legendre_banded(
-            u.data_ptr(), s.data_ptr(), out.data_ptr(), row_ok.data_ptr(),
-            rows, n, W, K, torch.cuda.current_stream(u.device).cuda_stream)
+            u.data_ptr(), s.data_ptr(), out.data_ptr(), row_bad.data_ptr(),
+            rows, n, W, K, launch.tile, launch.samples, launch.passes,
+            launch.smem, torch.cuda.current_stream(u.device).cuda_stream)
     if err:
         raise RuntimeError(f"bfm_legendre_banded: CUDA error {err} "
                            f"({lib.bfm_legendre_error_string(err).decode()})")
-    return out, torch.all(row_ok == 1)
+    return out, torch.all(row_bad == 0)
 
 
 def _legendre_run(plain, u, W, K):

@@ -162,7 +162,7 @@ def visco_fm_multi(geometry, kernel="sls", time_order=2, device="cuda"):
 def _bytes_per_shot(tb, calc_grad, kind):
     """Device bytes one shot holds at the peak of a chunk: on a gradient the
     history, the receiver and residual rows and the reverse's fields
-    (8 scratch, 5 images, illumination, two source patterns and the chain
+    (4 scratch, 5 images, illumination, two source patterns and the chain
     rule's temporaries); on a trial the forward's 5 fields, the source
     patterns, the final p and the rows; and the misfit's."""
     f = 4 if tb.dtype == torch.float32 else 8
@@ -170,7 +170,7 @@ def _bytes_per_shot(tb, calc_grad, kind):
     misfit = MISFIT_BYTES_PER_SAMPLE[kind] * tb.nt * tb.r_idx.shape[0]
     if not calc_grad:
         return 8 * field + tb.nsteps * 4 * tb.nx * f + misfit
-    return tb.nsteps * (2 * field + 4 * tb.nx * f) + 24 * field + misfit
+    return tb.nsteps * (2 * field + 4 * tb.nx * f) + 20 * field + misfit
 
 
 def _kernel_grads(tb, prm, vp2, vpp, qpp, lo, hi, misfit, obs, dw):

@@ -12,7 +12,10 @@ kernel's plain twin (ops.cuda_bfm) against the JAX package, on the CPU:
   subtraction into one multiply-add, the twin rounds twice as the card
   kernel does), and bitwise the full transform where the flag holds; the
   banded route (``_legendre_last_fast``) against the JAX one; ``bfm_batch``
-  on it bitwise the anchored route;
+  on it bitwise the anchored route; the card kernel's certificate (region
+  maxima, the pad lanes added once) replayed in numpy: the twin's flag on
+  every row, NaN, +-inf and rows at or below -big included; its launch
+  helper against a block's shared memory;
 * the map, the subsamples and the adaptive mask: the integer planes equal,
   the float planes to 1e-6 of their max;
 * the slab twins (natural and blocked layouts) against the Pallas kernels
@@ -148,6 +151,120 @@ def test_legendre_banded_twin_matches_pallas_interpret(W, K, n, rows,
     if shift == 0:
         full = T._legendre_last(torch.tensor(u), torch.tensor(_f32_grid(n)))
         assert torch.equal(out_t, full)
+
+
+def _region_flags(u, W, K):
+    """A numpy replay, in float32, of the card kernel's certificate
+    (csrc/bfm_legendre.cu): per row and sample the maxima of A = [0, a),
+    a = i_{m+1} - W, of B and of C = (c, npad), c = i_{m-1} + W, the real
+    lanes as the walk switches at a and c + 1 (fmax, which drops NaN), the
+    npad - n pad lanes added as -big to the regions they fall in; a sample
+    passes iff A is empty or max A < max, and C is empty or max C < max;
+    a row holding a NaN passes. Returns the flag of each row."""
+    rows, n = u.shape
+    s = _f32_grid(n)
+    big = np.float32(np.finfo(np.float32).max / 8)
+    npad = -(-n // 128) * 128
+    nsamp = -(-(n - 1) // K) + 1
+    inf = np.float32(np.inf)
+
+    def sample(m):
+        return min(m * K, n - 1)
+
+    def rmax(v):
+        return np.fmax.reduce(v, axis=1, initial=-inf)
+
+    ok = np.ones(rows, bool)
+    for m in range(nsamp):
+        v = s[sample(m)] * s[None, :] - u
+        al = sample(m + 1) - W if m + 1 < nsamp else -2 ** 31
+        c1 = sample(m - 1) + W + 1 if m >= 1 else 2 ** 31 - 1
+        a = max(al, 0)
+        mA = rmax(v[:, :a])
+        if c1 < n:
+            mB, mC = rmax(v[:, a:c1]), rmax(v[:, c1:])
+        else:
+            mB, mC = rmax(v[:, a:]), np.full(rows, -inf)
+        if npad > n:
+            if c1 <= n:
+                mC = np.fmax(mC, -big)
+            else:
+                mB = np.fmax(mB, -big)
+                if c1 < npad:
+                    mC = np.fmax(mC, -big)
+        M = np.fmax(np.fmax(mA, mB), mC)
+        ok &= ((al <= 0) | (mA < M)) & ((c1 >= npad) | (mC < M))
+    return ok | np.isnan(u).any(1)
+
+
+def _certificate_rows(n, rows=12, seed=1):
+    """Seeded rows near 0.5 s^2 in band, rolled past the band, holding a
+    NaN, at big, past big, +inf (every real lane at or below -big, so the
+    pad lanes hold the max when n is no multiple of 128), -inf at one lane,
+    and one with a spike that moves one sample's argmax."""
+    rng = np.random.default_rng(seed)
+    s = _f32_grid(n).astype(np.float64)
+    base = (0.5 * s[None, :] ** 2 + 5e-4 * rng.uniform(size=(rows, n)))
+    u = base.astype(np.float32)
+    big = np.float32(np.finfo(np.float32).max / 8)
+    u[1] = np.roll(u[1], 40)
+    u[2, n // 3] = np.nan
+    u[3] = big
+    u[4] = np.float32(2) * big
+    u[5] = np.inf
+    u[6, n // 2] = -np.inf
+    u[7, n // 4] -= np.float32(0.2)
+    u[8] = np.roll(u[8], -40)
+    return u
+
+
+@pytest.mark.parametrize("W,K,n", [(24, 8, 300), (48, 16, 1357),
+                                   (24, 8, 256), (48, 16, 640)],
+                         ids=["n300", "n1357", "n256_no_pad", "n640"])
+def test_legendre_region_certificate_equals_twin(W, K, n):
+    """The card kernel's certificate (maxima of the regions left of
+    i_{m+1} - W and right of i_{m-1} + W against the row's max, the pad
+    lanes added once) gives the twin's first/last flag row by row, on rows
+    in band and displaced, with NaN, at and past -big, at +-inf."""
+    u = _certificate_rows(n)
+    got = _region_flags(u, W, K)
+    want = np.array([bool(cb.legendre_banded_plain(
+        torch.tensor(u[r:r + 1]), W, K)[1]) for r in range(u.shape[0])])
+    assert got.tolist() == want.tolist()
+    assert want[0] and want[2] and not want[1] and not want[3]
+    assert not want.all()
+
+
+def test_legendre_launch_fits_shared_memory():
+    """The banded kernel's launch at both bands of the 29-shot SMARMN state
+    (39,353 rows of 300 at W/K 24/8, 8,700 rows of 1357 at 48/16), at the
+    longest rows and at the widest band it takes fits a block's 232,448
+    bytes; K > W, short or over-long rows, grids past 2^31 blocks and
+    wider bands raise."""
+    a = cb.legendre_launch(39353, 300, 24, 8)
+    assert (a.threads, a.tile, a.tiles, a.samples, a.passes) == \
+        (256, 304, 1, 5, 1)
+    assert (a.band_blocks, a.cert_blocks, a.grid) == (1230, 1230, 2460)
+    assert (a.band_smem, a.cert_smem, a.smem) == (56_864, 40_288, 56_864)
+    b = cb.legendre_launch(8700, 1357, 48, 16)
+    assert (b.tile, b.tiles, b.samples, b.passes) == (344, 4, 6, 2)
+    assert (b.band_blocks, b.cert_blocks, b.grid) == (1088, 544, 1632)
+    assert (b.band_smem, b.cert_smem, b.smem) == (68_480, 45_568, 68_480)
+    for x, n, K in ((a, 300, 8), (b, 1357, 16)):
+        assert x.rows_a_block == 32 and 3 * x.smem <= 232_448
+        assert x.passes * 8 * x.samples >= -(-(n - 1) // K) + 1
+    # the longest rows: 2^30 lanes
+    big = cb.legendre_launch(1, 2 ** 30, 48, 16)
+    assert big.tile == 384 and big.tiles * 384 >= 2 ** 30
+    assert big.samples == 8 and big.passes * 64 >= 2 ** 26 + 1
+    assert big.smem <= 232_448
+    # the widest band: W = 651, ND = 8 ceil((2W+1)/8) = 1304 lanes of halo
+    assert cb.legendre_launch(1, 3840, 651, 1).smem == 232_160
+    for args in ((1, 3840, 652, 1), (1, 300, 8, 16), (1, 300, 0, 1),
+                 (1, 300, 24, 0), (0, 300, 24, 8), (4, 1, 24, 8),
+                 (1, 2 ** 30 + 1, 48, 16), (2 ** 31, 10 ** 4, 48, 16)):
+        with pytest.raises(ValueError):
+            cb.legendre_launch(*args)
 
 
 @pytest.mark.parametrize("n,shift", [(300, 0), (640, 0), (640, 300),

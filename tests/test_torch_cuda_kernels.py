@@ -18,8 +18,9 @@ takes, in both layouts, at Q 1, 4 and 8, 128 and 384 lanes, odd shot and
 block counts and on pile-ups of whole columns onto one output, equal to
 its twin exactly; it raises, launching nothing, for Q = 9 and for shared
 memory past a block's. The banded Legendre kernel runs at both of its
-bands on seeded rows in band, displaced past the band and holding a NaN,
-and inside the W2 misfit against the anchored route. The elastic kernels
+bands on seeded rows in band, displaced past the band, holding a NaN and
+at or below -big, bitwise, and inside the W2 misfit against the anchored
+route. The elastic kernels
 run on a two-layer 61 x 48 model (nbl 10, 1-5 shots, space order 4 and
 8; the padded 81 x 68 grid is no multiple of the forward step's 32 x 32
 tile), the two forward sweeps equal to their twins exactly, and raise,
@@ -27,7 +28,8 @@ launching nothing, past radius 8; the elastic objective on the card is
 held against its CPU twins, and
 ElasticWaveSolver against the reference goldens. The viscoacoustic kernels
 run on a two-layer 61 x 48 model with qp 60/90 (nbl 10, 2-3 shots, space
-order 4 and 8) in the same way, with the sls/2 solver golden. The TTI
+order 4 and 8) in the same way, the reverse sweep equal to its twin
+exactly, with the sls/2 solver golden. The TTI
 sweeps run on layers-tti 61 x 48 (nbl 10, 2 shots, space order 4 and 8, 7
 segments) in the same way; their checkpoint-route gradient must equal the
 streamed one bitwise. The 3-D sweeps run on layers-isotropic 24 x 20 x 16
@@ -218,37 +220,65 @@ def test_push_kernel_raises_for_what_it_does_not_take(cuda, blocked):
     assert sum(cb.TWIN_CALLS.values()) == 0
 
 
-def _legendre_rows(dev, rows, n, shift, nan=False):
+def _legendre_rows(dev, rows, n, shift, case="in_band"):
     """Seeded rows near the convex 0.5 s^2 (the BFM's potentials), rolled by
-    ``shift`` samples (past the band when large), optionally with a NaN."""
+    ``shift`` samples (past the band when large); with a NaN, or with one
+    row at big and one at twice big (every real lane's value at or below
+    -big, so the pad lanes hold the max)."""
     rng = np.random.default_rng(4)
     s = (np.arange(n) + 0.5) / n
     u = (0.5 * s[None, :] ** 2 + 5e-4 * rng.uniform(size=(rows, n)))
     u = np.roll(u.astype(np.float32), shift, axis=-1)
-    if nan:
+    if case == "nan":
         u[rows // 2, n // 3] = np.nan
+    if case == "below_big":
+        big = np.float32(np.finfo(np.float32).max / 8)
+        u[rows // 3] = big
+        u[rows - 1] = np.float32(2) * big
     return torch.as_tensor(u, device=dev)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,K,n,rows", [(24, 8, 300, 131),
-                                        (48, 16, 1357, 70)])
-@pytest.mark.parametrize("case", ["in_band", "displaced", "nan"])
+                                        (48, 16, 1357, 70),
+                                        (24, 8, 256, 45)])
+@pytest.mark.parametrize("case", ["in_band", "displaced", "nan",
+                                  "below_big"])
 def test_legendre_kernel_matches_twin(cuda, W, K, n, rows, case):
     """The banded Legendre kernel against its twin at both bands of the W2
-    route (300 traces, 1357 samples): output and flag bitwise, NaN where
-    the twin has NaN."""
+    route (300 traces, 1357 samples; and 256, a row with no pad lanes; row
+    counts no multiple of the 32 rows a block): output and flag bitwise,
+    NaN where the twin has NaN; rows at or below -big take the pad lanes'
+    path and fail the certificate."""
     u = _legendre_rows(cuda, rows, n, 40 if case == "displaced" else 0,
-                       nan=case == "nan")
+                       case)
     cb.reset_counters()
     out, ok = cb.legendre_banded(u, W, K)
     assert cb.LAUNCHES["legendre_banded"] == 1
     assert sum(cb.TWIN_CALLS.values()) == 0
     want, ok_want = cb.legendre_banded_plain(u, W, K)
     torch.cuda.synchronize()
-    assert bool(ok) == bool(ok_want) == (case != "displaced")
+    assert bool(ok) == bool(ok_want) == (case in ("in_band", "nan"))
     assert torch.equal(torch.isnan(out), torch.isnan(want))
     assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(want))
+    if case == "below_big":
+        for r in (rows // 3, rows - 1):
+            one = u[r:r + 1].contiguous()
+            assert not bool(cb.legendre_banded(one, W, K)[1])
+            assert not bool(cb.legendre_banded_plain(one, W, K)[1])
+
+
+@pytest.mark.cuda
+def test_legendre_kernel_raises_for_what_it_does_not_take(cuda):
+    """K > W (the certificate's walk needs K <= W) and a band too wide for a
+    block's shared memory raise on the card, launching nothing."""
+    u = _legendre_rows(cuda, 8, 300, 0)
+    cb.reset_counters()
+    for W, K in ((8, 16), (1000, 8)):
+        with pytest.raises(ValueError):
+            cb.legendre_banded(u, W, K)
+    assert sum(cb.LAUNCHES.values()) == 0
+    assert sum(cb.TWIN_CALLS.values()) == 0
 
 
 @pytest.mark.cuda
@@ -486,8 +516,9 @@ def test_visco_kernels_match_twins(cuda, space_order):
     _close(out12, cv.visco_sls2_plain(*prm, injT, wav12, dt, **kw))
     _close(fwd, cv.visco_fwd_hist_plain(*prm, injT, wav11, dt, seg=seg,
                                         **kw))
-    _close(imgs, cv.visco_grad_stream_plain(*prm, injwT, fwd[1], res, wavs2,
-                                            dt, seg=seg, **kw))
+    for g, w in zip(imgs, cv.visco_grad_stream_plain(
+            *prm, injwT, fwd[1], res, wavs2, dt, seg=seg, **kw)):
+        assert torch.equal(g, w)
     nx = kw["nx"]
     assert torch.equal(out12[0][:, 0],
                        fwd[0].reshape(2, -1, 2, nx)[:, :nsteps])

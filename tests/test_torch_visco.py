@@ -12,7 +12,9 @@ JAX package, on the CPU:
   kernel in interpret mode at f32 (receiver rows and final field 1e-5 of
   the max, history, illumination and images 1e-4 of the max), and at f64
   against the XLA ``visco_sls2_forward_hist`` / ``adjoint_from_hist``
-  (1e-10); the port's eager saved route against the JAX one at f64;
+  (1e-10); the port's eager saved route against the JAX one at f64; the
+  card's fused reverse step order replayed in torch at f32, bitwise the
+  twin, and its launch helper against a block's shared memory;
 * ``visco_fwi_obj_multi`` (objective, vp and qp gradients) with L2 and
   W2-1d: at f32 against the JAX Pallas route in interpret mode (objective
   1e-5, W2-1d 1e-4; gradients 1e-4 of their max, no precondition), at f64
@@ -318,6 +320,82 @@ def test_adjoint_twin_matches_pallas_f32():
         **c["kw"])
     for got, w in zip(c["imgs"], want):
         assert _rel(got.numpy(), w) < 1e-4
+
+
+def _fused_adjoint_replay(prm, injw, hist, res, wavs2, *, st, nsteps, z0):
+    """A torch replay of the card's fused reverse step (csrc/visco2d.cu
+    adjoint_step) in its order: lp and lr in two buffers swapped every
+    step; lpp and pendR not carried but formed from the state the previous
+    step read, (-damp) (damp lp) and damp (lr - D (damp lp)), zero at the
+    first step; gsrc added only at injw's non-zero cells
+    (``cuda_staggered._source_list``)."""
+    damp, b, A, Bc, C, D = prm
+    B, total, _, nz, nx = hist.shape
+    lsa = cv._lsa(cs._make_sd(st), st, b)
+    cells, vals, _ = cs._source_list(injw)
+    shot, slot = (cells >= 0).nonzero(as_tuple=True)
+    cell = cells[shot, slot].long()
+    z = hist.new_zeros((B, nz, nx))
+    cur, prev = (z, z), None
+    ga1 = ga2 = ga3 = ga4 = z
+    gsrc = z.reshape(B, -1).clone()
+    for t in range(nsteps - 1, -1, -1):
+        lp, lr = cur
+        L, rn = hist[:, t, 0], hist[:, t, 1]
+        P = damp * lp
+        R = damp * (lr - D * P)
+        if prev is None:
+            lpp = pend = z
+        else:
+            po = damp * prev[0]
+            lpp = (-damp) * po
+            pend = damp * (prev[1] - D * po)
+        ga3 = ga3 + L * P
+        ga4 = ga4 - rn * P
+        ga1 = ga1 + L * R
+        ga2 = ga2 - rn * pend
+        gsrc[shot, cell] = gsrc[shot, cell] + (
+            wavs2[t] * vals[shot, slot]) * lp.reshape(B, -1)[shot, cell]
+        lp_new = 2.0 * P + lsa(C * P) + lsa(A * R) + lpp
+        lp_new[:, z0:z0 + 2] = lp_new[:, z0:z0 + 2] + res[:, t]
+        prev, cur = cur, (lp_new, R - Bc * R)
+    return ga1, ga2, ga3, ga4, gsrc.reshape(B, nz, nx)
+
+
+def test_fused_adjoint_order_equals_twin_bitwise():
+    """The fused reverse step's order (ping-pong lp, lr; lpp and pendR
+    recomputed from the previous state; the source at its cells) gives the
+    plain twin's five images bit for bit at float32 on the small case."""
+    c = _kernel_case(np.float32)
+    kw = c["kw"]
+    nsteps = kw["nt"] - 2
+    B, nseg, seg = c["res"].shape[:3]
+    st = cs._stencils(4, kw["spacing"], c["dt"], torch.float32)
+    hist = c["hist"].reshape(B, nseg * seg, 2, kw["nz"], kw["nx"])
+    res = c["res"].reshape(B, nseg * seg, 2, kw["nx"])
+    got = _fused_adjoint_replay(c["prm"], c["injwT"], hist, res,
+                                c["wavs2"], st=st, nsteps=nsteps,
+                                z0=kw["z0"])
+    for g, w in zip(got, c["imgs"]):
+        assert torch.equal(g, w)
+    assert float(c["imgs"][4].abs().max()) > 0
+
+
+def test_adjoint_launch_fits_shared_memory():
+    """The fused reverse step's launch at the SMARMN main path (29 shots,
+    186 x 380 padded, space order 8) and at the largest radius the kernel
+    takes fits a block's 232,448 bytes; beyond the radius, and for empty
+    or oversized grids, it refuses."""
+    main = cv.adjoint_launch(29, 186, 380, 4)
+    assert main.smem == 47_104 and main.grid == (29, 12, 6)
+    assert main.threads == 512 and 4 * main.smem <= 232_448
+    assert cv.adjoint_launch(29, 186, 380, 8).smem == 65_536 <= 232_448
+    assert cv.adjoint_launch(1, 1, 1, 1).smem == 35_968
+    for args in ((29, 186, 380, 0), (29, 186, 380, 9), (0, 186, 380, 4),
+                 (29, 0, 380, 4), (29, 186, 0, 4), (1, 2 ** 16, 2 ** 15, 4),
+                 (1, 1, 32 * 2 ** 16, 4)):
+        with pytest.raises(ValueError):
+            cv.adjoint_launch(*args)
 
 
 def test_twins_match_the_saved_route_f64():
