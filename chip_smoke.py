@@ -45,7 +45,7 @@ result line is printed:
    products) timed apart on its live state, times their calls;
 11. elastic kernel vs twin, quick gate: each elastic CUDA kernel against
    its twin at the SMARM2 grid (420 x 220 padded, nt 1421, 1420 steps)
-   with 3 shots, on every output (the two forward sweeps exactly); the
+   with 3 shots, on every output, all three sweeps exactly; the
    reference's elastic example
    (``ElasticWaveSolver``, golden norms 19.25636 / 0.627606);
 12. main path, elastic: the SMARM2 elastic FWI driver (31 shots,
@@ -59,8 +59,8 @@ result line is printed:
    history is 65 GB, 1.6e10 elements): kernel beside twin, CUDA events, with
    the card's bound; the history forward's twin runs in shot chunks, each
    held against its slice of the kernel's output, its time the sum of the
-   chunks'; the two forward sweeps exactly, with their per-step traffic
-   floor;
+   chunks'; all three sweeps exactly, with the fused steps' launches and
+   the per-step traffic floors (fused and first design);
 14. elastic profile: one steady-state gradient and one trial under
    ``torch.profiler``, every elastic kernel launched and no twin called;
    the gradient's peak device bytes per shot against
@@ -69,16 +69,17 @@ result line is printed:
    one;
 15. viscoacoustic kernel vs twin, quick gate: each sls/2 CUDA kernel
    against its twin at the SMARMN viscoacoustic grid (380 x 186 padded,
-   nt 1338, 1336 steps) with 3 shots, on every output (the reverse sweep
-   exactly: max|kernel-twin| must be 0); the reference's sls/2 example (``ViscoacousticWaveSolver``, golden norm 684.385);
+   nt 1338, 1336 steps) with 3 shots, on every output (all three sweeps
+   exactly: max|kernel-twin| must be 0); the reference's sls/2 example
+   (``ViscoacousticWaveSolver``, golden norm 684.385);
 16. main path, viscoacoustic: the SMARMN viscoacoustic FWI driver (29
    shots, ``--physics viscoacoustic --misfit 0 --maxiter 2``) on cuda:
    finite and decreasing misfit, every visco kernel launched, no twin
    called, the shot chunks of each gradient;
 17. viscoacoustic kernel vs twin at the main path's shapes (29 shots; the
    history is 21.9 GB): kernel beside twin, CUDA events, with the card's
-   bound; the history forward's twin in shot chunks; the reverse sweep
-   exactly, with its launch and per-step traffic floors;
+   bound; the history forward's twin in shot chunks; all three sweeps
+   exactly, with the fused steps' launches and per-step traffic floors;
 18. viscoacoustic profile: one steady-state gradient and one trial under
    ``torch.profiler``; the gradient's peak device bytes per shot against
    the figure the chunks are sized with;
@@ -140,7 +141,9 @@ result line is printed:
    twin called;
 31. 3-D kernel vs twin and kernel times at the main path's 4 shots (the
    history 11.17 GB, 2.79e9 elements): kernel beside twin, CUDA events,
-   with the card's bound; the 3-D phases' own seconds;
+   with the card's bound; the step kernel's own device time a launch
+   (``torch.profiler`` over 300 calls) beside the wrapper's event-timed
+   pace; the 3-D phases' own seconds;
 32. 3-D profile: one steady-state gradient and one trial under
    ``torch.profiler``;
 33. B15 kernel vs twin, quick gate: ``cuda_legacy.forward_rows`` (the
@@ -182,6 +185,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 NSHOTS_CHECK = 3
+# step3 calls profiled for the step kernel's own device time (phase 31)
+STEP3_PROFILED = 300
 # shots per chunk of the 31-shot history forward's twin: its 8.4 GB history
 # beside the kernel's 65 GB
 TWIN_CHUNK = 4
@@ -284,7 +289,9 @@ def cuda_ms(fn, reps):
 # the kernels redesigned for the H100 keep their twins' sums term for term
 # and in order: their outputs must equal the twins' exactly
 EXACT = ("pushforward_slabs_nat", "pushforward_slabs", "elastic_segments",
-         "elastic_fwd_hist_segments", "visco_grad_stream_segments")
+         "elastic_fwd_hist_segments", "elastic_grad_stream_segments",
+         "visco_sls2_segments", "visco_fwd_hist_segments",
+         "visco_grad_stream_segments")
 
 
 def compare(name, got, want):
@@ -327,6 +334,24 @@ def profile_call(fn):
         end = max(end, hi)
         by_name[e.name] = by_name.get(e.name, 0.0) + (hi - lo) * 1e-6
     return wall, busy * 1e-6, by_name
+
+
+def kernel_device_ms(fn, reps, match):
+    """Run ``fn`` ``reps`` times under torch.profiler: (the number of
+    device kernels whose name holds ``match``, their summed device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and match in e.name]
+    return len(hits), sum(e.time_range.end - e.time_range.start
+                          for e in hits) * 1e-3
 
 
 def report_profile(what, call):
@@ -432,30 +457,58 @@ def elastic_bounds(tb, B):
     return {name: bound(*w) for name, w in work.items()}
 
 
+def step_floors(tb, B, fields):
+    """Per-step traffic floors: {name: (fused ms, first-design ms, fused
+    fields, first-design fields)}, the fields a step through device memory
+    at 3.35 TB/s over the sweep's steps."""
+    per_ms = B * tb.nz * tb.nx * 4 * tb.nsteps / PEAK_BYTES_PER_S * 1e3
+    return {name: (fused * per_ms, two * per_ms, fused, two)
+            for name, (fused, two) in fields.items()}
+
+
+def print_floors(floors, ms, nsteps):
+    for name, (fused, two, nf, nt) in floors.items():
+        print(f"   {name}: per-step traffic floor {fused:.3f} ms (the fused "
+              f"step's {nf} fields, {fused / nsteps * 1e3:.1f} us a step); "
+              f"{two:.3f} ms for the first design's two launches ({nt} "
+              f"fields); kernel {ms[name] / nsteps * 1e3:.1f} us a step, "
+              f"{ms[name] / fused:.2f}x the fused floor")
+
+
 def elastic_step_floors(tb, B):
-    """The forward sweeps' per-step traffic floors (ms over the sweep): the
-    batch state through device memory once a step at 3.35 TB/s. The fused
-    step reads the old state (three stresses, two velocities) and writes
-    the new, 10 fields; the history adds 4. The first design's two phases
-    moved 16: 7 and 9, the dense source pattern among them."""
-    field = B * tb.nz * tb.nx * 4
-    per_ms = field * tb.nsteps / PEAK_BYTES_PER_S * 1e3
-    return {"elastic_segments": (10 * per_ms, 16 * per_ms),
-            "elastic_fwd_hist_segments": (14 * per_ms, 20 * per_ms)}
+    """The elastic sweeps' per-step traffic floors: the batch state through
+    device memory once a step. The fused forward step reads the old state
+    (three stresses, two velocities) and writes the new, 10 fields; the
+    history adds 4. The first design's two phases moved 16: 7 and 9, the
+    dense source pattern among them. The fused reverse step reads the
+    history's 4, the five adjoints and the five images and writes the
+    adjoints and the images: 24 fields. The first design's two launches
+    moved 35: the velocity phase 24 (the history's 4, the five adjoints
+    and three derived fields read, the two velocity adjoints and five
+    images read and written), the stress phase 11 (the two velocity and
+    three stress adjoints read, the three stress adjoints and three
+    derived fields written)."""
+    return step_floors(tb, B, {"elastic_segments": (10, 16),
+                               "elastic_fwd_hist_segments": (14, 20),
+                               "elastic_grad_stream_segments": (24, 35)})
 
 
 def visco_step_floors(tb, B):
-    """The reverse sweep's per-step traffic floor (ms over the sweep): its
-    state through device memory once a step at 3.35 TB/s. The fused step
-    reads lp and lr in both buffers, the history's two fields and the four
-    images and writes lp, lr and the images: 16 fields. The first design's
-    two launches moved 31: the flux launch 6 (lp and lr, four fluxes), the
-    update 25 (the fluxes, the history, the dense source weights, lp, lpp,
-    lr, pendR and the five images read; lp, lpp, lr, pendR and the images
-    written)."""
-    field = B * tb.nz * tb.nx * 4
-    per_ms = field * tb.nsteps / PEAK_BYTES_PER_S * 1e3
-    return {"visco_grad_stream_segments": (16 * per_ms, 31 * per_ms)}
+    """The viscoacoustic sweeps' per-step traffic floors: the state through
+    device memory once a step. The fused forward step reads p, pp and r and
+    writes pn and rn: 5 fields; the history adds its 2 and the
+    illumination's read and write, 9. The first design's two launches moved
+    11: the flux launch 3 (p read, two fluxes written), the update 8 (the
+    fluxes, r, p, pp and the dense source pattern read, pp and r written);
+    15 with the history. The fused reverse step reads lp and lr in both
+    buffers, the history's two fields and the four images and writes lp,
+    lr and the images: 16 fields. The first design's two launches moved 31:
+    the flux launch 6 (lp and lr, four fluxes), the update 25 (the fluxes,
+    the history, the dense source weights, lp, lpp, lr, pendR and the five
+    images read; lp, lpp, lr, pendR and the images written)."""
+    return step_floors(tb, B, {"visco_sls2_segments": (5, 11),
+                               "visco_fwd_hist_segments": (9, 15),
+                               "visco_grad_stream_segments": (16, 31)})
 
 
 def visco_bounds(tb, B):
@@ -690,11 +743,13 @@ def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
-    for name, (fused, two) in elastic_step_floors(tb, B).items():
-        print(f"   {name}: per-step traffic floor {fused:.3f} ms (the fused "
-              f"step's state, {fused / tb.nsteps * 1e3:.1f} us a step); "
-              f"{two:.3f} ms for the first design's two phases; kernel "
-              f"{ms[name] / tb.nsteps * 1e3:.1f} us a step")
+    r = kw["space_order"] // 2
+    for what, launch in (("forward", cs.forward_launch(B, tb.nz, tb.nx, r)),
+                         ("reverse", cs.adjoint_launch(B, tb.nz, tb.nx, r))):
+        print(f"   fused {what} step: tile {launch.tile}, {launch.threads} "
+              f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
+              "memory a block")
+    print_floors(elastic_step_floors(tb, B), ms, tb.nsteps)
 
     phase(f"14 elastic profile: one steady-state gradient and one trial, "
           f"{B} shots")
@@ -912,15 +967,13 @@ def visco_phases(dev, rng, marm, visco_fwi, cv, counters, report, ms,
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
-    launch = cv.adjoint_launch(B, tb.nz, tb.nx, kw["space_order"] // 2)
-    print(f"   fused reverse step: tile {launch.tile}, {launch.threads} "
-          f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
-          "memory a block")
-    for name, (fused, two) in visco_step_floors(tb, B).items():
-        print(f"   {name}: per-step traffic floor {fused:.3f} ms (the fused "
-              f"step's 16 fields, {fused / tb.nsteps * 1e3:.1f} us a step); "
-              f"{two:.3f} ms for the first design's two launches (31 "
-              f"fields); kernel {ms[name] / tb.nsteps * 1e3:.1f} us a step")
+    r = kw["space_order"] // 2
+    for what, launch in (("forward", cv.forward_launch(B, tb.nz, tb.nx, r)),
+                         ("reverse", cv.adjoint_launch(B, tb.nz, tb.nx, r))):
+        print(f"   fused {what} step: tile {launch.tile}, {launch.threads} "
+              f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
+              "memory a block")
+    print_floors(visco_step_floors(tb, B), ms, tb.nsteps)
 
     phase(f"18 viscoacoustic profile: one steady-state gradient and one "
           f"trial, {B} shots")
@@ -1741,6 +1794,18 @@ def acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
                                                           **step_kw), 5)
     err[name] = compare(name, [got], [want])
     del got, want
+    # the wrapper's event-timed span holds its host work (operand checks,
+    # 1/(m + hd), ctypes) between launches; the profiler's device time of
+    # the kernel alone, over STEP3_PROFILED back-to-back calls
+    n, dev_ms = kernel_device_ms(
+        lambda: c3.step3(*step_ops, **step_kw), STEP3_PROFILED,
+        "step_kernel")
+    step3_device_ms = dev_ms / n if n else None
+    print(f"   step3: {ms[name]:.4f} ms a call between CUDA events (the "
+          f"wrapper's pace, 50 calls); step_kernel device time "
+          + (f"{step3_device_ms:.4f} ms a launch over {n} launches "
+             f"(torch.profiler, {STEP3_PROFILED} calls)" if n else
+             "not measured (the profiler recorded no step_kernel)"))
     bounds.update(acoustic3d_bounds(st, B))
     for name in c3d.KERNELS + c3.KERNELS:
         b_ms, by, nbytes, nops = bounds[name]

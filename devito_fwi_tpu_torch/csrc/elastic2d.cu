@@ -13,7 +13,7 @@
 //       tau_zz rows, plus the history (vx', vz', dtau_x, dtau_z) of every
 //       step and the illumination sum of vx'^2 + vz'^2 over the steps
 //       t < nsteps.
-//   elastic2d_adjoint
+//   elastic2d_adjoint (one fused launch a step, adjoint_step)
 //       replaces elastic_grad_stream_segments (pallas_staggered.py:763,
 //       _elastic_grad_stream_kernel :637): the exact transpose of the forward
 //       step, walked from step nsteps-1 down to 0 over the history, with the
@@ -57,14 +57,30 @@
 // instruction rate and latency, not bytes: shot groups that fit the L2
 // and a padded row pitch made it no faster.
 //
-// The adjoint: one thread per cell, two launches a step for the whole
-// batch (blockIdx.z is the shot): the velocity adjoint (reads the
-// history's and three derived tau-adjoint fields' neighbours, updates the
-// velocity adjoint and the five images in place), then the stress adjoint
-// (reads the velocity adjoint's neighbours, updates the stress adjoint in
-// place and writes, for the next step, the three derived fields
-// (s lam) sum + (2 s mu) th_i and (s mu01) th_xz that the velocity phase
-// reads at stencil distance). The neighbours come through L1/L2.
+// The adjoint: the first design ran the reverse step as two launches,
+// one thread a cell, every neighbour through L1/L2: a velocity phase (the
+// history's vx', vz' and three derived stress-adjoint fields read at
+// stencil distance, the velocity adjoints and five images updated in
+// place) and a stress phase that wrote, besides the stress adjoints, the
+// derived fields (s lam) sum + (2 s mu) th_i and (s mu01) th_xz only for
+// the next step to read again: 35 fields a step through device memory
+// (24 and 11), 170.0 ms over the 1420-step SMARM2 sweep at 3.35 TB/s, and
+// it took 430.3 ms. The fused step (adjoint_step), one launch a step, a
+// block a kTX x kTZ tile of one shot, mirrors forward_step: it loads the
+// stored stress adjoints on its tile and a 2R halo and forms the derived
+// fields there once a cell in shared memory (the same operations on the
+// same stored values, so the same bits; they are no longer stored), the
+// history's vx', vz' with an R halo, then the velocity adjoints on the
+// tile and an R halo along each axis (the halo repeats the neighbours'
+// arithmetic), the images of the tile, and the tile's stress adjoints
+// from the velocity adjoints in shared memory. The adjoint state
+// ping-pongs between two buffers, since a neighbour's halo reads this
+// step's old values. 24 fields a step: the history's 4, the five adjoints
+// read and written, the five images read and written (116.6 ms over the
+// sweep). The images are loaded before the halo phases, where their
+// latency hides; the shots are the grid's fastest axis, so that a tile's
+// nine parameter fields stay in L1 across its shots. Its time against
+// that floor is in PERF.md (kernel table, row 21).
 //
 // Numerics: each update keeps the association of the Pallas kernels term
 // for term ((s*b0)*dtau_x; (2s*mu)*dvx with 2s formed first; (s*div)*sum;
@@ -79,8 +95,6 @@
 namespace {
 
 constexpr int kMaxR = 8;
-constexpr int kBX = 32;
-constexpr int kBY = 8;
 
 // the three first-derivative stencils: D+ on offsets -R+1..R, D- on -R..R-1,
 // the centred one on -R..R (its centre weight is zero, or a rounding residue
@@ -374,131 +388,296 @@ forward_step(Params p, const float* __restrict__ vx,
   }
 }
 
-// Velocity-adjoint phase of reverse step t (history step th of ht):
-// the images, then vxb, vzb in place.
+// The fused reverse step's tile (adjoint_step): kTX x kTZ cells of one
+// shot, kAThreads threads. In shared memory: the three derived stress-
+// adjoint fields on the tile and a 2R halo (the outer corners beyond R of
+// both axes are not needed and not loaded); damp txxb, damp tzzb and
+// d01 txzb on the tile; the history's vx', vz' and the two products
+// (s b0) vhx, (s b1) vhz on the tile and an R halo along each axis.
+constexpr int kAThreads = 512;
+static_assert(kTX * kTZ % kAThreads == 0, "whole cells a thread");
+
 template <int R>
-__global__ void adjoint_v_step(Params p, const float* __restrict__ hist,
-                               float* __restrict__ vxb,
-                               float* __restrict__ vzb,
-                               const float* __restrict__ txxb,
-                               const float* __restrict__ tzzb,
-                               const float* __restrict__ txzb,
-                               const float* __restrict__ dvbx,
-                               const float* __restrict__ dvbz,
-                               const float* __restrict__ gbs,
-                               float* __restrict__ glam,
-                               float* __restrict__ gmun,
-                               float* __restrict__ gmup,
-                               float* __restrict__ gb0,
-                               float* __restrict__ gb1, int th, int ht,
-                               int nz, int nx, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)b * field + cell;
-  const float* h = hist + ((size_t)b * ht + th) * 4 * field;
-  const float* vnx = h;
-  const float* vnz = h + field;
+struct AdjTile {
+  static constexpr int SX = kTX + 4 * R;  // derived fields: SZ rows x SX
+  static constexpr int SZ = kTZ + 4 * R;
+  static constexpr int VX = kTX + 2 * R;  // history, velocity products
+  static constexpr int VZ = kTZ + 2 * R;
+  static constexpr int kArms = 2 * R * kTX + 2 * R * kTZ;
+  static constexpr size_t kBytes =
+      sizeof(float) * (3 * SX * SZ + 3 * kTX * kTZ + 4 * VX * VZ);
+};
 
-  const float dvx = ddx<R, kM>(vnx, z, x, nx, c);
-  const float dvz = ddz<R, kM>(vnz, z, x, nz, nx, c);
-  const float div = dvx + dvz;
-  const float g =
-      ddz<R, kP>(vnx, z, x, nz, nx, c) + ddx<R, kP>(vnz, z, x, nx, c);
-  const float damp = p.damp[cell];
-  const float thx = damp * txxb[o];
-  const float thz = damp * tzzb[o];
-  const float tho = p.d01[cell] * txzb[o];
-  const float sthd = thx + thz;
-  glam[o] = glam[o] + (c.s * div) * sthd;
-  gmun[o] = gmun[o] + c.two_s * (dvx * thx + dvz * thz);
-  gmup[o] = gmup[o] + (c.s * g) * tho;
-
-  const float* dvbx_b = dvbx + (size_t)b * field;
-  const float* dvbz_b = dvbz + (size_t)b * field;
-  const float* gbs_b = gbs + (size_t)b * field;
-  const float vbtx = (vxb[o] - ddx<R, kP>(dvbx_b, z, x, nx, c)) -
-                     ddz<R, kM>(gbs_b, z, x, nz, nx, c);
-  const float vbtz = (vzb[o] - ddz<R, kP>(dvbz_b, z, x, nz, nx, c)) -
-                     ddx<R, kM>(gbs_b, z, x, nx, c);
-  const float vhx = p.d0[cell] * vbtx;
-  const float vhz = p.d1[cell] * vbtz;
-  gb0[o] = gb0[o] + (c.s * h[2 * field + cell]) * vhx;
-  gb1[o] = gb1[o] + (c.s * h[3 * field + cell]) * vhz;
-  vxb[o] = vhx;
-  vzb[o] = vhz;
+// how far local index l lies outside [lo, lo + n): 0 inside
+__device__ __forceinline__ int outside(int l, int lo, int n) {
+  return l < lo ? lo - l : (l >= lo + n ? l - (lo + n) + 1 : 0);
 }
 
-// Stress-adjoint phase of reverse step t: txxb, tzzb, txzb in place from
-// the velocity adjoint's neighbours, the residual rows of step t on z0 and
-// z0 + 1, then the three derived fields the next velocity phase reads.
+// whether the derived fields are needed at derived-tile index (lx, lz):
+// the tile and its 2R halo, less the corners beyond R of both axes
 template <int R>
-__global__ void adjoint_tau_step(Params p, const float* __restrict__ vxb,
-                                 const float* __restrict__ vzb,
-                                 float* __restrict__ txxb,
-                                 float* __restrict__ tzzb,
-                                 float* __restrict__ txzb,
-                                 float* __restrict__ dvbx,
-                                 float* __restrict__ dvbz,
-                                 float* __restrict__ gbs,
-                                 const float* __restrict__ res, int t,
-                                 int total, int nz, int nx, int z0,
-                                 Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
+__device__ __forceinline__ bool derived_needed(int lx, int lz) {
+  const int ex = outside(lx, 2 * R, kTX);
+  const int ez = outside(lz, 2 * R, kTZ);
+  return !ex || !ez || (ex <= R && ez <= R);
+}
+
+// The velocity adjoint at derived-tile index si of a cell whose stored
+// velocity adjoints are vx, vz: vh_x = d0 ((vxb - D+x dvbx) - D-z gbs),
+// vh_z = d1 ((vzb - D+z dvbz) - D-x gbs).
+template <int R>
+__device__ __forceinline__ float2 vel_adjoint_at(const float* sdx,
+                                                 const float* sdz,
+                                                 const float* sgs, float vx,
+                                                 float vz, float d0,
+                                                 float d1, int si,
+                                                 const Coefs& c) {
+  constexpr int SX = AdjTile<R>::SX;
+  const float vbtx = (vx - sderiv<R, kP>(sdx + si, 1, c.wp, c.ihx)) -
+                     sderiv<R, kM>(sgs + si, SX, c.wm, c.ihz);
+  const float vbtz = (vz - sderiv<R, kP>(sdz + si, SX, c.wp, c.ihz)) -
+                     sderiv<R, kM>(sgs + si, 1, c.wm, c.ihx);
+  return make_float2(d0 * vbtx, d1 * vbtz);
+}
+
+// Reverse step t (history step t of total) over one tile of one shot:
+// reads the adjoint state step t + 1 wrote (vxb, vzb, txxb, tzzb, txzb)
+// with halos and writes the new one (the _n buffers); the images in place.
+// 1. the derived fields (s lam) sum + (2 s mu) th_i and (s mu01) th_xz from
+//    the stored stress adjoints, once a cell, and the history's vx', vz';
+// 2. the velocity adjoints on the tile (out, with the images) and its R
+//    halo (the neighbours' arithmetic again), as (s b) vh in shared memory;
+// 3. the stress adjoints on the tile, with the residual rows.
+template <int R>
+__global__ void __launch_bounds__(kAThreads, 2)
+adjoint_step(Params p, const float* __restrict__ hist,
+             const float* __restrict__ res, const float* __restrict__ vxb,
+             const float* __restrict__ vzb, const float* __restrict__ txxb,
+             const float* __restrict__ tzzb, const float* __restrict__ txzb,
+             float* __restrict__ vxb_n, float* __restrict__ vzb_n,
+             float* __restrict__ txxb_n, float* __restrict__ tzzb_n,
+             float* __restrict__ txzb_n, float* __restrict__ glam,
+             float* __restrict__ gmun, float* __restrict__ gmup,
+             float* __restrict__ gb0, float* __restrict__ gb1, int t,
+             int total, int nz, int nx, int z0, Coefs c) {
+  using T = AdjTile<R>;
+  extern __shared__ float sm[];
+  float* sdx = sm;                       // (s lam) sum + (2 s mu) th_x
+  float* sdz = sdx + T::SX * T::SZ;      // (s lam) sum + (2 s mu) th_z
+  float* sgs = sdz + T::SX * T::SZ;      // (s mu01) th_xz
+  float* sthx = sgs + T::SX * T::SZ;     // damp txxb on the tile
+  float* sthz = sthx + kTX * kTZ;        // damp tzzb
+  float* stho = sthz + kTX * kTZ;        // d01 txzb
+  float* svx = stho + kTX * kTZ;         // the history's vx'
+  float* svz = svx + T::VX * T::VZ;      // vz'
+  float* sbx = svz + T::VX * T::VZ;      // (s b0) vhx
+  float* sbz = sbx + T::VX * T::VZ;      // (s b1) vhz
+  const int b = blockIdx.x;              // the shots of a tile adjoin
+  const int xt = blockIdx.y * kTX;
+  const int zt = blockIdx.z * kTZ;
+  const int tid = threadIdx.x;
   const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)b * field + cell;
-  const float* vx_b = vxb + (size_t)b * field;
-  const float* vz_b = vzb + (size_t)b * field;
+  const size_t off = (size_t)b * field;
+  const float* h = hist + ((size_t)b * total + t) * 4 * field;
   const float s = c.s;
-  const float* b0 = p.b0;
-  const float* b1 = p.b1;
-  // dtb_i = (s * b_i) * vh_i at a neighbour of the same row / column
-  const float* rx = vx_b + (size_t)z * nx;
-  const float* rz = vz_b + (size_t)z * nx;
-  const float* b0r = b0 + (size_t)z * nx;
-  const float* b1r = b1 + (size_t)z * nx;
-  auto dtbx_x = [&](int j) { return (s * b0r[j]) * rx[j]; };
-  auto dtbz_x = [&](int j) { return (s * b1r[j]) * rz[j]; };
-  auto dtbx_z = [&](int j) {
-    const size_t q = (size_t)j * nx + x;
-    return (s * b0[q]) * vx_b[q];
-  };
-  auto dtbz_z = [&](int j) {
-    const size_t q = (size_t)j * nx + x;
-    return (s * b1[q]) * vz_b[q];
-  };
 
-  const float damp = p.damp[cell];
-  const float d01 = p.d01[cell];
-  const float thx = damp * txxb[o];
-  const float thz = damp * tzzb[o];
-  const float tho = d01 * txzb[o];
-  const float txxb_n = thx - deriv<R, kM>(dtbx_x, x, nx, c.wm, c.ihx);
-  float tzzb_n = thz - deriv<R, kM>(dtbz_z, z, nz, c.wm, c.ihz);
-  const float txzb_n = (tho - deriv<R, kP>(dtbx_z, z, nz, c.wp, c.ihz)) -
-                       deriv<R, kP>(dtbz_x, x, nx, c.wp, c.ihx);
-  if (z == z0 || z == z0 + 1)
-    tzzb_n = tzzb_n + res[(((size_t)b * total + t) * 2 + (z - z0)) * nx + x];
-  txxb[o] = txxb_n;
-  tzzb[o] = tzzb_n;
-  txzb[o] = txzb_n;
+  // 0. the images, the stored velocity adjoints and the history's
+  // dtau_x, dtau_z of the tile's own cells, kCells a thread, read first:
+  // their loads' latency hides under phase 1
+  constexpr int kCells = kTX * kTZ / kAThreads;
+  float g[5][kCells], vx0[kCells], vz0[kCells], hx[kCells], hz[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int gx = xt + k % kTX;
+    const int gz = zt + k / kTX;
+    const bool in = gx < nx && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    g[0][i] = in ? glam[o] : 0.0f;
+    g[1][i] = in ? gmun[o] : 0.0f;
+    g[2][i] = in ? gmup[o] : 0.0f;
+    g[3][i] = in ? gb0[o] : 0.0f;
+    g[4][i] = in ? gb1[o] : 0.0f;
+    vx0[i] = in ? vxb[o] : 0.0f;
+    vz0[i] = in ? vzb[o] : 0.0f;
+    hx[i] = in ? h[2 * field + cell] : 0.0f;
+    hz[i] = in ? h[3 * field + cell] : 0.0f;
+  }
 
-  const float thx2 = damp * txxb_n;
-  const float thz2 = damp * tzzb_n;
-  const float tho2 = d01 * txzb_n;
-  const float sthd2 = thx2 + thz2;
-  const float s_lam = s * p.lam[cell];
-  const float two_s_mu = c.two_s * p.mu[cell];
-  dvbx[o] = s_lam * sthd2 + two_s_mu * thx2;
-  dvbz[o] = s_lam * sthd2 + two_s_mu * thz2;
-  gbs[o] = (s * p.mu01[cell]) * tho2;
+  // 1a. the derived fields on the tile and its 2R halo, zero beyond the
+  // grid, as the first design's stress phase wrote them; the stored
+  // stress adjoints of all of a thread's cells are read first
+  constexpr int kN1 = (T::SX * T::SZ + kAThreads - 1) / kAThreads;
+  float axx[kN1], azz[kN1], axz[kN1];
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kAThreads;
+    const int lx = k % T::SX;
+    const int lz = k / T::SX;
+    const int gx = xt - 2 * R + lx;
+    const int gz = zt - 2 * R + lz;
+    const bool in = k < T::SX * T::SZ && derived_needed<R>(lx, lz) &&
+                    gx >= 0 && gx < nx && gz >= 0 && gz < nz;
+    const size_t o = off + (size_t)gz * nx + gx;
+    axx[i] = in ? txxb[o] : 0.0f;
+    azz[i] = in ? tzzb[o] : 0.0f;
+    axz[i] = in ? txzb[o] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kAThreads;
+    const int lx = k % T::SX;
+    const int lz = k / T::SX;
+    if (k >= T::SX * T::SZ || !derived_needed<R>(lx, lz)) continue;
+    const int gx = xt - 2 * R + lx;
+    const int gz = zt - 2 * R + lz;
+    float dx = 0.0f, dz = 0.0f, gs = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      const float damp = p.damp[cell];
+      const float thx = damp * axx[i];
+      const float thz = damp * azz[i];
+      const float tho = p.d01[cell] * axz[i];
+      const float sthd = thx + thz;
+      const float s_lam = s * p.lam[cell];
+      const float two_s_mu = c.two_s * p.mu[cell];
+      dx = s_lam * sthd + two_s_mu * thx;
+      dz = s_lam * sthd + two_s_mu * thz;
+      gs = (s * p.mu01[cell]) * tho;
+      if (!outside(lx, 2 * R, kTX) && !outside(lz, 2 * R, kTZ)) {
+        const int ti = (lz - 2 * R) * kTX + lx - 2 * R;
+        sthx[ti] = thx;
+        sthz[ti] = thz;
+        stho[ti] = tho;
+      }
+    }
+    sdx[k] = dx;
+    sdz[k] = dz;
+    sgs[k] = gs;
+  }
+  // 1b. the history's vx', vz' on the tile and an R halo along each axis
+  constexpr int kN2 = (T::VX * T::VZ + kAThreads - 1) / kAThreads;
+  float hvx[kN2], hvz[kN2];
+#pragma unroll
+  for (int i = 0; i < kN2; ++i) {
+    const int k = tid + i * kAThreads;
+    const int lx = k % T::VX;
+    const int lz = k / T::VX;
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    const bool in = k < T::VX * T::VZ &&
+                    !(outside(lx, R, kTX) && outside(lz, R, kTZ)) &&
+                    gx >= 0 && gx < nx && gz >= 0 && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    hvx[i] = in ? h[cell] : 0.0f;
+    hvz[i] = in ? h[field + cell] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kN2; ++i) {
+    const int k = tid + i * kAThreads;
+    if (k < T::VX * T::VZ) {
+      svx[k] = hvx[i];
+      svz[k] = hvz[i];
+    }
+  }
+  __syncthreads();
+
+  // 2a. the velocity adjoints on the tile: out, with the five images
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    const int vi = (tz + R) * T::VX + tx + R;
+    if (gx >= nx || gz >= nz) {
+      sbx[vi] = 0.0f;
+      sbz[vi] = 0.0f;
+      continue;
+    }
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    const int si = (tz + 2 * R) * T::SX + tx + 2 * R;
+    const float2 vh = vel_adjoint_at<R>(sdx, sdz, sgs, vx0[i], vz0[i],
+                                        p.d0[cell], p.d1[cell], si, c);
+    sbx[vi] = (s * p.b0[cell]) * vh.x;
+    sbz[vi] = (s * p.b1[cell]) * vh.y;
+    vxb_n[o] = vh.x;
+    vzb_n[o] = vh.y;
+    const float dvx = sderiv<R, kM>(svx + vi, 1, c.wm, c.ihx);
+    const float dvz = sderiv<R, kM>(svz + vi, T::VX, c.wm, c.ihz);
+    const float div = dvx + dvz;
+    const float gg = sderiv<R, kP>(svx + vi, T::VX, c.wp, c.ihz) +
+                     sderiv<R, kP>(svz + vi, 1, c.wp, c.ihx);
+    const int ti = tz * kTX + tx;
+    const float thx = sthx[ti];
+    const float thz = sthz[ti];
+    const float tho = stho[ti];
+    const float sthd = thx + thz;
+    glam[o] = g[0][i] + (s * div) * sthd;
+    gmun[o] = g[1][i] + c.two_s * (dvx * thx + dvz * thz);
+    gmup[o] = g[2][i] + (s * gg) * tho;
+    gb0[o] = g[3][i] + (s * hx[i]) * vh.x;
+    gb1[o] = g[4][i] + (s * hz[i]) * vh.y;
+  }
+  // 2b. the velocity adjoints on the R halo along each axis, to shared
+  // memory only
+  for (int k = tid; k < T::kArms; k += kAThreads) {
+    int lx, lz;
+    if (k < 2 * R * kTX) {  // the R rows above and below the tile
+      const int kk = k % (R * kTX);
+      lz = kk / kTX + (k / (R * kTX)) * (R + kTZ);
+      lx = R + kk % kTX;
+    } else {  // the R columns left and right of it
+      const int kk = k - 2 * R * kTX;
+      const int k2 = kk % (kTZ * R);
+      lz = R + k2 / R;
+      lx = (kk / (kTZ * R)) * (R + kTX) + k2 % R;
+    }
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    const int vi = lz * T::VX + lx;
+    if (gx < 0 || gx >= nx || gz < 0 || gz >= nz) {
+      sbx[vi] = 0.0f;
+      sbz[vi] = 0.0f;
+      continue;
+    }
+    const size_t cell = (size_t)gz * nx + gx;
+    const int si = (lz + R) * T::SX + lx + R;
+    const float2 vh =
+        vel_adjoint_at<R>(sdx, sdz, sgs, vxb[off + cell], vzb[off + cell],
+                          p.d0[cell], p.d1[cell], si, c);
+    sbx[vi] = (s * p.b0[cell]) * vh.x;
+    sbz[vi] = (s * p.b1[cell]) * vh.y;
+  }
+  __syncthreads();
+
+  // 3. the stress adjoints on the tile from (s b) vh in shared memory, the
+  // residual rows of step t on z0 and z0 + 1
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const size_t o = off + (size_t)gz * nx + gx;
+    const int vi = (tz + R) * T::VX + tx + R;
+    const int ti = tz * kTX + tx;
+    const float xx = sthx[ti] - sderiv<R, kM>(sbx + vi, 1, c.wm, c.ihx);
+    float zz = sthz[ti] - sderiv<R, kM>(sbz + vi, T::VX, c.wm, c.ihz);
+    const float xz =
+        (stho[ti] - sderiv<R, kP>(sbx + vi, T::VX, c.wp, c.ihz)) -
+        sderiv<R, kP>(sbz + vi, 1, c.wp, c.ihx);
+    if (gz == z0 || gz == z0 + 1)
+      zz = zz + res[(((size_t)b * total + t) * 2 + (gz - z0)) * nx + gx];
+    txxb_n[o] = xx;
+    tzzb_n[o] = zz;
+    txzb_n[o] = xz;
+  }
 }
 
 struct ForwardArgs {
@@ -544,28 +723,36 @@ int run_forward(const ForwardArgs& a) {
 struct AdjointArgs {
   Params p;
   const float *hist, *res;
-  float *glam, *gmun, *gmup, *gb0, *gb1;
-  float *vxb, *vzb, *txxb, *tzzb, *txzb, *dvbx, *dvbz, *gbs;
+  float *glam, *gmun, *gmup, *gb0, *gb1, *scratch;
   int B, nz, nx, total, nsteps, z0;
   Coefs c;
   cudaStream_t stream;
 };
 
+// One fused launch a step; scratch holds two adjoint states (vxb, vzb,
+// txxb, tzzb, txzb), swapped every step, the first zero.
 template <int R>
-int run_adjoint(AdjointArgs a) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
+int run_adjoint(const AdjointArgs& a) {
+  using T = AdjTile<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      adjoint_step<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)a.B * a.nz * a.nx;
+  float* st[2][5];
+  for (int k = 0; k < 2; ++k)
+    for (int f = 0; f < 5; ++f) st[k][f] = a.scratch + (5 * k + f) * n;
+  err = cudaMemsetAsync(st[0][0], 0, 5 * n * sizeof(float), a.stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B, (a.nx + kTX - 1) / kTX, (a.nz + kTZ - 1) / kTZ);
   // padded tail steps (t >= nsteps) are skipped in reverse
-  for (int t = a.nsteps - 1; t >= 0; --t) {
-    adjoint_v_step<R><<<grid, block, 0, a.stream>>>(
-        a.p, a.hist, a.vxb, a.vzb, a.txxb, a.tzzb, a.txzb, a.dvbx, a.dvbz,
-        a.gbs, a.glam, a.gmun, a.gmup, a.gb0, a.gb1, t, a.total, a.nz, a.nx,
-        a.c);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    adjoint_tau_step<R><<<grid, block, 0, a.stream>>>(
-        a.p, a.vxb, a.vzb, a.txxb, a.tzzb, a.txzb, a.dvbx, a.dvbz, a.gbs,
-        a.res, t, a.total, a.nz, a.nx, a.z0, a.c);
+  for (int t = a.nsteps - 1, k = 0; t >= 0; --t, ++k) {
+    float* const* cur = st[k & 1];
+    float* const* nxt = st[(k & 1) ^ 1];
+    adjoint_step<R><<<grid, kAThreads, T::kBytes, a.stream>>>(
+        a.p, a.hist, a.res, cur[0], cur[1], cur[2], cur[3], cur[4], nxt[0],
+        nxt[1], nxt[2], nxt[3], nxt[4], a.glam, a.gmun, a.gmup, a.gb0, a.gb1,
+        t, a.total, a.nz, a.nx, a.z0, a.c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -672,9 +859,9 @@ int elastic2d_forward(const float* lam, const float* mu, const float* b0,
 
 // Reverse sweep over t = nsteps-1 .. 0 of a history of total steps, with the
 // residual rows res (B, total, 2, nx). grads is 5 (B, nz, nx) images (lam,
-// mu at the nodes, mu01, b0, b1) and scratch 8 (B, nz, nx) fields (vxb, vzb,
-// txxb, tzzb, txzb and the three derived fields), all holding zeros on
-// entry. Returns the first CUDA error of a launch, or 0.
+// mu at the nodes, mu01, b0, b1) holding zeros on entry; scratch 10
+// (B, nz, nx) fields, two adjoint states of vxb, vzb, txxb, tzzb, txzb (the
+// sweep zeroes them). Returns the first CUDA error of a launch, or 0.
 int elastic2d_adjoint(const float* lam, const float* mu, const float* b0,
                       const float* b1, const float* damp, const float* d0,
                       const float* d1, const float* mu01, const float* d01,
@@ -683,7 +870,8 @@ int elastic2d_adjoint(const float* lam, const float* mu, const float* b0,
                       int nsteps, int z0, int r, const float* wp,
                       const float* wm, float ihx, float ihz, float s,
                       float two_s, void* stream) {
-  if (r < 1 || r > kMaxR || z0 < 0 || z0 + 2 > nz || nsteps > total)
+  if (r < 1 || r > kMaxR || z0 < 0 || z0 + 2 > nz || nsteps > total ||
+      B < 1 || nx < 1 || (long long)nz * nx >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   AdjointArgs a = {};
@@ -695,14 +883,7 @@ int elastic2d_adjoint(const float* lam, const float* mu, const float* b0,
   a.gmup = grads + 2 * n;
   a.gb0 = grads + 3 * n;
   a.gb1 = grads + 4 * n;
-  a.vxb = scratch;
-  a.vzb = scratch + n;
-  a.txxb = scratch + 2 * n;
-  a.tzzb = scratch + 3 * n;
-  a.txzb = scratch + 4 * n;
-  a.dvbx = scratch + 5 * n;
-  a.dvbz = scratch + 6 * n;
-  a.gbs = scratch + 7 * n;
+  a.scratch = scratch;
   a.B = B;
   a.nz = nz;
   a.nx = nx;

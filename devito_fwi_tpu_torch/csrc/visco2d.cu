@@ -1,7 +1,7 @@
 // 2-D viscoacoustic SLS 2nd-order sweeps for Hopper (sm_90a), plain C
 // interface for ctypes. Two entry points, each one sweep over all time steps
-// of a shot batch on the caller's stream (the forwards two kernel launches
-// a step, the adjoint one):
+// of a shot batch on the caller's stream, one fused launch a step
+// (forward_step, adjoint_step):
 //
 //   visco2d_forward(..., hist = NULL, pout != NULL)
 //       replaces _visco_sls2_segments (devito_fwi_tpu/ops/pallas_staggered.py
@@ -36,9 +36,9 @@
 // Layout: fields are (B, nz, nx) float32 with x contiguous (the transposed
 // layout of the JAX kernels); the six coefficient fields damp, b, A, B, C, D
 // are (nz, nx) and shared by all shots; the source patterns inj
-// (w dt^2 vp^2 at the source's corners) and injw (w) are (B, nz, nx);
-// receiver and residual rows are (B, total, 2, nx); the history is
-// (B, total, 2, nz, nx).
+// (w dt^2 vp^2 at the source's corners) and injw (w) come as each shot's
+// non-zero cells (src_cell, src_val); receiver and residual rows are
+// (B, total, 2, nx); the history is (B, total, 2, nz, nx).
 //
 // What bounds it on the card: the history forward writes
 // B * total * 2 * nz * nx * 4 bytes (21.9 GB for the 29-shot SMARMN batch)
@@ -49,14 +49,27 @@
 // batch is 8.2 MB and the reverse's state and images are past the 50 MB
 // L2, so a sweep's floor is its traffic a step through device memory.
 //
-// The forwards: one thread per cell, one launch per phase per step for the
-// whole batch (blockIdx.z is the shot). L is a derivative of b times a
-// derivative, so a step has two phases: the flux phase writes b D+x p and
-// b D+z p into scratch fields; the update phase reads those fluxes at
-// stencil distance and only its own cell of every other field, so it
-// updates the state in place (pn over pp, then the two swap). Both
-// derivatives see zeros beyond the padded grid: the inner one reads zero p,
-// the outer one zero flux.
+// The forwards: the first design ran a step as two launches, one thread a
+// cell: a flux launch wrote b D+x p and b D+z p to device memory and an
+// update launch read them back at stencil distance, with the dense source
+// pattern inj, which is non-zero at no more than four cells a shot: 11
+// fields a step for the modeling sweep (3 and 8), 15 with the history (2
+// more written and the illumination read and written), 36.0 and 49.0 ms
+// over the 1336-step SMARMN sweep at 3.35 TB/s; it took 77.5 and 100.1 ms.
+// The fused step (forward_step), one launch a step, a block a kFTX x kFTZ
+// tile of one shot: it loads p on the tile and a 2R halo along each axis
+// once, forms the two fluxes on the tile and an R halo along their axis in
+// shared memory (the halo repeats the neighbours' arithmetic, so it rounds
+// alike), then L, rn and pn on the tile. pn goes over pp and rn over r in
+// place, since both are read only at the cell's own place; p and pp swap
+// every step. The source adds only at inj's non-zero cells (adding wav * 0
+// elsewhere changes no finite value). 5 fields a step (p, pp, r read, pn,
+// rn written), 9 with the history: 16.3 and 29.4 ms over the sweep. pp, r
+// and the illumination are read first, where their latency hides under
+// the halo phases; the shots are the grid's fastest axis. Both derivatives
+// see zeros beyond the padded grid: the inner one reads zero p, the outer
+// one zero flux. Its times against those floors are in PERF.md (kernel
+// table, rows 19 and 22).
 //
 // The adjoint: one fused launch a step, a block a kATX x kATZ tile of one
 // shot (adjoint_step). The first design ran the reverse step as the
@@ -93,8 +106,6 @@
 namespace {
 
 constexpr int kMaxR = 8;
-constexpr int kBX = 32;
-constexpr int kBY = 8;
 
 // the two staggered first-derivative stencils: D+ on offsets -R+1..R, D- on
 // -R..R-1 (2R taps each, none zero)
@@ -116,101 +127,201 @@ __device__ __forceinline__ int tap(int k) {
   return KIND == kP ? k - R + 1 : k - R;
 }
 
-// sum_k w[k] * f(i + tap(k)) in tap order, zero beyond 0..n-1, times ih
-template <int R, int KIND, class F>
-__device__ __forceinline__ float deriv(F f, int i, int n, const float* w,
-                                       float ih) {
+// sum_k w[k] * u[tap(k) * stride] in tap order, times ih: a shifted
+// derivative on a tile in shared memory, which holds zeros beyond the grid
+template <int R, int KIND>
+__device__ __forceinline__ float sderiv(const float* u, int stride,
+                                        const float* w, float ih) {
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < 2 * R; ++k) {
-    const int j = i + tap<R, KIND>(k);
-    const float v = (j >= 0 && j < n) ? f(j) : 0.0f;
-    const float term = w[k] * v;
+    const float term = w[k] * u[tap<R, KIND>(k) * stride];
     acc = k == 0 ? term : acc + term;
   }
   return acc * ih;
 }
 
-template <int KIND>
-__device__ __forceinline__ const float* weights(const Coefs& c) {
-  return KIND == kP ? c.wp : c.wm;
-}
+// The fused forward step's tile (forward_step): kFTX x kFTZ cells of one
+// shot. p on the tile and a 2R halo along each axis (the corners are not
+// needed), the two fluxes b D+ p on the tile and an R halo along their
+// axis, in shared memory. The shot is blockIdx.x, as in adjoint_step.
+constexpr int kFTX = 32;
+constexpr int kFTZ = 32;
+constexpr int kFThreads = 512;
+static_assert(kFTX * kFTZ % kFThreads == 0, "whole cells a thread");
 
-// derivative along x (physical axis 0, contiguous) / z of one shot's field
-template <int R, int KIND>
-__device__ __forceinline__ float ddx(const float* __restrict__ u, int z,
-                                     int x, int nx, const Coefs& c) {
-  const float* row = u + (size_t)z * nx;
-  return deriv<R, KIND>([&](int j) { return row[j]; }, x, nx,
-                        weights<KIND>(c), c.ihx);
-}
-
-template <int R, int KIND>
-__device__ __forceinline__ float ddz(const float* __restrict__ u, int z,
-                                     int x, int nz, int nx, const Coefs& c) {
-  return deriv<R, KIND>([&](int j) { return u[(size_t)j * nx + x]; }, z, nz,
-                        weights<KIND>(c), c.ihz);
-}
-
-// Flux phase of forward step t: the receiver rows of p, then b D+x p and
-// b D+z p.
 template <int R>
-__global__ void flux_step(const float* __restrict__ b,
-                          const float* __restrict__ p,
-                          float* __restrict__ gx, float* __restrict__ gz,
-                          float* __restrict__ rec, int t, int total, int nz,
-                          int nx, int z0, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int s = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)s * field + cell;
-  const float* ps = p + (size_t)s * field;
-  if (z == z0 || z == z0 + 1)
-    rec[(((size_t)s * total + t) * 2 + (z - z0)) * nx + x] = p[o];
-  const float bc = b[cell];
-  gx[o] = bc * ddx<R, kP>(ps, z, x, nx, c);
-  gz[o] = bc * ddz<R, kP>(ps, z, x, nz, nx, c);
-}
+struct FwdTile {
+  static constexpr int SX = kFTX + 4 * R;    // p: SZ rows x SX
+  static constexpr int SZ = kFTZ + 4 * R;
+  static constexpr int FXW = kFTX + 2 * R;   // x flux: kFTZ rows x FXW
+  static constexpr int FZH = kFTZ + 2 * R;   // z flux: FZH rows x kFTX
+  static constexpr int kFloats = SX * SZ + kFTZ * FXW + FZH * kFTX;
+  static constexpr size_t kBytes = kFloats * sizeof(float);
+};
 
-// Update phase of forward step t: L from the fluxes, rn and pn; pn goes over
-// pp (the caller swaps p and pp), rn over r.
+// Forward step t over one tile of one shot: reads p with halos, writes pn
+// over pp and rn over r at the tile's own cells (both read only there);
+// the receiver rows of p before the update; the source at the shot's
+// cells; with HIST the history (L, rn) and the illumination.
 template <int R, bool HIST>
-__global__ void update_step(Params q, const float* __restrict__ gx,
-                            const float* __restrict__ gz,
-                            const float* __restrict__ p,
-                            float* __restrict__ pp, float* __restrict__ r,
-                            const float* __restrict__ wav,
-                            const float* __restrict__ inj,
-                            float* __restrict__ hist,
-                            float* __restrict__ illum, int t, int total,
-                            int nsteps, int nz, int nx, Coefs c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int s = blockIdx.z;
-  if (x >= nx || z >= nz) return;
+__global__ void __launch_bounds__(kFThreads)
+forward_step(Params q, const float* __restrict__ p, float* __restrict__ pp,
+             float* __restrict__ r, const float* __restrict__ wav,
+             const int* __restrict__ src_cell,
+             const float* __restrict__ src_val, int K,
+             float* __restrict__ rec, float* __restrict__ hist,
+             float* __restrict__ illum, int t, int total, int nsteps, int nz,
+             int nx, int z0, Coefs c) {
+  using T = FwdTile<R>;
+  extern __shared__ float sm[];
+  float* sp = sm;                          // p
+  float* fx = sp + T::SX * T::SZ;          // b D+x p
+  float* fz = fx + kFTZ * T::FXW;          // b D+z p
+  const int b = blockIdx.x;                // the shots of a tile adjoin
+  const int xt = blockIdx.y * kFTX;
+  const int zt = blockIdx.z * kFTZ;
+  const int tid = threadIdx.x;
   const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t o = (size_t)s * field + cell;
-  const float L = ddx<R, kM>(gx + (size_t)s * field, z, x, nx, c) +
-                  ddz<R, kM>(gz + (size_t)s * field, z, x, nz, nx, c);
-  const float damp = q.damp[cell];
-  const float rv = r[o];
-  const float rn = damp * ((rv + q.A[cell] * L) - q.B[cell] * rv);
-  const float pv = p[o];
-  float pn = damp * ((((2.0f * pv) - damp * pp[o]) + q.C[cell] * L) -
-                     q.D[cell] * rn);
-  pn = pn + wav[t] * inj[o];
-  if (HIST) {
-    float* h = hist + ((size_t)s * total + t) * 2 * field + cell;
-    h[0] = L;
-    h[field] = rn;
-    if (t < nsteps) illum[o] = illum[o] + pn * pn;
+  const size_t off = (size_t)b * field;
+
+  // 0. pp, r (and the illumination) and the coefficients of the tile's own
+  // cells, kCells a thread, read first: their loads' latency hides under
+  // phases 1 and 2
+  constexpr int kCells = kFTX * kFTZ / kFThreads;
+  float ppv[kCells], rv[kCells], il[kCells], qd[kCells], qa[kCells],
+      qb[kCells], qc[kCells], qe[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kFThreads;
+    const int gx = xt + k % kFTX;
+    const int gz = zt + k / kFTX;
+    const bool in = gx < nx && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    ppv[i] = in ? pp[o] : 0.0f;
+    rv[i] = in ? r[o] : 0.0f;
+    il[i] = HIST && in && t < nsteps ? illum[o] : 0.0f;
+    qd[i] = in ? q.damp[cell] : 0.0f;
+    qa[i] = in ? q.A[cell] : 0.0f;
+    qb[i] = in ? q.B[cell] : 0.0f;
+    qc[i] = in ? q.C[cell] : 0.0f;
+    qe[i] = in ? q.D[cell] : 0.0f;
   }
-  pp[o] = pn;
-  r[o] = rn;
+
+  // 1. p on the tile and its 2R halos, zero beyond the grid; all of a
+  // thread's loads first
+  constexpr int kN1 = (T::SX * T::SZ + kFThreads - 1) / kFThreads;
+  float pv1[kN1];
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kFThreads;
+    const int lx = k % T::SX;
+    const int lz = k / T::SX;
+    const bool xin = lx >= 2 * R && lx < 2 * R + kFTX;
+    const bool zin = lz >= 2 * R && lz < 2 * R + kFTZ;
+    const int gx = xt - 2 * R + lx;
+    const int gz = zt - 2 * R + lz;
+    const bool in = k < T::SX * T::SZ && (xin || zin) && gx >= 0 &&
+                    gx < nx && gz >= 0 && gz < nz;
+    pv1[i] = in ? p[off + (size_t)gz * nx + gx] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kFThreads;
+    if (k < T::SX * T::SZ) sp[k] = pv1[i];
+  }
+  __syncthreads();
+
+  // 2. the fluxes: x on the tile's rows and an R halo in x, z on its
+  // columns and an R halo in z; zero beyond the grid
+  constexpr int kNX = (kFTZ * T::FXW + kFThreads - 1) / kFThreads;
+  constexpr int kNZ = (T::FZH * kFTX + kFThreads - 1) / kFThreads;
+  float bx[kNX], bz[kNZ];
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) {
+    const int k = tid + i * kFThreads;
+    const int gx = xt - R + k % T::FXW;
+    const int gz = zt + k / T::FXW;
+    const bool in = k < kFTZ * T::FXW && gx >= 0 && gx < nx && gz < nz;
+    bx[i] = in ? q.b[(size_t)gz * nx + gx] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kNZ; ++i) {
+    const int k = tid + i * kFThreads;
+    const int gx = xt + k % kFTX;
+    const int gz = zt - R + k / kFTX;
+    const bool in = k < T::FZH * kFTX && gz >= 0 && gz < nz && gx < nx;
+    bz[i] = in ? q.b[(size_t)gz * nx + gx] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) {
+    const int k = tid + i * kFThreads;
+    if (k >= kFTZ * T::FXW) continue;
+    const int lx = k % T::FXW;
+    const int lz = k / T::FXW;
+    const int gx = xt - R + lx;
+    const int gz = zt + lz;
+    float v = 0.0f;
+    if (gx >= 0 && gx < nx && gz < nz)
+      v = bx[i] *
+          sderiv<R, kP>(sp + (lz + 2 * R) * T::SX + lx + R, 1, c.wp, c.ihx);
+    fx[k] = v;
+  }
+#pragma unroll
+  for (int i = 0; i < kNZ; ++i) {
+    const int k = tid + i * kFThreads;
+    if (k >= T::FZH * kFTX) continue;
+    const int lx = k % kFTX;
+    const int lz = k / kFTX;
+    const int gx = xt + lx;
+    const int gz = zt - R + lz;
+    float v = 0.0f;
+    if (gz >= 0 && gz < nz && gx < nx)
+      v = bz[i] * sderiv<R, kP>(sp + (lz + R) * T::SX + lx + 2 * R, T::SX,
+                                c.wp, c.ihz);
+    fz[k] = v;
+  }
+  __syncthreads();
+
+  // 3. L, rn and pn on the tile; the source at step t on inj's non-zero
+  // cells of the shot (adding wt * 0 elsewhere would change no value)
+  const float wt = wav[t];
+  const int* cells_b = src_cell + (size_t)b * K;
+  const float* vals_b = src_val + (size_t)b * K;
+  const size_t bt = (size_t)b * total + t;
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kFThreads;
+    const int tx = k % kFTX;
+    const int tz = k / kFTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    const float pv = sp[(tz + 2 * R) * T::SX + tx + 2 * R];
+    if (gz == z0 || gz == z0 + 1)
+      rec[(bt * 2 + (gz - z0)) * nx + gx] = pv;
+    const float L =
+        sderiv<R, kM>(fx + tz * T::FXW + tx + R, 1, c.wm, c.ihx) +
+        sderiv<R, kM>(fz + (tz + R) * kFTX + tx, kFTX, c.wm, c.ihz);
+    const float damp = qd[i];
+    const float rn = damp * ((rv[i] + qa[i] * L) - qb[i] * rv[i]);
+    float pn =
+        damp * ((((2.0f * pv) - damp * ppv[i]) + qc[i] * L) - qe[i] * rn);
+    for (int j = 0; j < K; ++j) {
+      if (cells_b[j] == (int)cell) pn = pn + wt * vals_b[j];
+    }
+    if (HIST) {
+      float* h = hist + bt * 2 * field + cell;
+      h[0] = L;
+      h[field] = rn;
+      if (t < nsteps) illum[o] = il[i] + pn * pn;
+    }
+    pp[o] = pn;
+    r[o] = rn;
+  }
 }
 
 // The fused reverse step's tile (adjoint_step): kATX x kATZ cells of one
@@ -234,20 +345,6 @@ struct AdjTile {
       2 * SX * SZ + 2 * kATZ * FXW + 2 * FZH * kATX + 2 * kATX * kATZ;
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
-
-// sum_k w[k] * u[tap(k) * stride] in tap order, times ih: deriv on a tile
-// in shared memory, which holds zeros beyond the grid
-template <int R, int KIND>
-__device__ __forceinline__ float sderiv(const float* u, int stride,
-                                        const float* w, float ih) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 2 * R; ++k) {
-    const float term = w[k] * u[tap<R, KIND>(k) * stride];
-    acc = k == 0 ? term : acc + term;
-  }
-  return acc * ih;
-}
 
 // Reverse step t over one tile of one shot: reads lp, lr of step t + 1's
 // output (cur) with halos, writes lp, lr (nxt), and at the tile's own cells
@@ -418,35 +515,42 @@ adjoint_step(Params q, const float* __restrict__ lp,
 
 struct ForwardArgs {
   Params q;
-  const float *wav, *inj;
-  float *rec, *hist, *illum, *pout;
-  float *p, *pp, *r, *gx, *gz;
-  int B, nz, nx, total, nsteps, z0;
+  const float* wav;
+  const int* src_cell;
+  const float* src_val;
+  float *rec, *hist, *illum, *pout, *scratch;
+  int K, B, nz, nx, total, nsteps, z0;
   Coefs c;
   cudaStream_t stream;
 };
 
+// One fused launch a step; scratch holds p, pp and r from zero, pn going
+// over pp and rn over r, then p and pp swap.
 template <int R, bool HIST>
-int run_forward(ForwardArgs a) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
+int run_forward(const ForwardArgs& a) {
+  using T = FwdTile<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      forward_step<R, HIST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)a.B * a.nz * a.nx;
+  float* p = a.scratch;
+  float* pp = a.scratch + n;
+  float* r = a.scratch + 2 * n;
+  err = cudaMemsetAsync(a.scratch, 0, 3 * n * sizeof(float), a.stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B, (a.nx + kFTX - 1) / kFTX, (a.nz + kFTZ - 1) / kFTZ);
   for (int t = 0; t < a.total; ++t) {
-    flux_step<R><<<grid, block, 0, a.stream>>>(a.q.b, a.p, a.gx, a.gz, a.rec,
-                                               t, a.total, a.nz, a.nx, a.z0,
-                                               a.c);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    update_step<R, HIST><<<grid, block, 0, a.stream>>>(
-        a.q, a.gx, a.gz, a.p, a.pp, a.r, a.wav, a.inj, a.hist, a.illum, t,
-        a.total, a.nsteps, a.nz, a.nx, a.c);
+    forward_step<R, HIST><<<grid, kFThreads, T::kBytes, a.stream>>>(
+        a.q, p, pp, r, a.wav, a.src_cell, a.src_val, a.K, a.rec, a.hist,
+        a.illum, t, a.total, a.nsteps, a.nz, a.nx, a.z0, a.c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    float* tmp = a.p;
-    a.p = a.pp;
-    a.pp = tmp;
+    float* tmp = p;
+    p = pp;
+    pp = tmp;
     if (a.pout != NULL && t == a.nsteps - 1) {
-      err = cudaMemcpyAsync(a.pout, a.p,
-                            (size_t)a.B * a.nz * a.nx * sizeof(float),
+      err = cudaMemcpyAsync(a.pout, p, n * sizeof(float),
                             cudaMemcpyDeviceToDevice, a.stream);
       if (err != cudaSuccess) return (int)err;
     }
@@ -548,34 +652,35 @@ extern "C" {
 // (B, total, 2, nx). With hist == NULL (modeling) illum is NULL and pout
 // (B, nz, nx) receives p after step nsteps - 1; otherwise hist is
 // (B, total, 2, nz, nx), illum (B, nz, nx) holds zeros on entry and pout is
-// NULL. scratch is 5 (B, nz, nx) fields holding zeros: p, pp, r and the two
-// fluxes. wp and wm are the 2r taps of the D+ and D- stencils. Returns the
+// NULL. The source pattern inj (B, nz, nx) comes as its non-zero cells:
+// src_cell (B, K) int32 z * nx + x (-1 pads) and src_val (B, K) their
+// values. scratch is 3 (B, nz, nx) fields: p, pp and r (the sweep zeroes
+// them). wp and wm are the 2r taps of the D+ and D- stencils. Returns the
 // first CUDA error of a launch, or 0.
 int visco2d_forward(const float* damp, const float* b, const float* A,
                     const float* Bc, const float* C, const float* D,
-                    const float* wav, const float* inj, float* rec,
-                    float* hist, float* illum, float* pout, float* scratch,
-                    int B, int nz, int nx, int total, int nsteps, int z0,
-                    int r, const float* wp, const float* wm, float ihx,
-                    float ihz, void* stream) {
+                    const float* wav, const int* src_cell,
+                    const float* src_val, int K, float* rec, float* hist,
+                    float* illum, float* pout, float* scratch, int B, int nz,
+                    int nx, int total, int nsteps, int z0, int r,
+                    const float* wp, const float* wm, float ihx, float ihz,
+                    void* stream) {
   if (r < 1 || r > kMaxR || (hist == NULL) != (illum == NULL) ||
       (hist == NULL) == (pout == NULL) || z0 < 0 || z0 + 2 > nz ||
-      nsteps < 1 || nsteps > total)
+      nsteps < 1 || nsteps > total || K < 1 || B < 1 || nx < 1 ||
+      (long long)nz * nx >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)B * nz * nx;
   ForwardArgs a = {};
   a.q = make_params(damp, b, A, Bc, C, D);
   a.wav = wav;
-  a.inj = inj;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
   a.rec = rec;
   a.hist = hist;
   a.illum = illum;
   a.pout = pout;
-  a.p = scratch;
-  a.pp = scratch + n;
-  a.r = scratch + 2 * n;
-  a.gx = scratch + 3 * n;
-  a.gz = scratch + 4 * n;
+  a.scratch = scratch;
+  a.K = K;
   a.B = B;
   a.nz = nz;
   a.nx = nx;

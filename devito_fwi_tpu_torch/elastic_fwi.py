@@ -175,15 +175,16 @@ def elastic_fm_multi(geometry, device="cuda"):
 def _bytes_per_shot(tb, calc_grad, kind):
     """Device bytes one shot holds at the peak of a chunk: on a gradient the
     history, the receiver and residual rows and the reverse's fields
-    (8 scratch, 5 images, illumination, source pattern and the finish's
-    temporaries); on a trial the forward's two states of 5 fields, the
-    source pattern and the rows; and the misfit's."""
+    (10 scratch, two adjoint states of 5; 5 images, illumination, source
+    pattern and the finish's temporaries); on a trial the forward's two
+    states of 5 fields, the source pattern and the rows; and the
+    misfit's."""
     f = 4 if tb.dtype == torch.float32 else 8
     field = tb.nz * tb.nx * f
     misfit = MISFIT_BYTES_PER_SAMPLE[kind] * tb.nt * tb.r_idx.shape[0]
     if not calc_grad:
         return 11 * field + tb.nsteps * 4 * tb.nx * f + misfit
-    return tb.nsteps * (4 * field + 4 * tb.nx * f) + 24 * field + misfit
+    return tb.nsteps * (4 * field + 4 * tb.nx * f) + 26 * field + misfit
 
 
 def _finish(glam, g_mu, g_b, vpp, vsp, rhp, pads):

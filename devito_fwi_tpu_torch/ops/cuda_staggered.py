@@ -25,12 +25,11 @@ The nine parameter operands ``lam, mu, b0, b1, damp, d0, d1, mu01, d01``
 (``stagger_params``) are (nz, nx) and shared by the batch; ``inj`` (B, nz,
 nx) is each shot's source pattern w * dt (``source_pattern``). Each wrapper
 checks its operands and, for CUDA tensors, launches the kernels of
-``csrc/elastic2d.cu`` (one ctypes call per sweep on the current stream: the
-forwards one launch a step, the adjoint two) and adds one to
-``LAUNCHES[name]``; for CPU tensors it runs the plain twin, a Python loop
-over the steps with the Pallas kernels' association (``_make_sd``). On
-another device it raises. The twins take float32 or float64; the kernels
-float32.
+``csrc/elastic2d.cu`` (one ctypes call per sweep on the current stream, one
+fused launch a step) and adds one to ``LAUNCHES[name]``; for CPU tensors it
+runs the plain twin, a Python loop over the steps with the Pallas kernels'
+association (``_make_sd``). On another device it raises. The twins take
+float32 or float64; the kernels float32.
 
 The forward sweeps stream the batch state through device memory every
 step (31 SMARM2 shots: 11.46 MB a field, past the 50 MB L2). Their bound
@@ -41,8 +40,14 @@ state is its traffic a step: 16 fields for the first design's two phases
 fused step (``forward_launch``) takes a 32 x 32 tile a block: the old
 stresses with a 2r halo and the new velocities with an r halo (recomputed
 at the halo, the same arithmetic) in shared memory, ping-pong state, the
-source as ``inj``'s non-zero cells (``_source_list``). Its times on the card
-are in ``PERF.md`` (kernel table, rows 18 and 20).
+source as ``inj``'s non-zero cells (``_source_list``). The reverse sweep
+moved 35 fields a step in the first design's two launches (170.0 ms over
+the sweep), among them three derived stress-adjoint fields written only to
+be read again; the fused step (``adjoint_launch``) forms them on its tile
+and a 2r halo in shared memory from the stored stress adjoints, then the
+velocity adjoints with an r halo, the images and the stress adjoints, and
+ping-pongs the adjoint state: 24 fields (116.6 ms). Their times on the
+card are in ``PERF.md`` (kernel table, rows 18, 20 and 21).
 """
 from __future__ import annotations
 
@@ -66,8 +71,8 @@ __all__ = ["elastic_segments", "elastic_fwd_hist_segments",
            "elastic_forward_segments", "elastic_supported",
            "elastic_grad_stream_supported", "unsupported_reason",
            "stagger_params", "source_pattern", "pad_wavelet",
-           "zplane_weight_matrix", "forward_launch", "LAUNCHES",
-           "TWIN_CALLS", "reset_counters"]
+           "zplane_weight_matrix", "forward_launch", "adjoint_launch",
+           "tile_launch", "LAUNCHES", "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("elastic_segments", "elastic_fwd_hist_segments",
            "elastic_grad_stream_segments")
@@ -382,30 +387,69 @@ def _taps32(st, name):
                       np.float32)
 
 
-# the forward step kernel's tile (csrc/elastic2d.cu kTX x kTZ, kFThreads)
+# the fused step kernels' tile and threads (csrc/elastic2d.cu kTX x kTZ,
+# kFThreads, kAThreads)
 FWD_TILE = (32, 32)
 FWD_THREADS = 512
+ADJ_TILE = (32, 32)
+ADJ_THREADS = 512
 MAX_RADIUS = 8
+# shared memory a block can use on the H100 (bytes)
+SMEM_LIMIT = 232_448
+
+
+def tile_launch(what, B, nz, nx, r, tile, threads, smem, shots_first):
+    """A fused step kernel's launch: one block a ``tile`` (x, z) of one
+    shot, ``threads`` a block, ``smem`` bytes of shared memory; the grid
+    (shots, x tiles, z tiles) if ``shots_first``, else (x tiles, z tiles,
+    shots). Raises ValueError, naming ``what``, for what the kernel does
+    not take: a radius outside 1 .. 8, an empty grid or one of 2^31 cells,
+    a launch grid past CUDA's (2^31 - 1, 65535, 65535) or shared memory
+    past a block's."""
+    if not 1 <= r <= MAX_RADIUS:
+        raise ValueError(f"{what}: stencil radius {r}; the kernel takes "
+                         f"1 .. {MAX_RADIUS}")
+    tx, tz = tile
+    tiles = (-(-nx // tx), -(-nz // tz))
+    grid = (B,) + tiles if shots_first else tiles + (B,)
+    if min(B, nz, nx) < 1 or nz * nx >= 2 ** 31 or grid[0] >= 2 ** 31 \
+            or max(grid[1:]) >= 2 ** 16:
+        raise ValueError(f"{what}: {B} shots of {nz} x {nx}; the kernel "
+                         "takes a positive grid of fewer than 2^31 cells "
+                         "and a launch grid of at most (2^31 - 1, 65535, "
+                         "65535) blocks")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: {smem} bytes of shared memory a block; "
+                         f"the card gives at most {SMEM_LIMIT}")
+    return SimpleNamespace(tile=tile, threads=threads, grid=grid, smem=smem)
 
 
 def forward_launch(B, nz, nx, r):
     """The forward step kernel's launch at these shapes: the tile, threads,
-    grid of one step and shared-memory bytes of a block (the old stresses
-    on the tile and a 2r halo, the new velocities on the tile and an r
-    halo). Raises ValueError for what the kernel does not take."""
-    if not 1 <= r <= MAX_RADIUS:
-        raise ValueError(f"elastic forward: stencil radius {r}; the kernel "
-                         f"takes 1 .. {MAX_RADIUS}")
-    if min(B, nz, nx) < 1 or nz * nx >= 2 ** 31:
-        raise ValueError(f"elastic forward: {B} shots of {nz} x {nx}; the "
-                         "kernel takes a positive grid of fewer than 2^31 "
-                         "cells")
+    grid of one step (x tiles, z tiles, shots) and shared-memory bytes of a
+    block (the old stresses on the tile and a 2r halo, the new velocities
+    on the tile and an r halo; at most 67,584 bytes, r = 8). Raises
+    ValueError for what the kernel does not take (``tile_launch``)."""
     tx, tz = FWD_TILE
-    # at most 67,584 bytes (r = 8) of a block's 232,448
     smem = 4 * (3 * (tx + 4 * r) * (tz + 4 * r) + 2 * (tx + 2 * r)
                 * (tz + 2 * r))
-    return SimpleNamespace(tile=FWD_TILE, threads=FWD_THREADS,
-                           grid=(-(-nx // tx), -(-nz // tz), B), smem=smem)
+    return tile_launch("elastic forward", B, nz, nx, r, FWD_TILE,
+                       FWD_THREADS, smem, shots_first=False)
+
+
+def adjoint_launch(B, nz, nx, r):
+    """The fused reverse step's launch at these shapes: the tile, threads,
+    grid of one step (shots, x tiles, z tiles) and shared-memory bytes of a
+    block (the three derived stress-adjoint fields on the tile and a 2r
+    halo, the three damped stress adjoints on the tile, the history's vx',
+    vz' and the two velocity products (s b) vh on the tile and an r halo;
+    at most 98,304 bytes, r = 8). Raises ValueError for what the kernel
+    does not take (``tile_launch``)."""
+    tx, tz = ADJ_TILE
+    smem = 4 * (3 * (tx + 4 * r) * (tz + 4 * r) + 3 * tx * tz
+                + 4 * (tx + 2 * r) * (tz + 2 * r))
+    return tile_launch("elastic adjoint", B, nz, nx, r, ADJ_TILE,
+                       ADJ_THREADS, smem, shots_first=True)
 
 
 def _source_list(inj):
@@ -459,10 +503,11 @@ def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
 
 
 def _adjoint_cuda(prm, hist, res, *, st, nsteps, z0):
-    lib = _lib()
     B, total, _, nz, nx = hist.shape
+    adjoint_launch(B, nz, nx, st.r)
+    lib = _lib()
     grads = hist.new_zeros((5, B, nz, nx))
-    scratch = hist.new_zeros((8, B, nz, nx))
+    scratch = hist.new_empty((10, B, nz, nx))     # two adjoint states
     wp, wm = (_taps32(st, k) for k in ("P", "M"))
     with torch.cuda.device(hist.device):
         err = lib.elastic2d_adjoint(

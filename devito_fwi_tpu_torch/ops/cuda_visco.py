@@ -32,11 +32,11 @@ Fields use the transposed (nz, nx) layout with x contiguous. The six
 coefficient operands ``damp, b, A, B, C, D`` are (nz, nx) and shared by the
 batch; ``inj`` and ``injw`` (B, nz, nx). Each wrapper checks its operands
 and, for CUDA tensors, launches the kernels of ``csrc/visco2d.cu`` (one
-ctypes call per sweep on the current stream: the forwards two launches a
-step, the adjoint one) and adds one to ``LAUNCHES[name]``; for CPU tensors
-it runs the plain twin, a Python loop over the steps with the Pallas
-kernels' association (``cuda_staggered._make_sd``). On another device it
-raises. The twins take float32 or float64; the kernels float32.
+ctypes call per sweep on the current stream, one fused launch a step) and
+adds one to ``LAUNCHES[name]``; for CPU tensors it runs the plain twin, a
+Python loop over the steps with the Pallas kernels' association
+(``cuda_staggered._make_sd``). On another device it raises. The twins take
+float32 or float64; the kernels float32.
 
 The reverse sweep streams its state and images through device memory every
 step (29 SMARMN shots: 8.2 MB a field, past the 50 MB L2). Its floor is
@@ -44,8 +44,13 @@ its traffic a step: 31 fields for the first design's two launches, 16 for
 the fused step (``adjoint_launch``: a 32 x 32 tile a block, C P and A R
 with a 2r halo and the fluxes with an r halo in shared memory, lp and lr
 ping-pong, lpp and pendR recomputed from the state the previous step read,
-the source weights as ``injw``'s non-zero cells, ``_source_list``). Its
-times on the card are in ``PERF.md`` (kernel table, row 23).
+the source weights as ``injw``'s non-zero cells, ``_source_list``). The
+forwards moved 11 fields a step (15 with the history) in the first
+design's flux and update launches; the fused step (``forward_launch``:
+p with a 2r halo and the two fluxes with an r halo in shared memory, pn
+over pp and rn over r in place, the source as ``inj``'s non-zero cells)
+moves 5 (9). Their times on the card are in ``PERF.md`` (kernel table,
+rows 19, 22 and 23).
 """
 from __future__ import annotations
 
@@ -66,8 +71,8 @@ __all__ = ["visco_sls2_segments", "visco_fwd_hist_segments",
            "visco_grad_stream_segments", "visco_sls2_plain",
            "visco_fwd_hist_plain", "visco_grad_stream_plain",
            "visco_sls2_forward_segments", "operands", "source_patterns",
-           "pad_wavelet", "residual_rows", "adjoint_launch", "LAUNCHES",
-           "TWIN_CALLS", "reset_counters"]
+           "pad_wavelet", "residual_rows", "forward_launch",
+           "adjoint_launch", "LAUNCHES", "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("visco_sls2_segments", "visco_fwd_hist_segments",
            "visco_grad_stream_segments")
@@ -212,8 +217,8 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/visco2d.cu; every
 # pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "visco2d_forward": ([_P] * 13 + [_I] * 7 + [_P] * 2 + [_F] * 2 + [_P],
-                        _I),
+    "visco2d_forward": ([_P] * 9 + [_I] + [_P] * 5 + [_I] * 7 + [_P] * 2
+                        + [_F] * 2 + [_P], _I),
     "visco2d_adjoint": ([_P] * 8 + [_I] + [_P] * 5 + [_I] * 7 + [_P] * 2
                         + [_F] * 2 + [_P], _I),
     "visco2d_error_string": ([_I], ctypes.c_char_p),
@@ -237,9 +242,45 @@ def _check(lib, fn, err):
                            f"({lib.visco2d_error_string(err).decode()})")
 
 
+# the fused step kernels' tile and threads (csrc/visco2d.cu kFTX x kFTZ,
+# kFThreads; kATX x kATZ, kAThreads)
+FWD_TILE = (32, 32)
+FWD_THREADS = 512
+ADJ_TILE = (32, 32)
+ADJ_THREADS = 512
+
+
+def forward_launch(B, nz, nx, r):
+    """The fused forward step's launch at these shapes: the tile, threads,
+    grid of one step (shots, x tiles, z tiles) and shared-memory bytes of a
+    block (p on the tile and a 2r halo, the two fluxes on the tile and an r
+    halo along their axis; at most 28,672 bytes, r = 8). Raises ValueError
+    for what the kernel does not take (``cuda_staggered.tile_launch``)."""
+    tx, tz = FWD_TILE
+    smem = 4 * ((tx + 4 * r) * (tz + 4 * r) + tz * (tx + 2 * r)
+                + (tz + 2 * r) * tx)
+    return _cs.tile_launch("visco forward", B, nz, nx, r, FWD_TILE,
+                           FWD_THREADS, smem, shots_first=True)
+
+
+def adjoint_launch(B, nz, nx, r):
+    """The fused reverse step's launch at these shapes: the tile, threads,
+    grid of one step (shots, x tiles, z tiles) and shared-memory bytes of a
+    block (C P and A R on the tile and a 2r halo, the four fluxes on the
+    tile and an r halo along their axis, P and R on the tile; at most
+    65,536 bytes, r = 8). Raises ValueError for what the kernel does not
+    take (``cuda_staggered.tile_launch``)."""
+    tx, tz = ADJ_TILE
+    smem = 4 * (2 * (tx + 4 * r) * (tz + 4 * r) + 2 * tz * (tx + 2 * r)
+                + 2 * (tz + 2 * r) * tx + 2 * tx * tz)
+    return _cs.tile_launch("visco adjoint", B, nz, nx, r, ADJ_TILE,
+                           ADJ_THREADS, smem, shots_first=True)
+
+
 def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
-    lib = _lib()
     B, nz, nx = inj.shape
+    forward_launch(B, nz, nx, st.r)
+    lib = _lib()
     total = wav_pad.shape[0]
     if hist:
         # the history first, so that it takes the largest free block
@@ -251,12 +292,14 @@ def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
         rec = inj.new_empty((B, total, 2, nx))
         pout = inj.new_empty((B, nz, nx))
         H = illum = None
-    scratch = inj.new_zeros((5, B, nz, nx))
+    cells, vals, K = _cs._source_list(inj)
+    scratch = inj.new_empty((3, B, nz, nx))       # p, pp, r
     wp, wm = (_cs._taps32(st, k) for k in ("P", "M"))
     with torch.cuda.device(inj.device):
         err = lib.visco2d_forward(
-            *(p.data_ptr() for p in prm), wav_pad.data_ptr(), inj.data_ptr(),
-            rec.data_ptr(), H.data_ptr() if hist else None,
+            *(p.data_ptr() for p in prm), wav_pad.data_ptr(),
+            cells.data_ptr(), vals.data_ptr(), K, rec.data_ptr(),
+            H.data_ptr() if hist else None,
             illum.data_ptr() if hist else None,
             None if hist else pout.data_ptr(), scratch.data_ptr(), B, nz, nx,
             total, nsteps, z0, st.r, wp.ctypes.data, wm.ctypes.data, st.ihx,
@@ -265,33 +308,6 @@ def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
     if hist:
         return rec, H, illum
     return rec, pout
-
-
-# the fused reverse step's tile (csrc/visco2d.cu kATX x kATZ, kAThreads)
-ADJ_TILE = (32, 32)
-ADJ_THREADS = 512
-
-
-def adjoint_launch(B, nz, nx, r):
-    """The fused reverse step's launch at these shapes: the tile, threads,
-    grid of one step (shots, x tiles, z tiles) and shared-memory bytes of a
-    block (C P and A R on the tile and a 2r halo, the four fluxes on the
-    tile and an r halo along their axis, P and R on the tile). Raises
-    ValueError for what the kernel does not take."""
-    if not 1 <= r <= _cs.MAX_RADIUS:
-        raise ValueError(f"visco adjoint: stencil radius {r}; the kernel "
-                         f"takes 1 .. {_cs.MAX_RADIUS}")
-    tx, tz = ADJ_TILE
-    if min(B, nz, nx) < 1 or nz * nx >= 2 ** 31 or B >= 2 ** 31 \
-            or max(-(-nx // tx), -(-nz // tz)) >= 2 ** 16:
-        raise ValueError(f"visco adjoint: {B} shots of {nz} x {nx}; the "
-                         "kernel takes a positive grid of fewer than 2^31 "
-                         "cells and 65,536 tiles along each axis")
-    # 65,536 bytes at r = 8 of a block's 232,448
-    smem = 4 * (2 * (tx + 4 * r) * (tz + 4 * r) + 2 * tz * (tx + 2 * r)
-                + 2 * (tz + 2 * r) * tx + 2 * tx * tz)
-    return SimpleNamespace(tile=ADJ_TILE, threads=ADJ_THREADS,
-                           grid=(B, -(-nx // tx), -(-nz // tz)), smem=smem)
 
 
 def _adjoint_cuda(prm, injw, hist, res, wavs2, *, st, nsteps, z0):

@@ -163,13 +163,13 @@ def _bytes_per_shot(tb, calc_grad, kind):
     """Device bytes one shot holds at the peak of a chunk: on a gradient the
     history, the receiver and residual rows and the reverse's fields
     (4 scratch, 5 images, illumination, two source patterns and the chain
-    rule's temporaries); on a trial the forward's 5 fields, the source
-    patterns, the final p and the rows; and the misfit's."""
+    rule's temporaries); on a trial the forward's 3 fields (p, pp, r), the
+    two source patterns, the final p and the rows; and the misfit's."""
     f = 4 if tb.dtype == torch.float32 else 8
     field = tb.nz * tb.nx * f
     misfit = MISFIT_BYTES_PER_SAMPLE[kind] * tb.nt * tb.r_idx.shape[0]
     if not calc_grad:
-        return 8 * field + tb.nsteps * 4 * tb.nx * f + misfit
+        return 6 * field + tb.nsteps * 4 * tb.nx * f + misfit
     return tb.nsteps * (2 * field + 4 * tb.nx * f) + 20 * field + misfit
 
 

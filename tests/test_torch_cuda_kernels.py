@@ -23,12 +23,12 @@ at or below -big, bitwise, and inside the W2 misfit against the anchored
 route. The elastic kernels
 run on a two-layer 61 x 48 model (nbl 10, 1-5 shots, space order 4 and
 8; the padded 81 x 68 grid is no multiple of the forward step's 32 x 32
-tile), the two forward sweeps equal to their twins exactly, and raise,
+tile), the three sweeps equal to their twins exactly, and raise,
 launching nothing, past radius 8; the elastic objective on the card is
 held against its CPU twins, and
 ElasticWaveSolver against the reference goldens. The viscoacoustic kernels
 run on a two-layer 61 x 48 model with qp 60/90 (nbl 10, 2-3 shots, space
-order 4 and 8) in the same way, the reverse sweep equal to its twin
+order 4 and 8) in the same way, the three sweeps equal to their twins
 exactly, with the sls/2 solver golden. The TTI
 sweeps run on layers-tti 61 x 48 (nbl 10, 2 shots, space order 4 and 8, 7
 segments) in the same way; their checkpoint-route gradient must equal the
@@ -349,9 +349,9 @@ def _elastic_operands(space_order, dev, nsrc=2):
 @pytest.mark.parametrize("nsrc", [1, 2, 5])
 @pytest.mark.parametrize("space_order", [4, 8])
 def test_elastic_kernels_match_twins(cuda, space_order, nsrc):
-    """On the 81 x 68 padded grid (no multiple of the forward step's 32 x 32
-    tile): the modeling rows and the history forward equal their twins
-    exactly, the adjoint within 1e-6 of each image's max."""
+    """On the 81 x 68 padded grid (no multiple of the fused steps' 32 x 32
+    tile): the modeling rows, the history forward and the adjoint's five
+    images equal their twins exactly."""
     from devito_fwi_tpu_torch.ops import cuda_staggered as cs
     _, _, prm, injT, wav, dt, kw = _elastic_operands(space_order, cuda,
                                                      nsrc=nsrc)
@@ -376,8 +376,9 @@ def test_elastic_kernels_match_twins(cuda, space_order, nsrc):
     for got, want in zip(fwd, cs.elastic_fwd_hist_plain(
             *prm, injT, wav9, dt, seg=seg, **kw)):
         assert torch.equal(got, want)
-    _close(imgs, cs.elastic_grad_stream_plain(*prm, fwd[1], res, dt,
-                                              seg=seg, **kw))
+    for got, want in zip(imgs, cs.elastic_grad_stream_plain(
+            *prm, fwd[1], res, dt, seg=seg, **kw)):
+        assert torch.equal(got, want)
     nx = kw["nx"]
     a = rows10[:, :, :, 0].reshape(nsrc, -1, 2, nx)[:, :nsteps]
     assert torch.equal(a, fwd[0].reshape(nsrc, -1, 2, nx)[:, :nsteps])
@@ -399,6 +400,24 @@ def test_elastic_forward_raises_for_what_it_does_not_take(cuda):
         cs.elastic_fwd_hist_segments(
             *prm, injT, cs.pad_wavelet(wav, nsteps, nsteps), dt, seg=nsteps,
             **kw)
+    assert sum(cs.LAUNCHES.values()) == 0
+    assert sum(cs.TWIN_CALLS.values()) == 0
+
+
+@pytest.mark.cuda
+def test_elastic_adjoint_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9; the fused reverse step takes 1..8) raises
+    before any launch."""
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    _, _, prm, _, _, dt, kw = _elastic_operands(4, cuda)
+    kw = dict(kw, space_order=18)
+    nsteps = kw["nt"] - 1
+    hist = torch.zeros((2, 1, nsteps, 4, kw["nz"], kw["nx"]), device=cuda)
+    res = torch.zeros((2, 1, nsteps, 2, kw["nx"]), device=cuda)
+    cs.reset_counters()
+    with pytest.raises(ValueError):
+        cs.elastic_grad_stream_segments(*prm, hist, res, dt, seg=nsteps,
+                                        **kw)
     assert sum(cs.LAUNCHES.values()) == 0
     assert sum(cs.TWIN_CALLS.values()) == 0
 
@@ -513,15 +532,36 @@ def test_visco_kernels_match_twins(cuda, space_order):
     assert all(n == 1 for n in cv.LAUNCHES.values())
     assert sum(cv.TWIN_CALLS.values()) == 0
     torch.cuda.synchronize()
-    _close(out12, cv.visco_sls2_plain(*prm, injT, wav12, dt, **kw))
-    _close(fwd, cv.visco_fwd_hist_plain(*prm, injT, wav11, dt, seg=seg,
-                                        **kw))
+    for got, want in zip(out12, cv.visco_sls2_plain(*prm, injT, wav12, dt,
+                                                    **kw)):
+        assert torch.equal(got, want)
+    for got, want in zip(fwd, cv.visco_fwd_hist_plain(
+            *prm, injT, wav11, dt, seg=seg, **kw)):
+        assert torch.equal(got, want)
     for g, w in zip(imgs, cv.visco_grad_stream_plain(
             *prm, injwT, fwd[1], res, wavs2, dt, seg=seg, **kw)):
         assert torch.equal(g, w)
     nx = kw["nx"]
     assert torch.equal(out12[0][:, 0],
                        fwd[0].reshape(2, -1, 2, nx)[:, :nsteps])
+
+
+@pytest.mark.cuda
+def test_visco_forward_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9; the fused forward step takes 1..8) raises
+    before any launch, on both forward sweeps."""
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    _, _, prm, injT, _, wav, dt, kw = _visco_operands(4, cuda)
+    kw = dict(kw, space_order=18)
+    nsteps = kw["nt"] - 2
+    wav12 = cv.pad_wavelet(wav, kw["nt"], nsteps)
+    cv.reset_counters()
+    with pytest.raises(ValueError):
+        cv.visco_sls2_segments(*prm, injT, wav12, dt, **kw)
+    with pytest.raises(ValueError):
+        cv.visco_fwd_hist_segments(*prm, injT, wav12, dt, seg=nsteps, **kw)
+    assert sum(cv.LAUNCHES.values()) == 0
+    assert sum(cv.TWIN_CALLS.values()) == 0
 
 
 @pytest.mark.cuda

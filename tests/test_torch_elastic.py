@@ -23,7 +23,11 @@ elastic_fwi and convert) against the JAX package, on the CPU:
 * an f64 central-difference check of the vp gradient;
 * the fused forward step's launch helper against a block's shared memory,
   and its source operand (the pattern's non-zero cells) against the
-  pattern.
+  pattern;
+* a torch replay of the fused reverse step's order (ping-pong state, the
+  derived stress-adjoint fields formed again from the stored ones) equal
+  to the adjoint twin bitwise at f32, and the reverse step's launch helper
+  against a block's shared memory and the launch grid's limits.
 
 Small case (as tests/test_elastic_grad.py): a two-layer 41 x 36 model at
 10 m, nbl 8, space order 4, dt 1 ms, 2 shots, 21 receivers. The port's
@@ -643,3 +647,109 @@ def test_source_list_holds_the_pattern():
                 assert v == 0.0
     assert np.array_equal(back.reshape(inj.shape), inj)
     assert (cells >= 0).sum().item() == 7
+
+
+def _fused_adjoint_replay(prm, hist, res, *, st, nsteps, z0):
+    """A torch replay of the card's fused reverse step (csrc/elastic2d.cu
+    adjoint_step) in its order: the adjoint state (vxb, vzb, txxb, tzzb,
+    txzb) in two buffers, read from one and written to the other every
+    step; the derived fields (s lam) sum + (2 s mu) th_i and (s mu01) th_xz
+    not carried but formed at the start of each step from the stored stress
+    adjoints (zeros at the first); the velocity adjoints, then the images,
+    then the stress adjoints from (s b) vh, with the kernel's
+    association."""
+    lam, mu, b0, b1, damp, d0, d1, mu01, d01 = prm
+    B, total, _, nz, nx = hist.shape
+    sd = cs._make_sd(st)
+    P, M, s, two_s = st.P, st.M, st.s, st.two_s
+    bufs = [hist.new_zeros((5, B, nz, nx)), hist.new_zeros((5, B, nz, nx))]
+    imgs = hist.new_zeros((5, B, nz, nx))
+    for k, t in enumerate(range(nsteps - 1, -1, -1)):
+        vxb, vzb, txxb, tzzb, txzb = bufs[k & 1]
+        nxt = bufs[(k & 1) ^ 1]
+        # 1. the derived fields from the stored stress adjoints
+        thx = damp * txxb
+        thz = damp * tzzb
+        tho = d01 * txzb
+        sthd = thx + thz
+        s_lam = s * lam
+        two_s_mu = two_s * mu
+        dvbx = s_lam * sthd + two_s_mu * thx
+        dvbz = s_lam * sthd + two_s_mu * thz
+        gbs = (s * mu01) * tho
+        # 2. the velocity adjoints and the images
+        vhx = d0 * ((vxb - sd(dvbx, P, 0)) - sd(gbs, M, 1))
+        vhz = d1 * ((vzb - sd(dvbz, P, 1)) - sd(gbs, M, 0))
+        vnx, vnz, dtx, dtz = hist[:, t].unbind(1)
+        dvx = sd(vnx, M, 0)
+        dvz = sd(vnz, M, 1)
+        g = sd(vnx, P, 1) + sd(vnz, P, 0)
+        imgs[0] = imgs[0] + (s * (dvx + dvz)) * sthd
+        imgs[1] = imgs[1] + two_s * (dvx * thx + dvz * thz)
+        imgs[2] = imgs[2] + (s * g) * tho
+        imgs[3] = imgs[3] + (s * dtx) * vhx
+        imgs[4] = imgs[4] + (s * dtz) * vhz
+        # 3. the stress adjoints from (s b) vh, the residual rows
+        sbx = (s * b0) * vhx
+        sbz = (s * b1) * vhz
+        tzzb_n = thz - sd(sbz, M, 1)
+        tzzb_n[:, z0:z0 + 2] = tzzb_n[:, z0:z0 + 2] + res[:, t]
+        nxt[0], nxt[1] = vhx, vhz
+        nxt[2] = thx - sd(sbx, M, 0)
+        nxt[3] = tzzb_n
+        nxt[4] = (tho - sd(sbx, P, 1)) - sd(sbz, P, 0)
+    return tuple(imgs)
+
+
+def test_fused_adjoint_order_equals_twin_bitwise():
+    """The fused reverse step's order (ping-pong state, the derived fields
+    formed again from the stored stress adjoints, the images between the
+    velocity and the stress adjoints) gives the plain twin's five images
+    bit for bit at float32 on the small case."""
+    c = _kernel_case(np.float32)
+    kw = c["kw"]
+    nsteps = kw["nt"] - 1
+    B, nseg, seg = c["res"].shape[:3]
+    st = cs._stencils(4, kw["spacing"], c["dt"], torch.float32)
+    hist = c["hist"].reshape(B, nseg * seg, 4, kw["nz"], kw["nx"])
+    res = c["res"].reshape(B, nseg * seg, 2, kw["nx"])
+    got = _fused_adjoint_replay(c["prm"], hist, res, st=st, nsteps=nsteps,
+                                z0=kw["z0"])
+    for g, w in zip(got, c["imgs"]):
+        assert torch.equal(g, w)
+        assert float(w.abs().max()) > 0
+
+
+@pytest.mark.parametrize("B,nz,nx,r,smem,grid", [
+    (31, 220, 420, 4, 65_536, (31, 14, 7)),     # the SMARM2 main path
+    (31, 220, 420, 8, 98_304, (31, 14, 7)),
+    (1, 1, 1, 1, 46_336, (1, 1, 1)),
+])
+def test_adjoint_launch_fits_shared_memory(B, nz, nx, r, smem, grid):
+    """The fused reverse step's launch at the SMARM2 main path (31 shots,
+    220 x 420 padded, space order 8), at the largest radius the kernel
+    takes and at the smallest case fits a block's 232,448 bytes."""
+    launch = cs.adjoint_launch(B, nz, nx, r)
+    assert launch.smem == smem <= cs.SMEM_LIMIT
+    assert launch.grid == grid
+    assert launch.tile == (32, 32) and launch.threads == 512
+
+
+@pytest.mark.parametrize("args", [
+    (31, 220, 420, 0), (31, 220, 420, 9), (0, 220, 420, 4),
+    (31, 0, 420, 4), (31, 220, 0, 4), (1, 2 ** 16, 2 ** 15, 4),
+    (1, 1, 32 * 2 ** 16, 4), (2 ** 31, 1, 1, 4)])
+def test_adjoint_launch_refuses_what_the_kernel_does_not_take(args):
+    """Beyond radius 8, an empty grid, 2^31 cells, 65,536 tiles along an
+    axis or 2^31 shots: the helper raises, so the wrapper launches
+    nothing."""
+    with pytest.raises(ValueError):
+        cs.adjoint_launch(*args)
+
+
+def test_tile_launch_refuses_shared_memory_past_a_block():
+    with pytest.raises(ValueError, match="shared memory"):
+        cs.tile_launch("probe", 1, 32, 32, 4, (32, 32), 512,
+                       cs.SMEM_LIMIT + 4, shots_first=True)
+    assert cs.tile_launch("probe", 1, 32, 32, 4, (32, 32), 512,
+                          cs.SMEM_LIMIT, shots_first=True).grid == (1, 1, 1)

@@ -136,9 +136,21 @@ def test_ctypes_signatures_match_the_bfm_source():
     _check_signatures(cb, "bfm_push.cu")
 
 
+def _kernels_launched(source):
+    """The __global__ kernels that the source's run_* loops launch."""
+    import re
+    src = open(os.path.join(PKG, "csrc", source)).read()
+    return set(re.findall(r"\b(\w+)<[^<>]*><<<", src))
+
+
 def test_ctypes_signatures_match_the_elastic_source():
-    """The same for cuda_staggered.SIGNATURES and csrc/elastic2d.cu."""
+    """The same for cuda_staggered.SIGNATURES and csrc/elastic2d.cu, whose
+    sweeps each launch one fused step kernel a step (forward_step,
+    adjoint_step; the scratch of ``elastic2d_adjoint`` is two adjoint
+    states)."""
     _check_signatures(cs, "elastic2d.cu")
+    assert _kernels_launched("elastic2d.cu") == {"forward_step",
+                                                 "adjoint_step"}
 
 
 def _elastic_geometry():
@@ -185,8 +197,12 @@ def test_viscoacoustic_physics_still_raises(tmp_path, monkeypatch):
 
 
 def test_ctypes_signatures_match_the_visco_source():
-    """The same for cuda_visco.SIGNATURES and csrc/visco2d.cu."""
+    """The same for cuda_visco.SIGNATURES and csrc/visco2d.cu, whose
+    forward takes the source as its non-zero cells (src_cell, src_val, K)
+    and whose sweeps each launch one fused step kernel a step."""
     _check_signatures(cv, "visco2d.cu")
+    assert _kernels_launched("visco2d.cu") == {"forward_step",
+                                               "adjoint_step"}
 
 
 def _visco_geometry():

@@ -14,7 +14,9 @@ JAX package, on the CPU:
   against the XLA ``visco_sls2_forward_hist`` / ``adjoint_from_hist``
   (1e-10); the port's eager saved route against the JAX one at f64; the
   card's fused reverse step order replayed in torch at f32, bitwise the
-  twin, and its launch helper against a block's shared memory;
+  twin, and its launch helper against a block's shared memory; the fused
+  forward step's order with the source at the pattern's non-zero cells,
+  bitwise the dense-pattern twins, and its launch helper likewise;
 * ``visco_fwi_obj_multi`` (objective, vp and qp gradients) with L2 and
   W2-1d: at f32 against the JAX Pallas route in interpret mode (objective
   1e-5, W2-1d 1e-4; gradients 1e-4 of their max, no precondition), at f64
@@ -396,6 +398,95 @@ def test_adjoint_launch_fits_shared_memory():
                  (1, 1, 32 * 2 ** 16, 4)):
         with pytest.raises(ValueError):
             cv.adjoint_launch(*args)
+
+
+def _fused_forward_replay(prm, wav_pad, inj, *, st, nsteps, z0, hist):
+    """A torch replay of the card's fused forward step (csrc/visco2d.cu
+    forward_step) in its order: L from the two fluxes b D+ p, rn over r and
+    pn over pp in place, then p and pp swap; the source added only at
+    inj's non-zero cells (``cuda_staggered._source_list``), where the twin
+    adds wav[t] * inj everywhere."""
+    damp, b, A, Bc, C, D = prm
+    B, nz, nx = inj.shape
+    total = wav_pad.shape[0]
+    lsa = cv._lsa(cs._make_sd(st), st, b)
+    cells, vals, _ = cs._source_list(inj)
+    shot, slot = (cells >= 0).nonzero(as_tuple=True)
+    cell = cells[shot, slot].long()
+    p, pp, r = inj.new_zeros((3, B, nz, nx))
+    rec = inj.new_empty((B, total, 2, nx))
+    H = inj.new_empty((B, total, 2, nz, nx))
+    illum = inj.new_zeros((B, nz, nx))
+    pout = None
+    for t in range(total):
+        rec[:, t] = p[:, z0:z0 + 2]
+        L = lsa(p)
+        r.copy_(damp * ((r + A * L) - Bc * r))
+        pn = damp * ((((2.0 * p) - damp * pp) + C * L) - D * r)
+        flat = pn.reshape(B, -1)
+        flat[shot, cell] = flat[shot, cell] + wav_pad[t] * vals[shot, slot]
+        pp.copy_(pn)
+        H[:, t, 0] = L
+        H[:, t, 1] = r
+        if t < nsteps:
+            illum = illum + pp * pp
+        p, pp = pp, p
+        if t == nsteps - 1:
+            pout = p.clone()
+    if hist:
+        return rec, H, illum
+    return rec, pout
+
+
+def test_fused_forward_source_list_equals_twin_bitwise():
+    """The fused forward step's order, with the source added at inj's
+    non-zero cells only, gives the dense-pattern twin's outputs bit for bit
+    at float32 on the small case: the modeling sweep's rows and final p,
+    the history sweep's rows, history and illumination."""
+    c = _kernel_case(np.float32)
+    kw = c["kw"]
+    nsteps = kw["nt"] - 2
+    st = cs._stencils(4, kw["spacing"], c["dt"], torch.float32)
+    got = _fused_forward_replay(c["prm"], c["wav12"][:nsteps], c["injT"],
+                                st=st, nsteps=nsteps, z0=kw["z0"],
+                                hist=False)
+    assert torch.equal(got[0].reshape(c["rows12"].shape), c["rows12"])
+    assert torch.equal(got[1], c["pout"])
+    got = _fused_forward_replay(c["prm"], c["wav11"], c["injT"], st=st,
+                                nsteps=nsteps, z0=kw["z0"], hist=True)
+    want = (c["rows"], c["hist"], c["illum"])
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w.shape), w)
+    assert float(c["illum"].abs().max()) > 0
+    # the list holds the bilinear corners: at most four cells a shot
+    cells = cs._source_list(c["injT"])[0]
+    assert int((cells >= 0).sum()) <= 4 * cells.shape[0]
+
+
+@pytest.mark.parametrize("B,nz,nx,r,smem,grid", [
+    (29, 186, 380, 4, 19_456, (29, 12, 6)),     # the SMARMN main path
+    (29, 186, 380, 8, 28_672, (29, 12, 6)),
+    (1, 1, 1, 1, 13_888, (1, 1, 1)),
+])
+def test_forward_launch_fits_shared_memory(B, nz, nx, r, smem, grid):
+    """The fused forward step's launch at the SMARMN main path (29 shots,
+    186 x 380 padded, space order 8), at the largest radius the kernel
+    takes and at the smallest case fits a block's 232,448 bytes."""
+    launch = cv.forward_launch(B, nz, nx, r)
+    assert launch.smem == smem <= cs.SMEM_LIMIT
+    assert launch.grid == grid
+    assert launch.tile == (32, 32) and launch.threads == 512
+
+
+@pytest.mark.parametrize("args", [
+    (29, 186, 380, 0), (29, 186, 380, 9), (0, 186, 380, 4),
+    (29, 0, 380, 4), (29, 186, 0, 4), (1, 2 ** 16, 2 ** 15, 4),
+    (1, 1, 32 * 2 ** 16, 4), (1, 32 * 2 ** 16, 1, 4)])
+def test_forward_launch_refuses_what_the_kernel_does_not_take(args):
+    """Beyond radius 8, an empty grid, 2^31 cells or 65,536 tiles along an
+    axis: the helper raises, so the wrapper launches nothing."""
+    with pytest.raises(ValueError):
+        cv.forward_launch(*args)
 
 
 def test_twins_match_the_saved_route_f64():
