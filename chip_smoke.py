@@ -11,11 +11,13 @@ result line is printed:
    process per source, all started together (timed);
 3. kernel vs twin, quick gate: each acoustic CUDA kernel against its plain
    torch twin on the card, at the SMARMN Marmousi grid (380 x 186 padded,
-   nt 1357) with 3 shots, on every output;
+   nt 1357) with 3 shots, on every output, exactly;
 4. kernel vs twin at the main path's shapes (29 shots, the history past
    2^31 elements): each acoustic kernel beside its twin, CUDA events after
-   a warm-up, every output of the timed calls compared, with the card's
-   bound; the checkpoint-route gradient against the streamed one, bitwise;
+   a warm-up, every output of the timed calls compared (exactly:
+   max|kernel-twin| must be 0), with the card's bound; the checkpoint-route
+   gradient against the streamed one, bitwise; the fused forward tile's
+   launch and the forwards' per-step traffic floors;
 5. the slab kernel at the main path's shapes: the subsamples of the last
    pushforward of a live SMARMN W2-2d objective (29 shots, the initial
    model), in the natural and the blocked layout, kernel against twin on
@@ -130,7 +132,7 @@ result line is printed:
    m, space order 8, nbl 16, padded 128^3, 333 steps) with 3 shots, the
    three streamed 3-D CUDA kernels against their twins on every output,
    without and with the free surface, and the step kernel against its twin
-   on one 128^3 step;
+   on one 128^3 step, all exactly;
 30. main path, 3-D: bench config 5 (4 shots, 48 receivers, tn 500 ms, L2)
    on cuda: the observed data through ``forward_rec3`` (no reflection
    arrives within tn, so the path inverts them scaled by 0.9), the
@@ -141,9 +143,10 @@ result line is printed:
    twin called;
 31. 3-D kernel vs twin and kernel times at the main path's 4 shots (the
    history 11.17 GB, 2.79e9 elements): kernel beside twin, CUDA events,
-   with the card's bound; the step kernel's own device time a launch
-   (``torch.profiler`` over 300 calls) beside the wrapper's event-timed
-   pace; the 3-D phases' own seconds;
+   with the card's bound, all exactly; the y march's launch and the
+   forwards' per-step traffic floors; the step kernel's own device time a
+   launch (``torch.profiler`` over 300 calls) beside the wrapper's
+   event-timed pace; the 3-D phases' own seconds;
 32. 3-D profile: one steady-state gradient and one trial under
    ``torch.profiler``;
 33. B15 kernel vs twin, quick gate: ``cuda_legacy.forward_rows`` (the
@@ -287,11 +290,15 @@ def cuda_ms(fn, reps):
 
 
 # the kernels redesigned for the H100 keep their twins' sums term for term
-# and in order: their outputs must equal the twins' exactly
+# and in order: their outputs must equal the twins' exactly; so must the
+# acoustic kernels that share their sources (rows 3, 5, 7 and 10)
 EXACT = ("pushforward_slabs_nat", "pushforward_slabs", "elastic_segments",
          "elastic_fwd_hist_segments", "elastic_grad_stream_segments",
          "visco_sls2_segments", "visco_fwd_hist_segments",
-         "visco_grad_stream_segments")
+         "visco_grad_stream_segments", "forward_rec_segments",
+         "forward_dt2_segments", "gradient_stream_segments",
+         "forward_ckpt_segments", "gradient_segments", "forward_rec3",
+         "forward_dt2_stream3", "gradient_stream3", "step3")
 
 
 def compare(name, got, want):
@@ -457,22 +464,51 @@ def elastic_bounds(tb, B):
     return {name: bound(*w) for name, w in work.items()}
 
 
-def step_floors(tb, B, fields):
-    """Per-step traffic floors: {name: (fused ms, first-design ms, fused
-    fields, first-design fields)}, the fields a step through device memory
-    at 3.35 TB/s over the sweep's steps."""
-    per_ms = B * tb.nz * tb.nx * 4 * tb.nsteps / PEAK_BYTES_PER_S * 1e3
-    return {name: (fused * per_ms, two * per_ms, fused, two)
-            for name, (fused, two) in fields.items()}
+def step_floors(cells, nsteps, fields):
+    """Per-step traffic floors: {name: (redesigned ms, first-design ms,
+    redesigned fields, first-design fields)}, the fields of ``cells`` cells
+    a step through device memory at 3.35 TB/s over ``nsteps`` steps."""
+    per_ms = cells * 4 * nsteps / PEAK_BYTES_PER_S * 1e3
+    return {name: (new * per_ms, old * per_ms, new, old)
+            for name, (new, old) in fields.items()}
 
 
 def print_floors(floors, ms, nsteps):
-    for name, (fused, two, nf, nt) in floors.items():
-        print(f"   {name}: per-step traffic floor {fused:.3f} ms (the fused "
-              f"step's {nf} fields, {fused / nsteps * 1e3:.1f} us a step); "
-              f"{two:.3f} ms for the first design's two launches ({nt} "
-              f"fields); kernel {ms[name] / nsteps * 1e3:.1f} us a step, "
-              f"{ms[name] / fused:.2f}x the fused floor")
+    for name, (new, old, nn, no) in floors.items():
+        print(f"   {name}: per-step traffic floor {new:.3f} ms (the "
+              f"redesign's {nn:g} fields a step, {new / nsteps * 1e3:.1f} "
+              f"us a step); {old:.3f} ms for the first design's {no:g} "
+              f"fields; kernel {ms[name] / nsteps * 1e3:.1f} us a step, "
+              f"{ms[name] / new:.2f}x the redesign's floor")
+
+
+def acoustic_step_floors(st, B):
+    """The 2-D acoustic forwards' per-step traffic floors, in fields of the
+    batch over the ``total`` padded steps they run. The fused tile runs two
+    steps a launch: it reads u and up and writes the two new fields, 2
+    fields a step; the history adds its write (1), the illumination its
+    read and write once a launch (1 a step), 4; the checkpoint sweep the
+    illumination (the pairs are 2 fields a segment), 3. The first design's
+    one launch a step moved 4 (u, up and the dense source pattern read, up
+    written), 7 with the history and the illumination, 6 with the
+    illumination and the pairs."""
+    return step_floors(B * st.nz * st.nx, st.nseg * st.seg,
+                       {"forward_rec_segments": (2, 4),
+                        "forward_dt2_segments": (4, 7),
+                        "forward_ckpt_segments": (3, 6)})
+
+
+def acoustic3d_step_floors(st, B):
+    """The 3-D forwards' per-step traffic floors, in fields of one shot.
+    The march reads u and up and writes up for each of the B shots and the
+    three parameter fields once (the shots of a tile run together): 3B + 3;
+    the history adds its write and the illumination's read and write: 6B +
+    3. The first design had the shot as the grid's slowest axis, so the
+    parameters came in once a shot: 6B and 9B."""
+    ny, nz, nx = st.m3.shape
+    return step_floors(ny * nz * nx, st.nsteps,
+                       {"forward_rec3": (3 * B + 3, 6 * B),
+                        "forward_dt2_stream3": (6 * B + 3, 9 * B)})
 
 
 def elastic_step_floors(tb, B):
@@ -488,9 +524,10 @@ def elastic_step_floors(tb, B):
     images read and written), the stress phase 11 (the two velocity and
     three stress adjoints read, the three stress adjoints and three
     derived fields written)."""
-    return step_floors(tb, B, {"elastic_segments": (10, 16),
-                               "elastic_fwd_hist_segments": (14, 20),
-                               "elastic_grad_stream_segments": (24, 35)})
+    return step_floors(B * tb.nz * tb.nx, tb.nsteps,
+                       {"elastic_segments": (10, 16),
+                        "elastic_fwd_hist_segments": (14, 20),
+                        "elastic_grad_stream_segments": (24, 35)})
 
 
 def visco_step_floors(tb, B):
@@ -506,9 +543,10 @@ def visco_step_floors(tb, B):
     the flux launch 6 (lp and lr, four fluxes), the update 25 (the fluxes,
     the history, the dense source weights, lp, lpp, lr, pendR and the five
     images read; lp, lpp, lr, pendR and the images written)."""
-    return step_floors(tb, B, {"visco_sls2_segments": (5, 11),
-                               "visco_fwd_hist_segments": (9, 15),
-                               "visco_grad_stream_segments": (16, 31)})
+    return step_floors(B * tb.nz * tb.nx, tb.nsteps,
+                       {"visco_sls2_segments": (5, 11),
+                        "visco_fwd_hist_segments": (9, 15),
+                        "visco_grad_stream_segments": (16, 31)})
 
 
 def visco_bounds(tb, B):
@@ -1813,6 +1851,12 @@ def acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
+    ny, nz, nx = st.m3.shape
+    launch = c3d.forward_launch(B, ny, nz, nx, kw["space_order"] // 2)
+    print(f"   y march: tile {launch.tile}, {launch.threads} threads, grid "
+          f"{launch.grid}, {launch.chunks} y-chunks of {launch.ylen} "
+          f"planes, {launch.smem} bytes of shared memory a block")
+    print_floors(acoustic3d_step_floors(st, B), ms, st.nsteps)
 
     phase(f"32 3-D profile: one steady-state gradient and one trial, {B} "
           "shots")
@@ -2058,9 +2102,9 @@ def main():
 
     phase(f"3 kernel vs twin (quick gate), {NSHOTS_CHECK} shots at the "
           "Marmousi grid")
-    print(f"   tolerance {RTOL:g} x max|twin|: the kernels are compiled with "
-          "-fmad=false and repeat the twins' float32 operations one for one,"
-          " so they should agree bitwise")
+    print(f"   tolerance 0 (the acoustic kernels are in EXACT): they are "
+          "compiled with -fmad=false and repeat the twins' float32 "
+          "operations one for one")
     rng = np.random.default_rng(SEED)
     injT = st.injT(0, NSHOTS_CHECK)
     ops = (st.mT, st.hdT, st.wav_pad, injT, st.dt)
@@ -2139,6 +2183,11 @@ def main():
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
+    launch = ca.forward_launch(B, st.nz, st.nx, kw["space_order"] // 2)
+    print(f"   fused forward tile: {launch.steps} steps a launch, tile "
+          f"{launch.tile}, {launch.threads} threads, grid {launch.grid}, "
+          f"{launch.smem} bytes of shared memory a block")
+    print_floors(acoustic_step_floors(st, B), ms, st.nseg * st.seg)
 
     phase(f"5 slab kernel at the main-path shapes, {B} shots")
     obs = fwi.fm_multi(geoms[0], device="cuda")

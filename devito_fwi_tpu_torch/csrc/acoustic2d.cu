@@ -1,6 +1,6 @@
 // 2-D acoustic OT2 leapfrog sweeps for Hopper (sm_90a), plain C interface
 // for ctypes. Four entry points, each one sweep over all time steps of a
-// shot batch, one kernel launch per step on the caller's stream:
+// shot batch on the caller's stream:
 //
 //   acoustic2d_forward(..., dt2 = NULL, ckpt = NULL)
 //       replaces forward_rec_segments (devito_fwi_tpu/ops/pallas_acoustic.py
@@ -30,32 +30,47 @@
 //
 // Layout: fields are (B, nz, nx) float32 with x contiguous (the transposed
 // layout of the JAX kernels); m, two_m_hd = 2m + hd and denom = 1/(m + hd)
-// are (nz, nx) and shared by all shots; receiver rows are (B, total, 2, nx)
-// on the padded z-planes z0 and z0 + 1; the history is (B, total, nz, nx);
-// the segment pairs are (B, nseg, 2, nz, nx) and the recompute scratch
+// are (nz, nx) and shared by all shots; the source pattern (w s^2/m at the
+// bilinear corners, at most four cells a shot) comes as each shot's non-zero
+// cells (src_cell, src_val); receiver rows are (B, total, 2, nx) on the
+// padded z-planes z0 and z0 + 1; the history is (B, total, nz, nx); the
+// segment pairs are (B, nseg, 2, nz, nx) and the recompute scratch
 // (B, seg, nz, nx).
 //
 // What bounds it on the card: the forward with history writes
 // B * total * nz * nx * 4 bytes (11.2 GB for the 29-shot Marmousi batch) and
 // the adjoint reads them back, so both are bound by device-memory bandwidth;
-// the receivers-only and the checkpoint forwards move almost nothing and are
-// bound by the ~40 float operations per cell and step, and so is the
-// checkpoint gradient (two stencil sweeps, its scratch of one segment stays
-// in L2 for a few shots and streams otherwise). The state of all shots
-// (u, u_prev, inj, illum: 4 fields of 283 KB for each of 29 shots, ~33 MB)
-// fits the 50 MB L2, so the stencil's neighbour reads are L2/L1 hits.
+// the receivers-only and the checkpoint forwards move little beyond their
+// state and are bound by the ~40 float operations per cell and step. Taken a
+// step at a time, each sweep's floor is its state through device memory once
+// a step: a field of the 29-shot batch is 8.2 MB.
 //
-// What the design does about it: one thread per cell and one launch per time
-// step for the whole batch (blockIdx.z is the shot), so a step is a single
-// wide launch and the history is written once, coalesced, as it is produced.
-// The per-cell update overwrites u_prev in place (each cell reads its own
-// u_prev before writing it and no other thread reads it), so two buffers per
-// shot suffice. A field (283 KB) does not fit one block's shared memory, so
-// the neighbours come through the caches rather than a resident tile. This
-// simple design runs each sweep 10-20x above its bound on the H100 (times
-// in PERF.md): the card idles between the short launches and the stencil
-// re-reads every neighbour from L1/L2. Several steps per launch,
-// shared-memory tiles and thread-block clusters are the next steps.
+// The forwards (forward_tile): the first design ran one launch a step, one
+// thread a cell, every neighbour re-read through L1/L2, and the dense source
+// pattern read at every cell: 4 fields a step for the modeling sweep (u and
+// up read, up written, inj read), 7 with the history, 6 with the pairs, and
+// the start and tail of 1368 short launches (~21 us a step). The fused tile
+// runs kSteps = 2 steps a launch over a kTX x kTZ tile of one shot (512
+// threads, two cells a thread): it loads u on the tile and a 2R halo into
+// shared memory once, forms step t on the tile and an R halo there (the
+// halo's cells repeat their owners' operations on the same stored values,
+// so they round alike), then step t + 1 on the tile, and writes both new
+// fields, every step's record rows, history values, illumination and
+// segment pairs of the cells it owns. The source adds only at its cells, in
+// the halo too (adding wav * 0 elsewhere changes no finite value).
+// Neighbouring tiles read this launch's u and up in their halos, so the
+// state ping-pongs between two pairs of buffers; a sweep or segment of odd
+// length ends with one single-step launch, which writes un over up in place
+// (read only at the cell's own place). 2 fields a step for the modeling
+// sweep, 4 with the history, 3 with the pairs. The shots are the grid's
+// fastest axis, so a tile's coefficients stay in L1/L2 across its shots.
+// Times against these floors are in PERF.md (kernel table, rows 1, 2, 4).
+//
+// The reverse sweeps (adjoint_step) keep the first design: one thread per
+// cell and one launch per time step for the whole batch (blockIdx.z is the
+// shot); the per-cell update overwrites v_prev in place (each cell reads its
+// own before writing it and no other thread reads it), and the neighbours
+// come through L1/L2.
 //
 // Numerics: the arithmetic association of the JAX kernels' _make_lap_t and
 // update is kept term for term (shift pair summed before the weight
@@ -127,49 +142,304 @@ __device__ __forceinline__ float laplacian(const float* __restrict__ u, int z,
   return accx * s.inv_h2x + accz * s.inv_h2z;
 }
 
-// One forward step t for all shots: up <- un (in place), and what FLAGS
-// asks for: receiver rows of u, the history value at (b, t) of a
-// (B, total, nz, nx) buffer, the illumination, the segment-start pair.
-template <int R, bool FS, int FLAGS>
-__global__ void forward_step(const float* __restrict__ u,
-                             float* __restrict__ up,
-                             const float* __restrict__ m,
-                             const float* __restrict__ two_m_hd,
-                             const float* __restrict__ denom,
-                             const float* __restrict__ wav,
-                             const float* __restrict__ inj,
-                             float* __restrict__ rec,
-                             float* __restrict__ dt2,
-                             float* __restrict__ illum,
-                             float* __restrict__ ckpt, int t, int total,
-                             int nsteps, int seg, int nseg, int nz, int nx,
-                             int z0, Stencil s) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int z = blockIdx.y * kBY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)nz * nx;
-  const size_t cell = (size_t)z * nx + x;
-  const size_t bt = (size_t)b * total + t;
-  const float* ub = u + (size_t)b * field;
-  const size_t o = (size_t)b * field + cell;
-
-  const float uc = ub[cell];
-  if ((FLAGS & kRec) && (z == z0 || z == z0 + 1))
-    rec[(bt * 2 + (z - z0)) * nx + x] = uc;
-  const float upc = up[o];
-  if ((FLAGS & kCkpt) && t % seg == 0) {
-    const size_t pair = ((size_t)b * nseg + t / seg) * 2 * field + cell;
-    ckpt[pair] = uc;
-    ckpt[pair + field] = upc;
+// Laplacian at c, a cell of a tile in shared memory with rows of S floats
+// and zeros beyond the grid, whose global row is z: the association of
+// laplacian() term for term.
+template <int R, bool FS>
+__device__ __forceinline__ float laplacian_tile(const float* c, int S, int z,
+                                                const Stencil& s) {
+  const float v = c[0];
+  float accx = s.w[0] * v;
+#pragma unroll
+  for (int k = 1; k <= R; ++k) accx = accx + s.w[k] * (c[k] + c[-k]);
+  float accz = s.w[0] * v;
+  if (FS && z <= R) {
+    // free-surface rows: plain +k term, then the odd mirror (zero at z = 0)
+#pragma unroll
+    for (int k = 1; k <= R; ++k) {
+      accz = accz + s.w[k] * c[k * S];
+      const int i = z - k;
+      if (i > 0) {
+        accz = accz + s.w[k] * c[-k * S];
+      } else if (i < 0) {
+        accz = accz - s.w[k] * c[(k - 2 * z) * S];  // row -i
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 1; k <= R; ++k)
+      accz = accz + s.w[k] * (c[k * S] + c[-k * S]);
   }
-  const float lap = laplacian<R, FS>(ub, z, x, nz, nx, s);
-  const float un =
-      (lap + two_m_hd[cell] * uc - m[cell] * upc) * denom[cell] +
-      wav[t] * inj[o];
-  if (FLAGS & kHist) dt2[bt * field + cell] = un - 2.0f * uc + upc;
-  if ((FLAGS & kIllum) && t < nsteps) illum[o] = illum[o] + un * un;
-  up[o] = un;
+  return accx * s.inv_h2x + accz * s.inv_h2z;
+}
+
+// The fused forward's tile (forward_tile): kTX x kTZ cells of one shot,
+// kThreads threads, kSteps steps a launch. The shot is blockIdx.x.
+constexpr int kTX = 32;
+constexpr int kTZ = 32;
+constexpr int kThreads = 512;
+constexpr int kSteps = 2;
+constexpr int kCells = kTX * kTZ / kThreads;
+static_assert(kTX * kTZ % kThreads == 0, "whole cells a thread");
+
+// Shared memory of a STEPS-step launch: u on the tile and a STEPS * R halo
+// (its corners past (STEPS - 1) * R along both axes are never read) and,
+// with two steps, step t's field on the tile and an R halo (corners unread).
+template <int R, int STEPS>
+struct FwdTile {
+  static constexpr int H = STEPS * R;      // u's halo
+  static constexpr int E = H - R;          // step t's halo
+  static constexpr int SX = kTX + 2 * H;   // u: SZ rows x SX
+  static constexpr int SZ = kTZ + 2 * H;
+  static constexpr int NX = kTX + 2 * R;   // step t: NZ rows x NX
+  static constexpr int NZ = kTZ + 2 * R;
+  static constexpr int kRing = 2 * R * (kTX + kTZ);   // step t's halo cells
+  static constexpr int kFloats = SX * SZ + (STEPS == 2 ? NX * NZ : 0);
+  static constexpr size_t kBytes = kFloats * sizeof(float);
+};
+static_assert(FwdTile<kMaxR, 2>::kBytes <= 48 * 1024, "static shared memory");
+
+// v plus the source of the shot at its cell, if the cell is one of the
+// shot's source cells (src: the launch holds one)
+__device__ __forceinline__ float add_source(float v, bool src, int cell,
+                                           const int* __restrict__ cells,
+                                           const float* __restrict__ vals,
+                                           int K, float wt) {
+  if (src) {
+    for (int j = 0; j < K; ++j)
+      if (cells[j] == cell) v = v + wt * vals[j];
+  }
+  return v;
+}
+
+// Steps t .. t + STEPS - 1 over one tile of one shot. Reads u (with its
+// halo) and up; with two steps writes step t's field to nup and step
+// t + 1's to nu (neither is u or up, which neighbouring tiles read), with
+// one step its field to nu, which may be up (each cell reads its own up
+// before writing it, and nothing else reads up). At the tile's own cells,
+// for each step: the receiver rows of u before the step, and what FLAGS
+// asks for (the history value at (b, t) of a (B, total, nz, nx) buffer, the
+// illumination for t < nsteps, the segment-start pair).
+template <int R, bool FS, int FLAGS, int STEPS>
+__global__ void __launch_bounds__(kThreads)
+forward_tile(const float* __restrict__ u, const float* up, float* nu,
+             float* nup, const float* __restrict__ m,
+             const float* __restrict__ two_m_hd,
+             const float* __restrict__ denom, const float* __restrict__ wav,
+             const int* __restrict__ src_cell,
+             const float* __restrict__ src_val, int K,
+             float* __restrict__ rec, float* __restrict__ dt2,
+             float* __restrict__ illum, float* __restrict__ ckpt, int t,
+             int total, int nsteps, int seg, int nseg, int nz, int nx,
+             int z0, Stencil s) {
+  using T = FwdTile<R, STEPS>;
+  constexpr int H = T::H;
+  constexpr int E = T::E;
+  constexpr int SX = T::SX;
+  constexpr int NX = T::NX;
+  __shared__ float smem[T::kFloats];
+  float* su = smem;                   // u
+  float* sn = smem + SX * T::SZ;      // step t (two steps)
+  const int b = blockIdx.x;           // the shots of a tile adjoin
+  const int xt = blockIdx.y * kTX;
+  const int zt = blockIdx.z * kTZ;
+  const int tid = threadIdx.x;
+  const size_t field = (size_t)nz * nx;
+  const size_t off = (size_t)b * field;
+  const float* ub = u + off;
+  const int* cells_b = src_cell + (size_t)b * K;
+  const float* vals_b = src_val + (size_t)b * K;
+
+  // 0. the operands of the cells this thread updates, read first: their
+  // latency hides under phase 1. The tile's own cells (kCells a thread),
+  // and with two steps the ring of step t's halo.
+  float upv[kCells], mv[kCells], av[kCells], dv[kCells], il[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int gx = xt + k % kTX;
+    const int gz = zt + k / kTX;
+    const bool in = gx < nx && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    upv[i] = in ? up[off + cell] : 0.0f;
+    mv[i] = in ? m[cell] : 0.0f;
+    av[i] = in ? two_m_hd[cell] : 0.0f;
+    dv[i] = in ? denom[cell] : 0.0f;
+    il[i] = (FLAGS & kIllum) && in && t < nsteps ? illum[off + cell] : 0.0f;
+  }
+  constexpr int kNR = STEPS == 2 ? (T::kRing + kThreads - 1) / kThreads : 0;
+  int rx[kNR > 0 ? kNR : 1], rz[kNR > 0 ? kNR : 1];
+  float rup[kNR > 0 ? kNR : 1], rm[kNR > 0 ? kNR : 1],
+      ra[kNR > 0 ? kNR : 1], rd[kNR > 0 ? kNR : 1];
+#pragma unroll
+  for (int i = 0; i < kNR; ++i) {
+    // ring cell j in step t's coordinates (lx, lz) of the NX x NZ region:
+    // R rows above and below the tile, then R columns left and right
+    const int j = tid + i * kThreads;
+    int lx, lz;
+    if (j < 2 * R * kTX) {
+      const int row = j / kTX;
+      lx = R + j % kTX;
+      lz = row < R ? row : kTZ + row;
+    } else {
+      const int j2 = j - 2 * R * kTX;
+      const int col = j2 % (2 * R);
+      lx = col < R ? col : kTX + col;
+      lz = R + j2 / (2 * R);
+    }
+    rx[i] = lx;
+    rz[i] = lz;
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    const bool in =
+        j < T::kRing && gx >= 0 && gx < nx && gz >= 0 && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    rup[i] = in ? up[off + cell] : 0.0f;
+    rm[i] = in ? m[cell] : 0.0f;
+    ra[i] = in ? two_m_hd[cell] : 0.0f;
+    rd[i] = in ? denom[cell] : 0.0f;
+  }
+
+  // does a source cell of the shot fall among the cells this launch
+  // updates (the tile and step t's halo)? Most tiles hold none.
+  bool mine = false;
+  for (int j = tid; j < K; j += kThreads) {
+    const int c = cells_b[j];
+    if (c >= 0) {
+      const int cz = c / nx;
+      const int cx = c - cz * nx;
+      mine = mine || (cz >= zt - E && cz < zt + kTZ + E && cx >= xt - E &&
+                      cx < xt + kTX + E);
+    }
+  }
+
+  // 1. u on the tile and its halo, zero beyond the grid and in the corners
+  // never read; all of a thread's loads first
+  constexpr int kN1 = (SX * T::SZ + kThreads - 1) / kThreads;
+  float uv[kN1];
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kThreads;
+    const int lx = k % SX;
+    const int lz = k / SX;
+    const int dx = lx < H ? H - lx : (lx >= H + kTX ? lx - H - kTX + 1 : 0);
+    const int dz = lz < H ? H - lz : (lz >= H + kTZ ? lz - H - kTZ + 1 : 0);
+    const int gx = xt - H + lx;
+    const int gz = zt - H + lz;
+    const bool in = k < SX * T::SZ && !(dx > E && dz > E) && gx >= 0 &&
+                    gx < nx && gz >= 0 && gz < nz;
+    uv[i] = in ? ub[(size_t)gz * nx + gx] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kThreads;
+    if (k < SX * T::SZ) su[k] = uv[i];
+  }
+  const bool src = __syncthreads_or(mine);
+
+  // 2. with two steps: step t on the tile (kept in registers for phase 3)
+  // and on the ring of its R halo, into shared memory; zero beyond the grid
+  float unv[kCells], ucv[kCells];
+  if (STEPS == 2) {
+    const float wt = wav[t];
+#pragma unroll
+    for (int i = 0; i < kCells; ++i) {
+      const int k = tid + i * kThreads;
+      const int tx = k % kTX;
+      const int tz = k / kTX;
+      const int gx = xt + tx;
+      const int gz = zt + tz;
+      const float* c = su + (tz + H) * SX + tx + H;
+      ucv[i] = c[0];
+      float v = 0.0f;
+      if (gx < nx && gz < nz) {
+        v = (laplacian_tile<R, FS>(c, SX, gz, s) + av[i] * ucv[i] -
+             mv[i] * upv[i]) *
+            dv[i];
+        v = add_source(v, src, gz * nx + gx, cells_b, vals_b, K, wt);
+      }
+      unv[i] = v;
+      sn[(tz + R) * NX + tx + R] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      const int j = tid + i * kThreads;
+      if (j >= T::kRing) continue;
+      const int lx = rx[i];
+      const int lz = rz[i];
+      const int gx = xt - R + lx;
+      const int gz = zt - R + lz;
+      float v = 0.0f;
+      if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+        const float* c = su + (lz + R) * SX + lx + R;
+        v = (laplacian_tile<R, FS>(c, SX, gz, s) + ra[i] * c[0] -
+             rm[i] * rup[i]) *
+            rd[i];
+        v = add_source(v, src, gz * nx + gx, cells_b, vals_b, K, wt);
+      }
+      sn[lz * NX + lx] = v;
+    }
+    __syncthreads();
+  }
+
+  // 3. the tile's own cells: step t's outputs, with two steps step t + 1
+  // from step t's field in shared memory
+  const size_t bt = (size_t)b * total + t;
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const int cell = gz * nx + gx;
+    const size_t o = off + cell;
+    const bool row = gz == z0 || gz == z0 + 1;
+    float uc, un;
+    if (STEPS == 2) {
+      uc = ucv[i];
+      un = unv[i];
+    } else {
+      const float* c = su + (tz + H) * SX + tx + H;
+      uc = c[0];
+      un = (laplacian_tile<R, FS>(c, SX, gz, s) + av[i] * uc -
+            mv[i] * upv[i]) *
+           dv[i];
+      un = add_source(un, src, cell, cells_b, vals_b, K, wav[t]);
+    }
+    float ilv = il[i];
+    if ((FLAGS & kRec) && row) rec[(bt * 2 + (gz - z0)) * nx + gx] = uc;
+    if ((FLAGS & kCkpt) && t % seg == 0) {
+      const size_t pair = ((size_t)b * nseg + t / seg) * 2 * field + cell;
+      ckpt[pair] = uc;
+      ckpt[pair + field] = upv[i];
+    }
+    if (FLAGS & kHist) dt2[bt * field + cell] = un - 2.0f * uc + upv[i];
+    if ((FLAGS & kIllum) && t < nsteps) ilv = ilv + un * un;
+    if (STEPS == 2) {
+      const int t1 = t + 1;
+      const float* c = sn + (tz + R) * NX + tx + R;
+      float unn =
+          (laplacian_tile<R, FS>(c, NX, gz, s) + av[i] * un - mv[i] * uc) *
+          dv[i];
+      unn = add_source(unn, src, cell, cells_b, vals_b, K, wav[t1]);
+      if ((FLAGS & kRec) && row)
+        rec[((bt + 1) * 2 + (gz - z0)) * nx + gx] = un;
+      if ((FLAGS & kCkpt) && t1 % seg == 0) {
+        const size_t pair = ((size_t)b * nseg + t1 / seg) * 2 * field + cell;
+        ckpt[pair] = un;
+        ckpt[pair + field] = uc;
+      }
+      if (FLAGS & kHist) dt2[(bt + 1) * field + cell] = unn - 2.0f * un + uc;
+      if ((FLAGS & kIllum) && t1 < nsteps) ilv = ilv + unn * unn;
+      nup[o] = un;
+      nu[o] = unn;
+    } else {
+      nu[o] = un;
+    }
+    if ((FLAGS & kIllum) && t < nsteps) illum[o] = ilv;
+  }
 }
 
 // One reverse step for all shots: grad += dt2[b, th] * v (history of
@@ -229,29 +499,60 @@ Stencil make_stencil(const float* w, int r, float inv_h2x, float inv_h2z) {
 }
 
 struct ForwardArgs {
-  const float *m, *two_m_hd, *denom, *wav, *inj;
-  float *rec, *dt2, *illum, *ckpt, *u, *up;
-  int B, nz, nx, total, nsteps, seg, nseg, z0;
+  const float *m, *two_m_hd, *denom, *wav;
+  const int* src_cell;
+  const float* src_val;
+  float *rec, *dt2, *illum, *ckpt, *state;
+  int K, B, nz, nx, total, nsteps, seg, nseg, z0;
   Stencil s;
   cudaStream_t stream;
 };
 
-// Steps t = 0 .. nt-1 of a forward from the state in (a.u, a.up); the
-// wavelet, history and step count come from the arguments, so the
-// recompute of one segment is this loop over its own slice.
+template <int R, bool FS, int FLAGS, int STEPS>
+int launch_tile(const ForwardArgs& a, const float* u, const float* up,
+                float* nu, float* nup, const float* wav, float* dt2, int t,
+                int total) {
+  const dim3 grid(a.B, (a.nx + kTX - 1) / kTX, (a.nz + kTZ - 1) / kTZ);
+  forward_tile<R, FS, FLAGS, STEPS><<<grid, kThreads, 0, a.stream>>>(
+      u, up, nu, nup, a.m, a.two_m_hd, a.denom, wav, a.src_cell, a.src_val,
+      a.K, a.rec, dt2, a.illum, a.ckpt, t, total, a.nsteps, a.seg, a.nseg,
+      a.nz, a.nx, a.z0, a.s);
+  return (int)cudaGetLastError();
+}
+
+// Steps t = 0 .. nt-1 of a forward from the state in a.state's first two
+// (B, nz, nx) fields (u, up), the other two spare; the wavelet, history and
+// step count come from the arguments, so the recompute of one segment is
+// this loop over its own slice. kSteps steps a launch: the two new fields
+// go to the spare pair, the old pair becomes the spare one; an odd last
+// step is one single-step launch in place.
 template <int R, bool FS, int FLAGS>
 int forward_steps(const ForwardArgs& a, const float* wav, float* dt2,
                   int total, int nt) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
-  float* u = a.u;
-  float* up = a.up;
-  for (int t = 0; t < nt; ++t) {
-    forward_step<R, FS, FLAGS><<<grid, block, 0, a.stream>>>(
-        u, up, a.m, a.two_m_hd, a.denom, wav, a.inj, a.rec, dt2, a.illum,
-        a.ckpt, t, total, a.nsteps, a.seg, a.nseg, a.nz, a.nx, a.z0, a.s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)a.B * a.nz * a.nx;
+  float* u = a.state;
+  float* up = a.state + n;
+  float* s0 = a.state + 2 * n;
+  float* s1 = a.state + 3 * n;
+  int t = 0;
+  if (kSteps == 2) {
+    for (; t + 2 <= nt; t += 2) {
+      const int err = launch_tile<R, FS, FLAGS, 2>(a, u, up, s1, s0, wav,
+                                                   dt2, t, total);
+      if (err) return err;
+      float* o0 = u;
+      float* o1 = up;
+      u = s1;
+      up = s0;
+      s0 = o0;
+      s1 = o1;
+    }
+  }
+  for (; t < nt; ++t) {
+    const int err =
+        launch_tile<R, FS, FLAGS, 1>(a, u, up, up, nullptr, wav, dt2, t,
+                                     total);
+    if (err) return err;
     float* tmp = u;
     u = up;
     up = tmp;
@@ -261,6 +562,9 @@ int forward_steps(const ForwardArgs& a, const float* wav, float* dt2,
 
 template <int R, bool FS, int FLAGS>
 int run_forward(const ForwardArgs& a) {
+  const cudaError_t err = cudaMemsetAsync(
+      a.state, 0, 2 * (size_t)a.B * a.nz * a.nx * sizeof(float), a.stream);
+  if (err != cudaSuccess) return (int)err;
   return forward_steps<R, FS, FLAGS>(a, a.wav, a.dt2, a.total, a.total);
 }
 
@@ -272,9 +576,10 @@ struct AdjointArgs {
   Stencil s;
   cudaStream_t stream;
   // checkpoint route only: forward operands and the segment layout
-  const float *wav, *inj, *ckpt;
-  float *u, *up;
-  int seg, nseg;
+  const float *wav, *src_val, *ckpt;
+  const int* src_cell;
+  float* state;
+  int K, seg, nseg;
 };
 
 // Reverse steps t = hi-1 .. lo over a history whose step t sits at
@@ -316,11 +621,24 @@ int run_adjoint(AdjointArgs a) {
 template <int R, bool FS>
 int run_gradient_segments(AdjointArgs a) {
   // a.dt2 is the (B, seg, nz, nx) scratch of one segment
-  ForwardArgs f = {a.m,    a.two_m_hd, a.denom, a.wav,  a.inj,
-                   nullptr, nullptr,   nullptr, nullptr, a.u,
-                   a.up,   a.B,        a.nz,    a.nx,   a.total,
-                   a.nsteps, a.seg,    a.nseg,  a.z0,   a.s,
-                   a.stream};
+  ForwardArgs f = {};
+  f.m = a.m;
+  f.two_m_hd = a.two_m_hd;
+  f.denom = a.denom;
+  f.src_cell = a.src_cell;
+  f.src_val = a.src_val;
+  f.state = a.state;
+  f.K = a.K;
+  f.B = a.B;
+  f.nz = a.nz;
+  f.nx = a.nx;
+  f.total = a.total;
+  f.nsteps = a.nsteps;
+  f.seg = a.seg;
+  f.nseg = a.nseg;
+  f.z0 = a.z0;
+  f.s = a.s;
+  f.stream = a.stream;
   const size_t field = (size_t)a.nz * a.nx;
   const size_t n = (size_t)a.B * field;
   const int threads = 256;
@@ -328,7 +646,8 @@ int run_gradient_segments(AdjointArgs a) {
   for (int k = a.nseg - 1; k >= 0; --k) {
     const int base = k * a.seg;
     load_pair<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                a.stream>>>(a.ckpt, a.u, a.up, a.nseg, k, field, n);
+                a.stream>>>(a.ckpt, a.state, a.state + n, a.nseg, k, field,
+                            n);
     int err = (int)cudaGetLastError();
     if (err) return err;
     err = forward_steps<R, FS, kHist>(f, a.wav + base, scratch, a.seg, a.seg);
@@ -379,31 +698,61 @@ int dispatch_forward(int fs, int r, const ForwardArgs& a) {
             : dispatch_r<Fwd, false, FLAGS>(r, a);
 }
 
+// What the fused tile takes: a positive grid of fewer than 2^31 cells a
+// shot, at most (2^31 - 1, 65535, 65535) blocks, and at least one source
+// slot a shot.
+bool tile_shape_ok(int r, int K, int B, int nz, int nx) {
+  return r >= 1 && r <= kMaxR && K >= 1 && B >= 1 && nz >= 1 && nx >= 1 &&
+         (long long)nz * nx < (1LL << 31) && (nx + kTX - 1) / kTX <= 65535 &&
+         (nz + kTZ - 1) / kTZ <= 65535;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Forward sweep over t = 0 .. total-1. dt2 and ckpt may not both be set;
-// illum is set exactly when one of them is (history or checkpoint sweep)
-// and holds zeros on entry. ckpt is (B, nseg, 2, nz, nx) with
-// nseg * seg == total. u and up are (B, nz, nx) scratch fields holding the
-// start state (zeros). Returns the first CUDA error of a launch, or 0.
+// Forward sweep over t = 0 .. total-1 from zero fields. dt2 and ckpt may
+// not both be set; illum is set exactly when one of them is (history or
+// checkpoint sweep) and holds zeros on entry. ckpt is (B, nseg, 2, nz, nx)
+// with nseg * seg == total. The source pattern (B, nz, nx) comes as its
+// non-zero cells: src_cell (B, K) int32 z * nx + x (-1 pads) and src_val
+// (B, K) their values. state is 4 (B, nz, nx) scratch fields (the sweep
+// zeroes the first two). Returns the first CUDA error of a launch, or 0.
 int acoustic2d_forward(const float* m, const float* two_m_hd,
-                       const float* denom, const float* wav, const float* inj,
+                       const float* denom, const float* wav,
+                       const int* src_cell, const float* src_val, int K,
                        float* rec, float* dt2, float* illum, float* ckpt,
-                       float* u, float* up, int B, int nz, int nx, int total,
+                       float* state, int B, int nz, int nx, int total,
                        int nsteps, int seg, int z0, int fs, int r,
                        const float* w, float inv_h2x, float inv_h2z,
                        void* stream) {
-  if (r < 1 || r > kMaxR || (dt2 != NULL && ckpt != NULL) ||
+  if (!tile_shape_ok(r, K, B, nz, nx) || (dt2 != NULL && ckpt != NULL) ||
       (illum != NULL) != (dt2 != NULL || ckpt != NULL) || seg < 1 ||
       total % seg != 0)
     return (int)cudaErrorInvalidValue;
-  ForwardArgs a = {m,     two_m_hd, denom, wav,         inj,  rec,
-                   dt2,   illum,    ckpt,  u,           up,   B,
-                   nz,    nx,       total, nsteps,      seg,  total / seg,
-                   z0,    make_stencil(w, r, inv_h2x, inv_h2z),
-                   (cudaStream_t)stream};
+  ForwardArgs a = {};
+  a.m = m;
+  a.two_m_hd = two_m_hd;
+  a.denom = denom;
+  a.wav = wav;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
+  a.rec = rec;
+  a.dt2 = dt2;
+  a.illum = illum;
+  a.ckpt = ckpt;
+  a.state = state;
+  a.K = K;
+  a.B = B;
+  a.nz = nz;
+  a.nx = nx;
+  a.total = total;
+  a.nsteps = nsteps;
+  a.seg = seg;
+  a.nseg = total / seg;
+  a.z0 = z0;
+  a.s = make_stencil(w, r, inv_h2x, inv_h2z);
+  a.stream = (cudaStream_t)stream;
   if (dt2 != NULL) return dispatch_forward<kRec | kHist | kIllum>(fs, r, a);
   if (ckpt != NULL) return dispatch_forward<kRec | kIllum | kCkpt>(fs, r, a);
   return dispatch_forward<kRec>(fs, r, a);
@@ -442,15 +791,17 @@ int acoustic2d_adjoint(const float* m, const float* two_m_hd,
 // Checkpoint-and-recompute gradient: segments k = nseg-1 .. 0, each
 // recomputed from ckpt[:, k] into scratch (B, seg, nz, nx), then reversed
 // over its steps t < nsteps; then grad *= neg_inv_s2. grad, v and vn are
-// (B, nz, nx) and hold zeros on entry; u and up are (B, nz, nx) scratch.
+// (B, nz, nx) and hold zeros on entry; state is 4 (B, nz, nx) scratch
+// fields; the source comes as in acoustic2d_forward.
 int acoustic2d_gradient_segments(
     const float* m, const float* two_m_hd, const float* denom,
-    const float* wav, const float* inj, const float* ckpt, const float* res,
-    float* scratch, float* grad, float* v, float* vn, float* u, float* up,
-    int B, int nz, int nx, int seg, int nseg, int nsteps, int z0, int fs,
-    int r, const float* w, float inv_h2x, float inv_h2z, float neg_inv_s2,
-    void* stream) {
-  if (r < 1 || r > kMaxR || seg < 1 || nseg < 1 || nsteps > seg * nseg)
+    const float* wav, const int* src_cell, const float* src_val, int K,
+    const float* ckpt, const float* res, float* scratch, float* grad,
+    float* v, float* vn, float* state, int B, int nz, int nx, int seg,
+    int nseg, int nsteps, int z0, int fs, int r, const float* w,
+    float inv_h2x, float inv_h2z, float neg_inv_s2, void* stream) {
+  if (!tile_shape_ok(r, K, B, nz, nx) || seg < 1 || nseg < 1 ||
+      nsteps > seg * nseg)
     return (int)cudaErrorInvalidValue;
   AdjointArgs a = {};
   a.m = m;
@@ -471,10 +822,11 @@ int acoustic2d_gradient_segments(
   a.s = make_stencil(w, r, inv_h2x, inv_h2z);
   a.stream = (cudaStream_t)stream;
   a.wav = wav;
-  a.inj = inj;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
+  a.K = K;
   a.ckpt = ckpt;
-  a.u = u;
-  a.up = up;
+  a.state = state;
   a.seg = seg;
   a.nseg = nseg;
   return fs ? dispatch_r<Seg, true, 0>(r, a) : dispatch_r<Seg, false, 0>(r, a);

@@ -36,23 +36,39 @@
 // What bounds it on the card: the forward with history writes
 // B * nsteps * ny * nz * nx * 4 bytes (11.2 GB at config 5) and the reverse
 // sweep reads them back, so both are bound by device-memory bandwidth
-// (~3.3 ms each at 3.35 TB/s); the receivers-only forward moves almost
-// nothing beyond its state and is bound by the ~55 float operations per
-// cell and step (~2.3 ms at 67 TFLOP/s). The state of a batch (u, up and
-// the illumination, 8.4 MB a field and shot) does not fit the 50 MB L2 at
-// four shots, so the stencil's y neighbours, a plane of 64 KB apart, are
-// re-read from L2 or device memory.
+// (~3.3 ms each at 3.35 TB/s); the receivers-only forward moves little
+// beyond its state and is bound by the ~55 float operations per cell and
+// step (~2.3 ms at 67 TFLOP/s). Taken a step at a time, a sweep's floor is
+// its state through device memory once a step: the state of a batch (u and
+// up, 8.4 MB a field and shot) does not fit the 50 MB L2 at four shots.
 //
-// What the design does about it: a simple first design. One thread per
+// The forwards (forward_march): the first design ran one thread a cell
+// (32 x 8 in x, z at one y) and one launch a step, every neighbour read
+// through L1/L2: the y taps a plane (64 KB) apart and the z taps a row
+// apart, up to ~17 values a cell re-read from L2 or device memory, and the
+// shot the slowest grid axis, so the three parameter fields came in once a
+// shot. The march: a block owns a kMX x kMZ (x, z) tile of one shot and
+// walks y over a chunk of planes. Each thread keeps its column's 2R + 1
+// values of u along y in a register queue, so the y taps come from
+// registers and each u value is read once a step (plus the chunk's R-plane
+// lead-ins on each side, and the xz halo of each plane, read from L2); the
+// plane's tile and its R halo sit in shared memory (two planes, alternating,
+// one barrier a plane) for the x and z taps. up, the parameters and the
+// illumination are read at the cell's own place only, the next plane's halo
+// and operands, and the queue's front, one plane ahead in registers, at
+// three blocks an SM (40 registers a thread). un overwrites up in place (read
+// only at the cell's own place). The shots are the grid's fastest axis, so
+// the parameters of a tile stay in L2 across its shots, and the y-chunks
+// (``ylen`` planes each, chosen by the wrapper) fill the card: 4 shots of
+// 128^3 are only 128 tiles. 3B + 3 shot fields a step for the modeling
+// sweep (u, up read, up written, the three parameters once), 6B + 3 with
+// the history (its write, the illumination's read and write). Times
+// against these floors are in PERF.md (kernel table, rows 8, 9).
+//
+// The reverse sweep (adjoint_step) keeps the first design: one thread per
 // cell and one launch per time step for the whole batch (blockIdx.z is the
-// shot), so the history is written once, coalesced along x,
-// as it is produced. The new field overwrites u_prev in place (each cell
-// reads its own u_prev before writing it and no other thread reads it), so
-// two state buffers per shot take the place of the TPU kernels' HBM double
-// buffer and parity trick; the grid runs the y-blocks in parallel instead
-// of in order. Neighbours come through L1/L2 rather than a shared-memory
-// tile; 2.5-D marching in y with a register queue, shared-memory tiles and
-// several steps per launch are the next steps (times in PERF.md).
+// shot); the new field overwrites v_prev in place, neighbours come through
+// L1/L2. The step kernel (step_kernel) is one thread per cell as well.
 //
 // Numerics: each kernel keeps its own TPU counterpart's association. The
 // streamed sweeps fold dt^2 into the per-axis scales (ih2 = s^2/h^2) and
@@ -143,47 +159,184 @@ __device__ __forceinline__ float laplacian_yzx(const float* __restrict__ u,
   return accx * s.ih2x + accy * s.ih2y + accz * s.ih2z;
 }
 
-// One forward step t for all shots: up <- un in place; the receiver rows of
-// u, and with HIST the history value and the illumination.
-template <int R, bool FS, bool HIST>
-__global__ void forward_step(const float* __restrict__ u,
-                             float* __restrict__ up,
-                             const float* __restrict__ m,
-                             const float* __restrict__ two_m_hd,
-                             const float* __restrict__ denom,
-                             const float* __restrict__ wav,
-                             const float* __restrict__ injp,
-                             const int* __restrict__ iy,
-                             float* __restrict__ rec,
-                             float* __restrict__ dt2,
-                             float* __restrict__ illum, int t, int nsteps,
-                             int ny, int nz, int nx, int z0, Stencil s) {
-  const int nxb = (nx + kBX - 1) / kBX;
-  const int x = (blockIdx.x % nxb) * kBX + threadIdx.x;
-  const int y = blockIdx.x / nxb;
-  const int z = blockIdx.y * kBZ + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)ny * nz * nx;
-  const size_t cell = ((size_t)y * nz + z) * nx + x;
-  const size_t o = (size_t)b * field + cell;
-  const size_t bt = (size_t)b * nsteps + t;
-  const float* ub = u + (size_t)b * field;
+// The march's tile (forward_march): kMX x kMZ (x, z) columns of one shot,
+// one thread a column.
+constexpr int kMX = 32;
+constexpr int kMZ = 16;
+constexpr int kMThreads = kMX * kMZ;
 
-  const float uc = ub[cell];
-  if (z == z0 || z == z0 + 1)
-    rec[((bt * ny + y) * 2 + (z - z0)) * nx + x] = uc;
-  const float upc = up[o];
-  const float lap = laplacian_yzx<R, FS>(ub, cell, y, z, x, ny, nz, nx, s);
-  float un = (lap + two_m_hd[cell] * uc - m[cell] * upc) * denom[cell];
-  const int p = y - iy[b];
-  if (p == 0 || p == 1)
-    un = un + wav[bt] * injp[(((size_t)b * 2 + p) * nz + z) * nx + x];
-  if (HIST) {
-    dt2[bt * field + cell] = un - 2.0f * uc + upc;
-    illum[o] = illum[o] + un * un;
+// A plane of the tile and its R halo along x and z (no corners) in shared
+// memory; two planes, alternating.
+template <int R>
+struct MarchTile {
+  static constexpr int SX = kMX + 2 * R;   // a plane: SZ rows x SX
+  static constexpr int SZ = kMZ + 2 * R;
+  static constexpr int kHalo = 2 * R * (kMX + kMZ);
+  static constexpr int kNH = (kHalo + kMThreads - 1) / kMThreads;
+  static constexpr int kFloats = 2 * SX * SZ;
+};
+static_assert(MarchTile<kMaxR>::kFloats * sizeof(float) <= 48 * 1024,
+              "static shared memory");
+
+// The plane-local place (lx, lz) of halo cell j: R rows above and below the
+// tile, then R columns left and right of it.
+template <int R>
+__device__ __forceinline__ void halo_cell(int j, int& lx, int& lz) {
+  if (j < 2 * R * kMX) {
+    const int row = j / kMX;
+    lx = R + j % kMX;
+    lz = row < R ? row : kMZ + row;
+  } else {
+    const int j2 = j - 2 * R * kMX;
+    const int col = j2 % (2 * R);
+    lx = col < R ? col : kMX + col;
+    lz = R + j2 / (2 * R);
   }
-  up[o] = un;
+}
+
+// Forward step t over the planes y0 .. y0 + ylen - 1 of one (x, z) tile of
+// one shot (blockIdx.x the shot, .y the x tile, .z the z tile and the
+// y-chunk): up <- un in place; the receiver rows of u, and with HIST the
+// history value and the illumination. The y taps come from each thread's
+// register queue of its column, the x and z taps from the plane's tile in
+// shared memory.
+template <int R, bool FS, bool HIST>
+__global__ void __launch_bounds__(kMThreads, 3)
+forward_march(const float* __restrict__ u, float* __restrict__ up,
+              const float* __restrict__ m,
+              const float* __restrict__ two_m_hd,
+              const float* __restrict__ denom,
+              const float* __restrict__ wav,
+              const float* __restrict__ injp, const int* __restrict__ iy,
+              float* __restrict__ rec, float* __restrict__ dt2,
+              float* __restrict__ illum, int t, int nsteps, int ny, int nz,
+              int nx, int z0, int ylen, Stencil s) {
+  using T = MarchTile<R>;
+  constexpr int SX = T::SX;
+  constexpr int kNH = T::kNH;
+  __shared__ float planes[T::kFloats];
+  const int b = blockIdx.x;           // the shots of a tile adjoin
+  const int xt = blockIdx.y * kMX;
+  const int nzt = (nz + kMZ - 1) / kMZ;
+  const int zt = (blockIdx.z % nzt) * kMZ;
+  const int y0 = (blockIdx.z / nzt) * ylen;
+  const int y1 = min(y0 + ylen, ny);
+  const int tid = threadIdx.x;
+  const int tx = tid % kMX;
+  const int tz = tid / kMX;
+  const int x = xt + tx;
+  const int z = zt + tz;
+  const bool own = x < nx && z < nz;
+  const size_t plane = (size_t)nz * nx;
+  const size_t field = (size_t)ny * plane;
+  const size_t off = (size_t)b * field;
+  const float* ub = u + off;
+  const size_t col = own ? (size_t)z * nx + x : 0;
+  const size_t bt = (size_t)b * nsteps + t;
+  const int iyb = iy[b];
+  const float wt = wav[bt];
+
+  // this thread's halo cells: the place in a plane's tile and the cell in a
+  // plane (-1 beyond the grid or past the halo)
+  int hl[kNH], hg[kNH];
+#pragma unroll
+  for (int i = 0; i < kNH; ++i) {
+    const int j = tid + i * kMThreads;
+    int lx = 0, lz = 0;
+    if (j < T::kHalo) halo_cell<R>(j, lx, lz);
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    hl[i] = j < T::kHalo ? lz * SX + lx : -1;
+    hg[i] = j < T::kHalo && gx >= 0 && gx < nx && gz >= 0 && gz < nz
+                ? gz * nx + gx
+                : -1;
+  }
+
+  // the halo of plane y and the operands of the thread's cell on it, loaded
+  // one plane ahead of their use
+  float hv[kNH];
+  float upn = 0.0f, mn = 0.0f, an = 0.0f, dn = 0.0f, iln = 0.0f;
+  auto fetch = [&](int y) {
+    const size_t py = (size_t)y * plane;
+#pragma unroll
+    for (int i = 0; i < kNH; ++i) hv[i] = hg[i] >= 0 ? ub[py + hg[i]] : 0.0f;
+    if (own) {
+      upn = up[off + py + col];
+      mn = m[py + col];
+      an = two_m_hd[py + col];
+      dn = denom[py + col];
+      if (HIST) iln = illum[off + py + col];
+    }
+  };
+
+  // the queue: u of the column on planes y - R .. y + R; the chunk's
+  // lead-in planes y0 - R .. y0 + R - 1 first (zero beyond the grid), and
+  // its front, plane y + R, loaded one plane ahead into qn
+  auto column = [&](int yy) {
+    return own && yy >= 0 && yy < ny ? ub[(size_t)yy * plane + col] : 0.0f;
+  };
+  float q[2 * R + 1];
+  q[0] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 2 * R; ++k) q[k + 1] = column(y0 - R + k);
+  float qn = column(y0 + R);
+  fetch(y0);
+  for (int y = y0; y < y1; ++y) {
+#pragma unroll
+    for (int k = 0; k < 2 * R; ++k) q[k] = q[k + 1];
+    q[2 * R] = qn;
+    if (y + 1 < y1) qn = column(y + 1 + R);
+    float* sp = planes + (y & 1) * SX * T::SZ;
+    sp[(tz + R) * SX + tx + R] = q[R];
+#pragma unroll
+    for (int i = 0; i < kNH; ++i)
+      if (hl[i] >= 0) sp[hl[i]] = hv[i];
+    const float upc = upn, mc = mn, ac = an, dc = dn, ilc = iln;
+    if (y + 1 < y1) fetch(y + 1);
+    // one barrier a plane: the next plane's tile goes to the other buffer
+    __syncthreads();
+    if (!own) continue;
+    const float* c = sp + (tz + R) * SX + tx + R;
+    const float uc = q[R];
+    float accx = s.w[0] * c[0];
+#pragma unroll
+    for (int k = 1; k <= R; ++k) accx = accx + s.w[k] * (c[k] + c[-k]);
+    float accy = s.w[0] * uc;
+#pragma unroll
+    for (int k = 1; k <= R; ++k)
+      accy = accy + s.w[k] * (q[R + k] + q[R - k]);
+    float accz = s.w[0] * c[0];
+    if (FS && z <= R) {
+      // free-surface rows: plain +k term, then the odd mirror (zero at z = 0)
+#pragma unroll
+      for (int k = 1; k <= R; ++k) {
+        accz = accz + s.w[k] * c[k * SX];
+        const int i = z - k;
+        if (i > 0) {
+          accz = accz + s.w[k] * c[-k * SX];
+        } else if (i < 0) {
+          accz = accz - s.w[k] * c[(k - 2 * z) * SX];  // row -i
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 1; k <= R; ++k)
+        accz = accz + s.w[k] * (c[k * SX] + c[-k * SX]);
+    }
+    const float lap = accx * s.ih2x + accy * s.ih2y + accz * s.ih2z;
+    float un = (lap + ac * uc - mc * upc) * dc;
+    const int p = y - iyb;
+    if (p == 0 || p == 1)
+      un = un + wt * injp[(((size_t)b * 2 + p) * nz + z) * nx + x];
+    const size_t cell = (size_t)y * plane + col;
+    if (z == z0 || z == z0 + 1)
+      rec[((bt * ny + y) * 2 + (z - z0)) * nx + x] = uc;
+    if (HIST) {
+      dt2[bt * field + cell] = un - 2.0f * uc + upc;
+      illum[off + cell] = ilc + un * un;
+    }
+    up[off + cell] = un;
+  }
 }
 
 // One reverse step t for all shots: grad += dt2[b, t] * v, vn <- v_new in
@@ -265,7 +418,7 @@ struct SweepArgs {
   const float *m, *two_m_hd, *denom, *wav, *injp, *dt2c, *res;
   const int* iy;
   float *rec, *dt2, *illum, *grad, *a, *b;
-  int B, ny, nz, nx, nsteps, z0;
+  int B, ny, nz, nx, nsteps, z0, ylen;
   float neg_inv_s2;
   Stencil s;
   cudaStream_t stream;
@@ -278,16 +431,19 @@ dim3 sweep_grid(const SweepArgs& a) {
               (a.nz + kBZ - 1) / kBZ, a.B);
 }
 
+// One march launch a step: blockIdx.x the shot, .y the x tile, .z the z
+// tile and the y-chunk of ylen planes.
 template <int R, bool FS, bool HIST>
 int run_forward(const SweepArgs& a) {
-  const dim3 block(kBX, kBZ);
-  const dim3 grid = sweep_grid(a);
+  const int nzt = (a.nz + kMZ - 1) / kMZ;
+  const int chunks = (a.ny + a.ylen - 1) / a.ylen;
+  const dim3 grid(a.B, (a.nx + kMX - 1) / kMX, nzt * chunks);
   float* u = a.a;
   float* up = a.b;
   for (int t = 0; t < a.nsteps; ++t) {
-    forward_step<R, FS, HIST><<<grid, block, 0, a.stream>>>(
+    forward_march<R, FS, HIST><<<grid, kMThreads, 0, a.stream>>>(
         u, up, a.m, a.two_m_hd, a.denom, a.wav, a.injp, a.iy, a.rec, a.dt2,
-        a.illum, t, a.nsteps, a.ny, a.nz, a.nx, a.z0, a.s);
+        a.illum, t, a.nsteps, a.ny, a.nz, a.nx, a.z0, a.ylen, a.s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     float* tmp = u;
@@ -359,22 +515,36 @@ bool sweep_shape_ok(int r, int B, int ny, int nz, int nx, int nsteps,
          z0 + 2 <= nz;
 }
 
+// What the march takes: a positive grid of fewer than 2^31 cells a plane,
+// at most (2^31 - 1, 65535, 65535) blocks, a positive chunk length.
+bool march_shape_ok(int r, int B, int ny, int nz, int nx, int nsteps, int z0,
+                    int ylen) {
+  if (r < 1 || r > kMaxR || B < 1 || ny < 1 || nz < 2 || nx < 1 ||
+      nsteps < 0 || ylen < 1 || z0 < 0 || z0 + 2 > nz ||
+      (long long)nz * nx >= (1LL << 31))
+    return false;
+  const long long nzt = (nz + kMZ - 1) / kMZ;
+  const long long chunks = (ny + (long long)ylen - 1) / ylen;
+  return (nx + kMX - 1) / kMX <= 65535 && nzt * chunks <= 65535;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Forward sweep over t = 0 .. nsteps-1 from the zero state in u, up
-// ((B, ny, nz, nx) scratch holding zeros). rec is (B, nsteps, ny, 2, nx).
-// dt2 (B, nsteps, ny, nz, nx) and illum (B, ny, nz, nx, zeros on entry) are
-// both set or both NULL. Returns the first CUDA error of a launch, or 0.
+// ((B, ny, nz, nx) scratch holding zeros), each step marched over y-chunks
+// of ylen planes. rec is (B, nsteps, ny, 2, nx). dt2 (B, nsteps, ny, nz,
+// nx) and illum (B, ny, nz, nx, zeros on entry) are both set or both NULL.
+// Returns the first CUDA error of a launch, or 0.
 int acoustic3d_forward(const float* m, const float* two_m_hd,
                        const float* denom, const float* wav,
                        const float* injp, const int* iy, float* rec,
                        float* dt2, float* illum, float* u, float* up, int B,
                        int ny, int nz, int nx, int nsteps, int z0, int fs,
-                       int r, const float* w, float ih2x, float ih2y,
-                       float ih2z, void* stream) {
-  if (!sweep_shape_ok(r, B, ny, nz, nx, nsteps, z0) ||
+                       int r, int ylen, const float* w, float ih2x,
+                       float ih2y, float ih2z, void* stream) {
+  if (!march_shape_ok(r, B, ny, nz, nx, nsteps, z0, ylen) ||
       (dt2 == NULL) != (illum == NULL))
     return (int)cudaErrorInvalidValue;
   SweepArgs a = {};
@@ -395,6 +565,7 @@ int acoustic3d_forward(const float* m, const float* two_m_hd,
   a.nx = nx;
   a.nsteps = nsteps;
   a.z0 = z0;
+  a.ylen = ylen;
   a.s = make_stencil(w, r, ih2x, ih2y, ih2z);
   a.stream = (cudaStream_t)stream;
   return dt2 != NULL ? dispatch<1>(r, fs, a) : dispatch<0>(r, fs, a);

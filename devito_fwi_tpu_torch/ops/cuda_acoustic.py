@@ -27,15 +27,23 @@ of the illumination and skipped in reverse.
 
 Each wrapper checks its operands, computes ``denom = 1/(m + hd)`` and
 ``two_m_hd = 2m + hd`` once, and then, for CUDA tensors, launches the
-kernel of ``csrc/acoustic2d.cu`` (one ctypes call per sweep, one launch
-per step on the current stream) and adds one to ``LAUNCHES[name]``; for
-CPU tensors it runs the plain twin, a Python loop over the steps with the
-kernel's exact arithmetic (``_make_lap_t``). On another device it raises.
-The twins take float32 or float64; the kernels float32.
+kernel of ``csrc/acoustic2d.cu`` (one ctypes call per sweep on the current
+stream) and adds one to ``LAUNCHES[name]``; for CPU tensors it runs the
+plain twin, a Python loop over the steps with the kernel's exact
+arithmetic (``_make_lap_t``). On another device it raises. The twins take
+float32 or float64; the kernels float32.
+
+The forwards, and the recompute of ``gradient_segments``, run as one
+fused launch for two steps over 32 x 32 tiles of a shot
+(``forward_launch``): u on the tile and a 2r halo in shared memory, the
+first step on the tile and an r halo, the second on the tile; the source
+added only at the pattern's non-zero cells (``_source_list``). The
+reverse sweeps run one launch a step, one thread a cell.
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -51,8 +59,8 @@ __all__ = ["forward_rec_segments", "forward_dt2_segments",
            "gradient_stream_plain", "forward_ckpt_plain",
            "gradient_segments_plain", "source_pattern",
            "pad_wavelet", "residual_rows", "receiver_plane_matrix",
-           "matmul_full", "geometry_supported", "LAUNCHES", "TWIN_CALLS",
-           "reset_counters"]
+           "matmul_full", "geometry_supported", "forward_launch",
+           "tile_launch", "LAUNCHES", "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("forward_rec_segments", "forward_dt2_segments",
            "gradient_stream_segments", "forward_ckpt_segments",
@@ -293,6 +301,77 @@ def _segments_plain(m, two_m_hd, denom, wav_pad, inj, pairs, res, *, w,
 # kernels
 # ---------------------------------------------------------------------------
 
+MAX_RADIUS = 8
+# shared memory a block can use on the H100 (bytes)
+SMEM_LIMIT = 232_448
+
+
+def tile_launch(what, B, nz, nx, r, tile, threads, smem, shots_first):
+    """A fused step kernel's launch: one block a ``tile`` (x, z) of one
+    shot, ``threads`` a block, ``smem`` bytes of shared memory; the grid
+    (shots, x tiles, z tiles) if ``shots_first``, else (x tiles, z tiles,
+    shots). Raises ValueError, naming ``what``, for what the kernel does
+    not take: a radius outside 1 .. 8, an empty grid or one of 2^31 cells,
+    a launch grid past CUDA's (2^31 - 1, 65535, 65535) or shared memory
+    past a block's."""
+    if not 1 <= r <= MAX_RADIUS:
+        raise ValueError(f"{what}: stencil radius {r}; the kernel takes "
+                         f"1 .. {MAX_RADIUS}")
+    tx, tz = tile
+    tiles = (-(-nx // tx), -(-nz // tz))
+    grid = (B,) + tiles if shots_first else tiles + (B,)
+    if min(B, nz, nx) < 1 or nz * nx >= 2 ** 31 or grid[0] >= 2 ** 31 \
+            or max(grid[1:]) >= 2 ** 16:
+        raise ValueError(f"{what}: {B} shots of {nz} x {nx}; the kernel "
+                         "takes a positive grid of fewer than 2^31 cells "
+                         "and a launch grid of at most (2^31 - 1, 65535, "
+                         "65535) blocks")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: {smem} bytes of shared memory a block; "
+                         f"the card gives at most {SMEM_LIMIT}")
+    return SimpleNamespace(tile=tile, threads=threads, grid=grid, smem=smem)
+
+
+# the fused forward's tile, threads and steps a launch (csrc/acoustic2d.cu
+# kTX x kTZ, kThreads, kSteps)
+FWD_TILE = (32, 32)
+FWD_THREADS = 512
+FWD_STEPS = 2
+
+
+def forward_launch(B, nz, nx, r):
+    """The fused forward's launch at these shapes: the tile, threads, grid
+    of one launch (shots, x tiles, z tiles), the steps a launch and the
+    shared-memory bytes of a block (u on the tile and a 2r halo, the first
+    step's field on the tile and an r halo; at most 25,600 bytes, r = 8).
+    Raises ValueError for what the kernel does not take (``tile_launch``)."""
+    tx, tz = FWD_TILE
+    smem = 4 * ((tx + 4 * r) * (tz + 4 * r) + (tx + 2 * r) * (tz + 2 * r))
+    launch = tile_launch("acoustic forward", B, nz, nx, r, FWD_TILE,
+                         FWD_THREADS, smem, shots_first=True)
+    launch.steps = FWD_STEPS
+    return launch
+
+
+def _source_list(inj):
+    """inj's non-zero cells per shot: (cells (B, K) int32 z * nx + x, -1
+    where a shot has fewer, values (B, K)), K at least 1. Adding wt * 0 at
+    the other cells would change no value, only the sign of a zero."""
+    B = inj.shape[0]
+    flat = inj.reshape(B, -1)
+    hit = flat != 0
+    count = hit.sum(1)
+    K = max(int(count.max()), 1)
+    b, cell = hit.nonzero(as_tuple=True)
+    pos = torch.arange(b.numel(), device=inj.device) - \
+        (torch.cumsum(count, 0) - count)[b]
+    cells = torch.full((B, K), -1, dtype=torch.int32, device=inj.device)
+    vals = inj.new_zeros((B, K))
+    cells[b, pos] = cell.to(torch.int32)
+    vals[b, pos] = flat[b, cell]
+    return cells, vals, K
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -301,9 +380,10 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/acoustic2d.cu; every
 # pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "acoustic2d_forward": ([_P] * 11 + [_I] * 9 + [_P, _F, _F, _P], _I),
+    "acoustic2d_forward": ([_P] * 6 + [_I] + [_P] * 5 + [_I] * 9
+                           + [_P, _F, _F, _P], _I),
     "acoustic2d_adjoint": ([_P] * 8 + [_I] * 8 + [_P, _F, _F, _F, _P], _I),
-    "acoustic2d_gradient_segments": ([_P] * 13 + [_I] * 9
+    "acoustic2d_gradient_segments": ([_P] * 6 + [_I] + [_P] * 7 + [_I] * 9
                                      + [_P, _F, _F, _F, _P], _I),
     "acoustic2d_error_string": ([_I], ctypes.c_char_p),
 }
@@ -332,23 +412,24 @@ def _ptr(t):
 
 def _forward_cuda(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x, inv_h2z,
                   nsteps, seg, z0, fs, hist, ckpt):
-    lib = _lib()
     B, nz, nx = inj.shape
+    forward_launch(B, nz, nx, len(w) - 1)
+    lib = _lib()
     total = wav_pad.shape[0]
     rec = inj.new_empty((B, total, 2, nx))
     dt2 = inj.new_empty((B, total, nz, nx)) if hist else None
     pairs = inj.new_empty((B, total // seg, 2, nz, nx)) if ckpt else None
     illum = inj.new_zeros((B, nz, nx)) if hist or ckpt else None
-    u = inj.new_zeros((B, nz, nx))
-    up = inj.new_zeros((B, nz, nx))
+    cells, vals, K = _source_list(inj)
+    state = inj.new_empty((4, B, nz, nx))    # u, up and a spare pair
     w32 = np.asarray(w, np.float32)
     with torch.cuda.device(inj.device):
         err = lib.acoustic2d_forward(
             m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
-            wav_pad.data_ptr(), inj.data_ptr(), rec.data_ptr(), _ptr(dt2),
-            _ptr(illum), _ptr(pairs), u.data_ptr(), up.data_ptr(), B, nz, nx,
-            total, nsteps, seg, z0, int(fs), len(w) - 1, w32.ctypes.data,
-            inv_h2x, inv_h2z,
+            wav_pad.data_ptr(), cells.data_ptr(), vals.data_ptr(), K,
+            rec.data_ptr(), _ptr(dt2), _ptr(illum), _ptr(pairs),
+            state.data_ptr(), B, nz, nx, total, nsteps, seg, z0, int(fs),
+            len(w) - 1, w32.ctypes.data, inv_h2x, inv_h2z,
             torch.cuda.current_stream(inj.device).cuda_stream)
     _check(lib, "acoustic2d_forward", err)
     return rec, dt2 if hist else pairs, illum
@@ -375,23 +456,24 @@ def _adjoint_cuda(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
 
 def _segments_cuda(m, two_m_hd, denom, wav_pad, inj, pairs, res, *, w,
                    inv_h2x, inv_h2z, nsteps, seg, z0, fs, neg_inv_s2):
-    lib = _lib()
     B, nseg, _, nz, nx = pairs.shape
+    forward_launch(B, nz, nx, len(w) - 1)
+    lib = _lib()
     grad = inj.new_zeros((B, nz, nx))
     v = inj.new_zeros((B, nz, nx))
     vn = inj.new_zeros((B, nz, nx))
-    u = inj.new_empty((B, nz, nx))
-    up = inj.new_empty((B, nz, nx))
+    state = inj.new_empty((4, B, nz, nx))    # u, up and a spare pair
     scratch = inj.new_empty((B, seg, nz, nx))
+    cells, vals, K = _source_list(inj)
     w32 = np.asarray(w, np.float32)
     with torch.cuda.device(inj.device):
         err = lib.acoustic2d_gradient_segments(
             m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
-            wav_pad.data_ptr(), inj.data_ptr(), pairs.data_ptr(),
-            res.data_ptr(), scratch.data_ptr(), grad.data_ptr(),
-            v.data_ptr(), vn.data_ptr(), u.data_ptr(), up.data_ptr(), B, nz,
-            nx, seg, nseg, nsteps, z0, int(fs), len(w) - 1, w32.ctypes.data,
-            inv_h2x, inv_h2z, neg_inv_s2,
+            wav_pad.data_ptr(), cells.data_ptr(), vals.data_ptr(), K,
+            pairs.data_ptr(), res.data_ptr(), scratch.data_ptr(),
+            grad.data_ptr(), v.data_ptr(), vn.data_ptr(), state.data_ptr(),
+            B, nz, nx, seg, nseg, nsteps, z0, int(fs), len(w) - 1,
+            w32.ctypes.data, inv_h2x, inv_h2z, neg_inv_s2,
             torch.cuda.current_stream(inj.device).cuda_stream)
     _check(lib, "acoustic2d_gradient_segments", err)
     return grad

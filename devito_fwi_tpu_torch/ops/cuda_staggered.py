@@ -60,7 +60,9 @@ import torch
 from ..utils.fd import fd_weights
 from . import cuda_build
 from .acoustic import shift
-from .cuda_acoustic import _checked, matmul_full, receiver_plane_matrix
+from .cuda_acoustic import (MAX_RADIUS, SMEM_LIMIT, _checked,  # noqa: F401
+                            _source_list, matmul_full,
+                            receiver_plane_matrix, tile_launch)
 from .interp import valid_corners
 from .self_adjoint import staggered_weights
 from .staggered import avg_to
@@ -393,37 +395,6 @@ FWD_TILE = (32, 32)
 FWD_THREADS = 512
 ADJ_TILE = (32, 32)
 ADJ_THREADS = 512
-MAX_RADIUS = 8
-# shared memory a block can use on the H100 (bytes)
-SMEM_LIMIT = 232_448
-
-
-def tile_launch(what, B, nz, nx, r, tile, threads, smem, shots_first):
-    """A fused step kernel's launch: one block a ``tile`` (x, z) of one
-    shot, ``threads`` a block, ``smem`` bytes of shared memory; the grid
-    (shots, x tiles, z tiles) if ``shots_first``, else (x tiles, z tiles,
-    shots). Raises ValueError, naming ``what``, for what the kernel does
-    not take: a radius outside 1 .. 8, an empty grid or one of 2^31 cells,
-    a launch grid past CUDA's (2^31 - 1, 65535, 65535) or shared memory
-    past a block's."""
-    if not 1 <= r <= MAX_RADIUS:
-        raise ValueError(f"{what}: stencil radius {r}; the kernel takes "
-                         f"1 .. {MAX_RADIUS}")
-    tx, tz = tile
-    tiles = (-(-nx // tx), -(-nz // tz))
-    grid = (B,) + tiles if shots_first else tiles + (B,)
-    if min(B, nz, nx) < 1 or nz * nx >= 2 ** 31 or grid[0] >= 2 ** 31 \
-            or max(grid[1:]) >= 2 ** 16:
-        raise ValueError(f"{what}: {B} shots of {nz} x {nx}; the kernel "
-                         "takes a positive grid of fewer than 2^31 cells "
-                         "and a launch grid of at most (2^31 - 1, 65535, "
-                         "65535) blocks")
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{what}: {smem} bytes of shared memory a block; "
-                         f"the card gives at most {SMEM_LIMIT}")
-    return SimpleNamespace(tile=tile, threads=threads, grid=grid, smem=smem)
-
-
 def forward_launch(B, nz, nx, r):
     """The forward step kernel's launch at these shapes: the tile, threads,
     grid of one step (x tiles, z tiles, shots) and shared-memory bytes of a
@@ -450,25 +421,6 @@ def adjoint_launch(B, nz, nx, r):
                 + 4 * (tx + 2 * r) * (tz + 2 * r))
     return tile_launch("elastic adjoint", B, nz, nx, r, ADJ_TILE,
                        ADJ_THREADS, smem, shots_first=True)
-
-
-def _source_list(inj):
-    """inj's non-zero cells per shot: (cells (B, K) int32 z * nx + x, -1
-    where a shot has fewer, values (B, K)), K at least 1. Adding wt * 0 at
-    the other cells would change no value, only the sign of a zero."""
-    B = inj.shape[0]
-    flat = inj.reshape(B, -1)
-    hit = flat != 0
-    count = hit.sum(1)
-    K = max(int(count.max()), 1)
-    b, cell = hit.nonzero(as_tuple=True)
-    pos = torch.arange(b.numel(), device=inj.device) - \
-        (torch.cumsum(count, 0) - count)[b]
-    cells = torch.full((B, K), -1, dtype=torch.int32, device=inj.device)
-    vals = inj.new_zeros((B, K))
-    cells[b, pos] = cell.to(torch.int32)
-    vals[b, pos] = flat[b, cell]
-    return cells, vals, K
 
 
 def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):

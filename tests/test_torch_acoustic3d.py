@@ -249,6 +249,152 @@ def test_stream_wrappers_count_and_check():
 
 
 # ---------------------------------------------------------------------------
+# the card's y march (csrc/acoustic3d.cu forward_march), replayed
+# ---------------------------------------------------------------------------
+
+def _march_replay(m3, two_m_hd, denom, wav, injp, iy, *, w, ih2, nsteps,
+                  z0, fs, hist, ylen):
+    """A torch replay of the card's march in its order: each step walks
+    y in chunks of ``ylen`` planes, each chunk from a rolling window of the
+    2r + 1 planes of u around the current one (its r-plane lead-ins on each
+    side loaded first, zero beyond the grid); the y term from the window,
+    the x and z terms from the current plane (the odd mirror on rows
+    0..r under a free surface), x then y then z; up overwritten in place
+    plane by plane; the source planes added at y = iy[b], iy[b] + 1."""
+    B = injp.shape[0]
+    ny, nz, nx = m3.shape
+    r = len(w) - 1
+    ih2x, ih2y, ih2z = ih2
+    zero = injp.new_zeros((B, nz, nx))
+    u = injp.new_zeros((B, ny, nz, nx))
+    up = injp.new_zeros((B, ny, nz, nx))
+    rec = injp.new_empty((B, nsteps, ny, 2, nx))
+    dt2 = injp.new_empty((B, nsteps, ny, nz, nx)) if hist else None
+    illum = injp.new_zeros((B, ny, nz, nx)) if hist else None
+    bi = torch.arange(B)
+
+    def plane(y):
+        return u[:, y] if 0 <= y < ny else zero
+
+    def d2(c, k_of):
+        acc = w[0] * c
+        for k in range(1, r + 1):
+            acc = acc + w[k] * (k_of(k) + k_of(-k))
+        return acc
+
+    for t in range(nsteps):
+        for y0 in range(0, ny, ylen):
+            window = [plane(y) for y in range(y0 - r - 1, y0 + r)]
+            for y in range(y0, min(y0 + ylen, ny)):
+                window = window[1:] + [plane(y + r)]
+                c = window[r]
+                accx = d2(c, lambda k: tac.shift(c, k, -1))
+                accy = d2(c, lambda k: window[r + k])
+                accz = d2(c, lambda k: tac.shift(c, k, -2))
+                if fs:
+                    rows = []
+                    for z in range(r + 1):
+                        acc = w[0] * c[:, z]
+                        for k in range(1, r + 1):
+                            acc = acc + w[k] * c[:, z + k]
+                            if z - k > 0:
+                                acc = acc + w[k] * c[:, z - k]
+                            elif z - k < 0:
+                                acc = acc - w[k] * c[:, k - z]
+                        rows.append(acc)
+                    accz = torch.cat([torch.stack(rows, 1), accz[:, r + 1:]],
+                                     1)
+                lap = accx * ih2x + accy * ih2y + accz * ih2z
+                upc = up[:, y]
+                un = (lap + two_m_hd[y] * c - m3[y] * upc) * denom[y]
+                for p in range(2):
+                    hit = (iy.long() + p == y)
+                    if hit.any():
+                        un[hit] = un[hit] + wav[hit, t, None, None] \
+                            * injp[bi[hit], p]
+                rec[:, t, y] = c[:, z0:z0 + 2]
+                if hist:
+                    dt2[:, t, y] = un - 2.0 * c + upc
+                    illum[:, y] = illum[:, y] + un * un
+                up[:, y] = un
+        u, up = up, u
+    return rec, dt2, illum
+
+
+@functools.lru_cache(maxsize=None)
+def _march_operands(fs, so):
+    """The port's streamed operands on the (40, 36, 32) padded grid (fs:
+    nz 24), the first 24 steps of both shots."""
+    geom = _port_geometry(_geom3(fs, so))
+    st = tfwi._Setup3(geom, torch.device("cpu"))
+    wav, injp, iy = st.planes(0, 2)
+    nsteps = 24
+    w, ih2, _ = c3d._stencil_constants3(so, st.kw["spacing"], st.dt)
+    m3, hd3 = st.m3, st.hd3
+    ops = (m3, 2.0 * m3 + hd3, 1.0 / (m3 + hd3),
+           wav[:, :nsteps].contiguous(), injp, iy)
+    return ops, dict(w=w, ih2=ih2, nsteps=nsteps, z0=st.z0, fs=fs)
+
+
+@pytest.mark.parametrize("fs", [False, True])
+@pytest.mark.parametrize("so", [4, 8])
+def test_march_replay_equals_twin_bitwise(fs, so):
+    """The march's order (the y term from a rolling window of 2r + 1
+    planes, y cut into the launch helper's chunks with r-plane lead-ins,
+    up overwritten plane by plane) gives the twin's records, history and
+    illumination bit for bit at float32 on the (40, 36, 32) padded grid,
+    with and without the free surface."""
+    ops, kw = _march_operands(fs, so)
+    m3 = ops[0]
+    ny, nz, nx = m3.shape
+    assert (nx, ny) == (40, 36) and nz == (24 if fs else 32)
+    launch = c3d.forward_launch(2, ny, nz, nx, so // 2)
+    assert launch.chunks == 2 and launch.ylen == 18
+    got = _march_replay(*ops, hist=True, ylen=launch.ylen, **kw)
+    want = c3d._forward_plain(*ops, hist=True, **kw)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+        assert float(w_.abs().max()) > 0
+    # a chunk of 5 planes: lead-ins cut across the source and receivers
+    rec = _march_replay(*ops, hist=False, ylen=5, **kw)[0]
+    assert torch.equal(rec, want[0])
+
+
+@pytest.mark.parametrize("B,ny,nz,nx,r,smem,grid,chunks,ylen", [
+    # bench config 5 (4 shots of 128^3, space order 8), its 3-shot gate
+    (4, 128, 128, 128, 4, 7_680, (4, 4, 24), 3, 43),
+    (3, 128, 128, 128, 4, 7_680, (3, 4, 32), 4, 32),
+    (4, 128, 128, 128, 8, 12_288, (4, 4, 24), 3, 43),
+    (2, 36, 32, 40, 4, 7_680, (2, 2, 4), 2, 18),     # the card tests' grid
+    (1, 1, 2, 1, 1, 4_896, (1, 1, 1), 1, 1),
+])
+def test_march_launch_fits_shared_memory(B, ny, nz, nx, r, smem, grid,
+                                         chunks, ylen):
+    """The march's launch: 32 x 16 tiles, 512 threads, the shots the
+    fastest grid axis, the y-chunks as many as the card holds at once at
+    three blocks an SM (none shorter than 16 planes), two planes of the
+    tile and an r halo within a static launch's 48 KB."""
+    launch = c3d.forward_launch(B, ny, nz, nx, r)
+    assert launch.smem == smem <= 48 * 1024
+    assert launch.grid == grid
+    assert (launch.chunks, launch.ylen) == (chunks, ylen)
+    assert launch.tile == (32, 16) and launch.threads == 512
+    assert (launch.chunks - 1) * launch.ylen < ny <= chunks * ylen
+
+
+@pytest.mark.parametrize("args", [
+    (4, 128, 128, 128, 0), (4, 128, 128, 128, 9), (0, 128, 128, 128, 4),
+    (4, 0, 128, 128, 4), (4, 128, 0, 128, 4), (4, 128, 128, 0, 4),
+    (1, 1, 2 ** 16, 2 ** 15, 4), (1, 1, 1, 32 * 2 ** 16, 4),
+    (1, 1, 16 * 2 ** 16, 1, 4)])
+def test_march_launch_refuses_what_the_kernel_does_not_take(args):
+    """Beyond radius 8, an empty grid, 2^31 cells a plane or 65,536 tiles
+    along x or z: the helper raises, so the wrapper launches nothing."""
+    with pytest.raises(ValueError):
+        c3d.forward_launch(*args)
+
+
+# ---------------------------------------------------------------------------
 # the step kernel (B14) and the step hook
 # ---------------------------------------------------------------------------
 

@@ -327,3 +327,212 @@ def test_matmul_full_restores_precision_flags(tf32):
         assert (mm.allow_tf32, dnn.allow_tf32) == (tf32, tf32)
     finally:
         mm.allow_tf32, dnn.allow_tf32 = saved
+
+
+# ---------------------------------------------------------------------------
+# the card's fused forward tile (csrc/acoustic2d.cu forward_tile), replayed
+# ---------------------------------------------------------------------------
+
+def _lap_tile(P, rows, cols, gz0, w, inv_h2x, inv_h2z, fs):
+    """Laplacian on the rows x cols region of a padded tile P (B, Z, X),
+    whose local row i is global row i + gz0: the kernel's laplacian_tile,
+    term for term (x term first, the odd mirror on global rows 0..r)."""
+    r = len(w) - 1
+    (z0, z1), (x0, x1) = rows, cols
+    c = P[:, z0:z1, x0:x1]
+    accx = w[0] * c
+    for k in range(1, r + 1):
+        accx = accx + w[k] * (P[:, z0:z1, x0 + k:x1 + k]
+                              + P[:, z0:z1, x0 - k:x1 - k])
+    accz = w[0] * c
+    for k in range(1, r + 1):
+        accz = accz + w[k] * (P[:, z0 + k:z1 + k, x0:x1]
+                              + P[:, z0 - k:z1 - k, x0:x1])
+    if fs:
+        accz = accz.clone()
+        for i in range(z0, z1):
+            z = i + gz0
+            if not 0 <= z <= r:
+                continue
+            acc = w[0] * P[:, i, x0:x1]
+            for k in range(1, r + 1):
+                acc = acc + w[k] * P[:, i + k, x0:x1]
+                if z - k > 0:
+                    acc = acc + w[k] * P[:, i - k, x0:x1]
+                elif z - k < 0:
+                    acc = acc - w[k] * P[:, i + k - 2 * z, x0:x1]
+            accz[:, i - z0] = acc
+    return accx * inv_h2x + accz * inv_h2z
+
+
+def _fused_forward_replay(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x,
+                          inv_h2z, nsteps, seg, z0, fs, hist, ckpt):
+    """A torch replay of the card's fused forward (csrc/acoustic2d.cu
+    forward_tile) in its order: two steps a launch over ca.FWD_TILE tiles,
+    u on the tile and a 2r halo, step t on the tile and an r halo (zero
+    beyond the grid), step t + 1 on the tile from it, the source added only
+    at inj's non-zero cells (``_source_list``), the new pair into two fresh
+    buffers; an odd last step one single-step launch over an r halo. The
+    halo corners the kernel never reads hold NaN here, so a read of one
+    would show."""
+    B, nz, nx = inj.shape
+    total = wav_pad.shape[0]
+    r = len(w) - 1
+    tx, tz = ca.FWD_TILE
+    cells, vals, _ = ca._source_list(inj)
+    lap = functools.partial(_lap_tile, w=w, inv_h2x=inv_h2x,
+                            inv_h2z=inv_h2z, fs=fs)
+    nan = float("nan")
+
+    def padded(f, xt, zt, h, e):
+        """f on the tile at (xt, zt) and an h halo, zero beyond the grid,
+        NaN where both axes are more than e outside the tile."""
+        P = f.new_zeros((f.shape[0], tz + 2 * h, tx + 2 * h))
+        za, zb = max(zt - h, 0), min(zt + tz + h, nz)
+        xa, xb = max(xt - h, 0), min(xt + tx + h, nx)
+        P[:, za - zt + h:zb - zt + h, xa - xt + h:xb - xt + h] = \
+            f[:, za:zb, xa:xb]
+        lz = torch.arange(tz + 2 * h)
+        lx = torch.arange(tx + 2 * h)
+        dz = torch.clamp(torch.maximum(h - lz, lz - h - tz + 1), min=0)
+        dx = torch.clamp(torch.maximum(h - lx, lx - h - tx + 1), min=0)
+        P[:, (dz[:, None] > e) & (dx[None, :] > e)] = nan
+        return P
+
+    def region(f, xt, zt, h):
+        """f (nz, nx) or (B, nz, nx) on the tile and an h halo, zero beyond
+        the grid."""
+        g = f if f.dim() == 3 else f[None]
+        return padded(g, xt, zt, h, h)
+
+    def add_source(v, xt, zt, h, wt):
+        for b, slot in (cells >= 0).nonzero().tolist():
+            gz, gx = divmod(int(cells[b, slot]), nx)
+            lz, lx = gz - zt + h, gx - xt + h
+            if 0 <= lz < v.shape[1] and 0 <= lx < v.shape[2]:
+                v[b, lz, lx] = v[b, lz, lx] + wt * vals[b, slot]
+
+    def step(P, h, xt, zt, up, t):
+        """The update on the tile and an h - r halo of the tile at (xt, zt)
+        from the padded u (halo h) and up, zero beyond the grid."""
+        e = h - r
+        sl = (r, r + tz + 2 * e), (r, r + tx + 2 * e)
+        un = (lap(P, *sl, gz0=zt - h) + region(two_m_hd, xt, zt, e)
+              * P[:, sl[0][0]:sl[0][1], sl[1][0]:sl[1][1]]
+              - region(m, xt, zt, e) * region(up, xt, zt, e)) \
+            * region(denom, xt, zt, e)
+        inside = region(torch.ones_like(m), xt, zt, e)[0] == 1
+        un = torch.where(inside, un, torch.zeros((), dtype=un.dtype))
+        add_source(un, xt, zt, e, wav_pad[t])
+        # the corners of step t's halo, which the kernel does not form
+        lz = torch.arange(tz + 2 * e)
+        lx = torch.arange(tx + 2 * e)
+        out_z = (lz < e) | (lz >= e + tz)
+        out_x = (lx < e) | (lx >= e + tx)
+        un[:, out_z[:, None] & out_x[None, :]] = nan
+        return un
+
+    u = inj.new_zeros((B, nz, nx))
+    up = inj.new_zeros((B, nz, nx))
+    rec = inj.new_empty((B, total, 2, nx))
+    dt2 = inj.new_empty((B, total, nz, nx)) if hist else None
+    pairs = inj.new_empty((B, total // seg, 2, nz, nx)) if ckpt else None
+    illum = inj.new_zeros((B, nz, nx)) if hist or ckpt else None
+    t = 0
+    while t < total:
+        two = t + 1 < total
+        nu, nup = inj.new_empty((B, nz, nx)), inj.new_empty((B, nz, nx))
+        for zt in range(0, nz, tz):
+            for xt in range(0, nx, tx):
+                zs = slice(zt, min(zt + tz, nz))
+                xs = slice(xt, min(xt + tx, nx))
+                own = (slice(None), zs, xs)
+                n_z, n_x = zs.stop - zs.start, xs.stop - xs.start
+                h = 2 * r if two else r
+                P = padded(u, xt, zt, h, h - r)
+                un = step(P, h, xt, zt, up, t)
+                uc, upc = u[own], up[own]
+                e = h - r
+                un_own = un[:, e:e + n_z, e:e + n_x]
+                steps = [(t, uc, upc, un_own)]
+                if two:
+                    unn = step(un, r, xt, zt, u, t + 1)
+                    steps.append((t + 1, un_own, uc, unn[:, :n_z, :n_x]))
+                for ts, a, b_, c in steps:
+                    if zt <= z0 < zt + n_z:
+                        rec[:, ts, 0, xs] = a[:, z0 - zt]
+                    if zt <= z0 + 1 < zt + n_z:
+                        rec[:, ts, 1, xs] = a[:, z0 + 1 - zt]
+                    if ckpt and ts % seg == 0:
+                        pairs[:, ts // seg, 0, zs, xs] = a
+                        pairs[:, ts // seg, 1, zs, xs] = b_
+                    if hist:
+                        dt2[:, ts, zs, xs] = c - 2.0 * a + b_
+                    if illum is not None and ts < nsteps:
+                        illum[own] = illum[own] + c * c
+                nup[own] = un_own
+                nu[own] = steps[-1][3]
+        if two:
+            u, up = nu, nup
+        else:
+            u, up = nu, u
+        t += 2 if two else 1
+    return rec, dt2 if hist else pairs, illum
+
+
+@pytest.mark.parametrize("fs", [False, True])
+@pytest.mark.parametrize("form", ["rec", "dt2", "ckpt"])
+@pytest.mark.parametrize("n", [40, 35])
+def test_fused_forward_replay_equals_twin_bitwise(fs, form, n):
+    """The fused forward's order (two steps a launch over 32 x 32 tiles
+    with a 2r halo, the source at its cells, an odd step count ending on a
+    single step) gives the dense-pattern twin's outputs bit for bit at
+    float32 on the small case, for each of the three forms (receiver rows;
+    the history with the illumination; the segment pairs with the
+    illumination), with and without the free surface. The illumination
+    stops at nsteps = n - 3, so one two-step launch straddles it."""
+    c = _case(fs)
+    kw = c["kw"]
+    w, inv_h2x, inv_h2z, _ = ca._stencil_constants(4, kw["spacing"],
+                                                   c["dt"])
+    mT, hdT = _t(c["mT"]), _t(c["hdT"])
+    denom, two_m_hd = 1.0 / (mT + hdT), 2.0 * mT + hdT
+    fkw = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, nsteps=n - 3,
+               seg=(8 if n % 2 == 0 else 7) if form == "ckpt" else n,
+               z0=c["z0"], fs=fs, hist=form == "dt2", ckpt=form == "ckpt")
+    ops = (mT, two_m_hd, denom, _t(c["wav_pad"])[:n], _t(c["injT"]))
+    got = _fused_forward_replay(*ops, **fkw)
+    want = ca._forward_plain(*ops, **fkw)
+    for g, w_ in zip(got, want):
+        if w_ is not None:
+            assert torch.equal(g, w_)
+            assert float(w_.abs().max()) > 0
+
+
+@pytest.mark.parametrize("B,nz,nx,r,smem,grid", [
+    (29, 186, 380, 4, 15_616, (29, 12, 6)),     # the SMARMN main path
+    (29, 186, 380, 8, 25_600, (29, 12, 6)),
+    (1, 1, 1, 1, 9_808, (1, 1, 1)),
+])
+def test_forward_launch_fits_shared_memory(B, nz, nx, r, smem, grid):
+    """The fused forward's launch at the SMARMN main path (29 shots,
+    186 x 380 padded, space order 8), at the largest radius the kernel
+    takes and at the smallest case: 32 x 32 tiles, 512 threads, two steps
+    a launch, the shots the fastest grid axis, within a block's 232,448
+    bytes (and the 48 KB of a static launch)."""
+    launch = ca.forward_launch(B, nz, nx, r)
+    assert launch.smem == smem <= 48 * 1024 <= ca.SMEM_LIMIT
+    assert launch.grid == grid
+    assert launch.tile == (32, 32) and launch.threads == 512
+    assert launch.steps == 2
+
+
+@pytest.mark.parametrize("args", [
+    (29, 186, 380, 0), (29, 186, 380, 9), (0, 186, 380, 4),
+    (29, 0, 380, 4), (29, 186, 0, 4), (1, 2 ** 16, 2 ** 15, 4),
+    (1, 1, 32 * 2 ** 16, 4), (1, 32 * 2 ** 16, 1, 4)])
+def test_forward_launch_refuses_what_the_kernel_does_not_take(args):
+    """Beyond radius 8, an empty grid, 2^31 cells or 65,536 tiles along an
+    axis: the helper raises, so the wrapper launches nothing."""
+    with pytest.raises(ValueError):
+        ca.forward_launch(*args)

@@ -90,8 +90,10 @@ def test_forward_kernels_match_twins(cuda, fs, space_order):
     assert sum(ca.TWIN_CALLS.values()) == 0
     want = ca.forward_dt2_plain(*ops, **st.kw)
     torch.cuda.synchronize()
-    _close([rec], [ca.forward_rec_plain(*ops, **st.kw)])
-    _close(got, want)
+    # the fused two-step tile repeats the twin's operations: exactly equal
+    assert torch.equal(rec, ca.forward_rec_plain(*ops, **st.kw))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     assert torch.equal(rec, got[0])
 
 
@@ -142,7 +144,8 @@ def test_checkpoint_kernels_match_twins(cuda, fs, space_order):
     assert sum(ca.TWIN_CALLS.values()) == 0
     want = ca.forward_ckpt_plain(*ops, **st.kw)
     torch.cuda.synchronize()
-    _close((rec, pairs, illum), want)
+    for g, w in zip((rec, pairs, illum), want):
+        assert torch.equal(g, w)
     _close([grad], [ca.gradient_segments_plain(
         st.mT, st.hdT, st.wav_pad, injT, want[1], res, st.dt, **st.kw)])
     # the recompute repeats the streamed forward's steps from its own state
@@ -150,6 +153,29 @@ def test_checkpoint_kernels_match_twins(cuda, fs, space_order):
     assert torch.equal(r2, rec) and torch.equal(il2, illum)
     assert torch.equal(ca.gradient_stream_segments(st.mT, st.hdT, dt2, res,
                                                    st.dt, **st.kw), grad)
+
+
+@pytest.mark.cuda
+def test_acoustic_forwards_raise_for_what_they_do_not_take(cuda):
+    """Space order 18 (radius 9; the fused tile takes 1..8) raises before
+    any launch, on the three forwards and the checkpoint gradient, whose
+    recompute runs the same tile."""
+    st = _setup(False, 4, cuda)
+    kw = dict(st.kw, space_order=18)
+    injT = st.injT(0, 2)
+    ops = (st.mT, st.hdT, st.wav_pad, injT, st.dt)
+    pairs = torch.zeros((2, st.nseg, 2, st.nz, st.nx), device=cuda)
+    res = torch.zeros((2, st.nseg, st.seg, 2, st.nx), device=cuda)
+    ca.reset_counters()
+    for fn in (ca.forward_rec_segments, ca.forward_dt2_segments,
+               ca.forward_ckpt_segments):
+        with pytest.raises(ValueError):
+            fn(*ops, **kw)
+    with pytest.raises(ValueError):
+        ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT, pairs, res,
+                             st.dt, **kw)
+    assert sum(ca.LAUNCHES.values()) == 0
+    assert sum(ca.TWIN_CALLS.values()) == 0
 
 
 def _planes(dev, blocked, B=2, Q=4, nblk=5, R=16, lanes=128, G=24, dxmax=7,
@@ -795,11 +821,29 @@ def test_3d_stream_kernels_match_twins(cuda, fs, space_order):
     assert all(c3d.LAUNCHES[n] == 1 for n in c3d.KERNELS)
     assert sum(c3d.TWIN_CALLS.values()) == 0
     torch.cuda.synchronize()
-    _close([rec], [c3d.forward_rec3_plain(*ops, **st.kw)])
-    _close(got, c3d.forward_dt2_stream3_plain(*ops, **st.kw))
+    # the y march repeats the twin's operations: exactly equal
+    assert torch.equal(rec, c3d.forward_rec3_plain(*ops, **st.kw))
+    for g, w in zip(got, c3d.forward_dt2_stream3_plain(*ops, **st.kw)):
+        assert torch.equal(g, w)
     _close([grad], [c3d.gradient_stream3_plain(st.m3, st.hd3, got[1], slabs,
                                                st.dt, **st.kw)])
     assert torch.equal(rec, got[0])
+
+
+@pytest.mark.cuda
+def test_3d_forwards_raise_for_what_they_do_not_take(cuda):
+    """Space order 18 (radius 9; the y march takes 1..8) raises before any
+    launch, on both 3-D forwards."""
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
+    _, st = _setup3(False, 4, cuda)
+    ops = (st.m3, st.hd3, *st.planes(0, 2), st.dt)
+    kw = dict(st.kw, space_order=18)
+    c3d.reset_counters()
+    for fn in (c3d.forward_rec3, c3d.forward_dt2_stream3):
+        with pytest.raises(ValueError):
+            fn(*ops, **kw)
+    assert sum(c3d.LAUNCHES.values()) == 0
+    assert sum(c3d.TWIN_CALLS.values()) == 0
 
 
 @pytest.mark.cuda

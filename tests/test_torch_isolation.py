@@ -131,6 +131,19 @@ def test_ctypes_signatures_match_the_cuda_source():
     _check_signatures(ca, "acoustic2d.cu")
 
 
+def test_acoustic2d_source_launches_the_fused_forward_tile():
+    """The 2-D sweeps launch the fused forward tile (two steps a launch,
+    the source as ``src_cell``/``src_val`` lists) and the reverse step;
+    the forward's entry points take the lists and four state fields."""
+    assert _kernels_launched("acoustic2d.cu") == {"forward_tile",
+                                                  "adjoint_step"}
+    src = open(os.path.join(PKG, "csrc", "acoustic2d.cu")).read()
+    for entry in ("acoustic2d_forward", "acoustic2d_gradient_segments"):
+        params = src[src.index(f"int {entry}("):].split(")")[0]
+        assert "src_cell" in params and "src_val" in params
+        assert "float* state" in params and "inj" not in params
+
+
 def test_ctypes_signatures_match_the_bfm_source():
     """The same for cuda_bfm.SIGNATURES and csrc/bfm_push.cu."""
     _check_signatures(cb, "bfm_push.cu")
@@ -380,6 +393,18 @@ def test_ctypes_signatures_match_the_acoustic3d_source(module):
     _check_signatures({"cuda_acoustic3": cuda_acoustic3,
                        "cuda_acoustic3d": cuda_acoustic3d}[module],
                       "acoustic3d.cu")
+
+
+def test_acoustic3d_source_launches_the_y_march():
+    """The 3-D forwards launch the y march (its chunk length ``ylen`` a
+    parameter of the entry point); the reverse sweep and the step kernel
+    keep their one-thread-a-cell kernels."""
+    assert _kernels_launched("acoustic3d.cu") == {"forward_march",
+                                                  "adjoint_step",
+                                                  "step_kernel"}
+    src = open(os.path.join(PKG, "csrc", "acoustic3d.cu")).read()
+    params = src[src.index("int acoustic3d_forward("):].split(")")[0]
+    assert "int ylen" in params
 
 
 def _geometry3():
