@@ -298,7 +298,8 @@ EXACT = ("pushforward_slabs_nat", "pushforward_slabs", "elastic_segments",
          "visco_grad_stream_segments", "forward_rec_segments",
          "forward_dt2_segments", "gradient_stream_segments",
          "forward_ckpt_segments", "gradient_segments", "forward_rec3",
-         "forward_dt2_stream3", "gradient_stream3", "step3")
+         "forward_dt2_stream3", "gradient_stream3", "step3",
+         "tti_gradient_stream_segments", "tti_jacobian_adjoint_segments")
 
 
 def compare(name, got, want):
@@ -499,16 +500,19 @@ def acoustic_step_floors(st, B):
 
 
 def acoustic3d_step_floors(st, B):
-    """The 3-D forwards' per-step traffic floors, in fields of one shot.
+    """The 3-D sweeps' per-step traffic floors, in fields of one shot.
     The march reads u and up and writes up for each of the B shots and the
     three parameter fields once (the shots of a tile run together): 3B + 3;
     the history adds its write and the illumination's read and write: 6B +
-    3. The first design had the shot as the grid's slowest axis, so the
-    parameters came in once a shot: 6B and 9B."""
+    3. The reverse march reads v, vn, the history slot and grad and writes
+    vn and grad: 6B + 3 as well. The first design had the shot as the
+    grid's slowest axis, so the parameters came in once a shot: 6B, 9B and
+    9B."""
     ny, nz, nx = st.m3.shape
     return step_floors(ny * nz * nx, st.nsteps,
                        {"forward_rec3": (3 * B + 3, 6 * B),
-                        "forward_dt2_stream3": (6 * B + 3, 9 * B)})
+                        "forward_dt2_stream3": (6 * B + 3, 9 * B),
+                        "gradient_stream3": (6 * B + 3, 9 * B)})
 
 
 def elastic_step_floors(tb, B):
@@ -528,6 +532,39 @@ def elastic_step_floors(tb, B):
                        {"elastic_segments": (10, 16),
                         "elastic_fwd_hist_segments": (14, 20),
                         "elastic_grad_stream_segments": (24, 35)})
+
+
+def tti_step_floors(b, B):
+    """The TTI sweeps' per-step traffic floors, in fields of one shot (nz x
+    nx) a step. The fused reverse step reads du, dv, dun, dvn, both history
+    slots and grad and writes grad, dun and dvn for each of the B shots,
+    and the seven coefficients once (the shots of a tile run together):
+    10B + 7. The first design's two launches moved 29B: the gz phase 10B
+    (du, dv, both history slots and grad read, grad and the four products
+    written), the update 10B (du, dv, dun, dvn and the four products read,
+    dun and dvn written), and nine coefficient reads a shot (eh, dh, sin,
+    cos; eh, dh, m, 2m + hd, 1/(m + hd)). The forwards keep two phases:
+    the gz phase 6B (u and v read, four products written), the update 11B
+    (u, up, v, vp, the products and the dense source pattern read, up and
+    vp written), the seven coefficients once a shot: 24B, 26B with the two
+    history writes; a fused forward step would read u, up, v, vp and
+    write un, vn over up, vp, 6B + 7, 8B + 7 with the histories. The
+    checkpoint forward and the recompute run the ``nseg_ck * seg_ck``
+    padded steps (1584 at config 4, against 1579), the checkpoint reverse
+    its recompute (26B a step) and then the reverse; their floors count
+    each over its own steps, and ``print_floors`` divides by nsteps."""
+    field = b.kw["nz"] * b.kw["nx"]
+    ns, nt = b.nsteps, b.nseg_ck * b.seg_ck
+    rev = step_floors(field, ns, {"rev": (10 * B + 7, 29 * B)})["rev"]
+    out = step_floors(field, ns, {
+        "tti_forward_dt2_segments": (8 * B + 7, 26 * B),
+        "tti_gradient_stream_segments": (10 * B + 7, 29 * B)})
+    out.update(step_floors(field, nt, {
+        "tti_forward_ckpt_segments": (6 * B + 7, 24 * B)}))
+    rec = step_floors(field, nt, {"fwd": (26 * B, 26 * B)})["fwd"]
+    out["tti_jacobian_adjoint_segments"] = (
+        rec[0] + rev[0], rec[1] + rev[1], 36 * B + 7, 55 * B)
+    return out
 
 
 def visco_step_floors(tb, B):
@@ -1337,6 +1374,11 @@ def tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
+    launch = ct.adjoint_launch(B, kw1["nz"], kw1["nx"], 4)
+    print(f"   fused reverse step: tile {launch.tile}, {launch.threads} "
+          f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
+          "memory a block, one launch a step")
+    print_floors(tti_step_floors(tc, B), ms, tc.nsteps)
 
     phase(f"22 TTI profile: one steady-state gradient, {TTI_SHOTS} shots")
     obs = ct.tti_forward_batched(*tc.batched(), tc.dt, **common)
@@ -1826,6 +1868,14 @@ def acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
     err[name] = compare(name, [got], [want])
     del fwd, gops, got, want
     torch.cuda.empty_cache()
+    # the reverse march under a free surface at the main path's shots
+    kwf = dict(kw, fs=True)
+    gops = (st.m3, st.hd3, c3d.forward_dt2_stream3(*ops, **kwf)[1],
+            res_slabs(B), st.dt)
+    compare(f"{name} (fs True)", [c3d.gradient_stream3(*gops, **kwf)],
+            [c3d.gradient_stream3_plain(*gops, **kwf)])
+    del gops
+    torch.cuda.empty_cache()
     name = "step3"
     ms[name], got = cuda_ms(lambda: c3.step3(*step_ops, **step_kw), 50)
     plain_ms[name], want = cuda_ms(lambda: c3.step3_plain(*step_ops,
@@ -1852,10 +1902,13 @@ def acoustic3d_phases(dev, rng, marm, fwi, c3, c3d, least_square, counters,
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
     ny, nz, nx = st.m3.shape
-    launch = c3d.forward_launch(B, ny, nz, nx, kw["space_order"] // 2)
-    print(f"   y march: tile {launch.tile}, {launch.threads} threads, grid "
-          f"{launch.grid}, {launch.chunks} y-chunks of {launch.ylen} "
-          f"planes, {launch.smem} bytes of shared memory a block")
+    for what, reverse in (("forwards", False), ("reverse", True)):
+        launch = c3d.march_launch(B, ny, nz, nx, kw["space_order"] // 2,
+                                  reverse=reverse)
+        print(f"   y march, the {what}: tile {launch.tile}, "
+              f"{launch.threads} threads, grid {launch.grid}, "
+              f"{launch.chunks} y-chunks of {launch.ylen} planes, "
+              f"{launch.smem} bytes of shared memory a block")
     print_floors(acoustic3d_step_floors(st, B), ms, st.nsteps)
 
     phase(f"32 3-D profile: one steady-state gradient and one trial, {B} "

@@ -15,7 +15,7 @@
 //       replaces gradient_stream3 (pallas_acoustic3d.py:571, _grad3_kernel
 //       :492): the reverse sweep over that history, grad += dt2[t] * v, v
 //       stepped backward, the residual planes added on z0, z0 + 1 of the
-//       new v; one final scale by -1/s^2.
+//       new v, on the forwards' march; one final scale by -1/s^2.
 //   acoustic3d_step
 //       replaces step3 (devito_fwi_tpu/ops/pallas_acoustic3.py:120,
 //       _step3_kernel :68): one leapfrog step
@@ -42,7 +42,7 @@
 // its state through device memory once a step: the state of a batch (u and
 // up, 8.4 MB a field and shot) does not fit the 50 MB L2 at four shots.
 //
-// The forwards (forward_march): the first design ran one thread a cell
+// The sweeps (march): the first design ran one thread a cell
 // (32 x 8 in x, z at one y) and one launch a step, every neighbour read
 // through L1/L2: the y taps a plane (64 KB) apart and the z taps a row
 // apart, up to ~17 values a cell re-read from L2 or device memory, and the
@@ -62,13 +62,16 @@
 // (``ylen`` planes each, chosen by the wrapper) fill the card: 4 shots of
 // 128^3 are only 128 tiles. 3B + 3 shot fields a step for the modeling
 // sweep (u, up read, up written, the three parameters once), 6B + 3 with
-// the history (its write, the illumination's read and write). Times
-// against these floors are in PERF.md (kernel table, rows 8, 9).
-//
-// The reverse sweep (adjoint_step) keeps the first design: one thread per
-// cell and one launch per time step for the whole batch (blockIdx.z is the
-// shot); the new field overwrites v_prev in place, neighbours come through
-// L1/L2. The step kernel (step_kernel) is one thread per cell as well.
+// the history (its write, the illumination's read and write). The reverse
+// sweep is the same march in reverse mode: v in the queue and the shared
+// planes, v_prev, the history value and grad read at the cell one plane
+// ahead, v_prev overwritten by the new v and grad written, the residual
+// rows added on z0, z0 + 1: 6B + 3 shot fields a step, against the first
+// design's 9B. Its reads (the history slot, grad, v_prev) wait where the
+// forward's history is a write, so it runs at two blocks an SM without
+// spills and over twice as many y-chunks as fill the card once. Times
+// against these floors are in PERF.md (kernel table, rows 8-10). The step
+// kernel (step_kernel) is one thread per cell.
 //
 // Numerics: each kernel keeps its own TPU counterpart's association. The
 // streamed sweeps fold dt^2 into the per-axis scales (ih2 = s^2/h^2) and
@@ -96,39 +99,6 @@ struct Stencil {
   float ih2z;
 };
 
-// z-derivative (unscaled) of one column: the plain pair stencil, or under a
-// free surface on rows 0..R the plain +k term then the odd mirror.
-template <int R, bool FS>
-__device__ __forceinline__ float d2_z(const float* __restrict__ u,
-                                      size_t cell, int z, int nz,
-                                      size_t zstride, const Stencil& s) {
-  const float c = u[cell];
-  float acc = s.w[0] * c;
-  if (FS && z <= R) {
-    const size_t col = cell - (size_t)z * zstride;  // row 0 of the column
-#pragma unroll
-    for (int k = 1; k <= R; ++k) {
-      const float up = (z + k < nz) ? u[col + (size_t)(z + k) * zstride]
-                                    : 0.0f;
-      acc = acc + s.w[k] * up;
-      const int i = z - k;
-      if (i > 0) {
-        acc = acc + s.w[k] * u[col + (size_t)i * zstride];
-      } else if (i < 0) {
-        acc = acc - s.w[k] * u[col + (size_t)(-i) * zstride];
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 1; k <= R; ++k) {
-      const float sp = (z + k < nz) ? u[cell + (size_t)k * zstride] : 0.0f;
-      const float sm = (z - k >= 0) ? u[cell - (size_t)k * zstride] : 0.0f;
-      acc = acc + s.w[k] * (sp + sm);
-    }
-  }
-  return acc;
-}
-
 // Unscaled second derivative along an axis of stride ``stride`` at index i
 // of n: w0 u + sum_k w_k (u[i + k] + u[i - k]), zero beyond the axis.
 template <int R>
@@ -145,25 +115,16 @@ __device__ __forceinline__ float d2_axis(const float* __restrict__ u,
   return acc;
 }
 
-// Laplacian of one shot's (ny, nz, nx) field at (y, z, x), dt^2 folded into
-// the per-axis scales: x, then y, then z.
-template <int R, bool FS>
-__device__ __forceinline__ float laplacian_yzx(const float* __restrict__ u,
-                                               size_t cell, int y, int z,
-                                               int x, int ny, int nz, int nx,
-                                               const Stencil& s) {
-  const size_t plane = (size_t)nz * nx;
-  const float accx = d2_axis<R>(u, cell, x, nx, 1, s);
-  const float accy = d2_axis<R>(u, cell, y, ny, plane, s);
-  const float accz = d2_z<R, FS>(u, cell, z, nz, (size_t)nx, s);
-  return accx * s.ih2x + accy * s.ih2y + accz * s.ih2z;
-}
-
-// The march's tile (forward_march): kMX x kMZ (x, z) columns of one shot,
+// The march's tile: kMX x kMZ (x, z) columns of one shot,
 // one thread a column.
 constexpr int kMX = 32;
 constexpr int kMZ = 16;
 constexpr int kMThreads = kMX * kMZ;
+// blocks an SM that the march's launch bounds ask for: the forwards at
+// three (40 registers a thread), the reverse at two (49 registers, where
+// forty spill its extra prefetched operands; tools/probe_reverses.py)
+constexpr int kMarchBlocks = 3;
+constexpr int kReverseBlocks = 2;
 
 // A plane of the tile and its R halo along x and z (no corners) in shared
 // memory; two planes, alternating.
@@ -194,23 +155,34 @@ __device__ __forceinline__ void halo_cell(int j, int& lx, int& lz) {
   }
 }
 
-// Forward step t over the planes y0 .. y0 + ylen - 1 of one (x, z) tile of
-// one shot (blockIdx.x the shot, .y the x tile, .z the z tile and the
-// y-chunk): up <- un in place; the receiver rows of u, and with HIST the
-// history value and the illumination. The y taps come from each thread's
-// register queue of its column, the x and z taps from the plane's tile in
-// shared memory.
-template <int R, bool FS, bool HIST>
-__global__ void __launch_bounds__(kMThreads, 3)
-forward_march(const float* __restrict__ u, float* __restrict__ up,
-              const float* __restrict__ m,
-              const float* __restrict__ two_m_hd,
-              const float* __restrict__ denom,
-              const float* __restrict__ wav,
-              const float* __restrict__ injp, const int* __restrict__ iy,
-              float* __restrict__ rec, float* __restrict__ dt2,
-              float* __restrict__ illum, int t, int nsteps, int ny, int nz,
-              int nx, int z0, int ylen, Stencil s) {
+// The march's modes: modelling (the receiver rows), modelling with the
+// history and the illumination, and the reverse sweep.
+constexpr int kRec = 0;
+constexpr int kHist = 1;
+constexpr int kReverse = 2;
+
+// Step t over the planes y0 .. y0 + ylen - 1 of one (x, z) tile of one
+// shot (blockIdx.x the shot, .y the x tile, .z the z tile and the
+// y-chunk): up <- un in place. Forward (kRec, kHist): u and up the state,
+// the source planes added, the receiver rows of u, and with kHist the
+// history value and the illumination. kReverse: u = v and up = vn of the
+// adjoint, grad += hist[b, t] v, the residual rows added on z0 and z0 + 1
+// of the new v. The y taps come from each thread's register queue of its
+// column, the x and z taps from the plane's tile in shared memory.
+template <int R, bool FS, int MODE>
+__global__ void __launch_bounds__(kMThreads, MODE == kReverse
+                                                 ? kReverseBlocks
+                                                 : kMarchBlocks)
+march(const float* __restrict__ u, float* __restrict__ up,
+      const float* __restrict__ m, const float* __restrict__ two_m_hd,
+      const float* __restrict__ denom, const float* __restrict__ wav,
+      const float* __restrict__ injp, const int* __restrict__ iy,
+      float* __restrict__ rec, float* __restrict__ dt2,
+      float* __restrict__ illum, const float* __restrict__ hist,
+      const float* __restrict__ res, float* __restrict__ grad, int t,
+      int nsteps, int ny, int nz, int nx, int z0, int ylen, Stencil s) {
+  constexpr bool HIST = MODE == kHist;
+  constexpr bool REV = MODE == kReverse;
   using T = MarchTile<R>;
   constexpr int SX = T::SX;
   constexpr int kNH = T::kNH;
@@ -233,8 +205,8 @@ forward_march(const float* __restrict__ u, float* __restrict__ up,
   const float* ub = u + off;
   const size_t col = own ? (size_t)z * nx + x : 0;
   const size_t bt = (size_t)b * nsteps + t;
-  const int iyb = iy[b];
-  const float wt = wav[bt];
+  const int iyb = REV ? 0 : iy[b];
+  const float wt = REV ? 0.0f : wav[bt];
 
   // this thread's halo cells: the place in a plane's tile and the cell in a
   // plane (-1 beyond the grid or past the halo)
@@ -253,9 +225,10 @@ forward_march(const float* __restrict__ u, float* __restrict__ up,
   }
 
   // the halo of plane y and the operands of the thread's cell on it, loaded
-  // one plane ahead of their use
+  // one plane ahead of their use (iln the illumination or the gradient, hn
+  // the history value)
   float hv[kNH];
-  float upn = 0.0f, mn = 0.0f, an = 0.0f, dn = 0.0f, iln = 0.0f;
+  float upn = 0.0f, mn = 0.0f, an = 0.0f, dn = 0.0f, iln = 0.0f, hn = 0.0f;
   auto fetch = [&](int y) {
     const size_t py = (size_t)y * plane;
 #pragma unroll
@@ -266,6 +239,10 @@ forward_march(const float* __restrict__ u, float* __restrict__ up,
       an = two_m_hd[py + col];
       dn = denom[py + col];
       if (HIST) iln = illum[off + py + col];
+      if (REV) {
+        iln = grad[off + py + col];
+        hn = hist[bt * field + py + col];
+      }
     }
   };
 
@@ -291,7 +268,7 @@ forward_march(const float* __restrict__ u, float* __restrict__ up,
 #pragma unroll
     for (int i = 0; i < kNH; ++i)
       if (hl[i] >= 0) sp[hl[i]] = hv[i];
-    const float upc = upn, mc = mn, ac = an, dc = dn, ilc = iln;
+    const float upc = upn, mc = mn, ac = an, dc = dn, ilc = iln, hc = hn;
     if (y + 1 < y1) fetch(y + 1);
     // one barrier a plane: the next plane's tile goes to the other buffer
     __syncthreads();
@@ -325,51 +302,24 @@ forward_march(const float* __restrict__ u, float* __restrict__ up,
     }
     const float lap = accx * s.ih2x + accy * s.ih2y + accz * s.ih2z;
     float un = (lap + ac * uc - mc * upc) * dc;
-    const int p = y - iyb;
-    if (p == 0 || p == 1)
-      un = un + wt * injp[(((size_t)b * 2 + p) * nz + z) * nx + x];
     const size_t cell = (size_t)y * plane + col;
-    if (z == z0 || z == z0 + 1)
-      rec[((bt * ny + y) * 2 + (z - z0)) * nx + x] = uc;
-    if (HIST) {
-      dt2[bt * field + cell] = un - 2.0f * uc + upc;
-      illum[off + cell] = ilc + un * un;
+    if (REV) {
+      grad[off + cell] = ilc + hc * uc;
+      if (z == z0 || z == z0 + 1)
+        un = un + res[((bt * ny + y) * 2 + (z - z0)) * nx + x];
+    } else {
+      const int p = y - iyb;
+      if (p == 0 || p == 1)
+        un = un + wt * injp[(((size_t)b * 2 + p) * nz + z) * nx + x];
+      if (z == z0 || z == z0 + 1)
+        rec[((bt * ny + y) * 2 + (z - z0)) * nx + x] = uc;
+      if (HIST) {
+        dt2[bt * field + cell] = un - 2.0f * uc + upc;
+        illum[off + cell] = ilc + un * un;
+      }
     }
     up[off + cell] = un;
   }
-}
-
-// One reverse step t for all shots: grad += dt2[b, t] * v, vn <- v_new in
-// place with the residual rows of step t added on z0 and z0 + 1.
-template <int R, bool FS>
-__global__ void adjoint_step(const float* __restrict__ v,
-                             float* __restrict__ vn,
-                             const float* __restrict__ m,
-                             const float* __restrict__ two_m_hd,
-                             const float* __restrict__ denom,
-                             const float* __restrict__ dt2,
-                             const float* __restrict__ res,
-                             float* __restrict__ grad, int t, int nsteps,
-                             int ny, int nz, int nx, int z0, Stencil s) {
-  const int nxb = (nx + kBX - 1) / kBX;
-  const int x = (blockIdx.x % nxb) * kBX + threadIdx.x;
-  const int y = blockIdx.x / nxb;
-  const int z = blockIdx.y * kBZ + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= nx || z >= nz) return;
-  const size_t field = (size_t)ny * nz * nx;
-  const size_t cell = ((size_t)y * nz + z) * nx + x;
-  const size_t o = (size_t)b * field + cell;
-  const size_t bt = (size_t)b * nsteps + t;
-  const float* vb = v + (size_t)b * field;
-
-  const float vc = vb[cell];
-  grad[o] = grad[o] + dt2[bt * field + cell] * vc;
-  const float lap = laplacian_yzx<R, FS>(vb, cell, y, z, x, ny, nz, nx, s);
-  float vnew = (lap + two_m_hd[cell] * vc - m[cell] * vn[o]) * denom[cell];
-  if (z == z0 || z == z0 + 1)
-    vnew = vnew + res[((bt * ny + y) * 2 + (z - z0)) * nx + x];
-  vn[o] = vnew;
 }
 
 __global__ void scale_inplace(float* __restrict__ a, size_t n, float c) {
@@ -415,7 +365,7 @@ Stencil make_stencil(const float* w, int r, float ih2x, float ih2y,
 }
 
 struct SweepArgs {
-  const float *m, *two_m_hd, *denom, *wav, *injp, *dt2c, *res;
+  const float *m, *two_m_hd, *denom, *wav, *injp, *hist, *res;
   const int* iy;
   float *rec, *dt2, *illum, *grad, *a, *b;
   int B, ny, nz, nx, nsteps, z0, ylen;
@@ -424,51 +374,30 @@ struct SweepArgs {
   cudaStream_t stream;
 };
 
-// blockIdx.x walks the x-blocks of every y-plane, blockIdx.y the z-blocks,
-// blockIdx.z the shots
-dim3 sweep_grid(const SweepArgs& a) {
-  return dim3((unsigned)(((a.nx + kBX - 1) / kBX) * (long long)a.ny),
-              (a.nz + kBZ - 1) / kBZ, a.B);
-}
-
 // One march launch a step: blockIdx.x the shot, .y the x tile, .z the z
-// tile and the y-chunk of ylen planes.
-template <int R, bool FS, bool HIST>
-int run_forward(const SweepArgs& a) {
+// tile and the y-chunk of ylen planes; the state ping-pongs over a and b.
+// The forwards walk t up, the reverse walks it down and then scales grad
+// by -1/s^2 in a launch of its own.
+template <int R, bool FS, int MODE>
+int run_march(const SweepArgs& a) {
   const int nzt = (a.nz + kMZ - 1) / kMZ;
   const int chunks = (a.ny + a.ylen - 1) / a.ylen;
   const dim3 grid(a.B, (a.nx + kMX - 1) / kMX, nzt * chunks);
   float* u = a.a;
   float* up = a.b;
-  for (int t = 0; t < a.nsteps; ++t) {
-    forward_march<R, FS, HIST><<<grid, kMThreads, 0, a.stream>>>(
+  for (int k = 0; k < a.nsteps; ++k) {
+    const int t = MODE == kReverse ? a.nsteps - 1 - k : k;
+    march<R, FS, MODE><<<grid, kMThreads, 0, a.stream>>>(
         u, up, a.m, a.two_m_hd, a.denom, a.wav, a.injp, a.iy, a.rec, a.dt2,
-        a.illum, t, a.nsteps, a.ny, a.nz, a.nx, a.z0, a.ylen, a.s);
+        a.illum, a.hist, a.res, a.grad, t, a.nsteps, a.ny, a.nz, a.nx, a.z0,
+        a.ylen, a.s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     float* tmp = u;
     u = up;
     up = tmp;
   }
-  return 0;
-}
-
-template <int R, bool FS>
-int run_adjoint(const SweepArgs& a) {
-  const dim3 block(kBX, kBZ);
-  const dim3 grid = sweep_grid(a);
-  float* v = a.a;
-  float* vn = a.b;
-  for (int t = a.nsteps - 1; t >= 0; --t) {
-    adjoint_step<R, FS><<<grid, block, 0, a.stream>>>(
-        v, vn, a.m, a.two_m_hd, a.denom, a.dt2c, a.res, a.grad, t, a.nsteps,
-        a.ny, a.nz, a.nx, a.z0, a.s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    float* tmp = v;
-    v = vn;
-    vn = tmp;
-  }
+  if (MODE != kReverse) return 0;
   const size_t n = (size_t)a.B * a.ny * a.nz * a.nx;
   const int threads = 256;
   scale_inplace<<<(unsigned)((n + threads - 1) / threads), threads, 0,
@@ -476,22 +405,13 @@ int run_adjoint(const SweepArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <int R, bool FS, int MODE>
-struct Sweep {
-  static int run(const SweepArgs& a) {
-    if (MODE == 0) return run_forward<R, FS, false>(a);
-    if (MODE == 1) return run_forward<R, FS, true>(a);
-    return run_adjoint<R, FS>(a);
-  }
-};
-
 // Dispatch the runtime radius and free-surface flag onto the unrolled
 // instantiations.
 template <int MODE>
 int dispatch(int r, int fs, const SweepArgs& a) {
 #define ACOUSTIC3D_CASE(RR)                                             \
   case RR:                                                              \
-    return fs ? Sweep<RR, true, MODE>::run(a) : Sweep<RR, false, MODE>::run(a);
+    return fs ? run_march<RR, true, MODE>(a) : run_march<RR, false, MODE>(a);
   switch (r) {
     ACOUSTIC3D_CASE(1)
     ACOUSTIC3D_CASE(2)
@@ -505,14 +425,6 @@ int dispatch(int r, int fs, const SweepArgs& a) {
       return (int)cudaErrorInvalidValue;
   }
 #undef ACOUSTIC3D_CASE
-}
-
-bool sweep_shape_ok(int r, int B, int ny, int nz, int nx, int nsteps,
-                    int z0) {
-  return r >= 1 && r <= kMaxR && B >= 1 && B <= 65535 && ny >= 1 &&
-         nz >= 2 && nz <= 65535 * kBZ && nx >= 1 && nsteps >= 0 &&
-         (long long)((nx + kBX - 1) / kBX) * ny <= 2147483647LL && z0 >= 0 &&
-         z0 + 2 <= nz;
 }
 
 // What the march takes: a positive grid of fewer than 2^31 cells a plane,
@@ -568,27 +480,27 @@ int acoustic3d_forward(const float* m, const float* two_m_hd,
   a.ylen = ylen;
   a.s = make_stencil(w, r, ih2x, ih2y, ih2z);
   a.stream = (cudaStream_t)stream;
-  return dt2 != NULL ? dispatch<1>(r, fs, a) : dispatch<0>(r, fs, a);
+  return dt2 != NULL ? dispatch<kHist>(r, fs, a) : dispatch<kRec>(r, fs, a);
 }
 
 // Reverse sweep over t = nsteps-1 .. 0 of the history dt2
 // (B, nsteps, ny, nz, nx) with the residual slabs res (B, nsteps, ny, 2,
-// nx), then grad *= neg_inv_s2. grad, v and vn are (B, ny, nz, nx) and hold
-// zeros on entry.
+// nx), each step marched over y-chunks of ylen planes, then grad *=
+// neg_inv_s2. grad, v and vn are (B, ny, nz, nx) and hold zeros on entry.
 int acoustic3d_gradient(const float* m, const float* two_m_hd,
                         const float* denom, const float* dt2,
                         const float* res, float* grad, float* v, float* vn,
                         int B, int ny, int nz, int nx, int nsteps, int z0,
-                        int fs, int r, const float* w, float ih2x,
+                        int fs, int r, int ylen, const float* w, float ih2x,
                         float ih2y, float ih2z, float neg_inv_s2,
                         void* stream) {
-  if (!sweep_shape_ok(r, B, ny, nz, nx, nsteps, z0))
+  if (!march_shape_ok(r, B, ny, nz, nx, nsteps, z0, ylen))
     return (int)cudaErrorInvalidValue;
   SweepArgs a = {};
   a.m = m;
   a.two_m_hd = two_m_hd;
   a.denom = denom;
-  a.dt2c = dt2;
+  a.hist = dt2;
   a.res = res;
   a.grad = grad;
   a.a = v;
@@ -599,10 +511,11 @@ int acoustic3d_gradient(const float* m, const float* two_m_hd,
   a.nx = nx;
   a.nsteps = nsteps;
   a.z0 = z0;
+  a.ylen = ylen;
   a.neg_inv_s2 = neg_inv_s2;
   a.s = make_stencil(w, r, ih2x, ih2y, ih2z);
   a.stream = (cudaStream_t)stream;
-  return dispatch<2>(r, fs, a);
+  return dispatch<kReverse>(r, fs, a);
 }
 
 // One leapfrog step of (nx, ny, nz) fields into out (no free surface).

@@ -1,7 +1,7 @@
 // 2-D TTI (tilted transverse isotropy) sweeps for Hopper (sm_90a), plain C
 // interface for ctypes. Three entry points, each one sweep over all time
-// steps of a shot batch, two kernel launches per step on the caller's
-// stream:
+// steps of a shot batch on the caller's stream (the forward two kernel
+// launches a step, the reverse one):
 //
 //   tti2d_forward(..., udt2 != NULL)
 //       replaces forward_dt2_pallas (devito_fwi_tpu/ops/pallas_tti.py:539,
@@ -52,23 +52,43 @@
 // shots) and the reverse reads them back, about 2.1 ms each way at
 // 3.35 TB/s, about as long as their ~131 float operations per cell and step
 // at 67 TFLOP/s (space order 8); the checkpoint pair moves little and is
-// bound by its operations (the recompute sweep and the reverse).
+// bound by its operations (the recompute sweep and the reverse). Taken a
+// step at a time, a sweep's floor is its state through device memory once
+// a step: the fields of 8 shots (2.3 MB a field) fit the 50 MB L2 only in
+// part, and every step's history slot is new.
 //
-// What the design does about it: one thread per cell, one launch per phase
-// per step for the whole batch (blockIdx.z is the shot). gzz differentiates
-// sin th gz and cos th gz, where gz is itself a stencil of the field, so a
-// step has two phases: the gz phase writes the products sin th gz and
-// cos th gz of both operands (forward: u and v; reverse: eh du + dh dv and
-// dh du + dv, formed pointwise at each tap) into scratch fields; the update
+// The forwards (fwd_gz, fwd_update): one thread per cell, one launch per
+// phase per step for the whole batch (blockIdx.z is the shot). gzz
+// differentiates sin th gz and cos th gz, where gz is itself a stencil of
+// the field, so a step has two phases: the gz phase writes the products
+// sin th gz and cos th gz of u and v into four scratch fields; the update
 // phase takes their D1s, the Laplacian and the update, reads only its own
 // cell of the previous fields and writes the new field over them (the host
 // then swaps the two pointers). Both D1s see zeros beyond the padded grid:
-// the product field's neighbour outside the grid is 0, not gz extrapolated.
-// The fields of one step do not fit a block's shared memory; neighbours
-// come through L1/L2 (the 8-shot state fits the 50 MB L2). Several steps
-// per launch and shared-memory tiles are the next steps.
+// the product field's neighbour outside the grid is 0, not gz
+// extrapolated. Neighbours come through L1/L2. Per step that is 24 batch
+// fields (the products written and read back, the dense source pattern
+// read, the seven coefficients once a shot), 26 with the histories.
 //
-// Numerics: each phase keeps the Pallas kernels' association term for term
+// The reverse (adjoint_fused): the first design ran the forwards' two
+// phases, 29 batch fields a step (the four products of a = eh du + dh dv
+// and b = dh du + dv written and read back, a and b formed again from four
+// loads at every tap, nine coefficient reads once a shot). The fused
+// step is one launch: a block owns a 32 x 16 (x, z) tile of one shot, the
+// shots the grid's fastest axis, so a tile's coefficients stay in L2
+// across its shots. It forms a and b once a cell on the tile and an R ring
+// in shared memory (of the ring's corners only the R1 x R1 next to the
+// tile, R1 = R/2, which the products read), then the four products on the
+// tile and an R1 ring along their axis (zero at ring cells beyond the
+// grid, as the two-phase kernels' product fields were), then at the tile's
+// cells the gradient term and the update: du, dv, dun, dvn, both history
+// slots and grad read, grad, dun and dvn written: 10 batch fields and the
+// seven coefficients once a step. Forming a and b once a cell gives the
+// bits of forming them at each tap. The checkpoint route's reverse
+// (tti2d_jacobian_adjoint) runs the same step after each segment's
+// recompute. Times against these floors are in PERF.md (rows 14-17).
+//
+// Numerics: each kernel keeps the Pallas kernels' association term for term
 // (D1 summed tap by tap from its first non-zero weight, then times 1/h; D2
 // as w0 f + sum_k wk (f[+k] + f[-k]), then times (1/h)^2 formed in double
 // from the float 1/h; the x term first), and the library is compiled with
@@ -265,67 +285,227 @@ __global__ void fwd_update(Params q, const float* __restrict__ u,
   vp[o] = vn;
 }
 
-// gz phase of reverse step th (a history slot of htotal): the gradient
-// term of the step, then the four product fields of a = eh du + dh dv and
-// b = dh du + dv, both formed at each tap.
+// The fused reverse step's tile (adjoint_fused): kATX x kATZ (x, z) cells
+// of one shot, kAThreads threads, kCells cells a thread. 32 x 16 at one
+// cell a thread puts four blocks on an SM (32 registers a thread) and
+// twice the blocks of 32 x 32 in flight, which outweighs its larger ring
+// (tools/probe_reverses.py).
+constexpr int kATX = 32;
+constexpr int kATZ = 16;
+constexpr int kAThreads = 512;
+constexpr int kCells = kATX * kATZ / kAThreads;
+static_assert(kATX * kATZ % kAThreads == 0, "whole cells a thread");
+
+// Shared memory of the fused reverse step: a and b on the tile and an R
+// ring (the ring's corners only R1 deep are formed), the products of both
+// along x on the tile's rows and an R1 ring in x, along z on its columns
+// and an R1 ring in z.
+template <int R>
+struct AdjTile {
+  static constexpr int R1 = R / 2;
+  static constexpr int SX = kATX + 2 * R;     // a, b: SZ rows x SX
+  static constexpr int SZ = kATZ + 2 * R;
+  static constexpr int PXW = kATX + 2 * R1;   // x products: kATZ x PXW
+  static constexpr int PZH = kATZ + 2 * R1;   // z products: PZH x kATX
+  static constexpr int kFloats =
+      2 * SX * SZ + 2 * kATZ * PXW + 2 * PZH * kATX;
+};
+static_assert(AdjTile<kMaxR>::kFloats * sizeof(float) <= 48 * 1024,
+              "static shared memory");
+
+// D1 of R1 taps along stride ``st`` of a shared-memory array at p: the
+// non-zero weights in tap order (the first term starts the sum), times ih
 template <int R1>
-__global__ void adj_gz(Params q, const float* __restrict__ du,
-                       const float* __restrict__ dv,
-                       const float* __restrict__ udt2,
-                       const float* __restrict__ vdt2,
-                       float* __restrict__ grad, float* __restrict__ psa,
-                       float* __restrict__ pca, float* __restrict__ psb,
-                       float* __restrict__ pcb, int th, int htotal, int nz,
-                       int nx, Coefs c) {
-  CELL_INDEX
-  const size_t h = ((size_t)s * htotal + th) * field + cell;
-  grad[o] = (grad[o] + udt2[h] * du[o]) + vdt2[h] * dv[o];
-  const float* dus = du + so;
-  const float* dvs = dv + so;
-  const float sth = q.st[cell];
-  const float cth = q.ct[cell];
-  gz_products<R1>(
-      [&](size_t j) { return q.eh[j] * dus[j] + q.dh[j] * dvs[j]; }, sth,
-      cth, z, x, nz, nx, c, psa + o, pca + o);
-  gz_products<R1>([&](size_t j) { return q.dh[j] * dus[j] + dvs[j]; }, sth,
-                  cth, z, x, nz, nx, c, psb + o, pcb + o);
+__device__ __forceinline__ float sd1(const float* p, int st,
+                                     const float* w1, float ih) {
+  float acc = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int k = 0; k <= 2 * R1; ++k) {
+    if (w1[k] != 0.0f) {
+      const float term = w1[k] * p[(k - R1) * st];
+      acc = first ? term : acc + term;
+      first = false;
+    }
+  }
+  return acc * ih;
 }
 
-// Update phase of reverse step t: du' over dun and dv' over dvn (the caller
-// swaps du and dun, dv and dvn), the residual rows of step t (of rtotal)
-// added to both on rows z0, z0 + 1.
+// D2 of R taps along stride ``st`` at p: w2[0] f + sum_k w2[k] (f[+k] +
+// f[-k]), times ih2
 template <int R>
-__global__ void adj_update(Params q, const float* __restrict__ du,
-                           float* __restrict__ dun,
-                           const float* __restrict__ dv,
-                           float* __restrict__ dvn,
-                           const float* __restrict__ psa,
-                           const float* __restrict__ pca,
-                           const float* __restrict__ psb,
-                           const float* __restrict__ pcb,
-                           const float* __restrict__ res, int t, int rtotal,
-                           float s2, int nz, int nx, int z0, Coefs c) {
-  constexpr int R1 = R / 2;
-  CELL_INDEX
-  const float* dus = du + so;
-  const float* dvs = dv + so;
-  const float h0 =
-      lap<R>([&](size_t j) { return q.eh[j] * dus[j] + q.dh[j] * dvs[j]; },
-             z, x, nz, nx, c) -
-      gzz<R1>(psa + so, pca + so, z, x, nz, nx, c);
-  const float hz = gzz<R1>(psb + so, pcb + so, z, x, nz, nx, c);
-  const float m = q.m[cell];
-  const float tm = q.two_m_hd[cell];
-  const float im = q.inv_mhd[cell];
-  float a = (((s2 * h0) + tm * du[o]) - m * dun[o]) * im;
-  float b = (((s2 * hz) + tm * dv[o]) - m * dvn[o]) * im;
-  if (z == z0 || z == z0 + 1) {
-    const float r = res[(((size_t)s * rtotal + t) * 2 + (z - z0)) * nx + x];
-    a = a + r;
-    b = b + r;
+__device__ __forceinline__ float sd2(const float* p, int st,
+                                     const float* w2, float ih2) {
+  float acc = w2[0] * p[0];
+#pragma unroll
+  for (int k = 1; k <= R; ++k) acc = acc + w2[k] * (p[k * st] + p[-k * st]);
+  return acc * ih2;
+}
+
+// Reverse step th (a history slot of htotal; t the residual row of
+// rtotal) over one tile of one shot, fused: the gradient term, then a =
+// eh du + dh dv and b = dh du + dv once a cell into shared memory, their
+// gz products, and the update of du over dun and dv over dvn at the
+// tile's cells (read there only; the caller swaps the pointers), the
+// residual rows added on z0, z0 + 1. Zero beyond the padded grid: a and
+// b, and the products, so that each D1 and D2 sees the two-phase
+// kernels' zeros.
+template <int R>
+__global__ void __launch_bounds__(kAThreads)
+adjoint_fused(Params q, const float* __restrict__ du, float* __restrict__ dun,
+              const float* __restrict__ dv, float* __restrict__ dvn,
+              const float* __restrict__ udt2, const float* __restrict__ vdt2,
+              float* __restrict__ grad, const float* __restrict__ res,
+              int th, int htotal, int t, int rtotal, float s2, int nz,
+              int nx, int z0, Coefs c) {
+  using T = AdjTile<R>;
+  constexpr int R1 = T::R1;
+  constexpr int SX = T::SX;
+  constexpr int PXW = T::PXW;
+  __shared__ float sm[T::kFloats];
+  float* sa = sm;                          // a
+  float* sb = sa + SX * T::SZ;             // b
+  float* psa = sb + SX * T::SZ;            // sin th gz(a), x products
+  float* psb = psa + kATZ * PXW;           // sin th gz(b)
+  float* pca = psb + kATZ * PXW;           // cos th gz(a), z products
+  float* pcb = pca + T::PZH * kATX;        // cos th gz(b)
+  const int b = blockIdx.x;                // the shots of a tile adjoin
+  const int xt = blockIdx.y * kATX;
+  const int zt = blockIdx.z * kATZ;
+  const int tid = threadIdx.x;
+  const size_t field = (size_t)nz * nx;
+  const size_t off = (size_t)b * field;
+  const size_t hoff = ((size_t)b * htotal + th) * field;
+
+  // 0. the tile's own operands, kCells a thread, read first: their loads'
+  // latency hides under phases 1 and 2
+  float gr[kCells], hu[kCells], hv[kCells], dn[kCells], en[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int gx = xt + k % kATX;
+    const int gz = zt + k / kATX;
+    gr[i] = hu[i] = hv[i] = dn[i] = en[i] = 0.0f;
+    if (gx < nx && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      gr[i] = grad[off + cell];
+      hu[i] = udt2[hoff + cell];
+      hv[i] = vdt2[hoff + cell];
+      dn[i] = dun[off + cell];
+      en[i] = dvn[off + cell];
+    }
   }
-  dun[o] = a;
-  dvn[o] = b;
+
+  // 1. a and b on the tile and its R ring, zero beyond the grid; of the
+  // ring's corners only the R1 x R1 next to the tile, which the products
+  // of the R1 ring read
+  for (int k = tid; k < SX * T::SZ; k += kAThreads) {
+    const int lx = k % SX;
+    const int lz = k / SX;
+    const int ox = lx < R ? R - lx : max(lx - (R + kATX - 1), 0);
+    const int oz = lz < R ? R - lz : max(lz - (R + kATZ - 1), 0);
+    if (ox > 0 && oz > 0 && (ox > R1 || oz > R1)) continue;
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    float av = 0.0f, bv = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      const float e = q.eh[cell];
+      const float d = q.dh[cell];
+      const float u = du[off + cell];
+      const float v = dv[off + cell];
+      av = e * u + d * v;
+      bv = d * u + v;
+    }
+    sa[k] = av;
+    sb[k] = bv;
+  }
+  __syncthreads();
+
+  // 2. the products sin th gz and cos th gz of a and b: on the tile's rows
+  // and an R1 ring in x (sin along x; cos too on the tile), then on the
+  // R1 rows above and below the tile (cos); zero beyond the grid
+  constexpr int kNX = kATZ * PXW;
+  for (int k = tid; k < kNX + 2 * R1 * kATX; k += kAThreads) {
+    int px, pz;                            // place in the x-product strip
+    if (k < kNX) {
+      px = k % PXW;
+      pz = k / PXW;
+    } else {
+      const int j = k - kNX;
+      px = R1 + j % kATX;
+      pz = j / kATX;
+      pz = pz < R1 ? pz - R1 : pz - R1 + kATZ;
+    }
+    const int gx = xt - R1 + px;
+    const int gz = zt + pz;
+    const bool xrow = k < kNX;
+    const bool zcol = px >= R1 && px < R1 + kATX;
+    float sA = 0.0f, sB = 0.0f, cA = 0.0f, cB = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      const float sth = q.st[cell];
+      const float cth = q.ct[cell];
+      const int ci = (pz + R) * SX + px + R - R1;
+      const float ga = -(sth * sd1<R1>(sa + ci, 1, c.w1, c.ihx) +
+                         cth * sd1<R1>(sa + ci, SX, c.w1, c.ihz));
+      const float gb = -(sth * sd1<R1>(sb + ci, 1, c.w1, c.ihx) +
+                         cth * sd1<R1>(sb + ci, SX, c.w1, c.ihz));
+      sA = sth * ga;
+      sB = sth * gb;
+      cA = cth * ga;
+      cB = cth * gb;
+    }
+    if (xrow) {
+      psa[pz * PXW + px] = sA;
+      psb[pz * PXW + px] = sB;
+    }
+    if (zcol) {
+      const int zi = (pz + R1) * kATX + px - R1;
+      pca[zi] = cA;
+      pcb[zi] = cB;
+    }
+  }
+  __syncthreads();
+
+  // 3. the gradient term and the update at the tile's cells
+  const float* rs = res + ((size_t)b * rtotal + t) * 2 * nx;
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kAThreads;
+    const int tx = k % kATX;
+    const int tz = k / kATX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const size_t cell = (size_t)gz * nx + gx;
+    const size_t o = off + cell;
+    const float duo = du[o];
+    const float dvo = dv[o];
+    grad[o] = (gr[i] + hu[i] * duo) + hv[i] * dvo;
+    const float* ac = sa + (tz + R) * SX + tx + R;
+    const float lap = sd2<R>(ac, 1, c.w2, c.ihx2) +
+                      sd2<R>(ac, SX, c.w2, c.ihz2);
+    const int xi = tz * PXW + tx + R1;
+    const int zi = (tz + R1) * kATX + tx;
+    const float gzz_a = -(sd1<R1>(psa + xi, 1, c.w1, c.ihx) +
+                          sd1<R1>(pca + zi, kATX, c.w1, c.ihz));
+    const float gzz_b = -(sd1<R1>(psb + xi, 1, c.w1, c.ihx) +
+                          sd1<R1>(pcb + zi, kATX, c.w1, c.ihz));
+    const float h0 = lap - gzz_a;
+    const float m = q.m[cell];
+    const float tm = q.two_m_hd[cell];
+    const float im = q.inv_mhd[cell];
+    float an = (((s2 * h0) + tm * duo) - m * dn[i]) * im;
+    float bn = (((s2 * gzz_b) + tm * dvo) - m * en[i]) * im;
+    if (gz == z0 || gz == z0 + 1) {
+      const float r = rs[(gz - z0) * nx + gx];
+      an = an + r;
+      bn = bn + r;
+    }
+    dun[o] = an;
+    dvn[o] = bn;
+  }
 }
 
 // The start state of segment k into (u, up, v, vp).
@@ -347,7 +527,7 @@ struct State {
   float *rec, *udt2, *vdt2, *starts, *grad;
   float *u, *up, *v, *vp;          // forward state
   float *du, *dun, *dv, *dvn;      // adjoint state
-  float *p1, *p2, *p3, *p4;        // product fields
+  float *p1, *p2, *p3, *p4;        // the forward's product fields
   int B, nz, nx, total, seg, nseg, nsteps, z0;
   float s2;
   Coefs c;
@@ -383,21 +563,16 @@ int forward_step(State& a, int t, float* rec, float* starts, float* udt2,
   return 0;
 }
 
-// One reverse step: th is the history slot of htotal, t the residual row.
+// One reverse step, one fused launch: th is the history slot of htotal, t
+// the residual row.
 template <int R>
 int adjoint_step(State& a, const float* udt2, const float* vdt2, int th,
                  int htotal, int t) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
-  adj_gz<R / 2><<<grid, block, 0, a.stream>>>(
-      a.q, a.du, a.dv, udt2, vdt2, a.grad, a.p1, a.p2, a.p3, a.p4, th,
-      htotal, a.nz, a.nx, a.c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  adj_update<R><<<grid, block, 0, a.stream>>>(
-      a.q, a.du, a.dun, a.dv, a.dvn, a.p1, a.p2, a.p3, a.p4, a.res, t,
-      a.nseg * a.seg, a.s2, a.nz, a.nx, a.z0, a.c);
-  err = cudaGetLastError();
+  const dim3 grid(a.B, (a.nx + kATX - 1) / kATX, (a.nz + kATZ - 1) / kATZ);
+  adjoint_fused<R><<<grid, kAThreads, 0, a.stream>>>(
+      a.q, a.du, a.dun, a.dv, a.dvn, udt2, vdt2, a.grad, a.res, th, htotal,
+      t, a.nseg * a.seg, a.s2, a.nz, a.nx, a.z0, a.c);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   swap_ptr(a.du, a.dun);
   swap_ptr(a.dv, a.dvn);
@@ -497,6 +672,12 @@ bool make_state(State* a, const float* m, const float* two_m_hd,
   return true;
 }
 
+// The fused reverse step's grid (shots, x tiles, z tiles) within CUDA's
+// (2^31 - 1, 65535, 65535) blocks.
+bool adjoint_grid_ok(int nz, int nx) {
+  return (nx + kATX - 1) / kATX <= 65535 && (nz + kATZ - 1) / kATZ <= 65535;
+}
+
 }  // namespace
 
 extern "C" {
@@ -545,9 +726,9 @@ int tti2d_forward(const float* m, const float* two_m_hd,
 
 // Reverse sweep over t = nsteps-1 .. 0 of histories udt2, vdt2 of total
 // steps each, with the residual rows res (B, total, 2, nx) and s2 = dt^2.
-// grad (B, nz, nx) and scratch, 8 (B, nz, nx) fields (du, dun, dv, dvn and
-// the four product fields), hold zeros on entry; grad receives the unscaled
-// sum. Returns the first CUDA error of a launch, or 0.
+// grad (B, nz, nx) and scratch, 4 (B, nz, nx) fields (du, dun, dv, dvn),
+// hold zeros on entry; grad receives the unscaled sum. Returns the first
+// CUDA error of a launch, or 0.
 int tti2d_adjoint(const float* m, const float* two_m_hd,
                   const float* inv_mhd, const float* eh, const float* dh,
                   const float* st, const float* ct, const float* udt2,
@@ -559,7 +740,7 @@ int tti2d_adjoint(const float* m, const float* two_m_hd,
   State a;
   if (!make_state(&a, m, two_m_hd, inv_mhd, eh, dh, st, ct, B, nz, nx, z0,
                   r, w1, w2, ihx, ihz, ihx2, ihz2, stream) ||
-      nsteps < 1 || nsteps > total)
+      !adjoint_grid_ok(nz, nx) || nsteps < 1 || nsteps > total)
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   a.udt2_in = udt2;
@@ -570,10 +751,6 @@ int tti2d_adjoint(const float* m, const float* two_m_hd,
   a.dun = scratch + n;
   a.dv = scratch + 2 * n;
   a.dvn = scratch + 3 * n;
-  a.p1 = scratch + 4 * n;
-  a.p2 = scratch + 5 * n;
-  a.p3 = scratch + 6 * n;
-  a.p4 = scratch + 7 * n;
   a.total = total;
   a.seg = total;
   a.nseg = 1;
@@ -587,8 +764,8 @@ int tti2d_adjoint(const float* m, const float* two_m_hd,
 // histories hist (2, B, seg, nz, nx), then its reverse steps t < nsteps
 // with the residual rows res (B, nseg*seg, 2, nx). wav is
 // (nseg*seg + 1,) as in tti2d_forward. grad (B, nz, nx) and scratch, 12
-// (B, nz, nx) fields (du, dun, dv, dvn, u, up, v, vp and the four product
-// fields), hold zeros on entry. Returns the first CUDA error, or 0.
+// (B, nz, nx) fields (du, dun, dv, dvn, u, up, v, vp and the forward's four
+// product fields), hold zeros on entry. Returns the first CUDA error, or 0.
 int tti2d_jacobian_adjoint(const float* m, const float* two_m_hd,
                            const float* inv_mhd, const float* eh,
                            const float* dh, const float* st, const float* ct,
@@ -602,7 +779,8 @@ int tti2d_jacobian_adjoint(const float* m, const float* two_m_hd,
   State a;
   if (!make_state(&a, m, two_m_hd, inv_mhd, eh, dh, st, ct, B, nz, nx, z0,
                   r, w1, w2, ihx, ihz, ihx2, ihz2, stream) ||
-      seg < 1 || nseg < 1 || nsteps < 1 || nsteps > seg * nseg)
+      !adjoint_grid_ok(nz, nx) || seg < 1 || nseg < 1 || nsteps < 1 ||
+      nsteps > seg * nseg)
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   a.wav = wav;

@@ -25,10 +25,12 @@ it runs the plain twin, a Python loop over the steps with the kernel's
 exact arithmetic (``_make_lap3``). On another device it raises. The twins
 take float32 or float64; the kernels float32.
 
-The two forwards march in y (``forward_launch``): a block owns a 32 x 16
+The three sweeps march in y (``march_launch``): a block owns a 32 x 16
 (x, z) tile of one shot and walks a chunk of y-planes, the y taps from a
 register queue of its columns, the x and z taps from the plane's tile in
-shared memory. The reverse sweep runs one thread a cell.
+shared memory; the reverse sweep is the same march in reverse mode, v in
+the queue, at two blocks an SM over more y-chunks, and a final launch
+scales the gradient.
 
 The stencil folds dt^2 into the per-axis scales (``ih2 = s^2/h^2``) as the
 JAX kernels do, unlike the eager update and the step kernel of
@@ -53,7 +55,7 @@ __all__ = ["forward_dt2_stream3", "forward_rec3", "gradient_stream3",
            "forward_dt2_stream3_plain", "forward_rec3_plain",
            "gradient_stream3_plain", "source_planes3",
            "plane_weight_matrix", "residual_slabs3", "traces_from_slabs3",
-           "geometry_supported3", "unsupported_reason", "forward_launch",
+           "geometry_supported3", "unsupported_reason", "march_launch",
            "LAUNCHES", "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("forward_dt2_stream3", "forward_rec3", "gradient_stream3")
@@ -288,7 +290,7 @@ _F = ctypes.c_float
 # every pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
     "acoustic3d_forward": ([_P] * 11 + [_I] * 9 + [_P, _F, _F, _F, _P], _I),
-    "acoustic3d_gradient": ([_P] * 8 + [_I] * 8 + [_P, _F, _F, _F, _F, _P],
+    "acoustic3d_gradient": ([_P] * 8 + [_I] * 9 + [_P, _F, _F, _F, _F, _P],
                             _I),
     "acoustic3d_error_string": ([_I], ctypes.c_char_p),
 }
@@ -298,34 +300,42 @@ SIGNATURES = {
 MARCH_TILE = (32, 16)
 MARCH_THREADS = 512
 # blocks of 512 threads the H100 holds at once: 132 SMs, three blocks each
-# (the march's __launch_bounds__); a step's blocks fill it in one wave
+# (the forwards' __launch_bounds__); a forward step's blocks fill it in one
+# wave
 RESIDENT_BLOCKS = 396
+# the reverse march runs two blocks an SM (csrc/acoustic3d.cu
+# kReverseBlocks) over two waves: more chunks in flight hide its reads
+# (tools/probe_reverses.py on an H100: 32.6 ms at config 5 against 37.0 at
+# the forwards' launch)
+REVERSE_BLOCKS = 2 * 132 * 2
 # the shortest y-chunk: a chunk of c planes reads c + 2r into its queue
 MIN_CHUNK = 16
 
 
-def forward_launch(B, ny, nz, nx, r):
+def march_launch(B, ny, nz, nx, r, reverse=False):
     """The march's launch at these shapes: the tile, threads, grid of one
     step (shots, x tiles, z tiles x y-chunks), the y-chunks and their
     length ``ylen`` (planes), and the shared-memory bytes of a block (two
     planes of the tile and an r halo; at most 12,288 bytes, r = 8). The
-    y-chunks are as many as the card holds at once, none shorter than
+    y-chunks are as many as ``RESIDENT_BLOCKS`` blocks take (the
+    forwards) or ``REVERSE_BLOCKS`` (``reverse``), none shorter than
     ``MIN_CHUNK`` planes. Raises ValueError for what the kernel does not
     take: a radius outside 1 .. 8, an empty grid, a plane of 2^31 cells,
     or a launch grid past CUDA's (``tile_launch``)."""
     tx, tz = MARCH_TILE
     smem = 4 * 2 * (tx + 2 * r) * (tz + 2 * r)
-    launch = tile_launch("acoustic3d forward", B, nz, nx, r, MARCH_TILE,
+    launch = tile_launch("acoustic3d march", B, nz, nx, r, MARCH_TILE,
                          MARCH_THREADS, smem, shots_first=True)
     if ny < 1:
-        raise ValueError(f"acoustic3d forward: {ny} y-planes; the kernel "
+        raise ValueError(f"acoustic3d march: {ny} y-planes; the kernel "
                          "takes a positive grid")
     tiles = math.prod(launch.grid)
-    chunks = max(1, min(RESIDENT_BLOCKS // tiles, ny // MIN_CHUNK))
+    blocks = REVERSE_BLOCKS if reverse else RESIDENT_BLOCKS
+    chunks = max(1, min(blocks // tiles, ny // MIN_CHUNK))
     ylen = -(-ny // chunks)
     chunks = -(-ny // ylen)
-    # chunks > 1 only while the blocks stay under RESIDENT_BLOCKS, so the
-    # z tiles x y-chunks stay within the grid's 65535
+    # chunks > 1 only while the blocks stay under ``blocks``, so the z
+    # tiles x y-chunks stay within the grid's 65535
     launch.grid = launch.grid[:2] + (launch.grid[2] * chunks,)
     launch.chunks, launch.ylen = chunks, ylen
     return launch
@@ -356,7 +366,7 @@ def _forward_cuda(m, two_m_hd, denom, wav, injp, iy, *, w, ih2, nsteps, z0,
                   fs, hist):
     B = injp.shape[0]
     ny, nz, nx = m.shape
-    launch = forward_launch(B, ny, nz, nx, len(w) - 1)
+    launch = march_launch(B, ny, nz, nx, len(w) - 1)
     lib = _lib()
     # the history first: at bench config 5 it is 11.2 GB of the chunk
     dt2 = injp.new_empty((B, nsteps, ny, nz, nx)) if hist else None
@@ -379,9 +389,10 @@ def _forward_cuda(m, two_m_hd, denom, wav, injp, iy, *, w, ih2, nsteps, z0,
 
 def _gradient_cuda(m, two_m_hd, denom, dt2, res, *, w, ih2, nsteps, z0, fs,
                    neg_inv_s2):
-    lib = _lib()
     B = dt2.shape[0]
     ny, nz, nx = m.shape
+    launch = march_launch(B, ny, nz, nx, len(w) - 1, reverse=True)
+    lib = _lib()
     grad = dt2.new_zeros((B, ny, nz, nx))
     v = dt2.new_zeros((B, ny, nz, nx))
     vn = dt2.new_zeros((B, ny, nz, nx))
@@ -391,7 +402,7 @@ def _gradient_cuda(m, two_m_hd, denom, dt2, res, *, w, ih2, nsteps, z0, fs,
             m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
             dt2.data_ptr(), res.data_ptr(), grad.data_ptr(), v.data_ptr(),
             vn.data_ptr(), B, ny, nz, nx, nsteps, z0, int(fs), len(w) - 1,
-            w32.ctypes.data, *ih2, neg_inv_s2,
+            launch.ylen, w32.ctypes.data, *ih2, neg_inv_s2,
             torch.cuda.current_stream(dt2.device).cuda_stream)
     _check(lib, "acoustic3d_gradient", err)
     return grad

@@ -28,11 +28,18 @@ and shared by the batch; ``inj`` is (B, nz, nx); ``wav`` (nseg*seg + 1,)
 holds dt^2 in slot 0 and step t's wavelet in slot t + 1 (``pack_wavelet``).
 Each wrapper checks its operands, forms ``1/(m + hd)`` and ``2m + hd`` once
 and then, for CUDA tensors, launches the kernels of ``csrc/tti2d.cu`` (one
-ctypes call per sweep, two launches per step on the current stream) and
-adds one to ``LAUNCHES[name]``; for CPU tensors it runs the plain twin, a
-Python loop over the steps with the Pallas kernels' association
-(``_make_ops``). On another device it raises. The twins take float32 or
-float64; the kernels float32.
+ctypes call per sweep on the current stream: two launches a forward step,
+one a reverse step) and adds one to ``LAUNCHES[name]``; for CPU tensors it
+runs the plain twin, a Python loop over the steps with the Pallas
+kernels' association (``_make_ops``). On another device it raises. The
+twins take float32 or float64; the kernels float32.
+
+The reverse step is one fused launch (``adjoint_launch``): a block owns a
+32 x 16 (x, z) tile of one shot, one cell a thread, forms ``a = eh du +
+dh dv`` and ``b = dh du + dv`` once a cell on the tile and an R ring in
+shared memory, their ``sin th gz`` and ``cos th gz`` products on an R/2
+ring, and updates the tile's cells; the forwards keep one thread a cell
+and two launches a step.
 
 Route and memory on the card: the history is float32 and the streamed
 route is one segment of nt-2 steps; ``stream=None`` streams when the
@@ -52,7 +59,8 @@ from ..fwi import _device_budget, _traces_from_rows
 from ..utils.fd import fd_weights, second_derivative_weights
 from . import cuda_build
 from .acoustic import _ckpt_layout, shift
-from .cuda_acoustic import _checked, residual_rows, source_pattern
+from .cuda_acoustic import (_checked, residual_rows, source_pattern,
+                            tile_launch)
 from .cuda_staggered import zplane_weight_matrix
 
 __all__ = ["tti_forward_dt2_segments", "tti_gradient_stream_segments",
@@ -61,8 +69,8 @@ __all__ = ["tti_forward_dt2_segments", "tti_gradient_stream_segments",
            "tti_forward_ckpt_plain", "tti_jacobian_adjoint_plain",
            "tti_gradient_batched", "tti_gradient_residual_batched",
            "tti_forward_batched", "operands", "pack_wavelet",
-           "supported_reason", "KERNELS", "LAUNCHES", "TWIN_CALLS",
-           "reset_counters"]
+           "supported_reason", "adjoint_launch", "KERNELS", "LAUNCHES",
+           "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("tti_forward_dt2_segments", "tti_gradient_stream_segments",
            "tti_forward_ckpt_segments", "tti_jacobian_adjoint_segments")
@@ -301,6 +309,32 @@ SIGNATURES = {
 }
 
 
+# the fused reverse step's tile and threads (csrc/tti2d.cu kATX x kATZ,
+# kAThreads)
+ADJ_TILE = (32, 16)
+ADJ_THREADS = 512
+
+
+def adjoint_launch(B, nz, nx, r):
+    """The fused reverse step's launch at these shapes: the tile, threads,
+    grid of one step (shots, x tiles, z tiles) and the shared-memory bytes
+    of a block (a and b on the tile and an r ring, the four products on
+    the tile and an r//2 ring along their axis; at most 23,552 bytes, r =
+    8, within a static launch's 48 KB). Raises ValueError for what the
+    kernel does not take: a radius outside 2 .. 8 (space orders 4 .. 16),
+    an empty grid or one of 2^31 cells, or a launch grid past CUDA's
+    (``cuda_acoustic.tile_launch``)."""
+    if not 2 <= r <= 8:
+        raise ValueError(f"tti adjoint: stencil radius {r}; the kernel "
+                         "takes 2 .. 8")
+    tx, tz = ADJ_TILE
+    r1 = r // 2
+    smem = 4 * (2 * (tx + 2 * r) * (tz + 2 * r) + 2 * tz * (tx + 2 * r1)
+                + 2 * (tz + 2 * r1) * tx)
+    return tile_launch("tti adjoint", B, nz, nx, r, ADJ_TILE, ADJ_THREADS,
+                       smem, shots_first=True)
+
+
 def _lib():
     lib = cuda_build.load("tti2d")
     if not getattr(lib, "_argtypes_set", False):
@@ -362,10 +396,11 @@ def _forward_cuda(prm, wav, inj, *, st, seg, z0, hist):
 
 
 def _adjoint_cuda(prm, udt2, vdt2, res, *, st, nsteps, z0):
-    lib = _lib()
     B, total, nz, nx = udt2.shape
+    adjoint_launch(B, nz, nx, st.r)
+    lib = _lib()
     grad = udt2.new_zeros((B, nz, nx))
-    scratch = udt2.new_zeros((8, B, nz, nx))
+    scratch = udt2.new_zeros((4, B, nz, nx))       # du, dun, dv, dvn
     keep, consts = _consts(st)
     with torch.cuda.device(udt2.device):
         err = lib.tti2d_adjoint(
@@ -379,11 +414,13 @@ def _adjoint_cuda(prm, udt2, vdt2, res, *, st, nsteps, z0):
 
 
 def _jacobian_adjoint_cuda(prm, wav, inj, starts, res, *, st, nsteps, z0):
-    lib = _lib()
     B, nseg, _, nz, nx = starts.shape
+    adjoint_launch(B, nz, nx, st.r)
+    lib = _lib()
     seg = (wav.shape[0] - 1) // nseg
     grad = inj.new_zeros((B, nz, nx))
     hist = inj.new_empty((2, B, seg, nz, nx))
+    # the adjoint state, the recompute's state and its four product fields
     scratch = inj.new_zeros((12, B, nz, nx))
     keep, consts = _consts(st)
     with torch.cuda.device(inj.device):

@@ -8,9 +8,11 @@ with ``git archive <commit> | tar -x -C <dir>`` into a directory that
 checkout, OTHER, each in a process of its own that imports
 ``devito_fwi_tpu_torch`` from its checkout (building its kernels first,
 untimed) and times, on the host clock to a synchronise after one warm
-call, ``reps`` calls each of the SMARMN 29-shot L2 gradient and trial and
-bench config 5's stream-route gradient and trial; it prints the median,
-min and max of each. Run from the repository root; needs one card.
+call, ``reps`` calls each of the SMARMN 29-shot L2 gradient and trial,
+bench config 5's stream-route gradient and trial, and bench config 4's
+marmousi-tti2d 8-shot gradient (``cuda_tti.tti_gradient_batched``); it
+prints the median, min and max of each. Run from the repository root;
+needs one card.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def _time_one(root, reps):
     """In a process whose ``devito_fwi_tpu_torch`` is ``root``'s: time the
-    four objectives and print one line each."""
+    five objectives and print one line each."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -36,6 +38,7 @@ def _time_one(root, reps):
     from devito_fwi_tpu_torch import fwi
     from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
     from devito_fwi_tpu_torch.misfit import least_square
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
     if not devito_fwi_tpu_torch.__file__.startswith(root):
         raise RuntimeError(f"imported {devito_fwi_tpu_torch.__file__}, "
                            f"not {root}'s package")
@@ -64,7 +67,12 @@ def _time_one(root, reps):
     obs5 = fwi.fm_multi(g1, device="cuda")
     x5 = 1.0 / np.asarray(g5.model.vp_unpadded,
                           np.float64).reshape(-1) ** 2
-    calls = {}
+    tc = smoke.TtiCase(torch.device("cuda", 0), smoke.TTI_SHOTS)
+    tkw = dict(nt=tc.nt, spacing=tc.model.spacing, space_order=8,
+               n_checkpoints=smoke.TTI_CHECKPOINTS)
+    obs4 = 0.999 * ct.tti_forward_batched(*tc.batched(), tc.dt, **tkw)
+    calls = {"config 4 TTI gradient": lambda: ct.tti_gradient_batched(
+        *tc.batched(), obs4, tc.dt, **tkw)}
     for grad in (True, False):
         what = "gradient" if grad else "trial"
         calls[f"SMARMN L2 {what}"] = lambda grad=grad: fwi.fwi_loss(
@@ -94,7 +102,8 @@ def main(argv=None):
         print("ab_objectives: no CUDA device", file=sys.stderr)
         return 2
     build = ("from devito_fwi_tpu_torch.ops import cuda_build\n"
-             "for n in ('acoustic2d', 'acoustic3d'): cuda_build.build(n)")
+             "for n in ('acoustic2d', 'acoustic3d', 'tti2d'): "
+             "cuda_build.build(n)")
     for tree in (root, HERE):
         subprocess.run([sys.executable, "-c", build], cwd=tree, check=True)
     for tree in (root, HERE, HERE, root):

@@ -48,7 +48,7 @@ _FRONT_IN_PLANE = """  fetch(y0);
     for (int k = 0; k < 2 * R; ++k) q[k] = q[k + 1];
     q[2 * R] = column(y + R);
 """
-_BOUNDS3 = "__launch_bounds__(kMThreads, 3)"
+_BOUNDS3 = "constexpr int kMarchBlocks = 3;"
 
 # {name: substitutions in csrc/acoustic2d.cu}
 VARIANTS_2D = {
@@ -68,18 +68,18 @@ VARIANTS_3D = {
     "two chunks": ({}, 2),
     "queue front in its plane": ({_FRONT_AHEAD: _FRONT_IN_PLANE}, None),
     "two blocks an SM, two chunks": (
-        {_BOUNDS3: "__launch_bounds__(kMThreads)"}, 2),
+        {_BOUNDS3: "constexpr int kMarchBlocks = 2;"}, 2),
     "32 x 8 tile, four chunks": (
         {"constexpr int kMZ = 16;": "constexpr int kMZ = 8;"}, 4),
     "32 x 32 tile, two chunks": (
         {"constexpr int kMZ = 16;": "constexpr int kMZ = 32;",
-         _BOUNDS3: "__launch_bounds__(kMThreads)"}, 2),
+         _BOUNDS3: "constexpr int kMarchBlocks = 2;"}, 2),
 }
 
 
 def _build(job):
     """Compile one variant: (name, tag, substitutions) -> (tag, library
-    path, ptxas summary lines of its radius-4 forward kernels)."""
+    path, ptxas summary lines of its radius-4 kernels)."""
     name, tag, subs = job
     src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
     for old, new in subs.items():
@@ -100,7 +100,7 @@ def _build(job):
     lines = proc.stderr.splitlines()
     regs = []
     for i, line in enumerate(lines):
-        m = re.search(r"entry function '\w*?(forward_tile|forward_march)I"
+        m = re.search(r"entry function '\w*?(forward_tile|march|adjoint_fused)I"
                       r"(Li4E\w*?)EEv", line)
         if m:
             info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
@@ -178,8 +178,8 @@ def main(argv=None):
     want_dt2 = c3d.forward_dt2_stream3_plain(*ops, **st3.kw)
     print(f"3-D: bench config 5, {smoke.C5_SHOTS} shots, {nx} x {ny} x "
           f"{nz}, {st3.nsteps} steps; the helper's launch "
-          f"{c3d.forward_launch(smoke.C5_SHOTS, ny, nz, nx, 4)}")
-    helper = c3d.forward_launch
+          f"{c3d.march_launch(smoke.C5_SHOTS, ny, nz, nx, 4)}")
+    helper = c3d.march_launch
 
     def with_chunks(chunks):
         def launch(B, ny, nz, nx, r):
@@ -193,7 +193,7 @@ def main(argv=None):
         for tag in order + order[::-1]:
             _use("acoustic3d", libs[("acoustic3d", tag)])
             chunks = VARIANTS_3D[tag][1]
-            c3d.forward_launch = helper if chunks is None \
+            c3d.march_launch = helper if chunks is None \
                 else with_chunks(chunks)
             ms, got = smoke.cuda_ms(lambda: c3d.forward_rec3(*ops,
                                                              **st3.kw),
@@ -208,7 +208,7 @@ def main(argv=None):
             print(f"  {tag}: rec3 {ms:.3f} ms ({same}), dt2 {ms2:.3f} ms "
                   f"({same2}), equal to the twins", flush=True)
     finally:
-        c3d.forward_launch = helper
+        c3d.march_launch = helper
     return 0
 
 

@@ -252,6 +252,37 @@ def test_stream_wrappers_count_and_check():
 # the card's y march (csrc/acoustic3d.cu forward_march), replayed
 # ---------------------------------------------------------------------------
 
+def _window_lap(c, window, w, ih2, fs):
+    """The march's Laplacian of plane c: the y term from the window of the
+    2r + 1 planes around it, the x and z terms from c (the odd mirror on
+    rows 0..r under a free surface), x then y then z."""
+    r = len(w) - 1
+    ih2x, ih2y, ih2z = ih2
+
+    def d2(k_of):
+        acc = w[0] * c
+        for k in range(1, r + 1):
+            acc = acc + w[k] * (k_of(k) + k_of(-k))
+        return acc
+
+    accx = d2(lambda k: tac.shift(c, k, -1))
+    accy = d2(lambda k: window[r + k])
+    accz = d2(lambda k: tac.shift(c, k, -2))
+    if fs:
+        rows = []
+        for z in range(r + 1):
+            acc = w[0] * c[:, z]
+            for k in range(1, r + 1):
+                acc = acc + w[k] * c[:, z + k]
+                if z - k > 0:
+                    acc = acc + w[k] * c[:, z - k]
+                elif z - k < 0:
+                    acc = acc - w[k] * c[:, k - z]
+            rows.append(acc)
+        accz = torch.cat([torch.stack(rows, 1), accz[:, r + 1:]], 1)
+    return accx * ih2x + accy * ih2y + accz * ih2z
+
+
 def _march_replay(m3, two_m_hd, denom, wav, injp, iy, *, w, ih2, nsteps,
                   z0, fs, hist, ylen):
     """A torch replay of the card's march in its order: each step walks
@@ -264,7 +295,6 @@ def _march_replay(m3, two_m_hd, denom, wav, injp, iy, *, w, ih2, nsteps,
     B = injp.shape[0]
     ny, nz, nx = m3.shape
     r = len(w) - 1
-    ih2x, ih2y, ih2z = ih2
     zero = injp.new_zeros((B, nz, nx))
     u = injp.new_zeros((B, ny, nz, nx))
     up = injp.new_zeros((B, ny, nz, nx))
@@ -276,35 +306,13 @@ def _march_replay(m3, two_m_hd, denom, wav, injp, iy, *, w, ih2, nsteps,
     def plane(y):
         return u[:, y] if 0 <= y < ny else zero
 
-    def d2(c, k_of):
-        acc = w[0] * c
-        for k in range(1, r + 1):
-            acc = acc + w[k] * (k_of(k) + k_of(-k))
-        return acc
-
     for t in range(nsteps):
         for y0 in range(0, ny, ylen):
             window = [plane(y) for y in range(y0 - r - 1, y0 + r)]
             for y in range(y0, min(y0 + ylen, ny)):
                 window = window[1:] + [plane(y + r)]
                 c = window[r]
-                accx = d2(c, lambda k: tac.shift(c, k, -1))
-                accy = d2(c, lambda k: window[r + k])
-                accz = d2(c, lambda k: tac.shift(c, k, -2))
-                if fs:
-                    rows = []
-                    for z in range(r + 1):
-                        acc = w[0] * c[:, z]
-                        for k in range(1, r + 1):
-                            acc = acc + w[k] * c[:, z + k]
-                            if z - k > 0:
-                                acc = acc + w[k] * c[:, z - k]
-                            elif z - k < 0:
-                                acc = acc - w[k] * c[:, k - z]
-                        rows.append(acc)
-                    accz = torch.cat([torch.stack(rows, 1), accz[:, r + 1:]],
-                                     1)
-                lap = accx * ih2x + accy * ih2y + accz * ih2z
+                lap = _window_lap(c, window, w, ih2, fs)
                 upc = up[:, y]
                 un = (lap + two_m_hd[y] * c - m3[y] * upc) * denom[y]
                 for p in range(2):
@@ -348,7 +356,7 @@ def test_march_replay_equals_twin_bitwise(fs, so):
     m3 = ops[0]
     ny, nz, nx = m3.shape
     assert (nx, ny) == (40, 36) and nz == (24 if fs else 32)
-    launch = c3d.forward_launch(2, ny, nz, nx, so // 2)
+    launch = c3d.march_launch(2, ny, nz, nx, so // 2)
     assert launch.chunks == 2 and launch.ylen == 18
     got = _march_replay(*ops, hist=True, ylen=launch.ylen, **kw)
     want = c3d._forward_plain(*ops, hist=True, **kw)
@@ -358,6 +366,84 @@ def test_march_replay_equals_twin_bitwise(fs, so):
     # a chunk of 5 planes: lead-ins cut across the source and receivers
     rec = _march_replay(*ops, hist=False, ylen=5, **kw)[0]
     assert torch.equal(rec, want[0])
+
+
+def _reverse_march_replay(m3, two_m_hd, denom, dt2, res, *, w, ih2,
+                          nsteps, z0, fs, neg_inv_s2, ylen):
+    """A torch replay of the card's reverse march in its order: t from
+    the last step down, each step walking y in chunks of ``ylen`` planes
+    from a rolling window of v (the chunk's r-plane lead-ins first, zero
+    beyond the grid); at each plane grad += dt2[t] v, the new v over
+    v_prev, the residual rows added on z0, z0 + 1; the scale at the
+    end."""
+    B = dt2.shape[0]
+    ny, nz, nx = m3.shape
+    r = len(w) - 1
+    zero = dt2.new_zeros((B, nz, nx))
+    v = dt2.new_zeros((B, ny, nz, nx))
+    vn = torch.zeros_like(v)
+    grad = torch.zeros_like(v)
+
+    def plane(y):
+        return v[:, y] if 0 <= y < ny else zero
+
+    for t in range(nsteps - 1, -1, -1):
+        for y0 in range(0, ny, ylen):
+            window = [plane(y) for y in range(y0 - r - 1, y0 + r)]
+            for y in range(y0, min(y0 + ylen, ny)):
+                window = window[1:] + [plane(y + r)]
+                c = window[r]
+                grad[:, y] = grad[:, y] + dt2[:, t, y] * c
+                lap = _window_lap(c, window, w, ih2, fs)
+                new = (lap + two_m_hd[y] * c - m3[y] * vn[:, y]) * denom[y]
+                new[:, z0:z0 + 2] = new[:, z0:z0 + 2] + res[:, t, y]
+                vn[:, y] = new
+        v, vn = vn, v
+    return grad * neg_inv_s2
+
+
+@pytest.mark.parametrize("fs", [False, True])
+@pytest.mark.parametrize("so", [4, 8])
+def test_reverse_march_replay_equals_twin_bitwise(fs, so):
+    """The reverse march's order (v from a rolling window of 2r + 1
+    planes, y cut into the launch helper's chunks with r-plane lead-ins,
+    v_prev overwritten plane by plane, grad summed plane by plane) gives
+    the twin's gradient bit for bit at float32 on the (40, 36, 32) padded
+    grid over the twin's own history, with and without the free surface,
+    at the helper's 18-plane chunks and at chunks of 5 planes."""
+    ops, kw = _march_operands(fs, so)
+    m3, two_m_hd, denom = ops[:3]
+    ny, nz, nx = m3.shape
+    dt2 = c3d._forward_plain(*ops, hist=True, **kw)[1]
+    res = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (2, kw["nsteps"], ny, 2, nx)), dtype=torch.float32)
+    gkw = dict(w=kw["w"], ih2=kw["ih2"], nsteps=kw["nsteps"], z0=kw["z0"],
+               fs=fs, neg_inv_s2=-1.0 / 1.7)
+    want = c3d._gradient_plain(m3, two_m_hd, denom, dt2, res, **gkw)
+    assert float(want.abs().max()) > 0 and bool(want.isfinite().all())
+    launch = c3d.march_launch(2, ny, nz, nx, so // 2, reverse=True)
+    assert launch.ylen == 18
+    for ylen in (launch.ylen, 5):
+        got = _reverse_march_replay(m3, two_m_hd, denom, dt2, res,
+                                    ylen=ylen, **gkw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("space_order,shape", [
+    (18, (1, 6, 8, 10)), (4, (1, 1, 2, 32 * 2 ** 16)),
+    (4, (1, 1, 16 * 2 ** 16, 1)), (4, (0, 6, 8, 10))])
+def test_reverse_march_refuses_before_it_builds(space_order, shape):
+    """The reverse sweep asks the march's launch helper before it builds
+    or allocates anything: radius 9, 65,536 tiles along x or z, or no
+    shots raise ValueError here, where building the library would raise
+    RuntimeError (no nvcc)."""
+    B, ny, nz, nx = shape
+    w, ih2, s2 = c3d._stencil_constants3(space_order, (10., 10., 10.), 1.0)
+    big = torch.zeros(()).expand
+    with pytest.raises(ValueError, match="acoustic3d march"):
+        c3d._gradient_cuda(big(ny, nz, nx), None, None,
+                           big(B, 1, ny, nz, nx), None, w=w, ih2=ih2,
+                           nsteps=1, z0=0, fs=False, neg_inv_s2=-1.0 / s2)
 
 
 @pytest.mark.parametrize("B,ny,nz,nx,r,smem,grid,chunks,ylen", [
@@ -374,11 +460,32 @@ def test_march_launch_fits_shared_memory(B, ny, nz, nx, r, smem, grid,
     fastest grid axis, the y-chunks as many as the card holds at once at
     three blocks an SM (none shorter than 16 planes), two planes of the
     tile and an r halo within a static launch's 48 KB."""
-    launch = c3d.forward_launch(B, ny, nz, nx, r)
+    launch = c3d.march_launch(B, ny, nz, nx, r)
     assert launch.smem == smem <= 48 * 1024
     assert launch.grid == grid
     assert (launch.chunks, launch.ylen) == (chunks, ylen)
     assert launch.tile == (32, 16) and launch.threads == 512
+    assert (launch.chunks - 1) * launch.ylen < ny <= chunks * ylen
+
+
+@pytest.mark.parametrize("B,ny,nz,nx,r,grid,chunks,ylen", [
+    # bench config 5 (4 shots of 128^3, space order 8), its 3-shot gate
+    (4, 128, 128, 128, 4, (4, 4, 32), 4, 32),
+    (3, 128, 128, 128, 4, (3, 4, 40), 5, 26),
+    (2, 36, 32, 40, 4, (2, 2, 4), 2, 18),     # the card tests' grid
+    (1, 1, 2, 1, 1, (1, 1, 1), 1, 1),
+])
+def test_reverse_march_launch_takes_two_waves(B, ny, nz, nx, r, grid,
+                                              chunks, ylen):
+    """The reverse march's launch: the forwards' tile, threads and shared
+    memory, its y-chunks as many as two waves of two blocks an SM take
+    (528 blocks), none shorter than 16 planes."""
+    launch = c3d.march_launch(B, ny, nz, nx, r, reverse=True)
+    forward = c3d.march_launch(B, ny, nz, nx, r)
+    assert (launch.tile, launch.threads, launch.smem) == \
+        (forward.tile, forward.threads, forward.smem)
+    assert launch.grid == grid
+    assert (launch.chunks, launch.ylen) == (chunks, ylen)
     assert (launch.chunks - 1) * launch.ylen < ny <= chunks * ylen
 
 
@@ -391,7 +498,7 @@ def test_march_launch_refuses_what_the_kernel_does_not_take(args):
     """Beyond radius 8, an empty grid, 2^31 cells a plane or 65,536 tiles
     along x or z: the helper raises, so the wrapper launches nothing."""
     with pytest.raises(ValueError):
-        c3d.forward_launch(*args)
+        c3d.march_launch(*args)
 
 
 # ---------------------------------------------------------------------------

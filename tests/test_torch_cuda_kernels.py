@@ -711,12 +711,46 @@ def test_tti_kernels_match_twins(cuda, space_order):
     torch.cuda.synchronize()
     _close(fwd, ct.tti_forward_dt2_plain(*ops, injT, wav, dt, **kw))
     _close(ck, ct.tti_forward_ckpt_plain(*ops, injT, wav, dt, **kw))
-    _close([g_s], [ct.tti_gradient_stream_plain(*ops, fwd[1], fwd[2], res,
-                                                dt, **kw)])
-    _close([g_c], [ct.tti_jacobian_adjoint_plain(*ops, injT, wav, ck[1],
-                                                 res, dt, **kw)])
+    # the fused reverse step repeats the twin's operations: exactly equal
+    assert torch.equal(g_s, ct.tti_gradient_stream_plain(
+        *ops, fwd[1], fwd[2], res, dt, **kw))
+    assert torch.equal(g_c, ct.tti_jacobian_adjoint_plain(
+        *ops, injT, wav, ck[1], res, dt, **kw))
     assert torch.equal(g_c, g_s)
     assert torch.equal(ck[0], fwd[0])
+
+
+@pytest.mark.cuda
+def test_tti_adjoint_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9), or a grid of 65,536 tiles along x (the
+    fused reverse step's launch takes at most 65,535): both reverse sweeps
+    raise before any launch."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    from devito_fwi_tpu_torch.ops.acoustic import _ckpt_layout
+    _, _, ops, injT, wav, dt, kw = _tti_operands(4, cuda)
+    B, nz, nx = injT.shape
+    _, seg, nseg = _ckpt_layout(kw["nt"], kw["n_checkpoints"])
+    hist = torch.zeros((B, nseg, seg, nz, nx), device=cuda)
+    res = torch.zeros((B, nseg, seg, 2, nx), device=cuda)
+    starts = torch.zeros((B, nseg, 4, nz, nx), device=cuda)
+    ct.reset_counters()
+    bad = dict(kw, space_order=18)
+    with pytest.raises(ValueError):
+        ct.tti_gradient_stream_segments(*ops, hist, hist, res, dt, **bad)
+    with pytest.raises(ValueError):
+        ct.tti_jacobian_adjoint_segments(*ops, injT, wav, starts, res, dt,
+                                         **bad)
+    # 2 x 2,097,153 cells: 65,537 tiles of 32 along x
+    nx2 = 32 * 2 ** 16 + 1
+    z = torch.zeros((2, nx2), device=cuda)
+    kw2 = dict(nt=4, nx=nx2, nz=2, space_order=4, spacing=(10., 10.), z0=0,
+               n_checkpoints=1)
+    h2 = torch.zeros((1, 1, 2, 2, nx2), device=cuda)
+    r2 = torch.zeros((1, 1, 2, 2, nx2), device=cuda)
+    with pytest.raises(ValueError, match="tti adjoint"):
+        ct.tti_gradient_stream_segments(z, z, z, z, z, z, h2, h2, r2, dt,
+                                        **kw2)
+    assert sum(ct.LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda
@@ -821,12 +855,13 @@ def test_3d_stream_kernels_match_twins(cuda, fs, space_order):
     assert all(c3d.LAUNCHES[n] == 1 for n in c3d.KERNELS)
     assert sum(c3d.TWIN_CALLS.values()) == 0
     torch.cuda.synchronize()
-    # the y march repeats the twin's operations: exactly equal
+    # the y march (forwards and reverse) repeats the twin's operations:
+    # exactly equal
     assert torch.equal(rec, c3d.forward_rec3_plain(*ops, **st.kw))
     for g, w in zip(got, c3d.forward_dt2_stream3_plain(*ops, **st.kw)):
         assert torch.equal(g, w)
-    _close([grad], [c3d.gradient_stream3_plain(st.m3, st.hd3, got[1], slabs,
-                                               st.dt, **st.kw)])
+    assert torch.equal(grad, c3d.gradient_stream3_plain(
+        st.m3, st.hd3, got[1], slabs, st.dt, **st.kw))
     assert torch.equal(rec, got[0])
 
 
@@ -842,6 +877,31 @@ def test_3d_forwards_raise_for_what_they_do_not_take(cuda):
     for fn in (c3d.forward_rec3, c3d.forward_dt2_stream3):
         with pytest.raises(ValueError):
             fn(*ops, **kw)
+    assert sum(c3d.LAUNCHES.values()) == 0
+    assert sum(c3d.TWIN_CALLS.values()) == 0
+
+
+@pytest.mark.cuda
+def test_3d_reverse_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9; the reverse march takes 1..8), or a grid
+    of 65,536 tiles along x: the reverse sweep raises before any launch."""
+    from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
+    _, st = _setup3(False, 4, cuda)
+    ny, nz, nx = st.m3.shape
+    dt2 = torch.zeros((2, st.nsteps, ny, nz, nx), device=cuda)
+    slabs = torch.zeros((2, st.nsteps, ny, 2, nx), device=cuda)
+    c3d.reset_counters()
+    with pytest.raises(ValueError):
+        c3d.gradient_stream3(st.m3, st.hd3, dt2, slabs, st.dt,
+                             **dict(st.kw, space_order=18))
+    nx2 = 32 * 2 ** 16 + 1
+    m2 = torch.ones((1, 2, nx2), device=cuda)
+    kw2 = dict(nt=3, space_order=4, spacing=(10., 10., 10.), z0=0)
+    with pytest.raises(ValueError, match="acoustic3d march"):
+        c3d.gradient_stream3(m2, m2 * 0, torch.zeros((1, 1, 1, 2, nx2),
+                                                     device=cuda),
+                             torch.zeros((1, 1, 1, 2, nx2), device=cuda),
+                             st.dt, **kw2)
     assert sum(c3d.LAUNCHES.values()) == 0
     assert sum(c3d.TWIN_CALLS.values()) == 0
 

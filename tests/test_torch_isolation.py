@@ -291,6 +291,13 @@ def test_ctypes_signatures_match_the_tti_source():
     _check_signatures(ct, "tti2d.cu")
 
 
+def test_tti_source_launches_one_fused_reverse_step():
+    """The TTI reverse steps (streamed and after each recompute) launch
+    the one fused kernel; the forwards keep their two phases."""
+    assert _kernels_launched("tti2d.cu") == {"fwd_gz", "fwd_update",
+                                             "adjoint_fused"}
+
+
 def _tti_geometry():
     model = demo_model("layers-tti", shape=(21, 21), spacing=(10., 10.),
                        nbl=4, space_order=4)
@@ -396,15 +403,14 @@ def test_ctypes_signatures_match_the_acoustic3d_source(module):
 
 
 def test_acoustic3d_source_launches_the_y_march():
-    """The 3-D forwards launch the y march (its chunk length ``ylen`` a
-    parameter of the entry point); the reverse sweep and the step kernel
-    keep their one-thread-a-cell kernels."""
-    assert _kernels_launched("acoustic3d.cu") == {"forward_march",
-                                                  "adjoint_step",
-                                                  "step_kernel"}
+    """The 3-D forwards and the reverse sweep launch the y march (its
+    chunk length ``ylen`` a parameter of both entry points); the step
+    kernel keeps one thread a cell."""
+    assert _kernels_launched("acoustic3d.cu") == {"march", "step_kernel"}
     src = open(os.path.join(PKG, "csrc", "acoustic3d.cu")).read()
-    params = src[src.index("int acoustic3d_forward("):].split(")")[0]
-    assert "int ylen" in params
+    for entry in ("acoustic3d_forward", "acoustic3d_gradient"):
+        params = src[src.index(f"int {entry}("):].split(")")[0]
+        assert "int ylen" in params
 
 
 def _geometry3():

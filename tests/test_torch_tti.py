@@ -371,6 +371,195 @@ def test_streamed_twin_gradient_equals_the_recompute_one(so):
 
 
 # ---------------------------------------------------------------------------
+# the card's fused reverse step (csrc/tti2d.cu adjoint_fused), replayed
+# ---------------------------------------------------------------------------
+
+def _fused_adjoint_replay(prm, udt2, vdt2, res, *, st, nsteps, z0, tile):
+    """A torch replay of the card's fused reverse step in its order, tile
+    by tile: a = eh du + dh dv and b = dh du + dv on the tile and an r
+    ring (zero beyond the grid; the ring's corners deeper than r1 = r//2
+    NaN, as the kernel leaves them unwritten), the products sin th gz and
+    cos th gz of both on the tile and an r1 ring along their axis (zero at
+    ring cells beyond the grid), then at the tile's cells the gradient
+    term, gxx(a) and gzz(b) from those arrays only, and the update."""
+    m, tm, im, eh, dh, sth, cth = prm
+    B, _, nz, nx = udt2.shape
+    r, r1 = st.r, st.r1
+    tx, tz = tile
+    NZ, NX = -(-nz // tz) * tz + 2 * r, -(-nx // tx) * tx + 2 * r
+
+    def padded(f, fill=0.0):
+        """f on the tiles' index space, r cells of ``fill`` around."""
+        out = f.new_full(f.shape[:-2] + (NZ, NX), fill)
+        out[..., r:r + nz, r:r + nx] = f
+        return out
+
+    inside = padded(torch.ones((nz, nx), dtype=torch.bool), False)
+    lz = torch.arange(tz + 2 * r)[:, None]
+    lx = torch.arange(tx + 2 * r)[None, :]
+    ox = torch.where(lx < r, r - lx, (lx - (r + tx - 1)).clamp(min=0))
+    oz = torch.where(lz < r, r - lz, (lz - (r + tz - 1)).clamp(min=0))
+    unread = (ox > 0) & (oz > 0) & ((ox > r1) | (oz > r1))
+    # the coefficients NaN beyond the grid: the kernel never reads them there
+    coef = [padded(f, float("nan")) for f in (m, tm, im, sth, cth)]
+
+    def d1(f, z, x, h, w, along_x):
+        """D1 at the h x w cells from (z, x) of the last two axes: the
+        non-zero weights in tap order from the first, times 1/h."""
+        acc = None
+        for k, wk in enumerate(st.w1):
+            if wk == 0.0:
+                continue
+            o = k - r1
+            zz, xx = (z, x + o) if along_x else (z + o, x)
+            term = wk * f[..., zz:zz + h, xx:xx + w]
+            acc = term if acc is None else acc + term
+        return acc * (st.ihx if along_x else st.ihz)
+
+    def d2(f, along_x):
+        """D2 at the tile's cells of a local array: w0 f + sum_k wk (f[+k]
+        + f[-k]), times (1/h)^2."""
+        def at(o):
+            zz, xx = (r, r + o) if along_x else (r + o, r)
+            return f[..., zz:zz + tz, xx:xx + tx]
+        acc = st.w2[0] * at(0)
+        for k in range(1, r + 1):
+            acc = acc + st.w2[k] * (at(k) + at(-k))
+        return acc * (st.ihx2 if along_x else st.ihz2)
+
+    def products(fl, sl, cl, il):
+        """(sin th gz on the tile's rows and an r1 ring in x, cos th gz on
+        its columns and an r1 ring in z) of the local array fl."""
+        out = []
+        for z, x, h, w, tr in ((r, r - r1, tz, tx + 2 * r1, sl),
+                               (r - r1, r, tz + 2 * r1, tx, cl)):
+            gz = -(sl[z:z + h, x:x + w] * d1(fl, z, x, h, w, True)
+                   + cl[z:z + h, x:x + w] * d1(fl, z, x, h, w, False))
+            out.append(torch.where(il[z:z + h, x:x + w],
+                                   tr[z:z + h, x:x + w] * gz, 0.0))
+        return out
+
+    def gzz(ps, pc):
+        return -(d1(ps, 0, r1, tz, tx, True) + d1(pc, r1, 0, tz, tx, False))
+
+    zero = udt2.new_zeros((B, nz, nx))
+    du = dun = dv = dvn = grad = zero
+    for t in range(nsteps - 1, -1, -1):
+        grad = grad + udt2[:, t] * du + vdt2[:, t] * dv
+        A, Bp = padded(eh * du + dh * dv), padded(dh * du + dv)
+        Du, Dv, Dun, Dvn = (padded(f) for f in (du, dv, dun, dvn))
+        new_u, new_v = torch.empty_like(Du), torch.empty_like(Dv)
+        for zt in range(0, NZ - 2 * r, tz):
+            for xt in range(0, NX - 2 * r, tx):
+                win = (slice(zt, zt + tz + 2 * r), slice(xt, xt + tx + 2 * r))
+                la, lb = A[(...,) + win].clone(), Bp[(...,) + win].clone()
+                la[:, unread] = float("nan")
+                lb[:, unread] = float("nan")
+                mm, tt, ii, sl, cl = (c[win] for c in coef)
+                il = inside[win]
+                psa, pca = products(la, sl, cl, il)
+                psb, pcb = products(lb, sl, cl, il)
+                h0 = (d2(la, True) + d2(la, False)) - gzz(psa, pca)
+                hz = gzz(psb, pcb)
+                own = (slice(zt + r, zt + r + tz), slice(xt + r, xt + r + tx))
+                cell = (slice(r, r + tz), slice(r, r + tx))
+                new_u[(...,) + own] = (st.s2 * h0 + tt[cell] * Du[(...,) + own]
+                                       - mm[cell] * Dun[(...,) + own]) \
+                    * ii[cell]
+                new_v[(...,) + own] = (st.s2 * hz + tt[cell] * Dv[(...,) + own]
+                                       - mm[cell] * Dvn[(...,) + own]) \
+                    * ii[cell]
+        dup = new_u[:, r:r + nz, r:r + nx].clone()
+        dvp = new_v[:, r:r + nz, r:r + nx].clone()
+        dup[:, z0:z0 + 2] = dup[:, z0:z0 + 2] + res[:, t]
+        dvp[:, z0:z0 + 2] = dvp[:, z0:z0 + 2] + res[:, t]
+        dun, du, dvn, dv = du, dup, dv, dvp
+    return grad
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_case(so):
+    """2 shots on layers-tti 20 x 4 (nbl 10: padded 40 x 24), the twin's
+    coefficient operands, seeded histories and residual rows of 12 steps
+    on rows 7 and 8 (across the z-tiles of the 16 x 8 replay)."""
+    model = demo_model("layers-tti", shape=(20, 4), spacing=(10., 10.),
+                       nbl=10, space_order=so, dtype=np.float32)
+    dt = float(model.critical_dt)
+    _, coeffs = ct.operands(*(torch.as_tensor(np.asarray(getattr(model, n)))
+                              for n in FIELDS), dt)
+    mT, hdT, ehT, dhT, stT, ctT = coeffs
+    prm = (mT, 2.0 * mT + hdT, 1.0 / (mT + hdT), ehT, dhT, stT, ctT)
+    nz, nx = mT.shape
+    nsteps = 12
+    rng = np.random.default_rng(13)
+    T = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(shape), dtype=torch.float32)
+    st = ct._statics(so, model.spacing, dt, torch.float32)
+    return prm, T(2, nsteps, nz, nx), T(2, nsteps, nz, nx), \
+        T(2, nsteps, 2, nx), st
+
+
+@pytest.mark.parametrize("tile", [(32, 16), (16, 8)])
+@pytest.mark.parametrize("so", [4, 8])
+def test_fused_adjoint_order_equals_twin_bitwise(so, tile):
+    """The fused reverse step's order (a and b once a cell on the tile and
+    an r ring, the unread corners NaN; the products on an r1 ring, zero
+    beyond the grid) gives the plain twin's gradient bit for bit at
+    float32, at the kernel's 32 x 16 tile (the 40 x 24 grid cuts its tiles
+    at both edges) and at 16 x 8 tiles (the receiver rows 7 and 8 on two
+    z-tiles, each in the other's ring)."""
+    prm, udt2, vdt2, res, st = _fused_case(so)
+    nz, nx = prm[0].shape
+    assert (nz, nx) == (24, 40)
+    kw = dict(st=st, nsteps=udt2.shape[1], z0=7)
+    want = ct._adjoint_plain(prm, udt2, vdt2, res, **kw)
+    got = _fused_adjoint_replay(prm, udt2, vdt2, res, tile=tile, **kw)
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 0 and bool(want.isfinite().all())
+
+
+def test_adjoint_launch_fits_shared_memory():
+    """The fused reverse step's launch at bench config 4 (8 shots, 186 x
+    380 padded, space order 8): 32 x 16 tiles, 512 threads (one cell a
+    thread), the shots the fastest grid axis; its shared memory within a
+    static launch's 48 KB up to radius 8."""
+    main = ct.adjoint_launch(8, 186, 380, 4)
+    assert main.grid == (8, 12, 12) and main.smem == 17_408
+    assert main.tile == (32, 16) and main.threads == 512
+    assert ct.adjoint_launch(8, 186, 380, 8).smem == 23_552 <= 48 * 1024
+    assert ct.adjoint_launch(1, 2, 1, 2).smem == 14_720
+
+
+@pytest.mark.parametrize("args", [
+    (8, 186, 380, 1), (8, 186, 380, 9), (0, 186, 380, 4), (8, 0, 380, 4),
+    (8, 186, 0, 4), (1, 2 ** 16, 2 ** 15, 4), (1, 2, 32 * 2 ** 16, 4),
+    (1, 32 * 2 ** 16, 1, 4)])
+def test_adjoint_launch_refuses_what_the_kernel_does_not_take(args):
+    """Outside radius 2 .. 8, an empty grid, 2^31 cells or 65,536 tiles
+    along x or z: the helper raises."""
+    with pytest.raises(ValueError):
+        ct.adjoint_launch(*args)
+
+
+@pytest.mark.parametrize("route", ["stream", "checkpoint"])
+def test_adjoint_refuses_before_it_builds(route):
+    """Both reverse sweeps ask the launch helper before they build or
+    allocate anything: a grid of 65,536 x tiles raises ValueError here,
+    where building the library would raise RuntimeError (no nvcc)."""
+    B, nz, nx = 1, 2, 32 * 2 ** 16
+    st = ct._statics(8, (10., 10.), 1.0, torch.float32)
+    big = torch.zeros(()).expand
+    with pytest.raises(ValueError, match="tti adjoint"):
+        if route == "stream":
+            ct._adjoint_cuda(None, big(B, 1, nz, nx), None, None, st=st,
+                             nsteps=1, z0=0)
+        else:
+            ct._jacobian_adjoint_cuda(None, None, None,
+                                      big(B, 1, 4, nz, nx), None, st=st,
+                                      nsteps=1, z0=0)
+
+
+# ---------------------------------------------------------------------------
 # the batched entry points and the solver
 # ---------------------------------------------------------------------------
 
