@@ -16,8 +16,9 @@ result line is printed:
    2^31 elements): each acoustic kernel beside its twin, CUDA events after
    a warm-up, every output of the timed calls compared (exactly:
    max|kernel-twin| must be 0), with the card's bound; the checkpoint-route
-   gradient against the streamed one, bitwise; the fused forward tile's
-   launch and the forwards' per-step traffic floors;
+   gradient against the streamed one, bitwise; the two-step tile's
+   launches, forward and reverse, and the per-step traffic floors of the
+   forwards and both reverses;
 5. the slab kernel at the main path's shapes: the subsamples of the last
    pushforward of a live SMARMN W2-2d objective (29 shots, the initial
    model), in the natural and the blocked layout, kernel against twin on
@@ -99,7 +100,9 @@ result line is printed:
    kernel launched, no twin called;
 21. TTI kernel vs twin at the main path's shapes (8 shots; the streamed
    history is 7.15 GB): kernel beside twin, CUDA events, with the card's
-   bound; the checkpoint-route gradient against the streamed one, bitwise;
+   bound, all four exactly; the checkpoint-route gradient against the
+   streamed one, bitwise; the fused steps' launches and per-step traffic
+   floors;
 22. TTI profile: one steady-state gradient under ``torch.profiler``;
 23. banded Legendre kernel vs twin, quick gate: the kernel
    (``cuda_bfm.legendre_banded``, B6) against its twin, output and flag, on
@@ -291,7 +294,7 @@ def cuda_ms(fn, reps):
 
 # the kernels redesigned for the H100 keep their twins' sums term for term
 # and in order: their outputs must equal the twins' exactly; so must the
-# acoustic kernels that share their sources (rows 3, 5, 7 and 10)
+# 3-D step kernel, which shares their source (row 7)
 EXACT = ("pushforward_slabs_nat", "pushforward_slabs", "elastic_segments",
          "elastic_fwd_hist_segments", "elastic_grad_stream_segments",
          "visco_sls2_segments", "visco_fwd_hist_segments",
@@ -299,7 +302,8 @@ EXACT = ("pushforward_slabs_nat", "pushforward_slabs", "elastic_segments",
          "forward_dt2_segments", "gradient_stream_segments",
          "forward_ckpt_segments", "gradient_segments", "forward_rec3",
          "forward_dt2_stream3", "gradient_stream3", "step3",
-         "tti_gradient_stream_segments", "tti_jacobian_adjoint_segments")
+         "tti_forward_dt2_segments", "tti_gradient_stream_segments",
+         "tti_forward_ckpt_segments", "tti_jacobian_adjoint_segments")
 
 
 def compare(name, got, want):
@@ -475,28 +479,47 @@ def step_floors(cells, nsteps, fields):
 
 
 def print_floors(floors, ms, nsteps):
+    """One line a sweep; ``nsteps`` the steps to count a step's time over,
+    one number or {name: steps}."""
     for name, (new, old, nn, no) in floors.items():
+        n = nsteps[name] if isinstance(nsteps, dict) else nsteps
         print(f"   {name}: per-step traffic floor {new:.3f} ms (the "
-              f"redesign's {nn:g} fields a step, {new / nsteps * 1e3:.1f} "
+              f"redesign's {nn:g} fields a step, {new / n * 1e3:.1f} "
               f"us a step); {old:.3f} ms for the first design's {no:g} "
-              f"fields; kernel {ms[name] / nsteps * 1e3:.1f} us a step, "
+              f"fields; kernel {ms[name] / n * 1e3:.1f} us a step, "
               f"{ms[name] / new:.2f}x the redesign's floor")
 
 
 def acoustic_step_floors(st, B):
-    """The 2-D acoustic forwards' per-step traffic floors, in fields of the
-    batch over the ``total`` padded steps they run. The fused tile runs two
-    steps a launch: it reads u and up and writes the two new fields, 2
-    fields a step; the history adds its write (1), the illumination its
-    read and write once a launch (1 a step), 4; the checkpoint sweep the
-    illumination (the pairs are 2 fields a segment), 3. The first design's
-    one launch a step moved 4 (u, up and the dense source pattern read, up
-    written), 7 with the history and the illumination, 6 with the
-    illumination and the pairs."""
-    return step_floors(B * st.nz * st.nx, st.nseg * st.seg,
-                       {"forward_rec_segments": (2, 4),
-                        "forward_dt2_segments": (4, 7),
-                        "forward_ckpt_segments": (3, 6)})
+    """The 2-D acoustic sweeps' per-step traffic floors, in fields of the
+    batch. The forwards over the ``total`` padded steps they run: the fused
+    tile runs two steps a launch, reads u and up and writes the two new
+    fields, 2 fields a step; the history adds its write (1), the
+    illumination its read and write once a launch (1 a step), 4; the
+    checkpoint sweep the illumination (the pairs are 2 fields a segment),
+    3. The first design's one launch a step moved 4 (u, up and the dense
+    source pattern read, up written), 7 with the history and the
+    illumination, 6 with the illumination and the pairs. The reverse over
+    the ``nsteps`` real steps: the first design read v, vn, the history
+    slot and grad and wrote vn and grad, 6 fields a step; the two-step
+    tile reads v, vn, grad and two history slots and writes the new pair
+    and grad once a launch, 4 fields a step. (A persistent sweep that kept
+    v, vn and grad, 24.6 MB at 29 SMARMN shots, in the 50 MB L2 between
+    its steps would read only the history slot from device memory: 1
+    field a step, under that assumption.) Row 5 adds its recompute on the
+    two-step tile with the history (3 fields a step; 5 in the first
+    design) over the padded steps."""
+    cells = B * st.nz * st.nx
+    total, nsteps = st.nseg * st.seg, st.nsteps
+    out = step_floors(cells, total, {"forward_rec_segments": (2, 4),
+                                     "forward_dt2_segments": (4, 7),
+                                     "forward_ckpt_segments": (3, 6)})
+    rev = step_floors(cells, nsteps, {"gradient_stream_segments": (4, 6)})
+    out.update(rev)
+    rec = step_floors(cells, total, {"fwd": (3, 5)})["fwd"]
+    r = rev["gradient_stream_segments"]
+    out["gradient_segments"] = (rec[0] + r[0], rec[1] + r[1], 3 + 4, 5 + 6)
+    return out
 
 
 def acoustic3d_step_floors(st, B):
@@ -543,16 +566,18 @@ def tti_step_floors(b, B):
     (du, dv, both history slots and grad read, grad and the four products
     written), the update 10B (du, dv, dun, dvn and the four products read,
     dun and dvn written), and nine coefficient reads a shot (eh, dh, sin,
-    cos; eh, dh, m, 2m + hd, 1/(m + hd)). The forwards keep two phases:
+    cos; eh, dh, m, 2m + hd, 1/(m + hd)). The fused forward step reads u,
+    up, v and vp and writes un, vn over up, vp, the seven coefficients
+    once: 6B + 7, 8B + 7 with the two history writes (the source's few
+    listed cells count nothing). The first design's two phases moved 24B:
     the gz phase 6B (u and v read, four products written), the update 11B
     (u, up, v, vp, the products and the dense source pattern read, up and
-    vp written), the seven coefficients once a shot: 24B, 26B with the two
-    history writes; a fused forward step would read u, up, v, vp and
-    write un, vn over up, vp, 6B + 7, 8B + 7 with the histories. The
-    checkpoint forward and the recompute run the ``nseg_ck * seg_ck``
-    padded steps (1584 at config 4, against 1579), the checkpoint reverse
-    its recompute (26B a step) and then the reverse; their floors count
-    each over its own steps, and ``print_floors`` divides by nsteps."""
+    vp written), the seven coefficients once a shot; 26B with the
+    histories. The checkpoint forward and the recompute run the ``nseg_ck
+    * seg_ck`` padded steps (1584 at config 4, against 1579), the
+    checkpoint reverse its recompute (the forward with the histories) and
+    then the reverse; their floors count each over its own steps, and
+    ``print_floors`` divides by nsteps."""
     field = b.kw["nz"] * b.kw["nx"]
     ns, nt = b.nsteps, b.nseg_ck * b.seg_ck
     rev = step_floors(field, ns, {"rev": (10 * B + 7, 29 * B)})["rev"]
@@ -561,9 +586,9 @@ def tti_step_floors(b, B):
         "tti_gradient_stream_segments": (10 * B + 7, 29 * B)})
     out.update(step_floors(field, nt, {
         "tti_forward_ckpt_segments": (6 * B + 7, 24 * B)}))
-    rec = step_floors(field, nt, {"fwd": (26 * B, 26 * B)})["fwd"]
+    rec = step_floors(field, nt, {"fwd": (8 * B + 7, 26 * B)})["fwd"]
     out["tti_jacobian_adjoint_segments"] = (
-        rec[0] + rev[0], rec[1] + rev[1], 36 * B + 7, 55 * B)
+        rec[0] + rev[0], rec[1] + rev[1], 18 * B + 14, 55 * B)
     return out
 
 
@@ -1374,10 +1399,12 @@ def tti_phases(dev, rng, ct, ca, counters, report, ms, plain_ms, err,
               f"{plain_ms[name]:.3f} ms, bound {b_ms:.3f} ms by {by} "
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
-    launch = ct.adjoint_launch(B, kw1["nz"], kw1["nx"], 4)
-    print(f"   fused reverse step: tile {launch.tile}, {launch.threads} "
-          f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
-          "memory a block, one launch a step")
+    for what, helper in (("forward", ct.forward_launch),
+                         ("reverse", ct.adjoint_launch)):
+        launch = helper(B, kw1["nz"], kw1["nx"], 4)
+        print(f"   fused {what} step: tile {launch.tile}, {launch.threads} "
+              f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
+              "memory a block, one launch a step")
     print_floors(tti_step_floors(tc, B), ms, tc.nsteps)
 
     phase(f"22 TTI profile: one steady-state gradient, {TTI_SHOTS} shots")
@@ -2240,7 +2267,15 @@ def main():
     print(f"   fused forward tile: {launch.steps} steps a launch, tile "
           f"{launch.tile}, {launch.threads} threads, grid {launch.grid}, "
           f"{launch.smem} bytes of shared memory a block")
-    print_floors(acoustic_step_floors(st, B), ms, st.nseg * st.seg)
+    launch = ca.adjoint_launch(B, st.nz, st.nx, kw["space_order"] // 2)
+    print(f"   reverse tile: {launch.steps} steps a launch, tile "
+          f"{launch.tile}, {launch.threads} threads, grid {launch.grid}, "
+          f"{launch.smem} bytes of shared memory a block")
+    total = st.nseg * st.seg
+    print_floors(acoustic_step_floors(st, B), ms, dict(
+        forward_rec_segments=total, forward_dt2_segments=total,
+        forward_ckpt_segments=total, gradient_stream_segments=st.nsteps,
+        gradient_segments=st.nsteps))
 
     phase(f"5 slab kernel at the main-path shapes, {B} shots")
     obs = fwi.fm_multi(geoms[0], device="cuda")

@@ -19,14 +19,14 @@
 //   acoustic2d_adjoint
 //       replaces gradient_stream_segments (pallas_acoustic.py:673,
 //       _grad_stream_kernel :622): the reverse adjoint sweep over the
-//       streamed history, grad += dt2[t] * v, then one final scale by
-//       -1/s^2.
+//       streamed history, grad += dt2[t] * v, scaled by -1/s^2 at the
+//       last step.
 //   acoustic2d_gradient_segments
 //       replaces gradient_segments (pallas_acoustic.py:453, _grad_kernel
 //       :361): for each segment from the last to the first, seg forward
 //       steps from its saved pair into a per-segment d2u/dt2 scratch, then
-//       the seg adjoint steps of that segment over the scratch; one final
-//       scale by -1/s^2.
+//       the seg adjoint steps of that segment over the scratch; scaled by
+//       -1/s^2 at the last step.
 //
 // Layout: fields are (B, nz, nx) float32 with x contiguous (the transposed
 // layout of the JAX kernels); m, two_m_hd = 2m + hd and denom = 1/(m + hd)
@@ -66,11 +66,23 @@
 // fastest axis, so a tile's coefficients stay in L1/L2 across its shots.
 // Times against these floors are in PERF.md (kernel table, rows 1, 2, 4).
 //
-// The reverse sweeps (adjoint_step) keep the first design: one thread per
-// cell and one launch per time step for the whole batch (blockIdx.z is the
-// shot); the per-cell update overwrites v_prev in place (each cell reads its
-// own before writing it and no other thread reads it), and the neighbours
-// come through L1/L2.
+// The reverse sweeps read v (at its neighbours), vn, the history slot and
+// grad and write vn and grad: 6 batch fields a step. The first design
+// (adjoint_step) ran one launch a step, one thread a cell, the neighbours
+// through L1/L2: ~22 us a step, of which the launch's start and tail are
+// a small part; the rest is traffic through L2 (v's stencil, vn and grad,
+// and the three coefficients again for each shot: ~90 MB a step). The
+// reverse (adjoint_tile) is the forwards' two-step tile in reverse: v with
+// a 2R halo in shared memory, step t on the tile and an R halo (the
+// residual rows added in the halo too), step t - 1 on the tile, both
+// steps' terms added to grad in registers; the history slot is read with
+// streaming loads, so that it does not evict the state from L2; an odd
+// last step is one launch of the first design. Both keep the first
+// design's arithmetic cell by cell, and the final -1/s^2 scale multiplies
+// the last step's sum before it is stored, which rounds as a separate pass
+// over grad did. Times against the floors, and those of the designs the
+// tile was chosen over (tools/probe_reverses.py), are in PERF.md (rows 3
+// and 5).
 //
 // Numerics: the arithmetic association of the JAX kernels' _make_lap_t and
 // update is kept term for term (shift pair summed before the weight
@@ -83,6 +95,8 @@
 // rows 0..r of the z-derivative use the odd-mirrored stencil.
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <utility>
 
 namespace {
 
@@ -212,6 +226,57 @@ __device__ __forceinline__ float add_source(float v, bool src, int cell,
   return v;
 }
 
+// Ring cell j of a tile's R halo in the NX x NZ region of a step's field on
+// the tile and that halo (R rows above and below the tile, then R columns
+// left and right): its coordinates (lx, lz) there.
+template <int R>
+__device__ __forceinline__ void ring_cell(int j, int* lx, int* lz) {
+  if (j < 2 * R * kTX) {
+    const int row = j / kTX;
+    *lx = R + j % kTX;
+    *lz = row < R ? row : kTZ + row;
+  } else {
+    const int j2 = j - 2 * R * kTX;
+    const int col = j2 % (2 * R);
+    *lx = col < R ? col : kTX + col;
+    *lz = R + j2 / (2 * R);
+  }
+}
+
+// One shot's field ub on the tile at (xt, zt) and its STEPS * R halo into
+// su (FwdTile's SZ rows x SX), zero beyond the grid and in the corners
+// never read; all of a thread's loads first.
+template <int R, int STEPS>
+__device__ __forceinline__ void load_halo(float* su,
+                                          const float* __restrict__ ub,
+                                          int xt, int zt, int nz, int nx) {
+  using T = FwdTile<R, STEPS>;
+  constexpr int H = T::H;
+  constexpr int E = T::E;
+  constexpr int SX = T::SX;
+  constexpr int kN1 = (SX * T::SZ + kThreads - 1) / kThreads;
+  const int tid = threadIdx.x;
+  float uv[kN1];
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kThreads;
+    const int lx = k % SX;
+    const int lz = k / SX;
+    const int dx = lx < H ? H - lx : (lx >= H + kTX ? lx - H - kTX + 1 : 0);
+    const int dz = lz < H ? H - lz : (lz >= H + kTZ ? lz - H - kTZ + 1 : 0);
+    const int gx = xt - H + lx;
+    const int gz = zt - H + lz;
+    const bool in = k < SX * T::SZ && !(dx > E && dz > E) && gx >= 0 &&
+                    gx < nx && gz >= 0 && gz < nz;
+    uv[i] = in ? ub[(size_t)gz * nx + gx] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kN1; ++i) {
+    const int k = tid + i * kThreads;
+    if (k < SX * T::SZ) su[k] = uv[i];
+  }
+}
+
 // Steps t .. t + STEPS - 1 over one tile of one shot. Reads u (with its
 // halo) and up; with two steps writes step t's field to nup and step
 // t + 1's to nu (neither is u or up, which neighbouring tiles read), with
@@ -277,16 +342,7 @@ forward_tile(const float* __restrict__ u, const float* up, float* nu,
     // R rows above and below the tile, then R columns left and right
     const int j = tid + i * kThreads;
     int lx, lz;
-    if (j < 2 * R * kTX) {
-      const int row = j / kTX;
-      lx = R + j % kTX;
-      lz = row < R ? row : kTZ + row;
-    } else {
-      const int j2 = j - 2 * R * kTX;
-      const int col = j2 % (2 * R);
-      lx = col < R ? col : kTX + col;
-      lz = R + j2 / (2 * R);
-    }
+    ring_cell<R>(j, &lx, &lz);
     rx[i] = lx;
     rz[i] = lz;
     const int gx = xt - R + lx;
@@ -313,28 +369,8 @@ forward_tile(const float* __restrict__ u, const float* up, float* nu,
     }
   }
 
-  // 1. u on the tile and its halo, zero beyond the grid and in the corners
-  // never read; all of a thread's loads first
-  constexpr int kN1 = (SX * T::SZ + kThreads - 1) / kThreads;
-  float uv[kN1];
-#pragma unroll
-  for (int i = 0; i < kN1; ++i) {
-    const int k = tid + i * kThreads;
-    const int lx = k % SX;
-    const int lz = k / SX;
-    const int dx = lx < H ? H - lx : (lx >= H + kTX ? lx - H - kTX + 1 : 0);
-    const int dz = lz < H ? H - lz : (lz >= H + kTZ ? lz - H - kTZ + 1 : 0);
-    const int gx = xt - H + lx;
-    const int gz = zt - H + lz;
-    const bool in = k < SX * T::SZ && !(dx > E && dz > E) && gx >= 0 &&
-                    gx < nx && gz >= 0 && gz < nz;
-    uv[i] = in ? ub[(size_t)gz * nx + gx] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < kN1; ++i) {
-    const int k = tid + i * kThreads;
-    if (k < SX * T::SZ) su[k] = uv[i];
-  }
+  // 1. u on the tile and its halo
+  load_halo<R, STEPS>(su, ub, xt, zt, nz, nx);
   const bool src = __syncthreads_or(mine);
 
   // 2. with two steps: step t on the tile (kept in registers for phase 3)
@@ -442,9 +478,10 @@ forward_tile(const float* __restrict__ u, const float* up, float* nu,
   }
 }
 
-// One reverse step for all shots: grad += dt2[b, th] * v (history of
-// ht steps), vn <- v_new (in place) with the residual rows of step t added
-// on z0 and z0 + 1.
+// One reverse step for all shots, one thread a cell (blockIdx.z the shot):
+// grad += dt2[b, th] * v (history of ht steps; times scale when last, the
+// sweep's final step), vn <- v_new (in place) with the residual rows of
+// step t added on z0 and z0 + 1.
 template <int R, bool FS>
 __global__ void adjoint_step(const float* __restrict__ v,
                              float* __restrict__ vn,
@@ -454,7 +491,8 @@ __global__ void adjoint_step(const float* __restrict__ v,
                              const float* __restrict__ dt2,
                              const float* __restrict__ res,
                              float* __restrict__ grad, int th, int ht, int t,
-                             int total, int nz, int nx, int z0, Stencil s) {
+                             int total, int nz, int nx, int z0, int last,
+                             float scale, Stencil s) {
   const int x = blockIdx.x * kBX + threadIdx.x;
   const int z = blockIdx.y * kBY + threadIdx.y;
   const int b = blockIdx.z;
@@ -466,28 +504,170 @@ __global__ void adjoint_step(const float* __restrict__ v,
   const size_t o = (size_t)b * field + cell;
 
   const float vc = vb[cell];
-  grad[o] = grad[o] + dt2[((size_t)b * ht + th) * field + cell] * vc;
+  const float g =
+      grad[o] + __ldcs(dt2 + ((size_t)b * ht + th) * field + cell) * vc;
+  grad[o] = last ? g * scale : g;
   const float lap = laplacian<R, FS>(vb, z, x, nz, nx, s);
   float vnew = (lap + two_m_hd[cell] * vc - m[cell] * vn[o]) * denom[cell];
   if (z == z0 || z == z0 + 1) vnew = vnew + res[(bt * 2 + (z - z0)) * nx + x];
   vn[o] = vnew;
 }
 
+// Reverse steps t and t - 1 over one tile of one shot: the forwards'
+// two-step tile in reverse. v with a 2R halo in shared memory, step t on
+// the tile (kept in registers) and an R halo (into shared memory, the
+// residual rows of step t added there too), then step t - 1 on the tile;
+// grad gains both steps' terms in registers. Reads v (with its halo) and
+// vn; writes step t's field to nvn and step t - 1's to nv (neither is v or
+// vn, which neighbouring tiles read). With last, step t - 1 is the sweep's
+// final one.
+template <int R, bool FS>
+__global__ void __launch_bounds__(kThreads)
+adjoint_tile(const float* __restrict__ v, const float* __restrict__ vn,
+             float* __restrict__ nv, float* __restrict__ nvn,
+             const float* __restrict__ m, const float* __restrict__ two_m_hd,
+             const float* __restrict__ denom, const float* __restrict__ dt2,
+             const float* __restrict__ res, float* __restrict__ grad, int t,
+             int t0, int ht, int total, int nz, int nx, int z0, int last,
+             float scale, Stencil s) {
+  using T = FwdTile<R, 2>;
+  constexpr int H = T::H;
+  constexpr int SX = T::SX;
+  constexpr int NX = T::NX;
+  constexpr int kNR = (T::kRing + kThreads - 1) / kThreads;
+  __shared__ float smem[T::kFloats];
+  float* sv = smem;                   // v
+  float* sn = smem + SX * T::SZ;      // step t
+  const int b = blockIdx.x;           // the shots of a tile adjoin
+  const int xt = blockIdx.y * kTX;
+  const int zt = blockIdx.z * kTZ;
+  const int tid = threadIdx.x;
+  const size_t field = (size_t)nz * nx;
+  const size_t off = (size_t)b * field;
+  const float* h0 = dt2 + ((size_t)b * ht + (t - t0)) * field;  // step t
+  const float* h1 = h0 - field;                                  // step t-1
+  const float* r0 = res + ((size_t)b * total + t) * 2 * nx;
+  const float* r1 = r0 - 2 * nx;
+
+  // 0. the operands of the cells this thread updates, read first: the
+  // tile's own cells (kCells a thread) and the ring of step t's halo
+  float vnv[kCells], mv[kCells], av[kCells], dv[kCells], gr[kCells],
+      ha[kCells], hb[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int gx = xt + k % kTX;
+    const int gz = zt + k / kTX;
+    const bool in = gx < nx && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    vnv[i] = in ? vn[off + cell] : 0.0f;
+    mv[i] = in ? m[cell] : 0.0f;
+    av[i] = in ? two_m_hd[cell] : 0.0f;
+    dv[i] = in ? denom[cell] : 0.0f;
+    gr[i] = in ? grad[off + cell] : 0.0f;
+    ha[i] = in ? __ldcs(h0 + cell) : 0.0f;
+    hb[i] = in ? __ldcs(h1 + cell) : 0.0f;
+  }
+  int rx[kNR], rz[kNR];
+  float rvn[kNR], rm[kNR], ra[kNR], rd[kNR];
+#pragma unroll
+  for (int i = 0; i < kNR; ++i) {
+    const int j = tid + i * kThreads;
+    int lx, lz;
+    ring_cell<R>(j, &lx, &lz);
+    rx[i] = lx;
+    rz[i] = lz;
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    const bool in =
+        j < T::kRing && gx >= 0 && gx < nx && gz >= 0 && gz < nz;
+    const size_t cell = (size_t)gz * nx + gx;
+    rvn[i] = in ? vn[off + cell] : 0.0f;
+    rm[i] = in ? m[cell] : 0.0f;
+    ra[i] = in ? two_m_hd[cell] : 0.0f;
+    rd[i] = in ? denom[cell] : 0.0f;
+  }
+
+  // 1. v on the tile and its 2R halo
+  load_halo<R, 2>(sv, v + off, xt, zt, nz, nx);
+  __syncthreads();
+
+  // 2. step t on the tile (kept in registers) and on the ring of its R
+  // halo, into shared memory; zero beyond the grid
+  float vc[kCells], va[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    const float* c = sv + (tz + H) * SX + tx + H;
+    vc[i] = c[0];
+    float w = 0.0f;
+    if (gx < nx && gz < nz) {
+      w = (laplacian_tile<R, FS>(c, SX, gz, s) + av[i] * vc[i] -
+           mv[i] * vnv[i]) *
+          dv[i];
+      if (gz == z0 || gz == z0 + 1) w = w + r0[(gz - z0) * nx + gx];
+    }
+    va[i] = w;
+    sn[(tz + R) * NX + tx + R] = w;
+  }
+#pragma unroll
+  for (int i = 0; i < kNR; ++i) {
+    const int j = tid + i * kThreads;
+    if (j >= T::kRing) continue;
+    const int lx = rx[i];
+    const int lz = rz[i];
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    float w = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const float* c = sv + (lz + R) * SX + lx + R;
+      w = (laplacian_tile<R, FS>(c, SX, gz, s) + ra[i] * c[0] -
+           rm[i] * rvn[i]) *
+          rd[i];
+      if (gz == z0 || gz == z0 + 1) w = w + r0[(gz - z0) * nx + gx];
+    }
+    sn[lz * NX + lx] = w;
+  }
+  __syncthreads();
+
+  // 3. the tile's own cells: both steps' gradient terms, step t - 1 from
+  // step t's field in shared memory
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const size_t o = off + (size_t)gz * nx + gx;
+    float g = gr[i] + ha[i] * vc[i];
+    g = g + hb[i] * va[i];
+    const float* c = sn + (tz + R) * NX + tx + R;
+    float w = (laplacian_tile<R, FS>(c, NX, gz, s) + av[i] * va[i] -
+               mv[i] * vc[i]) *
+              dv[i];
+    if (gz == z0 || gz == z0 + 1) w = w + r1[(gz - z0) * nx + gx];
+    grad[o] = last ? g * scale : g;
+    nvn[o] = va[i];
+    nv[o] = w;
+  }
+}
+
 // u, up <- the saved pair of segment k of every shot.
-__global__ void load_pair(const float* __restrict__ ckpt, float* __restrict__ u,
-                          float* __restrict__ up, int nseg, int k,
-                          size_t field, size_t n) {
+__global__ void load_pair(const float* __restrict__ ckpt,
+                          float* __restrict__ u, float* __restrict__ up,
+                          int nseg, int k, size_t field, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t b = i / field;
   const float* pair = ckpt + ((size_t)b * nseg + k) * 2 * field + i % field;
   u[i] = pair[0];
   up[i] = pair[field];
-}
-
-__global__ void scale_inplace(float* __restrict__ a, size_t n, float c) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) a[i] = a[i] * c;
 }
 
 Stencil make_stencil(const float* w, int r, float inv_h2x, float inv_h2z) {
@@ -570,7 +750,8 @@ int run_forward(const ForwardArgs& a) {
 
 struct AdjointArgs {
   const float *m, *two_m_hd, *denom, *dt2, *res;
-  float *grad, *v, *vn;
+  float *grad;
+  float *v, *vn, *s0, *s1;         // the adjoint pair and a spare pair
   int B, nz, nx, total, nsteps, z0;
   float neg_inv_s2;
   Stencil s;
@@ -582,40 +763,54 @@ struct AdjointArgs {
   int K, seg, nseg;
 };
 
-// Reverse steps t = hi-1 .. lo over a history whose step t sits at
-// th = t - t0 of ht steps; the adjoint pair (a.v, a.vn) is swapped in place
-// so a later call continues the sweep.
 template <int R, bool FS>
-int adjoint_steps(AdjointArgs& a, const float* dt2, int t0, int ht, int lo,
-                  int hi) {
+int launch_step(const AdjointArgs& a, const float* dt2, int t0, int ht, int t,
+                bool end) {
   const dim3 block(kBX, kBY);
   const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
-  for (int t = hi - 1; t >= lo; --t) {
-    adjoint_step<R, FS><<<grid, block, 0, a.stream>>>(
-        a.v, a.vn, a.m, a.two_m_hd, a.denom, dt2, a.res, a.grad, t - t0, ht,
-        t, a.total, a.nz, a.nx, a.z0, a.s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    float* tmp = a.v;
-    a.v = a.vn;
-    a.vn = tmp;
-  }
-  return 0;
+  adjoint_step<R, FS><<<grid, block, 0, a.stream>>>(
+      a.v, a.vn, a.m, a.two_m_hd, a.denom, dt2, a.res, a.grad, t - t0, ht,
+      t, a.total, a.nz, a.nx, a.z0, end, a.neg_inv_s2, a.s);
+  return (int)cudaGetLastError();
 }
 
-int scale_grad(const AdjointArgs& a) {
-  const size_t n = (size_t)a.B * a.nz * a.nx;
-  const int threads = 256;
-  scale_inplace<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                  a.stream>>>(a.grad, n, a.neg_inv_s2);
-  return (int)cudaGetLastError();
+// Reverse steps t = hi-1 .. lo over a history whose step t sits at
+// th = t - t0 of ht steps, two a launch of adjoint_tile and an odd last
+// one by adjoint_step; with last, step lo is the sweep's final one (grad
+// scaled by -1/s^2 there). The adjoint pair (a.v, a.vn) and the spare pair
+// are left as the steps leave them, so a later call continues the sweep.
+template <int R, bool FS>
+int adjoint_steps(AdjointArgs& a, const float* dt2, int t0, int ht, int lo,
+                  int hi, bool last) {
+  int t = hi - 1;
+  const dim3 grid(a.B, (a.nx + kTX - 1) / kTX, (a.nz + kTZ - 1) / kTZ);
+  for (; t - 1 >= lo; t -= 2) {
+    adjoint_tile<R, FS><<<grid, kThreads, 0, a.stream>>>(
+        a.v, a.vn, a.s1, a.s0, a.m, a.two_m_hd, a.denom, dt2, a.res, a.grad,
+        t, t0, ht, a.total, a.nz, a.nx, a.z0, last && t - 1 == lo,
+        a.neg_inv_s2, a.s);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    float* o0 = a.v;
+    float* o1 = a.vn;
+    a.v = a.s1;
+    a.vn = a.s0;
+    a.s0 = o0;
+    a.s1 = o1;
+  }
+  // an odd last step
+  if (t >= lo) {
+    const int err = launch_step<R, FS>(a, dt2, t0, ht, t, last && t == lo);
+    if (err) return err;
+    std::swap(a.v, a.vn);
+  }
+  return 0;
 }
 
 template <int R, bool FS>
 int run_adjoint(AdjointArgs a) {
   // padded tail steps (t >= nsteps) are skipped in reverse
-  const int err = adjoint_steps<R, FS>(a, a.dt2, 0, a.total, 0, a.nsteps);
-  return err ? err : scale_grad(a);
+  return adjoint_steps<R, FS>(a, a.dt2, 0, a.total, 0, a.nsteps, true);
 }
 
 template <int R, bool FS>
@@ -653,10 +848,10 @@ int run_gradient_segments(AdjointArgs a) {
     err = forward_steps<R, FS, kHist>(f, a.wav + base, scratch, a.seg, a.seg);
     if (err) return err;
     const int hi = base + a.seg < a.nsteps ? base + a.seg : a.nsteps;
-    err = adjoint_steps<R, FS>(a, scratch, base, a.seg, base, hi);
+    err = adjoint_steps<R, FS>(a, scratch, base, a.seg, base, hi, k == 0);
     if (err) return err;
   }
-  return scale_grad(a);
+  return 0;
 }
 
 // Dispatch the runtime radius onto the unrolled instantiations.
@@ -698,13 +893,22 @@ int dispatch_forward(int fs, int r, const ForwardArgs& a) {
             : dispatch_r<Fwd, false, FLAGS>(r, a);
 }
 
-// What the fused tile takes: a positive grid of fewer than 2^31 cells a
+// What the fused tiles take: a positive grid of fewer than 2^31 cells a
 // shot, at most (2^31 - 1, 65535, 65535) blocks, and at least one source
-// slot a shot.
+// slot a shot (the reverse sweeps ask with K = 1).
 bool tile_shape_ok(int r, int K, int B, int nz, int nx) {
   return r >= 1 && r <= kMaxR && K >= 1 && B >= 1 && nz >= 1 && nx >= 1 &&
          (long long)nz * nx < (1LL << 31) && (nx + kTX - 1) / kTX <= 65535 &&
          (nz + kTZ - 1) / kTZ <= 65535;
+}
+
+// Sets the adjoint pair and the spare pair from adj, 4 (B, nz, nx) fields.
+void set_adjoint_fields(AdjointArgs* a, float* adj) {
+  const size_t n = (size_t)a->B * a->nz * a->nx;
+  a->v = adj;
+  a->vn = adj + n;
+  a->s0 = adj + 2 * n;
+  a->s1 = adj + 3 * n;
 }
 
 }  // namespace
@@ -758,15 +962,17 @@ int acoustic2d_forward(const float* m, const float* two_m_hd,
   return dispatch_forward<kRec>(fs, r, a);
 }
 
-// Reverse sweep over t = nsteps-1 .. 0, then grad *= neg_inv_s2. grad, v
-// and vn are (B, nz, nx) and hold zeros on entry.
+// Reverse sweep over t = nsteps-1 .. 0, grad scaled by neg_inv_s2 at the
+// last step. grad (B, nz, nx) holds zeros on entry; adj is 4 (B, nz, nx)
+// fields, the adjoint pair v, vn (zeros on entry) and a spare pair.
 int acoustic2d_adjoint(const float* m, const float* two_m_hd,
                        const float* denom, const float* dt2, const float* res,
-                       float* grad, float* v, float* vn, int B, int nz,
-                       int nx, int total, int nsteps, int z0, int fs, int r,
+                       float* grad, float* adj, int B, int nz, int nx,
+                       int total, int nsteps, int z0, int fs, int r,
                        const float* w, float inv_h2x, float inv_h2z,
                        float neg_inv_s2, void* stream) {
-  if (r < 1 || r > kMaxR) return (int)cudaErrorInvalidValue;
+  if (!tile_shape_ok(r, 1, B, nz, nx) || nsteps < 1 || nsteps > total)
+    return (int)cudaErrorInvalidValue;
   AdjointArgs a = {};
   a.m = m;
   a.two_m_hd = two_m_hd;
@@ -774,11 +980,10 @@ int acoustic2d_adjoint(const float* m, const float* two_m_hd,
   a.dt2 = dt2;
   a.res = res;
   a.grad = grad;
-  a.v = v;
-  a.vn = vn;
   a.B = B;
   a.nz = nz;
   a.nx = nx;
+  set_adjoint_fields(&a, adj);
   a.total = total;
   a.nsteps = nsteps;
   a.z0 = z0;
@@ -790,18 +995,18 @@ int acoustic2d_adjoint(const float* m, const float* two_m_hd,
 
 // Checkpoint-and-recompute gradient: segments k = nseg-1 .. 0, each
 // recomputed from ckpt[:, k] into scratch (B, seg, nz, nx), then reversed
-// over its steps t < nsteps; then grad *= neg_inv_s2. grad, v and vn are
-// (B, nz, nx) and hold zeros on entry; state is 4 (B, nz, nx) scratch
+// over its steps t < nsteps; grad scaled by neg_inv_s2 at the last step.
+// grad and adj as in acoustic2d_adjoint; state is 4 (B, nz, nx) scratch
 // fields; the source comes as in acoustic2d_forward.
 int acoustic2d_gradient_segments(
     const float* m, const float* two_m_hd, const float* denom,
     const float* wav, const int* src_cell, const float* src_val, int K,
     const float* ckpt, const float* res, float* scratch, float* grad,
-    float* v, float* vn, float* state, int B, int nz, int nx, int seg,
-    int nseg, int nsteps, int z0, int fs, int r, const float* w,
-    float inv_h2x, float inv_h2z, float neg_inv_s2, void* stream) {
+    float* adj, float* state, int B, int nz, int nx, int seg, int nseg,
+    int nsteps, int z0, int fs, int r, const float* w, float inv_h2x,
+    float inv_h2z, float neg_inv_s2, void* stream) {
   if (!tile_shape_ok(r, K, B, nz, nx) || seg < 1 || nseg < 1 ||
-      nsteps > seg * nseg)
+      nsteps < 1 || nsteps > seg * nseg)
     return (int)cudaErrorInvalidValue;
   AdjointArgs a = {};
   a.m = m;
@@ -810,11 +1015,10 @@ int acoustic2d_gradient_segments(
   a.dt2 = scratch;
   a.res = res;
   a.grad = grad;
-  a.v = v;
-  a.vn = vn;
   a.B = B;
   a.nz = nz;
   a.nx = nx;
+  set_adjoint_fields(&a, adj);
   a.total = seg * nseg;
   a.nsteps = nsteps;
   a.z0 = z0;

@@ -1,7 +1,7 @@
 // 2-D TTI (tilted transverse isotropy) sweeps for Hopper (sm_90a), plain C
 // interface for ctypes. Three entry points, each one sweep over all time
-// steps of a shot batch on the caller's stream (the forward two kernel
-// launches a step, the reverse one):
+// steps of a shot batch on the caller's stream, one fused kernel launch a
+// step:
 //
 //   tti2d_forward(..., udt2 != NULL)
 //       replaces forward_dt2_pallas (devito_fwi_tpu/ops/pallas_tti.py:539,
@@ -41,8 +41,9 @@
 // Layout: fields are (B, nz, nx) float32 with x contiguous (the transposed
 // layout of the JAX kernels); the seven coefficient fields m, 2m+hd,
 // 1/(m+hd), eh = 1+2eps, dh = sqrt(1+2delta), sin th, cos th are (nz, nx)
-// and shared by all shots; the source patterns inj (w dt^2/m at each shot's
-// corners) are (B, nz, nx); wav is (total + 1,) with dt^2 in slot 0 and the
+// and shared by all shots; the source pattern inj (w dt^2/m at each shot's
+// corners, at most four cells a shot) comes as each shot's non-zero cells
+// (src_cell, src_val); wav is (total + 1,) with dt^2 in slot 0 and the
 // wavelet of step t in slot t + 1; receiver and residual rows are
 // (B, total, 2, nx); the histories (B, total, nz, nx) each; the segment
 // starts (B, nseg, 4, nz, nx).
@@ -57,36 +58,37 @@
 // a step: the fields of 8 shots (2.3 MB a field) fit the 50 MB L2 only in
 // part, and every step's history slot is new.
 //
-// The forwards (fwd_gz, fwd_update): one thread per cell, one launch per
-// phase per step for the whole batch (blockIdx.z is the shot). gzz
-// differentiates sin th gz and cos th gz, where gz is itself a stencil of
-// the field, so a step has two phases: the gz phase writes the products
-// sin th gz and cos th gz of u and v into four scratch fields; the update
-// phase takes their D1s, the Laplacian and the update, reads only its own
-// cell of the previous fields and writes the new field over them (the host
-// then swaps the two pointers). Both D1s see zeros beyond the padded grid:
-// the product field's neighbour outside the grid is 0, not gz
-// extrapolated. Neighbours come through L1/L2. Per step that is 24 batch
-// fields (the products written and read back, the dense source pattern
-// read, the seven coefficients once a shot), 26 with the histories.
+// Both directions have one shape: a first field pair (f, g), the forward's
+// (u, v) and the reverse's (a, b) = (eh du + dh dv, dh du + dv), whose
+// gxx(f) = lap(f) - gzz(f) and gzz(g) drive the update. The first design
+// ran each step as two launches, one thread a cell: a gz phase that wrote
+// the four products sin th gz and cos th gz of f and g to scratch fields
+// and an update phase that read them back, with neighbours through L1/L2
+// and, in the forward, the dense source pattern read at every cell: 26B
+// shot fields a forward step with the histories (24B with the starts), 29B
+// a reverse step, the coefficients once a shot.
 //
-// The reverse (adjoint_fused): the first design ran the forwards' two
-// phases, 29 batch fields a step (the four products of a = eh du + dh dv
-// and b = dh du + dv written and read back, a and b formed again from four
-// loads at every tap, nine coefficient reads once a shot). The fused
-// step is one launch: a block owns a 32 x 16 (x, z) tile of one shot, the
-// shots the grid's fastest axis, so a tile's coefficients stay in L2
-// across its shots. It forms a and b once a cell on the tile and an R ring
-// in shared memory (of the ring's corners only the R1 x R1 next to the
-// tile, R1 = R/2, which the products read), then the four products on the
-// tile and an R1 ring along their axis (zero at ring cells beyond the
-// grid, as the two-phase kernels' product fields were), then at the tile's
-// cells the gradient term and the update: du, dv, dun, dvn, both history
-// slots and grad read, grad, dun and dvn written: 10 batch fields and the
-// seven coefficients once a step. Forming a and b once a cell gives the
-// bits of forming them at each tap. The checkpoint route's reverse
-// (tti2d_jacobian_adjoint) runs the same step after each segment's
-// recompute. Times against these floors are in PERF.md (rows 14-17).
+// The fused step (forward_fused, adjoint_fused) is one launch: a block
+// owns a kTX x kTZ (x, z) tile of one shot, the shots the grid's fastest
+// axis, so a tile's coefficients stay in L2 across its shots. It forms f
+// and g once a cell on the tile and an R ring in shared memory (of the
+// ring's corners only the R1 x R1 next to the tile, R1 = R/2, which the
+// products read), then the four products on the tile and an R1 ring along
+// their axis (zero at ring cells beyond the grid, as the two-phase
+// kernels' product fields were), then at the tile's cells the update.
+// The forward reads u, v (its ring), up and vp and writes un over up and
+// vn over vp (read only at the cell's own place; the host swaps the
+// pointers): 6B shot fields a step and the seven coefficients once, 8B + 7
+// with the two history writes; its receiver rows of u + v come from the
+// tile in shared memory, and the source adds only at the shot's source
+// cells (adding wav[t] * 0 at the others, as the pattern did, changes no
+// value, only the sign of a zero). The reverse also reads both history
+// slots and grad and writes grad: 10B + 7. Forming f and g once a cell
+// gives the bits of forming them at each tap. The histories are written
+// and read with streaming stores and loads, so that the step's state keeps
+// its place in L2 (tools/probe_reverses.py). The checkpoint route runs
+// the fused forward for each segment's recompute and the fused reverse
+// after it. Times against these floors are in PERF.md (rows 14-17).
 //
 // Numerics: each kernel keeps the Pallas kernels' association term for term
 // (D1 summed tap by tap from its first non-zero weight, then times 1/h; D2
@@ -114,89 +116,6 @@ struct Params {
   const float *m, *two_m_hd, *inv_mhd, *eh, *dh, *st, *ct;
 };
 
-// sum over the non-zero weights of w1 in tap order (the first term starts
-// the sum), zero beyond 0..n-1, times ih
-template <int R1, class F>
-__device__ __forceinline__ float d1(F f, int i, int n, const float* w1,
-                                    float ih) {
-  float acc = 0.0f;
-  bool first = true;
-#pragma unroll
-  for (int k = 0; k <= 2 * R1; ++k) {
-    if (w1[k] != 0.0f) {
-      const int j = i + k - R1;
-      const float v = (j >= 0 && j < n) ? f(j) : 0.0f;
-      const float term = w1[k] * v;
-      acc = first ? term : acc + term;
-      first = false;
-    }
-  }
-  return acc * ih;
-}
-
-// w2[0] f(i) + sum_k w2[k] (f(i+k) + f(i-k)), zero beyond 0..n-1, times ih2
-template <int R, class F>
-__device__ __forceinline__ float d2(F f, int i, int n, const float* w2,
-                                    float ih2) {
-  float acc = w2[0] * f(i);
-#pragma unroll
-  for (int k = 1; k <= R; ++k) {
-    const float a = (i + k < n) ? f(i + k) : 0.0f;
-    const float b = (i - k >= 0) ? f(i - k) : 0.0f;
-    acc = acc + w2[k] * (a + b);
-  }
-  return acc * ih2;
-}
-
-// D1 along x / z at (z, x) of a cell function g(j) of the shot's flat index
-template <int R1, class G>
-__device__ __forceinline__ float d1x(G g, int z, int x, int nx,
-                                     const Coefs& c) {
-  const size_t row = (size_t)z * nx;
-  return d1<R1>([&](int j) { return g(row + j); }, x, nx, c.w1, c.ihx);
-}
-
-template <int R1, class G>
-__device__ __forceinline__ float d1z(G g, int z, int x, int nz, int nx,
-                                     const Coefs& c) {
-  return d1<R1>([&](int j) { return g((size_t)j * nx + x); }, z, nz, c.w1,
-                c.ihz);
-}
-
-// the Laplacian D2x + D2z, the x term first
-template <int R, class G>
-__device__ __forceinline__ float lap(G g, int z, int x, int nz, int nx,
-                                     const Coefs& c) {
-  const size_t row = (size_t)z * nx;
-  const float lx = d2<R>([&](int j) { return g(row + j); }, x, nx, c.w2,
-                         c.ihx2);
-  const float lz = d2<R>([&](int j) { return g((size_t)j * nx + x); }, z, nz,
-                         c.w2, c.ihz2);
-  return lx + lz;
-}
-
-// gzz from the product fields ps = sin th gz, pc = cos th gz of one shot
-template <int R1>
-__device__ __forceinline__ float gzz(const float* __restrict__ ps,
-                                     const float* __restrict__ pc, int z,
-                                     int x, int nz, int nx, const Coefs& c) {
-  const float a = d1x<R1>([&](size_t j) { return ps[j]; }, z, x, nx, c);
-  const float b = d1z<R1>([&](size_t j) { return pc[j]; }, z, x, nz, nx, c);
-  return -(a + b);
-}
-
-// the products sin th gz(f), cos th gz(f) at the cell
-template <int R1, class G>
-__device__ __forceinline__ void gz_products(G g, float sth, float cth,
-                                            int z, int x, int nz, int nx,
-                                            const Coefs& c, float* ps,
-                                            float* pc) {
-  const float gz = -(sth * d1x<R1>(g, z, x, nx, c) +
-                     cth * d1z<R1>(g, z, x, nz, nx, c));
-  *ps = sth * gz;
-  *pc = cth * gz;
-}
-
 #define CELL_INDEX                                       \
   const int x = blockIdx.x * kBX + threadIdx.x;          \
   const int z = blockIdx.y * kBY + threadIdx.y;          \
@@ -204,113 +123,34 @@ __device__ __forceinline__ void gz_products(G g, float sth, float cth,
   if (x >= nx || z >= nz) return;                        \
   const size_t field = (size_t)nz * nx;                  \
   const size_t cell = (size_t)z * nx + x;                \
-  const size_t so = (size_t)s * field;                   \
-  const size_t o = so + cell;
+  const size_t o = (size_t)s * field + cell;
 
-// gz phase of forward step t: the receiver rows of u + v and the segment
-// start (when asked for), then the four product fields of u and v.
-template <int R1>
-__global__ void fwd_gz(Params q, const float* __restrict__ u,
-                       const float* __restrict__ up,
-                       const float* __restrict__ v,
-                       const float* __restrict__ vp, float* __restrict__ psu,
-                       float* __restrict__ pcu, float* __restrict__ psv,
-                       float* __restrict__ pcv, float* __restrict__ rec,
-                       float* __restrict__ starts, int t, int total, int seg,
-                       int nz, int nx, int z0, Coefs c) {
-  CELL_INDEX
-  if (rec != NULL && (z == z0 || z == z0 + 1))
-    rec[(((size_t)s * total + t) * 2 + (z - z0)) * nx + x] = u[o] + v[o];
-  if (starts != NULL && t % seg == 0) {
-    float* p = starts + ((size_t)s * (total / seg) + t / seg) * 4 * field +
-               cell;
-    p[0] = u[o];
-    p[field] = up[o];
-    p[2 * field] = v[o];
-    p[3 * field] = vp[o];
-  }
-  const float sth = q.st[cell];
-  const float cth = q.ct[cell];
-  const float* us = u + so;
-  const float* vs = v + so;
-  gz_products<R1>([&](size_t j) { return us[j]; }, sth, cth, z, x, nz, nx, c,
-                  psu + o, pcu + o);
-  gz_products<R1>([&](size_t j) { return vs[j]; }, sth, cth, z, x, nz, nx, c,
-                  psv + o, pcv + o);
-}
-
-// Update phase of forward step t: un over up and vn over vp (the caller
-// swaps u and up, v and vp); with DT2 the histories at slot th of htotal.
-template <int R, bool DT2>
-__global__ void fwd_update(Params q, const float* __restrict__ u,
-                           float* __restrict__ up,
-                           const float* __restrict__ v,
-                           float* __restrict__ vp,
-                           const float* __restrict__ psu,
-                           const float* __restrict__ pcu,
-                           const float* __restrict__ psv,
-                           const float* __restrict__ pcv,
-                           const float* __restrict__ wav,
-                           const float* __restrict__ inj,
-                           float* __restrict__ udt2, float* __restrict__ vdt2,
-                           int t, int th, int htotal, int nz, int nx,
-                           Coefs c) {
-  constexpr int R1 = R / 2;
-  CELL_INDEX
-  const float* us = u + so;
-  const float gxx_u =
-      lap<R>([&](size_t j) { return us[j]; }, z, x, nz, nx, c) -
-      gzz<R1>(psu + so, pcu + so, z, x, nz, nx, c);
-  const float gzz_v = gzz<R1>(psv + so, pcv + so, z, x, nz, nx, c);
-  const float s2 = wav[0];
-  const float wt = wav[t + 1];
-  const float m = q.m[cell];
-  const float tm = q.two_m_hd[cell];
-  const float im = q.inv_mhd[cell];
-  const float eh = q.eh[cell];
-  const float dh = q.dh[cell];
-  const float uo = u[o], upo = up[o], vo = v[o], vpo = vp[o];
-  const float injo = inj[o];
-  const float un =
-      (((s2 * (eh * gxx_u + dh * gzz_v)) + tm * uo) - m * upo) * im +
-      wt * injo;
-  const float vn =
-      (((s2 * (dh * gxx_u + gzz_v)) + tm * vo) - m * vpo) * im + wt * injo;
-  if (DT2) {
-    const size_t h = ((size_t)s * htotal + th) * field + cell;
-    udt2[h] = (un - 2.0f * uo) + upo;
-    vdt2[h] = (vn - 2.0f * vo) + vpo;
-  }
-  up[o] = un;
-  vp[o] = vn;
-}
-
-// The fused reverse step's tile (adjoint_fused): kATX x kATZ (x, z) cells
-// of one shot, kAThreads threads, kCells cells a thread. 32 x 16 at one
-// cell a thread puts four blocks on an SM (32 registers a thread) and
+// The fused step's tile (forward_fused, adjoint_fused): kTX x kTZ (x, z)
+// cells of one shot, kThreads threads, kCells cells a thread. 32 x 16 at
+// one cell a thread puts four blocks on an SM (32 registers a thread) and
 // twice the blocks of 32 x 32 in flight, which outweighs its larger ring
 // (tools/probe_reverses.py).
-constexpr int kATX = 32;
-constexpr int kATZ = 16;
-constexpr int kAThreads = 512;
-constexpr int kCells = kATX * kATZ / kAThreads;
-static_assert(kATX * kATZ % kAThreads == 0, "whole cells a thread");
+constexpr int kTX = 32;
+constexpr int kTZ = 16;
+constexpr int kThreads = 512;
+constexpr int kCells = kTX * kTZ / kThreads;
+static_assert(kTX * kTZ % kThreads == 0, "whole cells a thread");
 
-// Shared memory of the fused reverse step: a and b on the tile and an R
-// ring (the ring's corners only R1 deep are formed), the products of both
-// along x on the tile's rows and an R1 ring in x, along z on its columns
-// and an R1 ring in z.
+// Shared memory of the fused step: the field pair f, g on the tile and an
+// R ring (the ring's corners only R1 deep are formed), the products of
+// both along x on the tile's rows and an R1 ring in x, along z on its
+// columns and an R1 ring in z.
 template <int R>
-struct AdjTile {
+struct FusedTile {
   static constexpr int R1 = R / 2;
-  static constexpr int SX = kATX + 2 * R;     // a, b: SZ rows x SX
-  static constexpr int SZ = kATZ + 2 * R;
-  static constexpr int PXW = kATX + 2 * R1;   // x products: kATZ x PXW
-  static constexpr int PZH = kATZ + 2 * R1;   // z products: PZH x kATX
+  static constexpr int SX = kTX + 2 * R;      // f, g: SZ rows x SX
+  static constexpr int SZ = kTZ + 2 * R;
+  static constexpr int PXW = kTX + 2 * R1;    // x products: kTZ x PXW
+  static constexpr int PZH = kTZ + 2 * R1;    // z products: PZH x kTX
   static constexpr int kFloats =
-      2 * SX * SZ + 2 * kATZ * PXW + 2 * PZH * kATX;
+      2 * SX * SZ + 2 * kTZ * PXW + 2 * PZH * kTX;
 };
-static_assert(AdjTile<kMaxR>::kFloats * sizeof(float) <= 48 * 1024,
+static_assert(FusedTile<kMaxR>::kFloats * sizeof(float) <= 48 * 1024,
               "static shared memory");
 
 // D1 of R1 taps along stride ``st`` of a shared-memory array at p: the
@@ -342,36 +182,259 @@ __device__ __forceinline__ float sd2(const float* p, int st,
   return acc * ih2;
 }
 
-// Reverse step th (a history slot of htotal; t the residual row of
-// rtotal) over one tile of one shot, fused: the gradient term, then a =
-// eh du + dh dv and b = dh du + dv once a cell into shared memory, their
-// gz products, and the update of du over dun and dv over dvn at the
-// tile's cells (read there only; the caller swaps the pointers), the
-// residual rows added on z0, z0 + 1. Zero beyond the padded grid: a and
-// b, and the products, so that each D1 and D2 sees the two-phase
-// kernels' zeros.
+// The fused step's shared memory, carved from one static array.
 template <int R>
-__global__ void __launch_bounds__(kAThreads)
+struct Smem {
+  using T = FusedTile<R>;
+  float* sf;   // f on the tile and its R ring
+  float* sg;   // g
+  float* psf;  // sin th gz(f), x products
+  float* psg;  // sin th gz(g)
+  float* pcf;  // cos th gz(f), z products
+  float* pcg;  // cos th gz(g)
+  __device__ explicit Smem(float* sm)
+      : sf(sm), sg(sm + T::SX * T::SZ), psf(sg + T::SX * T::SZ),
+        psg(psf + kTZ * T::PXW), pcf(psg + kTZ * T::PXW),
+        pcg(pcf + T::PZH * kTX) {}
+};
+
+// 1. The pair (f, g) on the tile at (xt, zt) and its R ring, zero beyond
+// the grid; of the ring's corners only the R1 x R1 next to the tile, which
+// the products of the R1 ring read. pair(cell, f, g) forms both at a cell
+// of the grid.
+template <int R, class Pair>
+__device__ __forceinline__ void ring_pair(const Smem<R>& s, Pair pair,
+                                          int xt, int zt, int nz, int nx) {
+  using T = FusedTile<R>;
+  constexpr int R1 = T::R1;
+  constexpr int SX = T::SX;
+  for (int k = threadIdx.x; k < SX * T::SZ; k += kThreads) {
+    const int lx = k % SX;
+    const int lz = k / SX;
+    const int ox = lx < R ? R - lx : max(lx - (R + kTX - 1), 0);
+    const int oz = lz < R ? R - lz : max(lz - (R + kTZ - 1), 0);
+    if (ox > 0 && oz > 0 && (ox > R1 || oz > R1)) continue;
+    const int gx = xt - R + lx;
+    const int gz = zt - R + lz;
+    float fv = 0.0f, gv = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz)
+      pair((size_t)gz * nx + gx, fv, gv);
+    s.sf[k] = fv;
+    s.sg[k] = gv;
+  }
+}
+
+// 2. The products sin th gz and cos th gz of f and g: on the tile's rows
+// and an R1 ring in x (sin along x; cos too on the tile), then on the R1
+// rows above and below the tile (cos); zero beyond the grid.
+template <int R>
+__device__ __forceinline__ void ring_products(const Smem<R>& s,
+                                              const Params& q, int xt,
+                                              int zt, int nz, int nx,
+                                              const Coefs& c) {
+  using T = FusedTile<R>;
+  constexpr int R1 = T::R1;
+  constexpr int SX = T::SX;
+  constexpr int PXW = T::PXW;
+  constexpr int kNX = kTZ * PXW;
+  for (int k = threadIdx.x; k < kNX + 2 * R1 * kTX; k += kThreads) {
+    int px, pz;                            // place in the x-product strip
+    if (k < kNX) {
+      px = k % PXW;
+      pz = k / PXW;
+    } else {
+      const int j = k - kNX;
+      px = R1 + j % kTX;
+      pz = j / kTX;
+      pz = pz < R1 ? pz - R1 : pz - R1 + kTZ;
+    }
+    const int gx = xt - R1 + px;
+    const int gz = zt + pz;
+    const bool xrow = k < kNX;
+    const bool zcol = px >= R1 && px < R1 + kTX;
+    float sF = 0.0f, sG = 0.0f, cF = 0.0f, cG = 0.0f;
+    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      const float sth = q.st[cell];
+      const float cth = q.ct[cell];
+      const int ci = (pz + R) * SX + px + R - R1;
+      const float gf = -(sth * sd1<R1>(s.sf + ci, 1, c.w1, c.ihx) +
+                         cth * sd1<R1>(s.sf + ci, SX, c.w1, c.ihz));
+      const float gg = -(sth * sd1<R1>(s.sg + ci, 1, c.w1, c.ihx) +
+                         cth * sd1<R1>(s.sg + ci, SX, c.w1, c.ihz));
+      sF = sth * gf;
+      sG = sth * gg;
+      cF = cth * gf;
+      cG = cth * gg;
+    }
+    if (xrow) {
+      s.psf[pz * PXW + px] = sF;
+      s.psg[pz * PXW + px] = sG;
+    }
+    if (zcol) {
+      const int zi = (pz + R1) * kTX + px - R1;
+      s.pcf[zi] = cF;
+      s.pcg[zi] = cG;
+    }
+  }
+}
+
+// 3. At tile cell (tx, tz): gxx(f) = lap(f) - gzz(f) and gzz(g), from the
+// shared arrays only.
+template <int R>
+__device__ __forceinline__ void tile_operators(const Smem<R>& s, int tx,
+                                               int tz, const Coefs& c,
+                                               float* gxx_f, float* gzz_g) {
+  using T = FusedTile<R>;
+  constexpr int R1 = T::R1;
+  constexpr int SX = T::SX;
+  const float* fc = s.sf + (tz + R) * SX + tx + R;
+  const float lap = sd2<R>(fc, 1, c.w2, c.ihx2) + sd2<R>(fc, SX, c.w2, c.ihz2);
+  const int xi = tz * T::PXW + tx + R1;
+  const int zi = (tz + R1) * kTX + tx;
+  const float gzz_f = -(sd1<R1>(s.psf + xi, 1, c.w1, c.ihx) +
+                        sd1<R1>(s.pcf + zi, kTX, c.w1, c.ihz));
+  *gzz_g = -(sd1<R1>(s.psg + xi, 1, c.w1, c.ihx) +
+             sd1<R1>(s.pcg + zi, kTX, c.w1, c.ihz));
+  *gxx_f = lap - gzz_f;
+}
+
+// Forward step t over one tile of one shot, fused: f = u, g = v. At the
+// tile's cells the receiver rows of u + v (rows z0, z0 + 1, before the
+// update) and, without DT2, the segment start (u, up, v, vp) when t is a
+// multiple of seg; then un over up and vn over vp (read there only; the
+// caller swaps the pointers), the source added at the shot's cells among
+// its K listed ones; with DT2 the histories at slot th of htotal.
+template <int R, bool DT2>
+__global__ void __launch_bounds__(kThreads)
+forward_fused(Params q, const float* __restrict__ u, float* __restrict__ up,
+              const float* __restrict__ v, float* __restrict__ vp,
+              const float* __restrict__ wav, const int* __restrict__ src_cell,
+              const float* __restrict__ src_val, int K,
+              float* __restrict__ rec, float* __restrict__ udt2,
+              float* __restrict__ vdt2, float* __restrict__ starts, int t,
+              int th, int htotal, int total, int seg, int nz, int nx, int z0,
+              Coefs c) {
+  using T = FusedTile<R>;
+  __shared__ float sm[T::kFloats];
+  const Smem<R> s(sm);
+  const int b = blockIdx.x;                // the shots of a tile adjoin
+  const int xt = blockIdx.y * kTX;
+  const int zt = blockIdx.z * kTZ;
+  const int tid = threadIdx.x;
+  const size_t field = (size_t)nz * nx;
+  const size_t off = (size_t)b * field;
+  const int* cells_b = src_cell + (size_t)b * K;
+  const float* vals_b = src_val + (size_t)b * K;
+
+  // 0. the tile's previous fields, kCells a thread, read first: their
+  // loads' latency hides under phases 1 and 2
+  float po[kCells], qo[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int gx = xt + k % kTX;
+    const int gz = zt + k / kTX;
+    po[i] = qo[i] = 0.0f;
+    if (gx < nx && gz < nz) {
+      const size_t cell = (size_t)gz * nx + gx;
+      po[i] = up[off + cell];
+      qo[i] = vp[off + cell];
+    }
+  }
+  // does a source cell of the shot fall on the tile? Most tiles hold none.
+  bool mine = false;
+  for (int j = tid; j < K; j += kThreads) {
+    const int cl = cells_b[j];
+    if (cl >= 0) {
+      const int cz = cl / nx;
+      const int cx = cl - cz * nx;
+      mine = mine || (cz >= zt && cz < zt + kTZ && cx >= xt && cx < xt + kTX);
+    }
+  }
+
+  ring_pair<R>(s, [&](size_t cell, float& f, float& g) {
+    f = u[off + cell];
+    g = v[off + cell];
+  }, xt, zt, nz, nx);
+  const bool src = __syncthreads_or(mine);
+  ring_products<R>(s, q, xt, zt, nz, nx, c);
+  __syncthreads();
+
+  // 3. the records and the update at the tile's cells
+  const float s2 = wav[0];
+  const float wt = wav[t + 1];
+  const size_t bt = (size_t)b * total + t;
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = tid + i * kThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
+    const int gx = xt + tx;
+    const int gz = zt + tz;
+    if (gx >= nx || gz >= nz) continue;
+    const int cell = gz * nx + gx;
+    const size_t o = off + cell;
+    const int si = (tz + R) * T::SX + tx + R;
+    const float uo = s.sf[si];
+    const float vo = s.sg[si];
+    if (rec != NULL && (gz == z0 || gz == z0 + 1))
+      rec[(bt * 2 + (gz - z0)) * nx + gx] = uo + vo;
+    if (!DT2 && starts != NULL && t % seg == 0) {
+      float* p = starts + ((size_t)b * (total / seg) + t / seg) * 4 * field +
+                 cell;
+      p[0] = uo;
+      p[field] = po[i];
+      p[2 * field] = vo;
+      p[3 * field] = qo[i];
+    }
+    float gxx_u, gzz_v;
+    tile_operators<R>(s, tx, tz, c, &gxx_u, &gzz_v);
+    const float m = q.m[cell];
+    const float tm = q.two_m_hd[cell];
+    const float im = q.inv_mhd[cell];
+    const float eh = q.eh[cell];
+    const float dh = q.dh[cell];
+    float un =
+        (((s2 * (eh * gxx_u + dh * gzz_v)) + tm * uo) - m * po[i]) * im;
+    float vn = (((s2 * (dh * gxx_u + gzz_v)) + tm * vo) - m * qo[i]) * im;
+    if (src) {
+      for (int j = 0; j < K; ++j) {
+        if (cells_b[j] == cell) {
+          un = un + wt * vals_b[j];
+          vn = vn + wt * vals_b[j];
+        }
+      }
+    }
+    if (DT2) {
+      const size_t h = ((size_t)b * htotal + th) * field + cell;
+      __stcs(udt2 + h, (un - 2.0f * uo) + po[i]);
+      __stcs(vdt2 + h, (vn - 2.0f * vo) + qo[i]);
+    }
+    up[o] = un;
+    vp[o] = vn;
+  }
+}
+
+// Reverse step th (a history slot of htotal; t the residual row of
+// rtotal) over one tile of one shot, fused: the gradient term, then f = a
+// = eh du + dh dv and g = b = dh du + dv, and the update of du over dun and
+// dv over dvn at the tile's cells (read there only; the caller swaps the
+// pointers), the residual rows added on z0, z0 + 1.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
 adjoint_fused(Params q, const float* __restrict__ du, float* __restrict__ dun,
               const float* __restrict__ dv, float* __restrict__ dvn,
               const float* __restrict__ udt2, const float* __restrict__ vdt2,
               float* __restrict__ grad, const float* __restrict__ res,
               int th, int htotal, int t, int rtotal, float s2, int nz,
               int nx, int z0, Coefs c) {
-  using T = AdjTile<R>;
-  constexpr int R1 = T::R1;
-  constexpr int SX = T::SX;
-  constexpr int PXW = T::PXW;
+  using T = FusedTile<R>;
   __shared__ float sm[T::kFloats];
-  float* sa = sm;                          // a
-  float* sb = sa + SX * T::SZ;             // b
-  float* psa = sb + SX * T::SZ;            // sin th gz(a), x products
-  float* psb = psa + kATZ * PXW;           // sin th gz(b)
-  float* pca = psb + kATZ * PXW;           // cos th gz(a), z products
-  float* pcb = pca + T::PZH * kATX;        // cos th gz(b)
+  const Smem<R> s(sm);
   const int b = blockIdx.x;                // the shots of a tile adjoin
-  const int xt = blockIdx.y * kATX;
-  const int zt = blockIdx.z * kATZ;
+  const int xt = blockIdx.y * kTX;
+  const int zt = blockIdx.z * kTZ;
   const int tid = threadIdx.x;
   const size_t field = (size_t)nz * nx;
   const size_t off = (size_t)b * field;
@@ -382,99 +445,39 @@ adjoint_fused(Params q, const float* __restrict__ du, float* __restrict__ dun,
   float gr[kCells], hu[kCells], hv[kCells], dn[kCells], en[kCells];
 #pragma unroll
   for (int i = 0; i < kCells; ++i) {
-    const int k = tid + i * kAThreads;
-    const int gx = xt + k % kATX;
-    const int gz = zt + k / kATX;
+    const int k = tid + i * kThreads;
+    const int gx = xt + k % kTX;
+    const int gz = zt + k / kTX;
     gr[i] = hu[i] = hv[i] = dn[i] = en[i] = 0.0f;
     if (gx < nx && gz < nz) {
       const size_t cell = (size_t)gz * nx + gx;
       gr[i] = grad[off + cell];
-      hu[i] = udt2[hoff + cell];
-      hv[i] = vdt2[hoff + cell];
+      hu[i] = __ldcs(udt2 + hoff + cell);
+      hv[i] = __ldcs(vdt2 + hoff + cell);
       dn[i] = dun[off + cell];
       en[i] = dvn[off + cell];
     }
   }
 
-  // 1. a and b on the tile and its R ring, zero beyond the grid; of the
-  // ring's corners only the R1 x R1 next to the tile, which the products
-  // of the R1 ring read
-  for (int k = tid; k < SX * T::SZ; k += kAThreads) {
-    const int lx = k % SX;
-    const int lz = k / SX;
-    const int ox = lx < R ? R - lx : max(lx - (R + kATX - 1), 0);
-    const int oz = lz < R ? R - lz : max(lz - (R + kATZ - 1), 0);
-    if (ox > 0 && oz > 0 && (ox > R1 || oz > R1)) continue;
-    const int gx = xt - R + lx;
-    const int gz = zt - R + lz;
-    float av = 0.0f, bv = 0.0f;
-    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
-      const size_t cell = (size_t)gz * nx + gx;
-      const float e = q.eh[cell];
-      const float d = q.dh[cell];
-      const float u = du[off + cell];
-      const float v = dv[off + cell];
-      av = e * u + d * v;
-      bv = d * u + v;
-    }
-    sa[k] = av;
-    sb[k] = bv;
-  }
+  ring_pair<R>(s, [&](size_t cell, float& f, float& g) {
+    const float e = q.eh[cell];
+    const float d = q.dh[cell];
+    const float a = du[off + cell];
+    const float w = dv[off + cell];
+    f = e * a + d * w;
+    g = d * a + w;
+  }, xt, zt, nz, nx);
   __syncthreads();
-
-  // 2. the products sin th gz and cos th gz of a and b: on the tile's rows
-  // and an R1 ring in x (sin along x; cos too on the tile), then on the
-  // R1 rows above and below the tile (cos); zero beyond the grid
-  constexpr int kNX = kATZ * PXW;
-  for (int k = tid; k < kNX + 2 * R1 * kATX; k += kAThreads) {
-    int px, pz;                            // place in the x-product strip
-    if (k < kNX) {
-      px = k % PXW;
-      pz = k / PXW;
-    } else {
-      const int j = k - kNX;
-      px = R1 + j % kATX;
-      pz = j / kATX;
-      pz = pz < R1 ? pz - R1 : pz - R1 + kATZ;
-    }
-    const int gx = xt - R1 + px;
-    const int gz = zt + pz;
-    const bool xrow = k < kNX;
-    const bool zcol = px >= R1 && px < R1 + kATX;
-    float sA = 0.0f, sB = 0.0f, cA = 0.0f, cB = 0.0f;
-    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
-      const size_t cell = (size_t)gz * nx + gx;
-      const float sth = q.st[cell];
-      const float cth = q.ct[cell];
-      const int ci = (pz + R) * SX + px + R - R1;
-      const float ga = -(sth * sd1<R1>(sa + ci, 1, c.w1, c.ihx) +
-                         cth * sd1<R1>(sa + ci, SX, c.w1, c.ihz));
-      const float gb = -(sth * sd1<R1>(sb + ci, 1, c.w1, c.ihx) +
-                         cth * sd1<R1>(sb + ci, SX, c.w1, c.ihz));
-      sA = sth * ga;
-      sB = sth * gb;
-      cA = cth * ga;
-      cB = cth * gb;
-    }
-    if (xrow) {
-      psa[pz * PXW + px] = sA;
-      psb[pz * PXW + px] = sB;
-    }
-    if (zcol) {
-      const int zi = (pz + R1) * kATX + px - R1;
-      pca[zi] = cA;
-      pcb[zi] = cB;
-    }
-  }
+  ring_products<R>(s, q, xt, zt, nz, nx, c);
   __syncthreads();
 
   // 3. the gradient term and the update at the tile's cells
   const float* rs = res + ((size_t)b * rtotal + t) * 2 * nx;
 #pragma unroll
   for (int i = 0; i < kCells; ++i) {
-    const int k = tid + i * kAThreads;
-    const int tx = k % kATX;
-    const int tz = k / kATX;
+    const int k = tid + i * kThreads;
+    const int tx = k % kTX;
+    const int tz = k / kTX;
     const int gx = xt + tx;
     const int gz = zt + tz;
     if (gx >= nx || gz >= nz) continue;
@@ -483,16 +486,8 @@ adjoint_fused(Params q, const float* __restrict__ du, float* __restrict__ dun,
     const float duo = du[o];
     const float dvo = dv[o];
     grad[o] = (gr[i] + hu[i] * duo) + hv[i] * dvo;
-    const float* ac = sa + (tz + R) * SX + tx + R;
-    const float lap = sd2<R>(ac, 1, c.w2, c.ihx2) +
-                      sd2<R>(ac, SX, c.w2, c.ihz2);
-    const int xi = tz * PXW + tx + R1;
-    const int zi = (tz + R1) * kATX + tx;
-    const float gzz_a = -(sd1<R1>(psa + xi, 1, c.w1, c.ihx) +
-                          sd1<R1>(pca + zi, kATX, c.w1, c.ihz));
-    const float gzz_b = -(sd1<R1>(psb + xi, 1, c.w1, c.ihx) +
-                          sd1<R1>(pcb + zi, kATX, c.w1, c.ihz));
-    const float h0 = lap - gzz_a;
+    float h0, gzz_b;
+    tile_operators<R>(s, tx, tz, c, &h0, &gzz_b);
     const float m = q.m[cell];
     const float tm = q.two_m_hd[cell];
     const float im = q.inv_mhd[cell];
@@ -523,12 +518,12 @@ __global__ void load_start(const float* __restrict__ starts, int k, int nseg,
 
 struct State {
   Params q;
-  const float *wav, *inj, *starts_in, *res, *udt2_in, *vdt2_in;
+  const float *wav, *src_val, *starts_in, *res, *udt2_in, *vdt2_in;
+  const int* src_cell;
   float *rec, *udt2, *vdt2, *starts, *grad;
   float *u, *up, *v, *vp;          // forward state
   float *du, *dun, *dv, *dvn;      // adjoint state
-  float *p1, *p2, *p3, *p4;        // the forward's product fields
-  int B, nz, nx, total, seg, nseg, nsteps, z0;
+  int K, B, nz, nx, total, seg, nseg, nsteps, z0;
   float s2;
   Coefs c;
   cudaStream_t stream;
@@ -541,22 +536,21 @@ void swap_ptr(T*& a, T*& b) {
   b = tmp;
 }
 
-// One forward step: t indexes the wavelet, the rows and the starts; th the
-// history slot of htotal.
+// The fused step's grid: (shots, x tiles, z tiles).
+dim3 fused_grid(const State& a) {
+  return dim3(a.B, (a.nx + kTX - 1) / kTX, (a.nz + kTZ - 1) / kTZ);
+}
+
+// One forward step, one fused launch: t indexes the wavelet, the rows and
+// the starts; th the history slot of htotal.
 template <int R, bool DT2>
 int forward_step(State& a, int t, float* rec, float* starts, float* udt2,
                  float* vdt2, int th, int htotal) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((a.nx + kBX - 1) / kBX, (a.nz + kBY - 1) / kBY, a.B);
-  fwd_gz<R / 2><<<grid, block, 0, a.stream>>>(
-      a.q, a.u, a.up, a.v, a.vp, a.p1, a.p2, a.p3, a.p4, rec, starts, t,
-      a.total, a.seg, a.nz, a.nx, a.z0, a.c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fwd_update<R, DT2><<<grid, block, 0, a.stream>>>(
-      a.q, a.u, a.up, a.v, a.vp, a.p1, a.p2, a.p3, a.p4, a.wav, a.inj, udt2,
-      vdt2, t, th, htotal, a.nz, a.nx, a.c);
-  err = cudaGetLastError();
+  forward_fused<R, DT2><<<fused_grid(a), kThreads, 0, a.stream>>>(
+      a.q, a.u, a.up, a.v, a.vp, a.wav, a.src_cell, a.src_val, a.K, rec,
+      udt2, vdt2, starts, t, th, htotal, a.total, a.seg, a.nz, a.nx, a.z0,
+      a.c);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   swap_ptr(a.u, a.up);
   swap_ptr(a.v, a.vp);
@@ -568,8 +562,7 @@ int forward_step(State& a, int t, float* rec, float* starts, float* udt2,
 template <int R>
 int adjoint_step(State& a, const float* udt2, const float* vdt2, int th,
                  int htotal, int t) {
-  const dim3 grid(a.B, (a.nx + kATX - 1) / kATX, (a.nz + kATZ - 1) / kATZ);
-  adjoint_fused<R><<<grid, kAThreads, 0, a.stream>>>(
+  adjoint_fused<R><<<fused_grid(a), kThreads, 0, a.stream>>>(
       a.q, a.du, a.dun, a.dv, a.dvn, udt2, vdt2, a.grad, a.res, th, htotal,
       t, a.nseg * a.seg, a.s2, a.nz, a.nx, a.z0, a.c);
   const cudaError_t err = cudaGetLastError();
@@ -647,13 +640,17 @@ int dispatch_r(int r, const State& a) {
   }
 }
 
+// What the fused step takes: a radius of 2 .. kMaxR, a positive grid of
+// fewer than 2^31 cells a shot whose (shots, x tiles, z tiles) launch grid
+// is within CUDA's (2^31 - 1, 65535, 65535) blocks, receiver rows inside it.
 bool make_state(State* a, const float* m, const float* two_m_hd,
                 const float* inv_mhd, const float* eh, const float* dh,
                 const float* st, const float* ct, int B, int nz, int nx,
                 int z0, int r, const float* w1, const float* w2, float ihx,
                 float ihz, float ihx2, float ihz2, void* stream) {
   if (r < 2 || r > kMaxR || B < 1 || nz < 2 || nx < 1 || z0 < 0 ||
-      z0 + 2 > nz)
+      z0 + 2 > nz || (long long)nz * nx >= (1LL << 31) ||
+      (nx + kTX - 1) / kTX > 65535 || (nz + kTZ - 1) / kTZ > 65535)
     return false;
   *a = State();
   Params q = {m, two_m_hd, inv_mhd, eh, dh, st, ct};
@@ -672,12 +669,6 @@ bool make_state(State* a, const float* m, const float* two_m_hd,
   return true;
 }
 
-// The fused reverse step's grid (shots, x tiles, z tiles) within CUDA's
-// (2^31 - 1, 65535, 65535) blocks.
-bool adjoint_grid_ok(int nz, int nx) {
-  return (nx + kATX - 1) / kATX <= 65535 && (nz + kATZ - 1) / kATZ <= 65535;
-}
-
 }  // namespace
 
 extern "C" {
@@ -685,27 +676,30 @@ extern "C" {
 // Forward sweep over t = 0 .. total-1 from zero fields. rec is
 // (B, total, 2, nx). Exactly one of udt2 (with vdt2, each
 // (B, total, nz, nx)) and starts ((B, total/seg, 4, nz, nx), written at
-// t = k seg) is not NULL. scratch is 8 (B, nz, nx) fields holding zeros:
-// u, up, v, vp and the four product fields. w1 holds the 2(r/2)+1 first-
-// derivative weights, w2 the r+1 second-derivative ones. Returns the first
-// CUDA error of a launch, or 0.
+// t = k seg) is not NULL. The source pattern comes as its non-zero cells:
+// src_cell (B, K) int32 z * nx + x (-1 pads) and src_val (B, K) their
+// values. scratch is 4 (B, nz, nx) fields holding zeros: u, up, v, vp.
+// w1 holds the 2(r/2)+1 first-derivative weights, w2 the r+1
+// second-derivative ones. Returns the first CUDA error of a launch, or 0.
 int tti2d_forward(const float* m, const float* two_m_hd,
                   const float* inv_mhd, const float* eh, const float* dh,
                   const float* st, const float* ct, const float* wav,
-                  const float* inj, float* rec, float* udt2, float* vdt2,
-                  float* starts, float* scratch, int B, int nz, int nx,
-                  int total, int seg, int z0, int r, const float* w1,
-                  const float* w2, float ihx, float ihz, float ihx2,
-                  float ihz2, void* stream) {
+                  const int* src_cell, const float* src_val, int K,
+                  float* rec, float* udt2, float* vdt2, float* starts,
+                  float* scratch, int B, int nz, int nx, int total, int seg,
+                  int z0, int r, const float* w1, const float* w2, float ihx,
+                  float ihz, float ihx2, float ihz2, void* stream) {
   State a;
   if (!make_state(&a, m, two_m_hd, inv_mhd, eh, dh, st, ct, B, nz, nx, z0,
-                  r, w1, w2, ihx, ihz, ihx2, ihz2, stream) ||
+                  r, w1, w2, ihx, ihz, ihx2, ihz2, stream) || K < 1 ||
       (udt2 == NULL) != (vdt2 == NULL) || (udt2 == NULL) == (starts == NULL)
       || seg < 1 || total < 1 || total % seg != 0)
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   a.wav = wav;
-  a.inj = inj;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
+  a.K = K;
   a.rec = rec;
   a.udt2 = udt2;
   a.vdt2 = vdt2;
@@ -714,10 +708,6 @@ int tti2d_forward(const float* m, const float* two_m_hd,
   a.up = scratch + n;
   a.v = scratch + 2 * n;
   a.vp = scratch + 3 * n;
-  a.p1 = scratch + 4 * n;
-  a.p2 = scratch + 5 * n;
-  a.p3 = scratch + 6 * n;
-  a.p4 = scratch + 7 * n;
   a.total = total;
   a.seg = seg;
   a.nseg = total / seg;
@@ -740,7 +730,7 @@ int tti2d_adjoint(const float* m, const float* two_m_hd,
   State a;
   if (!make_state(&a, m, two_m_hd, inv_mhd, eh, dh, st, ct, B, nz, nx, z0,
                   r, w1, w2, ihx, ihz, ihx2, ihz2, stream) ||
-      !adjoint_grid_ok(nz, nx) || nsteps < 1 || nsteps > total)
+      nsteps < 1 || nsteps > total)
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   a.udt2_in = udt2;
@@ -762,29 +752,31 @@ int tti2d_adjoint(const float* m, const float* two_m_hd,
 // Checkpoint-route reverse sweep: for k = nseg-1 .. 0 the seg forward steps
 // of segment k from starts (B, nseg, 4, nz, nx) into the one-segment
 // histories hist (2, B, seg, nz, nx), then its reverse steps t < nsteps
-// with the residual rows res (B, nseg*seg, 2, nx). wav is
-// (nseg*seg + 1,) as in tti2d_forward. grad (B, nz, nx) and scratch, 12
-// (B, nz, nx) fields (du, dun, dv, dvn, u, up, v, vp and the forward's four
-// product fields), hold zeros on entry. Returns the first CUDA error, or 0.
+// with the residual rows res (B, nseg*seg, 2, nx). wav and the source
+// lists are as in tti2d_forward, wav (nseg*seg + 1,). grad (B, nz, nx) and
+// scratch, 8 (B, nz, nx) fields (du, dun, dv, dvn, u, up, v, vp), hold
+// zeros on entry. Returns the first CUDA error, or 0.
 int tti2d_jacobian_adjoint(const float* m, const float* two_m_hd,
                            const float* inv_mhd, const float* eh,
                            const float* dh, const float* st, const float* ct,
-                           const float* wav, const float* inj,
-                           const float* starts, const float* res,
-                           float* grad, float* hist, float* scratch, int B,
-                           int nz, int nx, int seg, int nseg, int nsteps,
-                           int z0, int r, const float* w1, const float* w2,
-                           float ihx, float ihz, float ihx2, float ihz2,
-                           float s2, void* stream) {
+                           const float* wav, const int* src_cell,
+                           const float* src_val, int K, const float* starts,
+                           const float* res, float* grad, float* hist,
+                           float* scratch, int B, int nz, int nx, int seg,
+                           int nseg, int nsteps, int z0, int r,
+                           const float* w1, const float* w2, float ihx,
+                           float ihz, float ihx2, float ihz2, float s2,
+                           void* stream) {
   State a;
   if (!make_state(&a, m, two_m_hd, inv_mhd, eh, dh, st, ct, B, nz, nx, z0,
-                  r, w1, w2, ihx, ihz, ihx2, ihz2, stream) ||
-      !adjoint_grid_ok(nz, nx) || seg < 1 || nseg < 1 || nsteps < 1 ||
-      nsteps > seg * nseg)
+                  r, w1, w2, ihx, ihz, ihx2, ihz2, stream) || K < 1 ||
+      seg < 1 || nseg < 1 || nsteps < 1 || nsteps > seg * nseg)
     return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * nz * nx;
   a.wav = wav;
-  a.inj = inj;
+  a.src_cell = src_cell;
+  a.src_val = src_val;
+  a.K = K;
   a.starts_in = starts;
   a.res = res;
   a.grad = grad;
@@ -798,10 +790,6 @@ int tti2d_jacobian_adjoint(const float* m, const float* two_m_hd,
   a.up = scratch + 5 * n;
   a.v = scratch + 6 * n;
   a.vp = scratch + 7 * n;
-  a.p1 = scratch + 8 * n;
-  a.p2 = scratch + 9 * n;
-  a.p3 = scratch + 10 * n;
-  a.p4 = scratch + 11 * n;
   a.total = seg * nseg;
   a.seg = seg;
   a.nseg = nseg;

@@ -38,7 +38,10 @@ fused launch for two steps over 32 x 32 tiles of a shot
 (``forward_launch``): u on the tile and a 2r halo in shared memory, the
 first step on the tile and an r halo, the second on the tile; the source
 added only at the pattern's non-zero cells (``_source_list``). The
-reverse sweeps run one launch a step, one thread a cell.
+reverse sweeps, streamed and after each segment's recompute, run the same
+tile in reverse (``adjoint_launch``): two steps a launch, the residual rows
+added in the first step's halo too, both steps' gradient terms summed in
+registers.
 """
 from __future__ import annotations
 
@@ -60,7 +63,8 @@ __all__ = ["forward_rec_segments", "forward_dt2_segments",
            "gradient_segments_plain", "source_pattern",
            "pad_wavelet", "residual_rows", "receiver_plane_matrix",
            "matmul_full", "geometry_supported", "forward_launch",
-           "tile_launch", "LAUNCHES", "TWIN_CALLS", "reset_counters"]
+           "adjoint_launch", "tile_launch", "LAUNCHES", "TWIN_CALLS",
+           "reset_counters"]
 
 KERNELS = ("forward_rec_segments", "forward_dt2_segments",
            "gradient_stream_segments", "forward_ckpt_segments",
@@ -339,16 +343,33 @@ FWD_THREADS = 512
 FWD_STEPS = 2
 
 
+def _tile_smem(r):
+    """Shared-memory bytes of a two-step tile: a field on the tile and a 2r
+    halo, the first step's on the tile and an r halo."""
+    tx, tz = FWD_TILE
+    return 4 * ((tx + 4 * r) * (tz + 4 * r) + (tx + 2 * r) * (tz + 2 * r))
+
+
 def forward_launch(B, nz, nx, r):
     """The fused forward's launch at these shapes: the tile, threads, grid
     of one launch (shots, x tiles, z tiles), the steps a launch and the
     shared-memory bytes of a block (u on the tile and a 2r halo, the first
     step's field on the tile and an r halo; at most 25,600 bytes, r = 8).
     Raises ValueError for what the kernel does not take (``tile_launch``)."""
-    tx, tz = FWD_TILE
-    smem = 4 * ((tx + 4 * r) * (tz + 4 * r) + (tx + 2 * r) * (tz + 2 * r))
     launch = tile_launch("acoustic forward", B, nz, nx, r, FWD_TILE,
-                         FWD_THREADS, smem, shots_first=True)
+                         FWD_THREADS, _tile_smem(r), shots_first=True)
+    launch.steps = FWD_STEPS
+    return launch
+
+
+def adjoint_launch(B, nz, nx, r):
+    """The reverse sweep's launch at these shapes: the forwards' two-step
+    tile in reverse, with ``forward_launch``'s tile, threads, grid, steps a
+    launch and shared memory (v on the tile and a 2r halo, step t on the
+    tile and an r halo). Raises ValueError for what the kernel does not
+    take (``tile_launch``)."""
+    launch = tile_launch("acoustic adjoint", B, nz, nx, r, FWD_TILE,
+                         FWD_THREADS, _tile_smem(r), shots_first=True)
     launch.steps = FWD_STEPS
     return launch
 
@@ -382,8 +403,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "acoustic2d_forward": ([_P] * 6 + [_I] + [_P] * 5 + [_I] * 9
                            + [_P, _F, _F, _P], _I),
-    "acoustic2d_adjoint": ([_P] * 8 + [_I] * 8 + [_P, _F, _F, _F, _P], _I),
-    "acoustic2d_gradient_segments": ([_P] * 6 + [_I] + [_P] * 7 + [_I] * 9
+    "acoustic2d_adjoint": ([_P] * 7 + [_I] * 8 + [_P, _F, _F, _F, _P], _I),
+    "acoustic2d_gradient_segments": ([_P] * 6 + [_I] + [_P] * 6 + [_I] * 9
                                      + [_P, _F, _F, _F, _P], _I),
     "acoustic2d_error_string": ([_I], ctypes.c_char_p),
 }
@@ -435,19 +456,27 @@ def _forward_cuda(m, two_m_hd, denom, wav_pad, inj, *, w, inv_h2x, inv_h2z,
     return rec, dt2 if hist else pairs, illum
 
 
+def _adjoint_fields(like, B, nz, nx):
+    """The reverse sweep's 4 fields: the adjoint pair (zeros) and the spare
+    pair the two-step tile ping-pongs through."""
+    adj = like.new_empty((4, B, nz, nx))
+    adj[:2].zero_()
+    return adj
+
+
 def _adjoint_cuda(m, two_m_hd, denom, dt2, res, *, w, inv_h2x, inv_h2z,
                   nsteps, z0, fs, neg_inv_s2):
-    lib = _lib()
     B, total, nz, nx = dt2.shape
+    adjoint_launch(B, nz, nx, len(w) - 1)
+    lib = _lib()
     grad = dt2.new_zeros((B, nz, nx))
-    v = dt2.new_zeros((B, nz, nx))
-    vn = dt2.new_zeros((B, nz, nx))
+    adj = _adjoint_fields(dt2, B, nz, nx)
     w32 = np.asarray(w, np.float32)
     with torch.cuda.device(dt2.device):
         err = lib.acoustic2d_adjoint(
             m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
-            dt2.data_ptr(), res.data_ptr(), grad.data_ptr(), v.data_ptr(),
-            vn.data_ptr(), B, nz, nx, total, nsteps, z0, int(fs),
+            dt2.data_ptr(), res.data_ptr(), grad.data_ptr(), adj.data_ptr(),
+            B, nz, nx, total, nsteps, z0, int(fs),
             len(w) - 1, w32.ctypes.data, inv_h2x, inv_h2z, neg_inv_s2,
             torch.cuda.current_stream(dt2.device).cuda_stream)
     _check(lib, "acoustic2d_adjoint", err)
@@ -458,10 +487,10 @@ def _segments_cuda(m, two_m_hd, denom, wav_pad, inj, pairs, res, *, w,
                    inv_h2x, inv_h2z, nsteps, seg, z0, fs, neg_inv_s2):
     B, nseg, _, nz, nx = pairs.shape
     forward_launch(B, nz, nx, len(w) - 1)
+    adjoint_launch(B, nz, nx, len(w) - 1)
     lib = _lib()
     grad = inj.new_zeros((B, nz, nx))
-    v = inj.new_zeros((B, nz, nx))
-    vn = inj.new_zeros((B, nz, nx))
+    adj = _adjoint_fields(inj, B, nz, nx)
     state = inj.new_empty((4, B, nz, nx))    # u, up and a spare pair
     scratch = inj.new_empty((B, seg, nz, nx))
     cells, vals, K = _source_list(inj)
@@ -471,7 +500,7 @@ def _segments_cuda(m, two_m_hd, denom, wav_pad, inj, pairs, res, *, w,
             m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
             wav_pad.data_ptr(), cells.data_ptr(), vals.data_ptr(), K,
             pairs.data_ptr(), res.data_ptr(), scratch.data_ptr(),
-            grad.data_ptr(), v.data_ptr(), vn.data_ptr(), state.data_ptr(),
+            grad.data_ptr(), adj.data_ptr(), state.data_ptr(),
             B, nz, nx, seg, nseg, nsteps, z0, int(fs), len(w) - 1,
             w32.ctypes.data, inv_h2x, inv_h2z, neg_inv_s2,
             torch.cuda.current_stream(inj.device).cuda_stream)

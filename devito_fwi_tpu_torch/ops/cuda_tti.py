@@ -28,18 +28,20 @@ and shared by the batch; ``inj`` is (B, nz, nx); ``wav`` (nseg*seg + 1,)
 holds dt^2 in slot 0 and step t's wavelet in slot t + 1 (``pack_wavelet``).
 Each wrapper checks its operands, forms ``1/(m + hd)`` and ``2m + hd`` once
 and then, for CUDA tensors, launches the kernels of ``csrc/tti2d.cu`` (one
-ctypes call per sweep on the current stream: two launches a forward step,
-one a reverse step) and adds one to ``LAUNCHES[name]``; for CPU tensors it
-runs the plain twin, a Python loop over the steps with the Pallas
-kernels' association (``_make_ops``). On another device it raises. The
-twins take float32 or float64; the kernels float32.
+ctypes call per sweep on the current stream, one fused launch a step) and
+adds one to ``LAUNCHES[name]``; for CPU tensors it runs the plain twin, a
+Python loop over the steps with the Pallas kernels' association
+(``_make_ops``). On another device it raises. The twins take float32 or
+float64; the kernels float32.
 
-The reverse step is one fused launch (``adjoint_launch``): a block owns a
-32 x 16 (x, z) tile of one shot, one cell a thread, forms ``a = eh du +
-dh dv`` and ``b = dh du + dv`` once a cell on the tile and an R ring in
-shared memory, their ``sin th gz`` and ``cos th gz`` products on an R/2
-ring, and updates the tile's cells; the forwards keep one thread a cell
-and two launches a step.
+Each step, forward or reverse, is one fused launch (``forward_launch``,
+``adjoint_launch``): a block owns a 32 x 16 (x, z) tile of one shot, one
+cell a thread, forms the field pair whose operators drive the update (the
+forward's u and v; the reverse's ``a = eh du + dh dv`` and ``b = dh du +
+dv``) once a cell on the tile and an R ring in shared memory, their ``sin
+th gz`` and ``cos th gz`` products on an R/2 ring, and updates the tile's
+cells. The forwards add the source only at the pattern's non-zero cells
+(``cuda_acoustic._source_list``).
 
 Route and memory on the card: the history is float32 and the streamed
 route is one segment of nt-2 steps; ``stream=None`` streams when the
@@ -59,8 +61,8 @@ from ..fwi import _device_budget, _traces_from_rows
 from ..utils.fd import fd_weights, second_derivative_weights
 from . import cuda_build
 from .acoustic import _ckpt_layout, shift
-from .cuda_acoustic import (_checked, residual_rows, source_pattern,
-                            tile_launch)
+from .cuda_acoustic import (_checked, _source_list, residual_rows,
+                            source_pattern, tile_launch)
 from .cuda_staggered import zplane_weight_matrix
 
 __all__ = ["tti_forward_dt2_segments", "tti_gradient_stream_segments",
@@ -69,8 +71,8 @@ __all__ = ["tti_forward_dt2_segments", "tti_gradient_stream_segments",
            "tti_forward_ckpt_plain", "tti_jacobian_adjoint_plain",
            "tti_gradient_batched", "tti_gradient_residual_batched",
            "tti_forward_batched", "operands", "pack_wavelet",
-           "supported_reason", "adjoint_launch", "KERNELS", "LAUNCHES",
-           "TWIN_CALLS", "reset_counters"]
+           "supported_reason", "forward_launch", "adjoint_launch",
+           "KERNELS", "LAUNCHES", "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("tti_forward_dt2_segments", "tti_gradient_stream_segments",
            "tti_forward_ckpt_segments", "tti_jacobian_adjoint_segments")
@@ -301,38 +303,49 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/tti2d.cu; every pointer
 # and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "tti2d_forward": ([_P] * 14 + [_I] * 7 + [_P] * 2 + [_F] * 4 + [_P], _I),
+    "tti2d_forward": ([_P] * 10 + [_I] + [_P] * 5 + [_I] * 7 + [_P] * 2
+                      + [_F] * 4 + [_P], _I),
     "tti2d_adjoint": ([_P] * 12 + [_I] * 7 + [_P] * 2 + [_F] * 5 + [_P], _I),
-    "tti2d_jacobian_adjoint": ([_P] * 14 + [_I] * 8 + [_P] * 2 + [_F] * 5
-                               + [_P], _I),
+    "tti2d_jacobian_adjoint": ([_P] * 10 + [_I] + [_P] * 5 + [_I] * 8
+                               + [_P] * 2 + [_F] * 5 + [_P], _I),
     "tti2d_error_string": ([_I], ctypes.c_char_p),
 }
 
 
-# the fused reverse step's tile and threads (csrc/tti2d.cu kATX x kATZ,
-# kAThreads)
-ADJ_TILE = (32, 16)
-ADJ_THREADS = 512
+# the fused step's tile and threads (csrc/tti2d.cu kTX x kTZ, kThreads),
+# forward and reverse alike
+TILE = (32, 16)
+THREADS = 512
 
 
-def adjoint_launch(B, nz, nx, r):
-    """The fused reverse step's launch at these shapes: the tile, threads,
+def _fused_launch(what, B, nz, nx, r):
+    if not 2 <= r <= 8:
+        raise ValueError(f"{what}: stencil radius {r}; the kernel takes "
+                         "2 .. 8")
+    tx, tz = TILE
+    r1 = r // 2
+    smem = 4 * (2 * (tx + 2 * r) * (tz + 2 * r) + 2 * tz * (tx + 2 * r1)
+                + 2 * (tz + 2 * r1) * tx)
+    return tile_launch(what, B, nz, nx, r, TILE, THREADS, smem,
+                       shots_first=True)
+
+
+def forward_launch(B, nz, nx, r):
+    """The fused forward step's launch at these shapes: the tile, threads,
     grid of one step (shots, x tiles, z tiles) and the shared-memory bytes
-    of a block (a and b on the tile and an r ring, the four products on
+    of a block (u and v on the tile and an r ring, the four products on
     the tile and an r//2 ring along their axis; at most 23,552 bytes, r =
     8, within a static launch's 48 KB). Raises ValueError for what the
     kernel does not take: a radius outside 2 .. 8 (space orders 4 .. 16),
     an empty grid or one of 2^31 cells, or a launch grid past CUDA's
     (``cuda_acoustic.tile_launch``)."""
-    if not 2 <= r <= 8:
-        raise ValueError(f"tti adjoint: stencil radius {r}; the kernel "
-                         "takes 2 .. 8")
-    tx, tz = ADJ_TILE
-    r1 = r // 2
-    smem = 4 * (2 * (tx + 2 * r) * (tz + 2 * r) + 2 * tz * (tx + 2 * r1)
-                + 2 * (tz + 2 * r1) * tx)
-    return tile_launch("tti adjoint", B, nz, nx, r, ADJ_TILE, ADJ_THREADS,
-                       smem, shots_first=True)
+    return _fused_launch("tti forward", B, nz, nx, r)
+
+
+def adjoint_launch(B, nz, nx, r):
+    """The fused reverse step's launch, as ``forward_launch``'s (a and b
+    in place of u and v), with the same limits."""
+    return _fused_launch("tti adjoint", B, nz, nx, r)
 
 
 def _lib():
@@ -366,8 +379,9 @@ def _ptrs(tensors):
 
 
 def _forward_cuda(prm, wav, inj, *, st, seg, z0, hist):
-    lib = _lib()
     B, nz, nx = inj.shape
+    forward_launch(B, nz, nx, st.r)
+    lib = _lib()
     total = wav.shape[0] - 1
     if hist:
         # the histories first, so that they take the largest free blocks
@@ -378,11 +392,13 @@ def _forward_cuda(prm, wav, inj, *, st, seg, z0, hist):
         starts = inj.new_empty((B, total // seg, 4, nz, nx))
         udt2 = vdt2 = None
     rec = inj.new_empty((B, total, 2, nx))
-    scratch = inj.new_zeros((8, B, nz, nx))
+    scratch = inj.new_zeros((4, B, nz, nx))        # u, up, v, vp
+    cells, vals, K = _source_list(inj)
     keep, consts = _consts(st)
     with torch.cuda.device(inj.device):
         err = lib.tti2d_forward(
-            *_ptrs(prm), wav.data_ptr(), inj.data_ptr(), rec.data_ptr(),
+            *_ptrs(prm), wav.data_ptr(), cells.data_ptr(), vals.data_ptr(),
+            K, rec.data_ptr(),
             udt2.data_ptr() if hist else None,
             vdt2.data_ptr() if hist else None,
             None if hist else starts.data_ptr(), scratch.data_ptr(), B, nz,
@@ -416,16 +432,19 @@ def _adjoint_cuda(prm, udt2, vdt2, res, *, st, nsteps, z0):
 def _jacobian_adjoint_cuda(prm, wav, inj, starts, res, *, st, nsteps, z0):
     B, nseg, _, nz, nx = starts.shape
     adjoint_launch(B, nz, nx, st.r)
+    forward_launch(B, nz, nx, st.r)
     lib = _lib()
     seg = (wav.shape[0] - 1) // nseg
     grad = inj.new_zeros((B, nz, nx))
     hist = inj.new_empty((2, B, seg, nz, nx))
-    # the adjoint state, the recompute's state and its four product fields
-    scratch = inj.new_zeros((12, B, nz, nx))
+    # the adjoint state and the recompute's state
+    scratch = inj.new_zeros((8, B, nz, nx))
+    cells, vals, K = _source_list(inj)
     keep, consts = _consts(st)
     with torch.cuda.device(inj.device):
         err = lib.tti2d_jacobian_adjoint(
-            *_ptrs(prm), wav.data_ptr(), inj.data_ptr(), starts.data_ptr(),
+            *_ptrs(prm), wav.data_ptr(), cells.data_ptr(), vals.data_ptr(),
+            K, starts.data_ptr(),
             res.data_ptr(), grad.data_ptr(), hist.data_ptr(),
             scratch.data_ptr(), B, nz, nx, seg, nseg, nsteps, z0, *consts,
             st.s2, torch.cuda.current_stream(inj.device).cuda_stream)

@@ -100,8 +100,9 @@ def _build(job):
     lines = proc.stderr.splitlines()
     regs = []
     for i, line in enumerate(lines):
-        m = re.search(r"entry function '\w*?(forward_tile|march|adjoint_fused)I"
-                      r"(Li4E\w*?)EEv", line)
+        m = re.search(r"entry function '\w*?(forward_tile|forward_fused|"
+                      r"march|adjoint_fused|adjoint_tile|"
+                      r"adjoint_step)I(Li4E\w*?)EEv", line)
         if m:
             info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                     if "registers" in x or "spill" in x]

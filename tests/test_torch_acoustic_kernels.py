@@ -536,3 +536,158 @@ def test_forward_launch_refuses_what_the_kernel_does_not_take(args):
     axis: the helper raises, so the wrapper launches nothing."""
     with pytest.raises(ValueError):
         ca.forward_launch(*args)
+
+
+def _tile_reverse_replay(m, two_m_hd, denom, dt2, res, *, w, inv_h2x,
+                         inv_h2z, nsteps, z0, fs, neg_inv_s2):
+    """A torch replay of the card's reverse sweep (csrc/acoustic2d.cu
+    adjoint_tile) in its order: two steps t, t - 1 a launch over
+    ca.FWD_TILE tiles, v on the tile and a 2r halo (zero beyond the grid,
+    the corners it never reads NaN), step t on the tile and an r halo with
+    the residual rows of step t added there too (zero beyond the grid, the
+    halo's corners NaN), step t - 1 on the tile from it; grad + dt2[t] v,
+    then + dt2[t - 1] v_t, times -1/s^2 on the sweep's last step before it
+    is stored; an odd last step one launch of the first design's step.
+    The new pair goes to two fresh buffers."""
+    B, _, nz, nx = dt2.shape
+    r = len(w) - 1
+    tx, tz = ca.FWD_TILE
+    lap = functools.partial(_lap_tile, w=w, inv_h2x=inv_h2x,
+                            inv_h2z=inv_h2z, fs=fs)
+    lap_t = ca._make_lap_t(w, inv_h2x, inv_h2z, fs)
+    nan = float("nan")
+
+    def padded(f, xt, zt, h, e):
+        """f on the tile at (xt, zt) and an h halo, zero beyond the grid,
+        NaN where both axes are more than e outside the tile."""
+        g = f if f.dim() == 3 else f[None]
+        P = g.new_zeros((g.shape[0], tz + 2 * h, tx + 2 * h))
+        za, zb = max(zt - h, 0), min(zt + tz + h, nz)
+        xa, xb = max(xt - h, 0), min(xt + tx + h, nx)
+        P[:, za - zt + h:zb - zt + h, xa - xt + h:xb - xt + h] = \
+            g[:, za:zb, xa:xb]
+        lz = torch.arange(tz + 2 * h)
+        lx = torch.arange(tx + 2 * h)
+        dz = torch.clamp(torch.maximum(h - lz, lz - h - tz + 1), min=0)
+        dx = torch.clamp(torch.maximum(h - lx, lx - h - tx + 1), min=0)
+        P[:, (dz[:, None] > e) & (dx[None, :] > e)] = nan
+        return P
+
+    def step(P, h, xt, zt, vn, t):
+        """Reverse step t on the tile and an h - r halo of the tile at (xt,
+        zt) from the padded v (halo h) and vn: the update, zero beyond the
+        grid, the residual rows of step t added."""
+        e = h - r
+        sl = (r, r + tz + 2 * e), (r, r + tx + 2 * e)
+        vc = P[:, sl[0][0]:sl[0][1], sl[1][0]:sl[1][1]]
+        out = (lap(P, *sl, gz0=zt - h) + padded(two_m_hd, xt, zt, e, e) * vc
+               - padded(m, xt, zt, e, e) * padded(vn, xt, zt, e, e)) \
+            * padded(denom, xt, zt, e, e)
+        inside = padded(torch.ones_like(m), xt, zt, e, e)[0] == 1
+        out = torch.where(inside, out, torch.zeros((), dtype=out.dtype))
+        for k in range(2):
+            lz = z0 + k - zt + e
+            xa, xb = max(xt - e, 0), min(xt + tx + e, nx)
+            if 0 <= lz < out.shape[1] and 0 <= z0 + k < nz:
+                cols = slice(xa - xt + e, xb - xt + e)
+                out[:, lz, cols] = out[:, lz, cols] + res[:, t, k, xa:xb]
+        lz = torch.arange(tz + 2 * e)
+        lx = torch.arange(tx + 2 * e)
+        out_z = (lz < e) | (lz >= e + tz)
+        out_x = (lx < e) | (lx >= e + tx)
+        out[:, out_z[:, None] & out_x[None, :]] = nan
+        return out
+
+    v = dt2.new_zeros((B, nz, nx))
+    vn = dt2.new_zeros((B, nz, nx))
+    grad = dt2.new_zeros((B, nz, nx))
+    t = nsteps - 1
+    while t - 1 >= 0:
+        nv, nvn = torch.empty_like(v), torch.empty_like(v)
+        for zt in range(0, nz, tz):
+            for xt in range(0, nx, tx):
+                zs = slice(zt, min(zt + tz, nz))
+                xs = slice(xt, min(xt + tx, nx))
+                own = (slice(None), zs, xs)
+                n_z, n_x = zs.stop - zs.start, xs.stop - xs.start
+                va = step(padded(v, xt, zt, 2 * r, r), 2 * r, xt, zt, vn, t)
+                vb = step(va, r, xt, zt, v, t - 1)
+                va_own = va[:, r:r + n_z, r:r + n_x]
+                g = grad[own] + dt2[:, t][own] * v[own]
+                g = g + dt2[:, t - 1][own] * va_own
+                grad[own] = g * neg_inv_s2 if t - 1 == 0 else g
+                nvn[own] = va_own
+                nv[own] = vb[:, :n_z, :n_x]
+        v, vn = nv, nvn
+        t -= 2
+    if t == 0:
+        g = grad + dt2[:, 0] * v
+        grad = g * neg_inv_s2
+    return grad
+
+
+@pytest.mark.parametrize("fs", [False, True])
+@pytest.mark.parametrize("n", [40, 35])
+def test_tile_reverse_replay_equals_twin_bitwise(fs, n):
+    """The reverse sweep's order (two steps a launch over 32 x 32 tiles
+    with a 2r halo, the residual rows added in step t's halo too, grad
+    summed twice in registers and scaled on the last step; an odd step
+    count ending on one step of the first design) gives the twin's
+    gradient bit for bit at float32 on the small case, with and without
+    the free surface (the receiver rows cross the x halos of the tiles
+    beside the ones that own them)."""
+    c = _case(fs)
+    kw = c["kw"]
+    w, inv_h2x, inv_h2z, s2 = ca._stencil_constants(4, kw["spacing"],
+                                                    c["dt"])
+    mT, hdT = _t(c["mT"]), _t(c["hdT"])
+    denom, two_m_hd = 1.0 / (mT + hdT), 2.0 * mT + hdT
+    B, nseg, seg = 2, c["nseg"], c["seg"]
+    dt2 = ca.forward_dt2_plain(mT, hdT, _t(c["wav_pad"]), _t(c["injT"]),
+                               c["dt"], **kw)[1].reshape(B, nseg * seg,
+                                                         *mT.shape)
+    res = _t(c["res_rows"]).reshape(B, nseg * seg, 2, -1)
+    common = dict(w=w, inv_h2x=inv_h2x, inv_h2z=inv_h2z, fs=fs, nsteps=n,
+                  z0=c["z0"], neg_inv_s2=-1.0 / s2)
+    want = ca._adjoint_plain(mT, two_m_hd, denom, dt2, res, **common)
+    got = _tile_reverse_replay(mT, two_m_hd, denom, dt2, res, **common)
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 0 and bool(want.isfinite().all())
+
+
+def test_adjoint_launch_at_the_main_path():
+    """The reverse sweep's launch at the SMARMN main path (29 shots, 186 x
+    380 padded, space order 8) is the forward tile's in reverse: 32 x 32
+    tiles, 512 threads, two steps a launch, the shots the fastest grid
+    axis, the forward's shared memory."""
+    launch = ca.adjoint_launch(29, 186, 380, 4)
+    assert launch.tile == (32, 32) and launch.threads == 512
+    assert launch.grid == (29, 12, 6) and launch.steps == 2
+    assert launch.smem == ca.forward_launch(29, 186, 380, 4).smem == 15_616
+
+
+@pytest.mark.parametrize("args", [
+    (29, 186, 380, 0), (29, 186, 380, 9), (0, 186, 380, 4),
+    (29, 0, 380, 4), (29, 186, 0, 4), (1, 2 ** 16, 2 ** 15, 4),
+    (1, 1, 32 * 2 ** 16, 4)])
+def test_adjoint_launch_refuses_what_the_kernel_does_not_take(args):
+    """Beyond radius 8, an empty grid, 2^31 cells a shot or 65,536 tiles
+    along an axis: the helper raises, naming the reverse sweep."""
+    with pytest.raises(ValueError, match="acoustic adjoint"):
+        ca.adjoint_launch(*args)
+
+
+@pytest.mark.parametrize("route", ["stream", "checkpoint"])
+def test_reverse_refuses_before_it_builds(route):
+    """Both reverse sweeps ask the launch helper before they build or
+    allocate anything: radius 9 raises ValueError here, where building
+    the library would raise RuntimeError (no nvcc)."""
+    big = torch.zeros(()).expand
+    kw = dict(w=(0.0,) * 10, inv_h2x=1.0, inv_h2z=1.0, nsteps=1, z0=0,
+              fs=False, neg_inv_s2=-1.0)
+    with pytest.raises(ValueError):
+        if route == "stream":
+            ca._adjoint_cuda(None, None, None, big(1, 1, 4, 8), None, **kw)
+        else:
+            ca._segments_cuda(None, None, None, None, None,
+                              big(1, 1, 2, 4, 8), None, seg=1, **kw)

@@ -58,12 +58,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _setup(fs, space_order, dev):
+def _setup(fs, space_order, dev, nsrc=2):
     model = demo_model("circle-isotropic", vp_circle=3.0, vp_background=2.5,
                        origin=(0., 0.), shape=(61, 61), spacing=(10., 10.),
                        nbl=10, space_order=space_order, fs=fs)
     zsrc = 2.0 if fs else 20.0
-    src = np.stack([np.linspace(0., 600., 2), np.full(2, zsrc)], 1)
+    src = np.stack([np.linspace(0., 600., nsrc), np.full(nsrc, zsrc)], 1)
     rec = np.stack([np.linspace(0., 600., 41), np.full(41, 20.)], 1)
     geom = AcquisitionGeometry(model, rec, src, 0., 300., f0=0.010,
                                src_type="Ricker")
@@ -171,6 +171,58 @@ def test_acoustic_forwards_raise_for_what_they_do_not_take(cuda):
                ca.forward_ckpt_segments):
         with pytest.raises(ValueError):
             fn(*ops, **kw)
+    with pytest.raises(ValueError):
+        ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT, pairs, res,
+                             st.dt, **kw)
+    assert sum(ca.LAUNCHES.values()) == 0
+    assert sum(ca.TWIN_CALLS.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+@pytest.mark.parametrize("fs", [False, True])
+def test_acoustic_reverse_sweeps_equal_twins_at_three_shots(cuda, fs,
+                                                             space_order):
+    """Rows 3 and 5, the two-step reverse tile (streamed, and after each
+    segment's recompute), with an odd last step taken by ``adjoint_step``,
+    at 3 shots: equal to their twins bit for bit, and the checkpoint-route
+    gradient to the streamed one."""
+    st = _setup(fs, space_order, cuda, nsrc=3)
+    injT = st.injT(0, 3)
+    ops = (st.mT, st.hdT, st.wav_pad, injT, st.dt)
+    res = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (3, st.nseg, st.seg, 2, st.nx)), dtype=torch.float32, device=cuda)
+    dt2 = ca.forward_dt2_segments(*ops, **st.kw)[1]
+    pairs = ca.forward_ckpt_segments(*ops, **st.kw)[1]
+    ca.reset_counters()
+    g_s = ca.gradient_stream_segments(st.mT, st.hdT, dt2, res, st.dt,
+                                      **st.kw)
+    g_c = ca.gradient_segments(*ops[:4], pairs, res, st.dt, **st.kw)
+    assert ca.LAUNCHES["gradient_stream_segments"] == 1
+    assert ca.LAUNCHES["gradient_segments"] == 1
+    assert sum(ca.TWIN_CALLS.values()) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(g_s, ca.gradient_stream_plain(st.mT, st.hdT, dt2, res,
+                                                     st.dt, **st.kw))
+    assert torch.equal(g_c, ca.gradient_segments_plain(*ops[:4], pairs, res,
+                                                       st.dt, **st.kw))
+    assert torch.equal(g_c, g_s)
+    assert float(g_s.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_acoustic_reverse_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9; the sweep takes 1..8): both reverse
+    sweeps raise before any launch."""
+    st = _setup(False, 4, cuda)
+    kw = dict(st.kw, space_order=18)
+    injT = st.injT(0, 2)
+    dt2 = torch.zeros((2, st.nseg, st.seg, st.nz, st.nx), device=cuda)
+    pairs = torch.zeros((2, st.nseg, 2, st.nz, st.nx), device=cuda)
+    res = torch.zeros((2, st.nseg, st.seg, 2, st.nx), device=cuda)
+    ca.reset_counters()
+    with pytest.raises(ValueError):
+        ca.gradient_stream_segments(st.mT, st.hdT, dt2, res, st.dt, **kw)
     with pytest.raises(ValueError):
         ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT, pairs, res,
                              st.dt, **kw)
@@ -718,6 +770,67 @@ def test_tti_kernels_match_twins(cuda, space_order):
         *ops, injT, wav, ck[1], res, dt, **kw))
     assert torch.equal(g_c, g_s)
     assert torch.equal(ck[0], fwd[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space_order", [4, 8])
+def test_tti_fused_sweeps_equal_twins_at_three_shots(cuda, space_order):
+    """Rows 16, 14 and 15 (the fused forward step, and the checkpoint
+    route's recompute on it) and row 17 at 3 shots: every output equal to
+    its twin bit for bit, and the checkpoint-route gradient to the
+    streamed one."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    _, _, ops, injT, wav, dt, kw = _tti_operands(space_order, cuda, nsrc=3)
+    B, nx = injT.shape[0], kw["nx"]
+    nseg = kw["n_checkpoints"]
+    seg = -(-(kw["nt"] - 2) // nseg)
+    res = torch.as_tensor(np.random.default_rng(16).standard_normal(
+        (B, nseg, seg, 2, nx)), dtype=torch.float32, device=cuda)
+    ct.reset_counters()
+    fwd = ct.tti_forward_dt2_segments(*ops, injT, wav, dt, **kw)
+    ck = ct.tti_forward_ckpt_segments(*ops, injT, wav, dt, **kw)
+    g_s = ct.tti_gradient_stream_segments(*ops, fwd[1], fwd[2], res, dt,
+                                          **kw)
+    g_c = ct.tti_jacobian_adjoint_segments(*ops, injT, wav, ck[1], res, dt,
+                                           **kw)
+    assert all(n == 1 for n in ct.LAUNCHES.values())
+    assert sum(ct.TWIN_CALLS.values()) == 0
+    torch.cuda.synchronize()
+    for got, want in ((fwd, ct.tti_forward_dt2_plain(*ops, injT, wav, dt,
+                                                     **kw)),
+                      (ck, ct.tti_forward_ckpt_plain(*ops, injT, wav, dt,
+                                                     **kw))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert torch.equal(g_c, ct.tti_jacobian_adjoint_plain(
+        *ops, injT, wav, ck[1], res, dt, **kw))
+    assert torch.equal(g_c, g_s)
+    assert float(g_s.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_tti_forward_raises_for_what_it_does_not_take(cuda):
+    """Space order 18 (radius 9), or a grid of 65,536 tiles along x (the
+    fused forward step's launch takes at most 65,535): both forwards raise
+    before any launch."""
+    from devito_fwi_tpu_torch.ops import cuda_tti as ct
+    _, _, ops, injT, wav, dt, kw = _tti_operands(4, cuda)
+    ct.reset_counters()
+    bad = dict(kw, space_order=18)
+    for fn in (ct.tti_forward_dt2_segments, ct.tti_forward_ckpt_segments):
+        with pytest.raises(ValueError):
+            fn(*ops, injT, wav, dt, **bad)
+    nx2 = 32 * 2 ** 16 + 1
+    z = torch.zeros((2, nx2), device=cuda)
+    kw2 = dict(nt=4, nx=nx2, nz=2, space_order=4, spacing=(10., 10.), z0=0,
+               n_checkpoints=1)
+    inj2 = torch.zeros((1, 2, nx2), device=cuda)
+    w2 = torch.zeros(3, device=cuda)
+    for fn in (ct.tti_forward_dt2_segments, ct.tti_forward_ckpt_segments):
+        with pytest.raises(ValueError, match="tti forward"):
+            fn(z, z, z, z, z, z, inj2, w2, dt, **kw2)
+    assert sum(ct.LAUNCHES.values()) == 0
+    assert sum(ct.TWIN_CALLS.values()) == 0
 
 
 @pytest.mark.cuda

@@ -133,15 +133,62 @@ def test_ctypes_signatures_match_the_cuda_source():
 
 def test_acoustic2d_source_launches_the_fused_forward_tile():
     """The 2-D sweeps launch the fused forward tile (two steps a launch,
-    the source as ``src_cell``/``src_val`` lists) and the reverse step;
+    the source as ``src_cell``/``src_val`` lists) and the reverse's two-
+    step tile, with one single-step reverse launch for an odd last step;
     the forward's entry points take the lists and four state fields."""
     assert _kernels_launched("acoustic2d.cu") == {"forward_tile",
-                                                  "adjoint_step"}
+                                                  "adjoint_step",
+                                                  "adjoint_tile"}
     src = open(os.path.join(PKG, "csrc", "acoustic2d.cu")).read()
     for entry in ("acoustic2d_forward", "acoustic2d_gradient_segments"):
         params = src[src.index(f"int {entry}("):].split(")")[0]
         assert "src_cell" in params and "src_val" in params
         assert "float* state" in params and "inj" not in params
+
+
+def test_acoustic2d_reverse_runs_the_two_step_tile():
+    """Both 2-D reverse sweeps run the forwards' two-step tile in reverse
+    (``adjoint_tile``, two steps a launch, the history read with streaming
+    loads) and ``adjoint_step`` only for an odd last step; no design knob
+    and no cooperative launch is left in the source; the entry points take
+    the adjoint pair and its spare pair as one ``adj`` operand."""
+    import re
+    src = open(os.path.join(PKG, "csrc", "acoustic2d.cu")).read()
+    body = src[src.index("int adjoint_steps("):]
+    body = body[:body.index("\n}\n")]
+    loop = re.search(r"for \(; t - 1 >= lo; t -= 2\) \{\s*"
+                     r"adjoint_tile<R, FS><<<", body)
+    assert loop
+    odd = body[loop.end():]
+    assert re.search(r"if \(t >= lo\) \{\s*const int err = "
+                     r"launch_step<R, FS>\(", odd)
+    assert "for (" not in odd
+    assert "__ldcs(h0 + cell)" in src
+    assert "Cooperative" not in src and "cooperative_groups" not in src
+    assert "kReverse" not in src
+    for entry in ("acoustic2d_adjoint", "acoustic2d_gradient_segments"):
+        params = src[src.index(f"int {entry}("):].split(")")[0]
+        assert "float* adj" in params and "float* v," not in params
+
+
+@pytest.mark.parametrize("probe, table, source", [
+    ("probe_forwards", "VARIANTS_2D", "acoustic2d.cu"),
+    ("probe_forwards", "VARIANTS_3D", "acoustic3d.cu"),
+    ("probe_reverses", "VARIANTS_2D", "acoustic2d.cu"),
+    ("probe_reverses", "VARIANTS_TTI", "tti2d.cu"),
+    ("probe_reverses", "VARIANTS_3D", "acoustic3d.cu")])
+def test_probe_variants_apply_to_the_committed_sources(probe, table, source):
+    """Every design variant the card probes build is a set of text
+    substitutions into a kernel source; each text must still be in the
+    committed source (else the probe stops on the card, after its
+    machine has started)."""
+    import importlib
+    mod = importlib.import_module(f"devito_fwi_tpu_torch.tools.{probe}")
+    src = open(os.path.join(PKG, "csrc", source)).read()
+    for tag, subs in getattr(mod, table).items():
+        subs = subs[0] if isinstance(subs, tuple) else subs
+        for old in subs:
+            assert src.count(old) == 1, (tag, old)
 
 
 def test_ctypes_signatures_match_the_bfm_source():
@@ -293,9 +340,26 @@ def test_ctypes_signatures_match_the_tti_source():
 
 def test_tti_source_launches_one_fused_reverse_step():
     """The TTI reverse steps (streamed and after each recompute) launch
-    the one fused kernel; the forwards keep their two phases."""
-    assert _kernels_launched("tti2d.cu") == {"fwd_gz", "fwd_update",
+    the one fused kernel, and so do the forward steps."""
+    assert _kernels_launched("tti2d.cu") == {"forward_fused",
                                              "adjoint_fused"}
+
+
+def test_tti_source_launches_one_fused_forward_step():
+    """A TTI forward step (both forwards and the checkpoint route's
+    recompute) is one launch of ``forward_fused``, with no product scratch
+    fields; the entry points take the source as ``src_cell``/``src_val``
+    lists, not the dense pattern."""
+    import re
+    src = open(os.path.join(PKG, "csrc", "tti2d.cu")).read()
+    step = src[src.index("int forward_step("):]
+    step = step[:step.index("\n}\n")]
+    assert re.findall(r"\b(\w+)<[^<>]*><<<", step) == ["forward_fused"]
+    assert not re.search(r"\bp[1-4]\b", src)
+    for entry in ("tti2d_forward", "tti2d_jacobian_adjoint"):
+        params = src[src.index(f"int {entry}("):].split(")")[0]
+        assert "src_cell" in params and "src_val" in params
+        assert "inj" not in params
 
 
 def _tti_geometry():

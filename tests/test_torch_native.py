@@ -36,6 +36,19 @@ def _one_torch_thread():
     torch.set_num_threads(saved)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_binding_retried():
+    """The JAX package's binding loads its library once and keeps a
+    failure: in a fresh checkout every test worker runs its ``make -C
+    native`` at once, and a worker that loads ``native/libbfm2d.so`` while
+    another's compiler still writes it keeps None for good. Before this
+    module's tests, long after the workers' imports, such a failure is
+    forgotten so that the binding loads the finished library."""
+    if jnative._LIB is None:
+        jnative._TRIED = False
+    yield
+
+
 def _wavelet(dt, n, freq, delay):
     t = (np.arange(0, n) - delay) * dt
     tmp = np.pi * np.pi * freq * freq * t * t

@@ -371,27 +371,28 @@ def test_streamed_twin_gradient_equals_the_recompute_one(so):
 
 
 # ---------------------------------------------------------------------------
-# the card's fused reverse step (csrc/tti2d.cu adjoint_fused), replayed
+# the card's fused steps (csrc/tti2d.cu forward_fused, adjoint_fused),
+# replayed
 # ---------------------------------------------------------------------------
 
-def _fused_adjoint_replay(prm, udt2, vdt2, res, *, st, nsteps, z0, tile):
-    """A torch replay of the card's fused reverse step in its order, tile
-    by tile: a = eh du + dh dv and b = dh du + dv on the tile and an r
-    ring (zero beyond the grid; the ring's corners deeper than r1 = r//2
-    NaN, as the kernel leaves them unwritten), the products sin th gz and
-    cos th gz of both on the tile and an r1 ring along their axis (zero at
-    ring cells beyond the grid), then at the tile's cells the gradient
-    term, gxx(a) and gzz(b) from those arrays only, and the update."""
-    m, tm, im, eh, dh, sth, cth = prm
-    B, _, nz, nx = udt2.shape
+def _fused_operators(f, g, sth, cth, *, st, tile):
+    """gxx(f) = lap(f) - gzz(f) and gzz(g) in the card's fused order, tile
+    by tile: f and g on the tile and an r ring (zero beyond the grid; the
+    ring's corners deeper than r1 = r//2 NaN, as the kernel leaves them
+    unwritten), the products sin th gz and cos th gz of both on the tile
+    and an r1 ring along their axis (zero at ring cells beyond the grid;
+    sin th and cos th NaN beyond it, where the kernel never reads them),
+    then at the tile's cells both operators from those arrays only.
+    Returns both on the (B, nz, nx) grid."""
+    nz, nx = f.shape[-2:]
     r, r1 = st.r, st.r1
     tx, tz = tile
     NZ, NX = -(-nz // tz) * tz + 2 * r, -(-nx // tx) * tx + 2 * r
 
-    def padded(f, fill=0.0):
-        """f on the tiles' index space, r cells of ``fill`` around."""
-        out = f.new_full(f.shape[:-2] + (NZ, NX), fill)
-        out[..., r:r + nz, r:r + nx] = f
+    def padded(a, fill=0.0):
+        """a on the tiles' index space, r cells of ``fill`` around."""
+        out = a.new_full(a.shape[:-2] + (NZ, NX), fill)
+        out[..., r:r + nz, r:r + nx] = a
         return out
 
     inside = padded(torch.ones((nz, nx), dtype=torch.bool), False)
@@ -400,10 +401,9 @@ def _fused_adjoint_replay(prm, udt2, vdt2, res, *, st, nsteps, z0, tile):
     ox = torch.where(lx < r, r - lx, (lx - (r + tx - 1)).clamp(min=0))
     oz = torch.where(lz < r, r - lz, (lz - (r + tz - 1)).clamp(min=0))
     unread = (ox > 0) & (oz > 0) & ((ox > r1) | (oz > r1))
-    # the coefficients NaN beyond the grid: the kernel never reads them there
-    coef = [padded(f, float("nan")) for f in (m, tm, im, sth, cth)]
+    S, C = padded(sth, float("nan")), padded(cth, float("nan"))
 
-    def d1(f, z, x, h, w, along_x):
+    def d1(a, z, x, h, w, along_x):
         """D1 at the h x w cells from (z, x) of the last two axes: the
         non-zero weights in tap order from the first, times 1/h."""
         acc = None
@@ -412,29 +412,29 @@ def _fused_adjoint_replay(prm, udt2, vdt2, res, *, st, nsteps, z0, tile):
                 continue
             o = k - r1
             zz, xx = (z, x + o) if along_x else (z + o, x)
-            term = wk * f[..., zz:zz + h, xx:xx + w]
+            term = wk * a[..., zz:zz + h, xx:xx + w]
             acc = term if acc is None else acc + term
         return acc * (st.ihx if along_x else st.ihz)
 
-    def d2(f, along_x):
-        """D2 at the tile's cells of a local array: w0 f + sum_k wk (f[+k]
-        + f[-k]), times (1/h)^2."""
+    def d2(a, along_x):
+        """D2 at the tile's cells of a local array: w0 a + sum_k wk (a[+k]
+        + a[-k]), times (1/h)^2."""
         def at(o):
             zz, xx = (r, r + o) if along_x else (r + o, r)
-            return f[..., zz:zz + tz, xx:xx + tx]
+            return a[..., zz:zz + tz, xx:xx + tx]
         acc = st.w2[0] * at(0)
         for k in range(1, r + 1):
             acc = acc + st.w2[k] * (at(k) + at(-k))
         return acc * (st.ihx2 if along_x else st.ihz2)
 
-    def products(fl, sl, cl, il):
+    def products(al, sl, cl, il):
         """(sin th gz on the tile's rows and an r1 ring in x, cos th gz on
-        its columns and an r1 ring in z) of the local array fl."""
+        its columns and an r1 ring in z) of the local array al."""
         out = []
         for z, x, h, w, tr in ((r, r - r1, tz, tx + 2 * r1, sl),
                                (r - r1, r, tz + 2 * r1, tx, cl)):
-            gz = -(sl[z:z + h, x:x + w] * d1(fl, z, x, h, w, True)
-                   + cl[z:z + h, x:x + w] * d1(fl, z, x, h, w, False))
+            gz = -(sl[z:z + h, x:x + w] * d1(al, z, x, h, w, True)
+                   + cl[z:z + h, x:x + w] * d1(al, z, x, h, w, False))
             out.append(torch.where(il[z:z + h, x:x + w],
                                    tr[z:z + h, x:x + w] * gz, 0.0))
         return out
@@ -442,39 +442,79 @@ def _fused_adjoint_replay(prm, udt2, vdt2, res, *, st, nsteps, z0, tile):
     def gzz(ps, pc):
         return -(d1(ps, 0, r1, tz, tx, True) + d1(pc, r1, 0, tz, tx, False))
 
+    F, G = padded(f), padded(g)
+    gxx_f, gzz_g = torch.empty_like(F), torch.empty_like(G)
+    for zt in range(0, NZ - 2 * r, tz):
+        for xt in range(0, NX - 2 * r, tx):
+            win = (slice(zt, zt + tz + 2 * r), slice(xt, xt + tx + 2 * r))
+            lf, lg = F[(...,) + win].clone(), G[(...,) + win].clone()
+            lf[..., unread] = float("nan")
+            lg[..., unread] = float("nan")
+            sl, cl, il = S[win], C[win], inside[win]
+            psf, pcf = products(lf, sl, cl, il)
+            psg, pcg = products(lg, sl, cl, il)
+            own = (..., slice(zt + r, zt + r + tz), slice(xt + r, xt + r + tx))
+            gxx_f[own] = (d2(lf, True) + d2(lf, False)) - gzz(psf, pcf)
+            gzz_g[own] = gzz(psg, pcg)
+    cut = (..., slice(r, r + nz), slice(r, r + nx))
+    return gxx_f[cut], gzz_g[cut]
+
+
+def _fused_adjoint_replay(prm, udt2, vdt2, res, *, st, nsteps, z0, tile):
+    """A torch replay of the card's fused reverse step in its order: the
+    gradient term, a = eh du + dh dv and b = dh du + dv formed once a cell,
+    gxx(a) and gzz(b) by ``_fused_operators``, then the update cell by
+    cell and the residual rows."""
+    m, tm, im, eh, dh, sth, cth = prm
+    B, _, nz, nx = udt2.shape
     zero = udt2.new_zeros((B, nz, nx))
     du = dun = dv = dvn = grad = zero
     for t in range(nsteps - 1, -1, -1):
         grad = grad + udt2[:, t] * du + vdt2[:, t] * dv
-        A, Bp = padded(eh * du + dh * dv), padded(dh * du + dv)
-        Du, Dv, Dun, Dvn = (padded(f) for f in (du, dv, dun, dvn))
-        new_u, new_v = torch.empty_like(Du), torch.empty_like(Dv)
-        for zt in range(0, NZ - 2 * r, tz):
-            for xt in range(0, NX - 2 * r, tx):
-                win = (slice(zt, zt + tz + 2 * r), slice(xt, xt + tx + 2 * r))
-                la, lb = A[(...,) + win].clone(), Bp[(...,) + win].clone()
-                la[:, unread] = float("nan")
-                lb[:, unread] = float("nan")
-                mm, tt, ii, sl, cl = (c[win] for c in coef)
-                il = inside[win]
-                psa, pca = products(la, sl, cl, il)
-                psb, pcb = products(lb, sl, cl, il)
-                h0 = (d2(la, True) + d2(la, False)) - gzz(psa, pca)
-                hz = gzz(psb, pcb)
-                own = (slice(zt + r, zt + r + tz), slice(xt + r, xt + r + tx))
-                cell = (slice(r, r + tz), slice(r, r + tx))
-                new_u[(...,) + own] = (st.s2 * h0 + tt[cell] * Du[(...,) + own]
-                                       - mm[cell] * Dun[(...,) + own]) \
-                    * ii[cell]
-                new_v[(...,) + own] = (st.s2 * hz + tt[cell] * Dv[(...,) + own]
-                                       - mm[cell] * Dvn[(...,) + own]) \
-                    * ii[cell]
-        dup = new_u[:, r:r + nz, r:r + nx].clone()
-        dvp = new_v[:, r:r + nz, r:r + nx].clone()
+        h0, hz = _fused_operators(eh * du + dh * dv, dh * du + dv, sth, cth,
+                                  st=st, tile=tile)
+        dup = (st.s2 * h0 + tm * du - m * dun) * im
+        dvp = (st.s2 * hz + tm * dv - m * dvn) * im
         dup[:, z0:z0 + 2] = dup[:, z0:z0 + 2] + res[:, t]
         dvp[:, z0:z0 + 2] = dvp[:, z0:z0 + 2] + res[:, t]
         dun, du, dvn, dv = du, dup, dv, dvp
     return grad
+
+
+def _fused_forward_replay(prm, wav, inj, *, st, seg, z0, hist, tile):
+    """A torch replay of the card's fused forward step in its order: the
+    receiver rows of u + v and the segment starts from the tile's fields,
+    gxx(u) and gzz(v) by ``_fused_operators``, the update cell by cell,
+    the source added only at the shot's listed cells
+    (``cuda_acoustic._source_list``), then the histories."""
+    m, tm, im, eh, dh, sth, cth = prm
+    B, nz, nx = inj.shape
+    total = wav.shape[0] - 1
+    s2 = wav[0]
+    cells, vals, K = ca._source_list(inj)
+    u = up = v = vp = inj.new_zeros((B, nz, nx))
+    rec = inj.new_empty((B, total, 2, nx))
+    udt2, vdt2 = inj.new_empty((2, B, total, nz, nx))
+    starts = inj.new_empty((B, total // seg, 4, nz, nx))
+    for t in range(total):
+        rec[:, t] = u[:, z0:z0 + 2] + v[:, z0:z0 + 2]
+        if not hist and t % seg == 0:
+            starts[:, t // seg] = torch.stack([u, up, v, vp], 1)
+        gxx_u, gzz_v = _fused_operators(u, v, sth, cth, st=st, tile=tile)
+        un = ((s2 * (eh * gxx_u + dh * gzz_v) + tm * u) - m * up) * im
+        vn = ((s2 * (dh * gxx_u + gzz_v) + tm * v) - m * vp) * im
+        uf, vf = un.view(B, -1), vn.view(B, -1)
+        for b in range(B):
+            for j in range(K):
+                c = int(cells[b, j])
+                if c >= 0:
+                    uf[b, c] = uf[b, c] + wav[t + 1] * vals[b, j]
+                    vf[b, c] = vf[b, c] + wav[t + 1] * vals[b, j]
+        if hist:
+            udt2[:, t] = (un - 2.0 * u) + up
+            vdt2[:, t] = (vn - 2.0 * v) + vp
+        up, u, vp, v = u, un, v, vn
+    return (rec, udt2, vdt2) if hist else (rec, starts)
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,6 +597,92 @@ def test_adjoint_refuses_before_it_builds(route):
             ct._jacobian_adjoint_cuda(None, None, None,
                                       big(B, 1, 4, nz, nx), None, st=st,
                                       nsteps=1, z0=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_forward_case(so):
+    """2 shots on layers-tti 20 x 4 (nbl 10: padded 40 x 24), the twin's
+    coefficient operands, a seeded source pattern of five cells a shot
+    (two on the edges of a 16 x 8 tile, one on the grid's edge) and a
+    seeded wavelet of 12 steps in 3 segments; receivers on rows 7, 8."""
+    model = demo_model("layers-tti", shape=(20, 4), spacing=(10., 10.),
+                       nbl=10, space_order=so, dtype=np.float32)
+    dt = float(model.critical_dt)
+    _, coeffs = ct.operands(*(torch.as_tensor(np.asarray(getattr(model, n)))
+                              for n in FIELDS), dt)
+    mT, hdT, ehT, dhT, stT, ctT = coeffs
+    prm = (mT, 2.0 * mT + hdT, 1.0 / (mT + hdT), ehT, dhT, stT, ctT)
+    nz, nx = mT.shape
+    rng = np.random.default_rng(14)
+    inj = torch.zeros((2, nz, nx))
+    for b, cells in enumerate((((7, 15), (8, 16), (12, 31), (0, 39),
+                                (23, 5)),
+                               ((3, 3), (15, 16), (16, 15), (20, 32),
+                                (9, 0)))):
+        for z, x in cells:
+            inj[b, z, x] = float(rng.uniform(0.5, 2.0))
+    st = ct._statics(so, model.spacing, dt, torch.float32)
+    wav = torch.as_tensor(rng.standard_normal(13), dtype=torch.float32)
+    wav[0] = st.s2
+    return prm, wav, inj, st
+
+
+@pytest.mark.parametrize("tile", [(32, 16), (16, 8)])
+@pytest.mark.parametrize("hist", [True, False])
+@pytest.mark.parametrize("so", [4, 8])
+def test_fused_forward_order_equals_twin_bitwise(so, hist, tile):
+    """The fused forward step's order (u and v on the tile and an r ring,
+    the unread corners NaN; the products on an r1 ring, zero beyond the
+    grid; the coefficients NaN beyond the grid; the source only at the
+    listed cells) gives every output of the plain twin bit for bit at
+    float32, with the histories and with the segment starts, at the
+    kernel's 32 x 16 tile (the 40 x 24 grid cuts its tiles at both edges)
+    and at 16 x 8 tiles."""
+    prm, wav, inj, st = _fused_forward_case(so)
+    kw = dict(st=st, seg=4, z0=7, hist=hist)
+    want = ct._forward_plain(prm, wav, inj, **kw)
+    got = _fused_forward_replay(prm, wav, inj, tile=tile, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert bool(w.isfinite().all())
+    assert float(want[-1].abs().max()) > 0
+
+
+def test_forward_launch_fits_shared_memory():
+    """The fused forward step's launch at bench config 4 (8 shots, 186 x
+    380 padded, space order 8) is the reverse step's: 32 x 16 tiles, 512
+    threads (one cell a thread), the shots the fastest grid axis, its
+    shared memory within a static launch's 48 KB up to radius 8."""
+    main = ct.forward_launch(8, 186, 380, 4)
+    assert main.grid == (8, 12, 12) and main.smem == 17_408
+    assert main.tile == (32, 16) and main.threads == 512
+    assert ct.forward_launch(8, 186, 380, 8).smem == 23_552 <= 48 * 1024
+    assert vars(main) == vars(ct.adjoint_launch(8, 186, 380, 4))
+
+
+@pytest.mark.parametrize("args", [
+    (8, 186, 380, 1), (8, 186, 380, 9), (0, 186, 380, 4), (8, 0, 380, 4),
+    (8, 186, 0, 4), (1, 2 ** 16, 2 ** 15, 4), (1, 2, 32 * 2 ** 16, 4),
+    (1, 16 * 2 ** 16, 1, 4)])
+def test_forward_launch_refuses_what_the_kernel_does_not_take(args):
+    """Outside radius 2 .. 8, an empty grid, 2^31 cells or 65,536 tiles
+    along x or z: the helper raises, naming the forward."""
+    with pytest.raises(ValueError, match="tti forward"):
+        ct.forward_launch(*args)
+
+
+@pytest.mark.parametrize("route", ["dt2", "ckpt"])
+def test_forward_refuses_before_it_builds(route):
+    """Both forwards ask the launch helper before they build or allocate
+    anything: a grid of 65,536 x tiles raises ValueError here, where
+    building the library would raise RuntimeError (no nvcc)."""
+    B, nz, nx = 1, 2, 32 * 2 ** 16
+    st = ct._statics(8, (10., 10.), 1.0, torch.float32)
+    big = torch.zeros(()).expand
+    with pytest.raises(ValueError, match="tti forward"):
+        ct._forward_cuda(None, big(5), big(B, nz, nx), st=st, seg=4, z0=0,
+                         hist=route == "dt2")
 
 
 # ---------------------------------------------------------------------------
