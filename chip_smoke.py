@@ -153,13 +153,18 @@ result line is printed:
 32. 3-D profile: one steady-state gradient and one trial under
    ``torch.profiler``;
 33. B15 kernel vs twin, quick gate: ``cuda_legacy.forward_rows`` (the
-   whole-nt 2-D forward of ``pallas_legacy``) against its twin on the
+   whole-nt 2-D forward of ``pallas_legacy``: one thread-block cluster a
+   shot, the wavefield resident in shared memory) against its twin on the
    operands of the first 3 SMARMN shots, every row bitwise, the two
-   trailing rows zero;
+   trailing rows zero; the launch plan (cluster size, slab rows, shared
+   memory) and the clusters the card holds at once;
 34. main path, B15: ``cuda_legacy.forward_traces`` on the 29 SMARMN shots
    on cuda (B15 launched, no twin called), its traces against
    ``fm_multi``'s (B1) within 1e-5 of the max; at 29 shots kernel against
-   twin bitwise, CUDA events after a warm-up beside the bound;
+   twin bitwise, CUDA events after a warm-up beside the bound, the time a
+   step, the issue-rate floor (8r + 8 separate float instructions a
+   cell-step at 132 SMs x 128 lanes x 1.98 GHz) and the per-step traffic
+   floor (the record rows; the first design's four fields a step);
 35. main path, the camembert FWI: ``examples.inversion_fwi.main`` on cuda
    (9 shots, 101 receivers, 5 gradient-descent iterations through
    ``AcousticWaveSolver``) with the reference's goldens 39113 / -821 / 2442
@@ -170,7 +175,12 @@ result line is printed:
    free-surface forward's norm against 369.955, the fs=False forward
    through the B14 step hook bitwise equal to ``step3=False`` and its norm
    against 459.1678 (rtol 1e-3 each); the seconds of phases 33-36;
-37. a ``kernels`` JSON line; the card's name and power limit; the script's
+37. main path, the eager route: a 2-shot gradient of ``fwi_loss`` on
+   ``drivers/circle_fwi.py``'s geometry (``BASELINE.json`` config 0:
+   circle 201 x 201, space order 6, nbl 40, receivers on the vertical line
+   x = 1980 m, which no kernel takes) on cuda: the route counted in
+   ``fwi.EAGER``, no twin called, a finite gradient;
+38. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -190,6 +200,10 @@ import torch
 # memory bandwidth and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# float32 instructions a second outside the tensor cores when each multiply
+# and add issues on its own (the kernels' -fmad=false): 132 SMs x 128
+# lanes x the 1.98 GHz boost clock
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
 NSHOTS_CHECK = 3
 # step3 calls profiled for the step kernel's own device time (phase 31)
 STEP3_PROFILED = 300
@@ -1964,6 +1978,30 @@ def legacy_bound(m, inj, nt, r):
     return bound(nbytes, B * (nt - 2) * nx * nz * (8 * r + 8))
 
 
+def legacy_floors(inj, nt, r, ms_kernel):
+    """B15's floors at this run's shapes, printed beside the kernel's
+    time: the issue-rate floor (its 8r + 8 float operations a cell-step as
+    separate instructions at ``F32_INSTR_PER_S``, and on the SMs the
+    clusters hold) and the per-step traffic floor (what crosses device
+    memory a step: the cluster design's record rows, the first design's u
+    and up read, up written and the dense pattern read)."""
+    B, nx, nz = inj.shape
+    steps = nt - 2
+    cells = B * nx * nz
+    issue = cells * steps * (8 * r + 8) / F32_INSTR_PER_S * 1e3
+    rows_ms = B * 2 * nx * 4 * steps / PEAK_BYTES_PER_S * 1e3
+    first_ms = 4 * cells * 4 * steps / PEAK_BYTES_PER_S * 1e3
+    print(f"   forward_rows: issue-rate floor {issue:.3f} ms "
+          f"({issue * 1e3 / steps:.2f} us a step, {8 * r + 8} separate "
+          f"float instructions a cell-step at {F32_INSTR_PER_S:.3g}/s); "
+          f"per-step traffic floor {rows_ms:.3f} ms (the record rows, "
+          f"{B * 2 * nx * 4 / 1e3:.1f} KB a step), {first_ms:.3f} ms for "
+          f"the first design's 4 fields a step; kernel "
+          f"{ms_kernel * 1e3 / steps:.2f} us a step, "
+          f"{ms_kernel / issue:.2f}x the issue-rate floor")
+    return issue
+
+
 def legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
                          plain_ms, err, bounds):
     """Phases 33-36: B15 against its twin at 3 SMARMN shots;
@@ -1998,6 +2036,13 @@ def legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
 
     phase(f"33 B15 kernel vs twin (quick gate), {NSHOTS_CHECK} SMARMN shots")
     rows_pair(NSHOTS_CHECK)
+    r = kw["space_order"] // 2
+    plan = cl.sweep_launch(kw["nz"], kw["nx"], r,
+                           cl._source_list(inj.transpose(1, 2))[2])
+    print(f"   design: one thread-block cluster a shot, u resident in "
+          f"shared memory; cluster of {plan.cluster} blocks of {plan.rows} "
+          f"rows, {plan.threads} threads, {plan.smem} bytes of shared "
+          f"memory a block; {cl.max_clusters(plan, r)} clusters at once")
 
     phase(f"34 main path: cuda_legacy.forward_traces, {B} SMARMN shots, on "
           "cuda")
@@ -2024,6 +2069,7 @@ def legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
           f"ms, bound {b_ms:.3f} ms by {by} ({nbytes:.4g} B, {nops:.4g} f32 "
           f"ops), {b_ms / ms[name]:.1%} of the bound; "
           f"{ms[name] * 1e3 / (kw['nt'] - 2):.2f} us a step")
+    legacy_floors(inj, kw["nt"], r, ms[name])
     del m, hd, wav, inj, ops, tr, ref
     torch.cuda.empty_cache()
 
@@ -2126,6 +2172,39 @@ def legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
         if not rel <= 1e-3:
             raise AssertionError("3-D forward norm off the golden")
     print(f"   phases 33-36: {time.perf_counter() - t_new:.1f} s")
+
+
+def eager_route_phase(dev, fwi, counters, report):
+    """Phase 37: a 2-shot gradient on ``drivers/circle_fwi.py``'s geometry,
+    whose receivers on the vertical line x = 1980 m no kernel takes,
+    through the eager route on cuda."""
+    from devito_fwi_tpu_torch.misfit import least_square
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.models.presets import demo_model
+    phase("37 main path: the eager route, circle_fwi's geometry (receivers "
+          "on x = 1980 m), 2 shots, on cuda")
+    kw = dict(vp_background=3, r=60, origin=(0, 0), shape=(201, 201),
+              spacing=(10., 10.), space_order=6, nbl=40, dt=1.)
+    true = demo_model("circle-isotropic", vp_circle=3.6, **kw)
+    init = demo_model("circle-isotropic", vp_circle=3, **kw)
+    src = np.stack([np.full(2, 20.), np.linspace(0, 2000., 2)], 1)
+    rec = np.stack([np.full(201, 1980.), np.linspace(10., 1990., 201)], 1)
+    g1, g0 = (AcquisitionGeometry(m, rec, src, 0., 1000., f0=0.010,
+                                  src_type="Ricker") for m in (true, init))
+    obs = fwi.fm_multi(g1, device="cuda")
+    for reset in counters:
+        reset()
+    x = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    t0 = time.perf_counter()
+    f, g, _ = fwi.fwi_loss(x, g0, obs, least_square, device="cuda")
+    wall = time.perf_counter() - t0
+    print(f"   padded {g0.model.padded_shape}, nt {g0.nt}: objective "
+          f"{f!r}, max|grad| {np.abs(g).max():.4e}, {wall:.3f} s; eager "
+          f"route calls {fwi.EAGER}")
+    report("eager route", (), record=False)
+    if not (fwi.EAGER["objective"] == 1 and np.isfinite(f) and f > 0
+            and np.isfinite(g).all() and np.abs(g).max() > 0):
+        raise AssertionError("the eager route did not give a gradient")
 
 
 def main():
@@ -2361,7 +2440,8 @@ def main():
 
     counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
                 cv.reset_counters, ct.reset_counters, c3.reset_counters,
-                c3d.reset_counters, cl.reset_counters, bfm.reset_counts)
+                c3d.reset_counters, cl.reset_counters, bfm.reset_counts,
+                fwi.reset_counters)
     modules = (ca, cb, cs, cv, ct, c3, c3d, cl)
     launches = {}
 
@@ -2535,8 +2615,9 @@ def main():
                       report, ms, plain_ms, err, bounds)
     legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
                          plain_ms, err, bounds)
+    eager_route_phase(dev, fwi, counters, report)
 
-    phase("37 result")
+    phase("38 result")
     rows = []
     sources = (("acoustic2d", ca), ("bfm_push", cb), ("elastic2d", cs),
                ("visco2d", cv), ("tti2d", ct), ("acoustic3d", c3d),

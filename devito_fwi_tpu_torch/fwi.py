@@ -50,14 +50,25 @@ slabs, the traces, the batched misfit, ``residual_slabs3``,
 the receiver-slab injection, stepped by the CUDA step kernel of
 ``ops.cuda_acoustic3``). Trials and ``fm_multi`` run ``forward_rec3``.
 
-Not ported yet (raises ``NotImplementedError``): geometries the kernels do
-not take (receivers off two adjacent z-planes, 3-D sources off the y grid,
-and on cuda a saved-route grid the step kernel does not take: a free
-surface, float64, a padded nx ``pick_xb`` does not block; ROADMAP.md queue
-A item 4, which runs them on the eager operators), and a 3-D checkpoint
-route (``stream=False``).
+Geometries no kernel takes run ``_eager_objective`` (and ``fm_multi``
+``_eager_traces``), the counterpart of the JAX package's XLA route
+``_shots_fused``: per shot the eager ``ops.acoustic.forward_ckpt`` with its
+illumination, the batch misfit of the chunk through the same
+``misfit_chunk`` as the kernel routes, per shot ``gradient_from_ckpt``,
+then the crop and the illumination fix; trials per shot through the eager
+``forward``. Any dimension, device and float type. The route is chosen
+before anything is built, from the kernels' own predicates
+(``_eager_reason``): 2-D receivers off two adjacent z-planes, a 3-D
+geometry the streamed kernels do not take (``unsupported_reason``), and a
+3-D gradient with ``stream=False`` (the 3-D checkpoint route). Each such
+call adds one to ``EAGER["objective"]`` (or ``EAGER["fm_multi"]``) and
+warns once per reason. On cuda the saved route's steps run the eager
+update where the step kernel does not take the grid (``_saved_step3``,
+counted in ``EAGER["saved_step"]``).
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -77,7 +88,30 @@ from .utils.filters import bandpass, highpass, lowpass
 
 __all__ = ["seismic_filter", "Filter", "resample", "fm_single", "fm_multi",
            "fix_source_illumination", "fwi_obj_single", "fwi_obj_multi",
-           "fwi_loss", "ResidualStack"]
+           "fwi_loss", "ResidualStack", "EAGER", "reset_counters"]
+
+# calls that took the eager route because no kernel takes their geometry:
+# objectives, fm_multi, and saved-route sweeps stepped by the eager update
+EAGER = {"objective": 0, "fm_multi": 0, "saved_step": 0}
+
+
+def reset_counters():
+    for key in EAGER:
+        EAGER[key] = 0
+
+
+def _eager_warn(reason):
+    """One warning per reason when a geometry takes the eager operators
+    instead of the kernels (the JAX package's ``_pallas_cliff_warn``)."""
+    if reason in _eager_warn.seen:
+        return
+    _eager_warn.seen.add(reason)
+    warnings.warn(f"devito_fwi_tpu_torch: no kernel route takes this call "
+                  f"({reason}); running the eager operators of "
+                  "ops.acoustic", stacklevel=3)
+
+
+_eager_warn.seen = set()
 
 
 def _resolve_device(device):
@@ -212,9 +246,9 @@ class _Setup:
         model = geometry.model
         if model.dim != 2 or not _ca.geometry_supported(geometry):
             raise NotImplementedError(
-                "only 2-D geometries with all receivers on two adjacent "
-                "z-planes run on the port so far (3-D and general receiver "
-                "layouts: ROADMAP.md queue A item 4)")
+                "the 2-D kernels take only 2-D geometries with all "
+                "receivers on two adjacent z-planes (the objective and "
+                "fm_multi route others to the eager operators)")
         self.s_idx, self.s_w, self.r_idx, r_w, src_wav = \
             _batched_tables(geometry)
         self.z0 = int(self.r_idx[..., 1].min())
@@ -249,33 +283,50 @@ class _Setup:
         return _traces_from_rows(rec_rows, self.W, self.nt, self.nsteps)
 
 
-class _Setup3:
+class _EagerSetup:
+    """The eager operators' operands of a geometry on the device: the
+    padded model, the per-shot source and shared receiver tables (numpy),
+    the wavelet, dt and the keywords of ``ops.acoustic``."""
+
+    def __init__(self, geometry, dev):
+        model = geometry.model
+        self.s_idx, self.s_w, self.r_idx, self.r_w_np, src_wav = \
+            _batched_tables(geometry)
+        self.nt = geometry.nt
+        self.dt = float(_solver_dt(geometry))
+        self.vp = torch.as_tensor(np.asarray(model.vp), device=dev)
+        self.damp = _damp(model, dev)
+        self.src_wav = torch.as_tensor(src_wav, device=dev)
+        self.op_kw = dict(nt=self.nt, spacing=model.spacing,
+                          space_order=model.space_order, fs=model.fs)
+
+    def shot(self, i):
+        """The positional operands of shot ``i`` up to ``dt``."""
+        return (self.vp, self.damp, self.src_wav, self.s_idx[i],
+                self.s_w[i])
+
+
+class _Setup3(_EagerSetup):
     """A 3-D modeling or objective call's operands on the device: the
-    streamed kernels' transposed (ny, nz, nx) model, the wavelet and the
-    receiver tables. Raises for a geometry the kernels do not take."""
+    eager operators' (the saved route's), the streamed kernels' transposed
+    (ny, nz, nx) model and the receiver tables. Raises for a geometry the
+    kernels do not take."""
 
     def __init__(self, geometry, dev):
         model = geometry.model
         reason = _c3d.unsupported_reason(geometry)
         if reason is not None:
             raise NotImplementedError(
-                f"the 3-D kernels do not take this geometry: {reason} "
-                "(ROADMAP.md queue A item 4)")
-        self.s_idx, self.s_w, self.r_idx, r_w, src_wav = \
-            _batched_tables(geometry)
+                f"the 3-D kernels do not take this geometry: {reason} (the "
+                "objective and fm_multi route it to the eager operators)")
+        super().__init__(geometry, dev)
         self.z0 = int(self.r_idx[..., 2].min())
-        self.nt = geometry.nt
         self.nsteps = self.nt - 2
-        self.dt = float(_solver_dt(geometry))
-        self.vp = torch.as_tensor(np.asarray(model.vp), device=dev)
-        self.damp = _damp(model, dev)
         self.m = 1.0 / (self.vp * self.vp)
         self.m3 = self.m.permute(1, 2, 0).contiguous()
         hd = torch.broadcast_to(self.dt * self.damp, self.vp.shape)
         self.hd3 = hd.permute(1, 2, 0).contiguous()
-        self.src_wav = torch.as_tensor(src_wav, device=dev)
-        self.r_w_np = r_w
-        self.r_w = torch.as_tensor(r_w, device=dev)
+        self.r_w = torch.as_tensor(self.r_w_np, device=dev)
         self.kw = dict(nt=self.nt, space_order=model.space_order,
                        spacing=model.spacing, z0=self.z0, fs=model.fs)
 
@@ -426,7 +477,13 @@ def fm_multi(geometry, save=False, device="cuda"):
     reference's ``fm_multi`` discards the saved wavefield too)."""
     dev = _resolve_device(device)
     model = geometry.model
-    if model.dim == 3:
+    reason = _eager_reason(geometry, False, None)
+    if reason is not None:
+        EAGER["fm_multi"] += 1
+        _eager_warn(reason)
+        rec_all = _eager_traces(_EagerSetup(geometry, dev), 0,
+                                geometry.nsrc).cpu().numpy()
+    elif model.dim == 3:
         st = _Setup3(geometry, dev)
         rec_all = st.traces(_c3d.forward_rec3(
             st.m3, st.hd3, *st.planes(0, geometry.nsrc), st.dt,
@@ -670,12 +727,19 @@ def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     MISFIT_BYTES_PER_SAMPLE. Returns (fval, grad sum, illum sum (both
     cropped, fixed, float64, or None), residuals)."""
     model = geometry.model
+    if saved3 and model.dim != 3:
+        raise ValueError("saved3 picks a 3-D gradient route; this model is "
+                         f"{model.dim}-D")
+    if calc_grad and saved3 and stream is False:
+        raise ValueError("saved3=True and stream=False pick two different "
+                         "gradient routes")
+    reason = _eager_reason(geometry, calc_grad, stream)
+    if reason is not None:
+        return _eager_objective(geometry, misfit_chunk, kind, calc_grad,
+                                shot_chunk, sel, dev, reason)
     if model.dim == 3:
         return _shot_objective3(geometry, misfit_chunk, kind, calc_grad,
                                 shot_chunk, sel, stream, dev, saved3)
-    if saved3:
-        raise ValueError("saved3 picks a 3-D gradient route; this model is "
-                         f"{model.dim}-D")
     st = _Setup(geometry, dev)
     src_pos = np.asarray(geometry.src_positions)
     if sel is not None:
@@ -685,10 +749,8 @@ def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     chunk, stream = _route(
         nsrc, shot_chunk, calc_grad, stream, st, dev, st.m.element_size(),
         MISFIT_BYTES_PER_SAMPLE[kind] * st.nt * st.r_idx.shape[0])
-    pads, shape = _pads(model), model.shape
     if calc_grad:
-        keep_src, rec_prod = _illum_fix_factors(
-            src_pos, geometry.rec_positions, model.spacing, shape, dev)
+        fix = _illum_fixer(geometry, src_pos, dev)
     fval = 0.0
     residuals = []
     grad = illum = None
@@ -721,11 +783,123 @@ def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
         else:
             gradT = _ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT,
                                           pairs, rows, st.dt, **st.kw)
-        # crop + illumination fix per shot, in float64: (g*(1-smask))*rprod
-        g = _crop(gradT.transpose(-1, -2), pads, shape).double()
-        il = _crop(illumT.transpose(-1, -2), pads, shape).double()
-        g = torch.sum(g * keep_src[lo:hi] * rec_prod, dim=0)
-        il = torch.sum(il * keep_src[lo:hi] * rec_prod, dim=0)
+        g, il = fix(lo, hi, gradT.transpose(-1, -2),
+                    illumT.transpose(-1, -2))
+        grad = g if grad is None else grad + g
+        illum = il if illum is None else illum + il
+    return fval, grad, illum, ResidualStack(residuals)
+
+
+def _eager_reason(geometry, calc_grad, stream):
+    """Why no kernel route takes this call (the eager route then runs it),
+    or None: 2-D receivers off two adjacent z-planes; a 3-D geometry the
+    streamed kernels do not take; a 3-D gradient with ``stream=False``
+    (the 3-D checkpoint route)."""
+    model = geometry.model
+    if model.dim == 2:
+        if not _ca.geometry_supported(geometry):
+            return "receivers off two adjacent z-planes"
+        return None
+    reason = _c3d.unsupported_reason(geometry)
+    if reason is not None:
+        return f"3-D: {reason}"
+    if calc_grad and stream is False:
+        return "the 3-D checkpoint route (stream=False)"
+    return None
+
+
+def _eager_traces(es, lo, hi):
+    """Traces (hi-lo, nt, nrec) of shots lo..hi-1 through the eager
+    ``forward``."""
+    return torch.stack([
+        _ac.forward(*es.shot(i), es.r_idx, es.r_w_np, es.dt, **es.op_kw)[0]
+        for i in range(lo, hi)])
+
+
+def _illum_fixer(geometry, src_pos, dev):
+    """``fix(lo, hi, *fields)``: each padded-grid field (hi-lo, *grid) of
+    shots lo..hi-1 cropped, times (1 - source mask) and then the product of
+    (1 - receiver mask), summed over the shots, in float64 (the JAX
+    package's ``_fix_illum_jax``)."""
+    model = geometry.model
+    pads, shape = _pads(model), model.shape
+    if model.dim == 3:
+        fix3 = _IllumFix3(geometry.rec_positions, model.spacing, shape, dev)
+
+        def factors(lo, hi):
+            return fix3.keep(src_pos[lo:hi]), fix3.rec_prod
+    else:
+        keep, rec_prod = _illum_fix_factors(
+            src_pos, geometry.rec_positions, model.spacing, shape, dev)
+
+        def factors(lo, hi):
+            return keep[lo:hi], rec_prod
+
+    def fix(lo, hi, *fields):
+        k, rp = factors(lo, hi)
+        return [torch.sum(_crop(f, pads, shape).double() * k * rp, dim=0)
+                for f in fields]
+    return fix
+
+
+def _eager_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
+                     sel, dev, reason):
+    """``_shot_objective`` on the eager operators of ``ops.acoustic``, for
+    the geometries no kernel takes (the JAX package's ``_shots_fused``,
+    its XLA route): per shot ``forward_ckpt`` with the illumination (a
+    trial: ``forward``), the chunk's batch misfit, per shot
+    ``gradient_from_ckpt``, the crop and the illumination fix, summed over
+    the shot chunks. Any dimension, device and float type."""
+    EAGER["objective"] += 1
+    _eager_warn(reason)
+    es = _EagerSetup(geometry, dev)
+    src_pos = np.asarray(geometry.src_positions)
+    if sel is not None:
+        es.s_idx, es.s_w = es.s_idx[sel], es.s_w[sel]
+        src_pos = src_pos[sel]
+    nsrc = es.s_idx.shape[0]
+    nck = _default_checkpoints(geometry.nt)
+    field = es.vp.numel() * es.vp.element_size()
+    _, _, nseg = _ac._ckpt_layout(geometry.nt, nck)
+    misfit_bytes = MISFIT_BYTES_PER_SAMPLE[kind] * geometry.nt * \
+        es.r_idx.shape[0]
+    per_shot = (2 * nseg + 1) * field + misfit_bytes if calc_grad \
+        else misfit_bytes
+    chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
+                             _device_budget(dev) if dev.type == "cuda"
+                             else None)
+    if calc_grad:
+        fix = _illum_fixer(geometry, src_pos, dev)
+    fval = 0.0
+    residuals = []
+    grad = illum = None
+    for lo in range(0, nsrc, chunk):
+        hi = min(lo + chunk, nsrc)
+        if not calc_grad:
+            f_c, res = misfit_chunk(_eager_traces(es, lo, hi), lo, hi)
+            fval = fval + f_c
+            residuals.append(res)
+            continue
+        recs, starts, ils = [], [], []
+        for i in range(lo, hi):
+            rec, seg, il = _ac.forward_ckpt(
+                *es.shot(i), es.r_idx, es.r_w_np, es.dt,
+                n_checkpoints=nck, **es.op_kw)
+            recs.append(rec)
+            starts.append(seg)
+            ils.append(il)
+        f_c, res = misfit_chunk(torch.stack(recs), lo, hi)
+        fval = fval + f_c
+        residuals.append(res)
+        gs = []
+        for j, i in enumerate(range(lo, hi)):
+            g_i, _ = _ac.gradient_from_ckpt(
+                *es.shot(i), starts[j], res[j], es.r_idx, es.r_w_np, es.dt,
+                n_checkpoints=nck, **es.op_kw)
+            # free this shot's segment starts before the next reverse sweep
+            starts[j] = None
+            gs.append(g_i)
+        g, il = fix(lo, hi, torch.stack(gs), torch.stack(ils))
         grad = g if grad is None else grad + g
         illum = il if illum is None else illum + il
     return fval, grad, illum, ResidualStack(residuals)
@@ -749,16 +923,16 @@ def _rec_box(r_idx, padded_shape):
 def _saved_step3(model, dtype, dev):
     """The ``step3`` keyword of the saved route's eager operators: True
     (the step kernel on cuda, its twin on the CPU) where the kernel takes
-    the grid, False (the eager update) on the CPU elsewhere; on cuda a grid
-    the kernel does not take raises."""
+    the grid, False (the eager update) elsewhere; on cuda that is the eager
+    route, counted in ``EAGER["saved_step"]`` and warned once."""
     reason = _c3.unsupported_reason(tuple(model.padded_shape),
                                     model.space_order, model.fs, dtype)
     if reason is None:
         return True
     if dev.type == "cuda":
-        raise NotImplementedError(
-            f"the saved route's step kernel does not take this grid: {reason}"
-            " (ROADMAP.md queue A item 4)")
+        EAGER["saved_step"] += 1
+        _eager_warn(f"the saved route's step kernel does not take the "
+                    f"grid: {reason}")
     return False
 
 
@@ -783,8 +957,7 @@ def _saved_chunk(st, saved_kw, lo, hi):
     (hi-lo, nt, nrec), [history (nt, nx, ny, nz) per shot])."""
     recs, hists = [], []
     for i in range(lo, hi):
-        rec, u = _ac.forward(st.vp, st.damp, st.src_wav, st.s_idx[i],
-                             st.s_w[i], st.r_idx, st.r_w_np, st.dt,
+        rec, u = _ac.forward(*st.shot(i), st.r_idx, st.r_w_np, st.dt,
                              save=True, **saved_kw)
         recs.append(rec)
         hists.append(u)
@@ -798,10 +971,6 @@ def _shot_objective3(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     trials always run ``forward_rec3``)."""
     model = geometry.model
     st = _Setup3(geometry, dev)
-    if calc_grad and stream is False:
-        raise NotImplementedError(
-            "3-D gradients have no checkpoint route on the port (ROADMAP.md "
-            "queue A item 4); saved3=True takes the saved-history route")
     src_pos = np.asarray(geometry.src_positions)
     if sel is not None:
         st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
@@ -809,9 +978,7 @@ def _shot_objective3(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     nsrc = st.s_idx.shape[0]
     saved = calc_grad and saved3
     if saved:
-        saved_kw = dict(nt=st.nt, spacing=model.spacing,
-                        space_order=model.space_order, fs=model.fs,
-                        step3=_saved_step3(model, st.m.dtype, dev))
+        saved_kw = dict(st.op_kw, step3=_saved_step3(model, st.m.dtype, dev))
         rec_box = _rec_box(st.r_idx, model.padded_shape)
     per_shot = _bytes_per_shot3(
         st, calc_grad, saved,
@@ -819,9 +986,8 @@ def _shot_objective3(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
                              _device_budget(dev) if dev.type == "cuda"
                              else None)
-    pads, shape = _pads(model), model.shape
     if calc_grad:
-        fix = _IllumFix3(geometry.rec_positions, model.spacing, shape, dev)
+        fix = _illum_fixer(geometry, src_pos, dev)
     fval = 0.0
     residuals = []
     grad = illum = None
@@ -864,12 +1030,7 @@ def _shot_objective3(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
             del hist, slabs
             # (B, ny, nz, nx) -> (B, nx, ny, nz)
             g, il = g.permute(0, 3, 1, 2), il.permute(0, 3, 1, 2)
-        # crop + illumination fix per shot, in float64: (g*(1-smask))*rprod
-        keep = fix.keep(src_pos[lo:hi])
-        g = torch.sum(_crop(g, pads, shape).double() * keep * fix.rec_prod,
-                      dim=0)
-        il = torch.sum(_crop(il, pads, shape).double() * keep
-                       * fix.rec_prod, dim=0)
+        g, il = fix(lo, hi, g, il)
         grad = g if grad is None else grad + g
         illum = il if illum is None else illum + il
     return fval, grad, illum, ResidualStack(residuals)
@@ -892,7 +1053,10 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
     (the default) streams when one shot's history fits the card's memory.
     A 3-D gradient streams through ``ops.cuda_acoustic3d``; ``saved3=True``
     takes the saved-history route instead (the JAX package's
-    ``DEVITO_FWI_TPU_SAVED3`` / ``DEVITO_FWI_TPU_PALLAS3D`` switches)."""
+    ``DEVITO_FWI_TPU_SAVED3`` / ``DEVITO_FWI_TPU_PALLAS3D`` switches), and
+    ``stream=False`` the eager checkpoint route (the two together raise).
+    A geometry no kernel takes runs the eager route (``_eager_objective``,
+    counted in ``EAGER``)."""
     dev = _resolve_device(device)
     sel = None if shot_indices is None else \
         np.asarray(shot_indices, dtype=np.int64)

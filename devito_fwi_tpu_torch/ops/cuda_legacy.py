@@ -18,10 +18,14 @@ for all shots).
 patterns) and transposes them once to the kernel's (nz, nx) layout, in
 which the two receiver rows are contiguous. For CUDA float32 tensors it
 launches ``acoustic2d_legacy_forward`` of ``csrc/acoustic2d_legacy.cu``
-(one ctypes call, one launch per step on the current stream) and adds one
-to ``LAUNCHES["forward_rows"]``; for CPU tensors it runs the plain twin
-(``forward_rows_plain``, a Python loop with the kernel's arithmetic). On
-another device it raises.
+(one ctypes call, one launch a sweep on the current stream: one
+thread-block cluster a shot with the wavefield resident in shared memory,
+as ``sweep_launch`` plans it) and adds one to ``LAUNCHES["forward_rows"]``;
+for CPU tensors it runs the plain twin (``forward_rows_plain``, a Python
+loop with the kernel's arithmetic). On another device it raises. A grid
+whose slab does not fit a block's shared memory even at a cluster of 8
+raises ``ValueError`` before anything is built or allocated (the Pallas
+kernel has a VMEM limit of its own).
 
 ``forward_traces`` is the host wrapper of the JAX module: all shots of a
 2-D geometry in one batch, the traces summed from the rows. It raises for a
@@ -32,6 +36,7 @@ wrong traces without a word.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -39,11 +44,12 @@ import torch
 from ..utils.fd import second_derivative_weights
 from . import cuda_build
 from .acoustic import shift
-from .cuda_acoustic import geometry_supported
+from .cuda_acoustic import SMEM_LIMIT, _source_list, geometry_supported
 from .interp import interp_table, valid_corners
 
 __all__ = ["forward_rows", "forward_rows_plain", "forward_traces",
-           "operands", "KERNELS", "LAUNCHES", "TWIN_CALLS", "reset_counters"]
+           "operands", "sweep_launch", "max_clusters", "KERNELS",
+           "LAUNCHES", "TWIN_CALLS", "reset_counters"]
 
 KERNELS = ("forward_rows",)
 # launches of the kernel (one per sweep) and calls of its plain twin
@@ -91,6 +97,45 @@ def _rows_plain(m, two_m_hd, denom, wav, inj, *, c0, cx, cz, nt, z0):
     return rec
 
 
+# the sweep's threads a block, the largest portable cluster and the
+# cluster size it prefers (csrc/acoustic2d_legacy.cu kThreads, kMaxCluster)
+THREADS = 512
+MAX_CLUSTER = 8
+CLUSTER = 4
+
+
+def sweep_launch(nz, nx, r, K=1):
+    """The sweep's launch plan for a (nz, nx) grid at radius ``r`` with
+    ``K`` source cells a shot: the cluster size (``CLUSTER``, or the
+    smallest larger one whose slab fits a block's shared memory, cut to the
+    blocks that own a row), the rows of a slab, the floats of a buffer row
+    (nx rounded up to 4 plus ceil(r/4)*4 zero columns each side), the
+    threads and the shared-memory bytes of a block (two u buffers of the
+    slab and 2r halo rows, the slab's source list). Raises ValueError,
+    naming the failing condition, for a radius outside 1 .. 8, an empty
+    grid or one of 2^31 cells, or a grid whose slab does not fit 232,448
+    bytes even at a cluster of 8."""
+    if not 1 <= r <= 8:
+        raise ValueError(f"forward_rows: stencil radius {r}; the kernel "
+                         "takes 1 .. 8")
+    if min(nz, nx) < 1 or nz * nx >= 2 ** 31:
+        raise ValueError(f"forward_rows: a {nz} x {nx} grid; the kernel "
+                         "takes a positive grid of fewer than 2^31 cells")
+    nx4 = -(-nx // 4) * 4
+    stride = nx4 + 2 * (-(-r // 4) * 4)
+    for cluster in range(min(CLUSTER, MAX_CLUSTER), MAX_CLUSTER + 1):
+        rows = -(-nz // cluster)
+        smem = 8 * (rows + 2 * r) * stride + 12 * K
+        if smem <= SMEM_LIMIT:
+            return SimpleNamespace(cluster=-(-nz // rows), rows=rows,
+                                   nx4=nx4, stride=stride, threads=THREADS,
+                                   smem=smem)
+    raise ValueError(
+        f"forward_rows: a {nz} x {nx} grid at radius {r} needs {smem} bytes "
+        f"of shared memory a block even at a cluster of {MAX_CLUSTER} "
+        f"(slabs of {rows} rows); the card gives at most {SMEM_LIMIT}")
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -98,8 +143,9 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/acoustic2d_legacy.cu;
 # every pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "acoustic2d_legacy_forward": ([_P] * 8 + [_I] * 6 + [_P, _P, _F, _P],
+    "acoustic2d_legacy_forward": ([_P] * 7 + [_I] * 13 + [_P, _P, _F, _P],
                                   _I),
+    "acoustic2d_legacy_max_clusters": ([_I] * 3 + [_P], _I),
     "acoustic2d_legacy_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -115,25 +161,48 @@ def _lib():
     return lib
 
 
-def _rows_cuda(m, two_m_hd, denom, wav, inj, *, c0, cx, cz, nt, z0):
+def _check(lib, err, what):
+    if err:
+        raise RuntimeError(
+            f"{what}: CUDA error {err} "
+            f"({lib.acoustic2d_legacy_error_string(err).decode()})")
+
+
+def max_clusters(launch, r, device=None):
+    """The clusters of ``launch`` (``sweep_launch``) the card holds at
+    once: shots beyond them run in later waves."""
     lib = _lib()
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, lib.acoustic2d_legacy_max_clusters(
+            r, launch.cluster, launch.smem, ctypes.byref(active)),
+            "acoustic2d_legacy_max_clusters")
+    return active.value
+
+
+def _rows_cuda(m, two_m_hd, denom, wav, inj, *, c0, cx, cz, nt, z0):
     B, nz, nx = inj.shape
+    r = len(cx) - 1
+    # the plan raises before anything is built or allocated
+    sweep_launch(nz, nx, r)
+    lib = _lib()
+    cells, vals, K = _source_list(inj)
+    launch = sweep_launch(nz, nx, r, K)
+    nx4 = launch.nx4
+    # (nz, nx4), zero in the padding lanes
+    coef = [torch.nn.functional.pad(f, (0, nx4 - nx))
+            for f in (m, two_m_hd, denom)]
     rec = inj.new_empty((B, nt, 2, nx))
-    u = inj.new_zeros((B, nz, nx))
-    up = inj.new_zeros((B, nz, nx))
     cx32 = np.asarray(cx, np.float32)
     cz32 = np.asarray(cz, np.float32)
     with torch.cuda.device(inj.device):
         err = lib.acoustic2d_legacy_forward(
-            m.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
-            wav.data_ptr(), inj.data_ptr(), rec.data_ptr(), u.data_ptr(),
-            up.data_ptr(), B, nz, nx, nt, z0, len(cx) - 1, cx32.ctypes.data,
-            cz32.ctypes.data, c0,
+            *(f.data_ptr() for f in coef), wav.data_ptr(), cells.data_ptr(),
+            vals.data_ptr(), rec.data_ptr(), B, nz, nx, nx4, nt, z0, K, r,
+            launch.cluster, launch.rows, launch.stride, launch.threads,
+            launch.smem, cx32.ctypes.data, cz32.ctypes.data, c0,
             torch.cuda.current_stream(inj.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"acoustic2d_legacy_forward: CUDA error {err} "
-            f"({lib.acoustic2d_legacy_error_string(err).decode()})")
+    _check(lib, err, "acoustic2d_legacy_forward")
     return rec
 
 
@@ -156,6 +225,10 @@ def _forward_rows(plain, m, hd, wav, inj, dt, *, nt, nx, nz, space_order,
     if nt < 3 or not 0 <= z0 <= nz - 2:
         raise ValueError(f"{fn}: nt={nt} (at least 3) or receiver rows "
                          f"z0={z0}, z0+1 outside 0..{nz - 1}")
+    if dev.type == "cuda" and not plain:
+        # refuse a grid the sweep does not take before anything is built
+        # or allocated
+        sweep_launch(nz, nx, space_order // 2)
     c0, cx, cz = _legacy_constants(space_order, spacing, dt)
     mT = m.T.contiguous()
     hdT = hd.T.contiguous()

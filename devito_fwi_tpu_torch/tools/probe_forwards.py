@@ -1,18 +1,27 @@
 """Probe the design choices of the acoustic forward kernels on the card.
 
     python -m devito_fwi_tpu_torch.tools.probe_forwards [--reps 3]
+        [--only 2d 3d legacy] [--baseline FILE] [--sass]
 
-Builds ``csrc/acoustic2d.cu`` and ``csrc/acoustic3d.cu`` as committed and
-as variants, each a copy of the source with a few compile-time choices
-changed (steps a launch, threads, tile, launch bounds, the register
-queue's prefetch), built into the git-ignored ``_build/probe/``; prints
-each variant's registers and spills (``ptxas -v``) for radius 4, holds
-its outputs against the plain twins exactly, and times it with CUDA
-events (``reps`` calls after a warm-up, every variant twice in turns) at
-the main paths' shapes: the three 2-D forwards at SMARMN's 29 shots, the
-two 3-D forwards at bench config 5's 4 shots, the 3-D ones also at other
-y-chunk counts than the launch helper's. Run from the repository root
-(it takes bench config 5 from ``chip_smoke.py``); needs one card.
+Builds ``csrc/acoustic2d.cu``, ``csrc/acoustic3d.cu`` and
+``csrc/acoustic2d_legacy.cu`` as committed and as variants, each a copy of
+the source with a few compile-time choices changed (steps a launch,
+threads, tile, launch bounds, the register queue's prefetch; for the
+legacy sweep the threads a block, with ``cuda_legacy``'s launch plan
+patched beside, and the cluster size of ``cuda_legacy.sweep_launch``),
+built into the git-ignored ``_build/probe/``; prints each variant's
+registers and spills (``ptxas -v``) for radius 4, holds its outputs
+against the plain twins exactly, and times it with CUDA events (``reps``
+calls after a warm-up, every variant twice in turns) at the main paths'
+shapes: the three 2-D forwards and the legacy sweep at SMARMN's 29 shots,
+the two 3-D forwards at bench config 5's 4 shots, the 3-D ones also at
+other y-chunk counts than the launch helper's. ``--baseline`` names a
+source of the legacy forward's first design (one launch a step, dense
+source pattern; ``git show 7070560:devito_fwi_tpu_torch/csrc/
+acoustic2d_legacy.cu``), timed in the same turns; ``--sass`` prints the
+legacy variants' SASS opcode counts (``cuobjdump``). Run from the
+repository root (it takes bench config 5 from ``chip_smoke.py``); needs
+one card.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import fwi
@@ -31,6 +42,7 @@ from ..drivers import _marmousi_common as marm
 from ..ops import cuda_acoustic as ca
 from ..ops import cuda_acoustic3d as c3d
 from ..ops import cuda_build
+from ..ops import cuda_legacy as cl
 
 # the 3-D march's queue: its front loaded a plane ahead (committed) or in
 # the plane that uses it
@@ -77,11 +89,45 @@ VARIANTS_3D = {
 }
 
 
+_THREADS_LEGACY = "constexpr int kThreads = 512;"
+# {name: (substitutions in csrc/acoustic2d_legacy.cu, {attribute of
+# cuda_legacy: value} set beside them)}
+VARIANTS_LEGACY = {
+    "committed": ({}, {}),
+    "384 threads": ({_THREADS_LEGACY: "constexpr int kThreads = 384;"},
+                    {"THREADS": 384}),
+    "640 threads": ({_THREADS_LEGACY: "constexpr int kThreads = 640;"},
+                    {"THREADS": 640}),
+    "cluster 8": ({}, {"CLUSTER": 8}),
+}
+
+
+def _sass_counts(lib, kernel):
+    """{opcode: count} of the radius-4 instance of ``kernel`` in ``lib``
+    (``cuobjdump -sass``), or None where the tool is missing."""
+    tool = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = f"{kernel}ILi4E" in line
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)", line)
+        if inside and op:
+            counts[op.group(1)] = counts.get(op.group(1), 0) + 1
+    return counts
+
+
 def _build(job):
     """Compile one variant: (name, tag, substitutions) -> (tag, library
     path, ptxas summary lines of its radius-4 kernels)."""
-    name, tag, subs = job
-    src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    name, tag, subs = job[:3]
+    src = (job[3] if len(job) > 3 else
+           cuda_build.CSRC_DIR / f"{name}.cu").read_text()
     for old, new in subs.items():
         if old not in src:
             raise RuntimeError(f"{tag}: {old!r} not in {name}.cu")
@@ -102,7 +148,8 @@ def _build(job):
     for i, line in enumerate(lines):
         m = re.search(r"entry function '\w*?(forward_tile|forward_fused|"
                       r"march|adjoint_fused|adjoint_tile|"
-                      r"adjoint_step)I(Li4E\w*?)EEv", line)
+                      r"adjoint_step|legacy_sweep|legacy_step)"
+                      r"I(Li4E\w*?)EEv", line)
         if m:
             info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                     if "registers" in x or "spill" in x]
@@ -120,9 +167,88 @@ def _equal(got, want):
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _legacy_baseline(lib, m, hd, wav, inj, dt, kw):
+    """The first design's entry point (one launch a step over dense
+    patterns, u and up scratch in device memory) on the committed
+    wrapper's operands."""
+    c0, cx, cz = cl._legacy_constants(kw["space_order"], kw["spacing"], dt)
+    mT, hdT = m.T.contiguous(), hd.T.contiguous()
+    # held until the launch: a pointer of a dropped temporary may be
+    # handed to the next one
+    two_m_hd, denom = 2.0 * mT + hdT, 1.0 / (mT + hdT)
+    injT = inj.transpose(1, 2).contiguous()
+    B, nz, nx = injT.shape
+    nt = kw["nt"]
+    rec = injT.new_empty((B, nt, 2, nx))
+    u, up = injT.new_zeros((B, nz, nx)), injT.new_zeros((B, nz, nx))
+    cx32, cz32 = np.asarray(cx, np.float32), np.asarray(cz, np.float32)
+    err = lib.acoustic2d_legacy_forward(
+        mT.data_ptr(), two_m_hd.data_ptr(), denom.data_ptr(),
+        wav.data_ptr(), injT.data_ptr(),
+        rec.data_ptr(), u.data_ptr(), up.data_ptr(), B, nz, nx, nt,
+        kw["z0"], len(cx) - 1, cx32.ctypes.data, cz32.ctypes.data,
+        ctypes.c_float(c0),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err:
+        raise RuntimeError(f"baseline legacy forward: CUDA error {err}")
+    return rec
+
+
+def _legacy(libs, baseline, smoke, reps):
+    """The legacy sweep (row 6) at SMARMN's 29 shots: each variant's plan,
+    the clusters the card holds at once, its time and its rows against the
+    twin's."""
+    margs = marm.make_parser(marm.SMARMN).parse_args(["--device", "cuda"])
+    _, geoms, _, _ = marm.setup(marm.SMARMN, margs,
+                                marm.SMARMN.nsrc_default)
+    m, hd, wav, inj, dt, kw = cl.operands(geoms[1], device="cuda")
+    B, r = inj.shape[0], kw["space_order"] // 2
+    want = cl.forward_rows_plain(m, hd, wav, inj, dt, **kw)
+    print(f"legacy: SMARMN, {B} shots, {kw['nz']} x {kw['nx']}, "
+          f"{kw['nt'] - 2} steps", flush=True)
+    saved = {k: getattr(cl, k) for k in ("CLUSTER", "THREADS")}
+    calls = {}
+    for tag, (_, attrs) in VARIANTS_LEGACY.items():
+        def call(attrs=attrs):
+            for k, v in dict(saved, **attrs).items():
+                setattr(cl, k, v)
+            return cl.forward_rows(m, hd, wav, inj, dt, **kw)
+        calls[tag] = call
+    if baseline is not None:
+        base = ctypes.CDLL(str(libs[("legacy", "baseline")]))
+        base.acoustic2d_legacy_forward.argtypes = \
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p]
+        calls["baseline (one launch a step)"] = \
+            lambda: _legacy_baseline(base, m, hd, wav, inj, dt, kw)
+    order = list(calls)
+    try:
+        for tag in order + order[::-1]:
+            if tag in VARIANTS_LEGACY:
+                _use("acoustic2d_legacy", libs[("legacy", tag)])
+                calls[tag]()
+                plan = cl.sweep_launch(kw["nz"], kw["nx"], r, 4)
+                plan = f"{plan}, {cl.max_clusters(plan, r)} clusters at once"
+            else:
+                plan = "one launch a step"
+            ms, got = smoke.cuda_ms(calls[tag], reps)
+            print(f"  {tag}: {ms:.3f} ms ({ms * 1e3 / (kw['nt'] - 2):.2f} us "
+                  f"a step), equal to the twin: {torch.equal(got, want)}; "
+                  f"{plan}", flush=True)
+            del got
+    finally:
+        for k, v in saved.items():
+            setattr(cl, k, v)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", nargs="+", choices=("2d", "3d", "legacy"),
+                    default=("2d", "3d", "legacy"))
+    ap.add_argument("--baseline", default=None)
+    ap.add_argument("--sass", action="store_true",
+                    help="print the legacy kernels' SASS opcode counts")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_forwards: no CUDA device", file=sys.stderr)
@@ -130,20 +256,46 @@ def main(argv=None):
     sys.path.insert(0, ".")
     import chip_smoke as smoke
     print(smoke.card_line(), flush=True)
-    jobs = [("acoustic2d", t, s) for t, s in VARIANTS_2D.items()] + \
-        [("acoustic3d", t, s) for t, (s, _) in VARIANTS_3D.items()]
+    jobs = []
+    if "2d" in args.only:
+        jobs += [("acoustic2d", t, s) for t, s in VARIANTS_2D.items()]
+    if "3d" in args.only:
+        jobs += [("acoustic3d", t, s) for t, (s, _) in VARIANTS_3D.items()]
+    if "legacy" in args.only:
+        jobs += [("acoustic2d_legacy", t, s)
+                 for t, (s, _) in VARIANTS_LEGACY.items()]
+        if args.baseline:
+            jobs.append(("acoustic2d_legacy", "baseline", {},
+                         Path(args.baseline)))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(_build, jobs))
     print(f"built {len(built)} variants in {time.perf_counter() - t0:.1f} s")
     libs = {}
-    for (name, _, _), (tag, lib, regs) in zip(jobs, built):
-        libs[(name, tag)] = lib
+    for job, (tag, lib, regs) in zip(jobs, built):
+        key = "legacy" if job[0] == "acoustic2d_legacy" else job[0]
+        libs[(key, tag)] = lib
         for line in regs:
-            print(f"  {name} {tag}: {line}")
-    dev = torch.device("cuda", 0)
+            print(f"  {job[0]} {tag}: {line}")
+        if key == "legacy" and args.sass:
+            counts = _sass_counts(lib, "legacy_step" if tag == "baseline"
+                                  else "legacy_sweep")
+            if counts:
+                top = sorted(counts.items(), key=lambda kv: -kv[1])[:12]
+                print(f"    SASS of the radius-4 kernel: "
+                      f"{sum(counts.values())} instructions; {top}")
+    if "2d" in args.only:
+        _forwards2d(libs, smoke, args.reps)
+    if "3d" in args.only:
+        _forwards3d(libs, smoke, args.reps)
+    if "legacy" in args.only:
+        _legacy(libs, args.baseline, smoke, args.reps)
+    return 0
 
-    # 2-D: SMARMN, 29 shots
+
+def _forwards2d(libs, smoke, reps):
+    """The three 2-D forwards at SMARMN's 29 shots."""
+    dev = torch.device("cuda", 0)
     margs = marm.make_parser(marm.SMARMN).parse_args(["--device", "cuda"])
     _, geoms, _, _ = marm.setup(marm.SMARMN, margs,
                                 marm.SMARMN.nsrc_default)
@@ -164,14 +316,17 @@ def main(argv=None):
         _use("acoustic2d", libs[("acoustic2d", tag)])
         for key, (kernel, _) in sweeps.items():
             ms, got = smoke.cuda_ms(lambda: kernel(*ops, **st.kw),
-                                    args.reps)
+                                    reps)
             print(f"  {tag}: {key} {ms:.3f} ms, equal to the twin: "
                   f"{_equal(got, want[key])}", flush=True)
             del got
     del want, ops
     torch.cuda.empty_cache()
 
-    # 3-D: bench config 5, 4 shots
+
+def _forwards3d(libs, smoke, reps):
+    """The two 3-D forwards at bench config 5's 4 shots."""
+    dev = torch.device("cuda", 0)
     st3 = fwi._Setup3(smoke.config5(1), dev)
     ny, nz, nx = st3.m3.shape
     ops = (st3.m3, st3.hd3, *st3.planes(0, smoke.C5_SHOTS), st3.dt)
@@ -198,11 +353,11 @@ def main(argv=None):
                 else with_chunks(chunks)
             ms, got = smoke.cuda_ms(lambda: c3d.forward_rec3(*ops,
                                                              **st3.kw),
-                                    args.reps)
+                                    reps)
             same = _equal(got, (want_rec,))
             del got
             ms2, got = smoke.cuda_ms(
-                lambda: c3d.forward_dt2_stream3(*ops, **st3.kw), args.reps)
+                lambda: c3d.forward_dt2_stream3(*ops, **st3.kw), reps)
             same2 = _equal(got, want_dt2)
             del got
             torch.cuda.empty_cache()

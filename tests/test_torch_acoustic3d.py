@@ -822,7 +822,11 @@ def test_geometry_gates_3d():
     p2 = _port_geometry(g2)
     assert "adjacent z-planes" in c3d.unsupported_reason(p2)
     with pytest.raises(NotImplementedError, match="adjacent z-planes"):
-        tfwi.fm_multi(p2, device="cpu")
+        tfwi._Setup3(p2, torch.device("cpu"))
+    # the objective and fm_multi take such a geometry to the eager route
+    tfwi.reset_counters()
+    assert len(tfwi.fm_multi(p2, device="cpu")) == p2.nsrc
+    assert tfwi.EAGER["fm_multi"] == 1
     # a source past the padded y grid
     src = np.asarray(g.src_positions).copy()
     src[0, 1] = model.domain_size[1] + 200.0
@@ -830,13 +834,23 @@ def test_geometry_gates_3d():
                              f0=0.015, src_type="Ricker")
     assert p3d.geometry_supported3(g3) is False
     assert "y-corners" in c3d.unsupported_reason(_port_geometry(g3))
-    # on cuda the saved route raises where the step kernel does not apply
+    # on cuda the saved route steps the eager update where the step kernel
+    # does not apply, counted (it raised until the eager route took it)
     fs_model = _port_geometry(_geom3(fs=True)).model
-    with pytest.raises(NotImplementedError, match="free surface"):
-        tfwi._saved_step3(fs_model, torch.float32, torch.device("cuda"))
+    tfwi.reset_counters()
+    assert tfwi._saved_step3(fs_model, torch.float32,
+                             torch.device("cuda")) is False
+    assert tfwi.EAGER["saved_step"] == 1
     assert tfwi._saved_step3(fs_model, torch.float32,
                              torch.device("cpu")) is False
+    assert tfwi.EAGER["saved_step"] == 1
+    # a 3-D gradient with stream=False takes the eager checkpoint route
+    # (its traces meet the streamed kernels' to float32 rounding)
     p0 = _port_geometry(g)
-    with pytest.raises(NotImplementedError, match="checkpoint route"):
-        tfwi.fwi_obj_multi(p0, tfwi.fm_multi(p0, device="cpu"), None,
-                           calc_grad=True, device="cpu", stream=False)
+    obs = tfwi.fm_multi(p0, device="cpu")
+    f, grad, _ = tfwi.fwi_obj_multi(p0, obs, None, calc_grad=True,
+                                    device="cpu", stream=False)
+    assert tfwi.EAGER["objective"] == 1
+    energy = 0.5 * sum(float(np.sum(o.data.astype(np.float64) ** 2))
+                       for o in obs)
+    assert 0.0 <= f <= 1e-6 * energy and np.isfinite(grad).all()

@@ -36,7 +36,14 @@ streamed one bitwise. The 3-D sweeps run on layers-isotropic 24 x 20 x 16
 (nbl 8, 2 shots, space order 4 and 8, with and without the free surface)
 and the step kernel on seeded 48 x 20 x 36 fields; the 3-D objective on
 the card, on both routes, is held against its CPU twins. Select them
-with ``-k 3d``.
+with ``-k 3d``. B15's cluster sweep (``cuda_legacy.forward_rows``) runs at
+space orders 4 and 8, at SMARMN's padded grid with 40 shots (a second
+wave of clusters) and on a 187-row grid that the cluster of 4 does not
+divide, with z0 and the sources on slab boundaries, equal to its twin
+exactly; it raises, launching nothing, for a grid past a cluster of 8.
+The eager objective route on the card (receivers on a vertical line) is
+held against the same call on the CPU. Select them with ``-k "legacy or
+eager"``.
 """
 import numpy as np
 import pytest
@@ -1112,3 +1119,96 @@ def test_legacy_kernel_matches_twin_bitwise(cuda, space_order):
     assert cl.TWIN_CALLS["forward_rows"] == 0
     ref = np.stack([s.data for s in fwi.fm_multi(geom, device="cuda")])
     assert np.abs(tr - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _legacy_operands(B, nz, nx, space_order, z0, src_rows, dev, nt=60):
+    """Seeded ``forward_rows`` operands in its (nx, nz) layout: vp 1.5-3.0
+    km/s at 10 m, dt 1 ms, a damp of up to 0.05, one wavelet, each shot's
+    2 x 2 source block on a row of ``src_rows``."""
+    rng = np.random.default_rng(5)
+    vp = rng.uniform(1.5, 3.0, (nx, nz))
+    f32 = dict(dtype=torch.float32, device=dev)
+    m = torch.as_tensor(1.0 / vp ** 2, **f32)
+    hd = torch.as_tensor(rng.uniform(0.0, 0.05, (nx, nz)), **f32)
+    inj = torch.zeros((B, nx, nz), **f32)
+    for s in range(B):
+        z, x = src_rows[s % len(src_rows)], 2 + (7 * s) % (nx - 3)
+        inj[s, x:x + 2, z:z + 2] = torch.as_tensor(
+            rng.uniform(0.1, 0.5, (2, 2)), **f32)
+    wav = torch.as_tensor(rng.standard_normal(nt - 2), **f32)
+    kw = dict(nt=nt, nx=nx, nz=nz, space_order=space_order,
+              spacing=(10., 10.), z0=z0)
+    return (m, hd, wav, inj, 1.0), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nz,nx,space_order,z0,src_rows", [
+    # SMARMN's padded grid at 40 shots: more clusters than the card holds
+    # at once, a second wave
+    (40, 186, 380, 8, 42, (20, 100)),
+    # nz no multiple of the cluster (slabs of 47 rows): z0 on the last row
+    # of the first slab, sources on a slab's first and last rows
+    (3, 187, 61, 8, 46, (47, 93)),
+    (3, 187, 61, 4, 93, (46, 140)),
+])
+def test_legacy_cluster_sweep_matches_twin_bitwise(cuda, B, nz, nx,
+                                                   space_order, z0,
+                                                   src_rows):
+    """B15's cluster sweep against its twin, every row equal: at 40 SMARMN
+    shots (a second wave of clusters) and on a grid whose nz the cluster
+    does not divide, with z0 and the sources on slab boundaries."""
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    ops, kw = _legacy_operands(B, nz, nx, space_order, z0, src_rows, cuda)
+    plan = cl.sweep_launch(nz, nx, space_order // 2)
+    waves = -(-B // cl.max_clusters(plan, space_order // 2))
+    assert waves == (2 if B == 40 else 1)
+    assert nz % plan.cluster or B == 40
+    cl.reset_counters()
+    got = cl.forward_rows(*ops, **kw)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES["forward_rows"] == 1
+    want = cl.forward_rows_plain(*ops, **kw)
+    assert bool(want.abs().max() > 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_legacy_refuses_an_oversized_grid_without_launching(cuda):
+    """A grid whose slab does not fit a block even at a cluster of 8
+    raises ValueError and launches nothing."""
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    ops, kw = _legacy_operands(1, 600, 380, 8, 10, (5,), cuda, nt=6)
+    cl.reset_counters()
+    with pytest.raises(ValueError, match="even at a cluster of 8"):
+        cl.forward_rows(*ops, **kw)
+    assert cl.LAUNCHES["forward_rows"] == 0
+    assert cl.TWIN_CALLS["forward_rows"] == 0
+
+
+@pytest.mark.cuda
+def test_eager_route_on_the_card_matches_the_cpu(cuda):
+    """A geometry no kernel takes (3 camembert shots, 31 receivers on the
+    vertical line x = 380 m) runs the eager route on cuda, counted, no
+    kernel or twin called, its objective within 1e-5 and gradient within
+    3e-5 of the max of the same float32 call on the CPU."""
+    kw = dict(origin=(0., 0.), shape=(41, 41), spacing=(10., 10.), nbl=10,
+              space_order=4)
+    true = demo_model("circle-isotropic", vp_circle=3.0, vp_background=2.5,
+                      r=8, **kw)
+    kw["dt"] = float(true.critical_dt)
+    init = demo_model("circle-isotropic", vp_circle=2.5, vp_background=2.5,
+                      **kw)
+    src = np.stack([np.full(3, 20.), np.linspace(0., 400., 3)], 1)
+    rec = np.stack([np.full(31, 380.), np.linspace(10., 390., 31)], 1)
+    g1, g0 = (AcquisitionGeometry(m, rec, src, 0., 250., f0=0.012,
+                                  src_type="Ricker") for m in (true, init))
+    obs = fwi.fm_multi(g1, device="cpu")
+    x = 1.0 / np.asarray(g0.model.vp_unpadded, np.float64).reshape(-1) ** 2
+    fwi.reset_counters()
+    ca.reset_counters()
+    f_c, g_c, _ = fwi.fwi_loss(x.copy(), g0, obs, None, device="cuda")
+    assert fwi.EAGER["objective"] == 1
+    assert not any(ca.LAUNCHES.values()) and not any(ca.TWIN_CALLS.values())
+    f_p, g_p, _ = fwi.fwi_loss(x.copy(), g0, obs, None, device="cpu")
+    assert abs(f_c - f_p) <= 1e-5 * abs(f_p)
+    assert np.abs(g_c - g_p).max() <= 3e-5 * np.abs(g_p).max()

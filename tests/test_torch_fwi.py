@@ -172,9 +172,11 @@ def test_fwi_loss_matches_jax_f64():
 
 def test_unported_options_raise():
     """A custom misfit and trace resampling, which raised before the
-    host-misfit path was ported, now run; a geometry the kernels do not
-    take (receivers on a vertical line) still raises, naming the roadmap
-    item."""
+    host-misfit path was ported, now run; so does a geometry the kernels
+    do not take (receivers on a vertical line), which raised until the
+    eager route took it: through the eager operators, counted in
+    ``fwi.EAGER``, no kernel twin called (tests/test_torch_eager_route.py
+    holds it against the JAX objective)."""
     g0 = _port_geometry(_jax_geometries(np.float32)[1])
     obs = tfwi.fm_multi(g0, device="cpu")
     f, g, res = tfwi.fwi_obj_multi(g0, obs, lambda a, b: (0.0, a - b),
@@ -187,8 +189,17 @@ def test_unported_options_raise():
     rec = np.stack([np.full(11, 300.), np.linspace(0., 400., 11)], 1)
     gv = TGeometry(model, rec, g0.src_positions, g0.t0,
                    g0.tn, f0=g0.f0, src_type="Ricker")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfwi.fwi_obj_multi(gv, obs, t_least_square, device="cpu")
+    with pytest.raises(NotImplementedError, match="adjacent z-planes"):
+        tfwi._Setup(gv, torch.device("cpu"))
+    tfwi.reset_counters()
+    from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
+    ca.reset_counters()
+    obs_v = tfwi.fm_multi(gv, device="cpu")
+    f, g, _ = tfwi.fwi_obj_multi(gv, obs_v, t_least_square, calc_grad=True,
+                                 device="cpu")
+    assert f == 0.0 and np.isfinite(g).all()
+    assert tfwi.EAGER == {"objective": 1, "fm_multi": 1, "saved_step": 0}
+    assert not any(ca.TWIN_CALLS.values())
 
 
 def _l2_numpy(syn, obs):

@@ -176,7 +176,8 @@ def test_acoustic2d_reverse_runs_the_two_step_tile():
     ("probe_forwards", "VARIANTS_3D", "acoustic3d.cu"),
     ("probe_reverses", "VARIANTS_2D", "acoustic2d.cu"),
     ("probe_reverses", "VARIANTS_TTI", "tti2d.cu"),
-    ("probe_reverses", "VARIANTS_3D", "acoustic3d.cu")])
+    ("probe_reverses", "VARIANTS_3D", "acoustic3d.cu"),
+    ("probe_forwards", "VARIANTS_LEGACY", "acoustic2d_legacy.cu")])
 def test_probe_variants_apply_to_the_committed_sources(probe, table, source):
     """Every design variant the card probes build is a set of text
     substitutions into a kernel source; each text must still be in the
@@ -551,6 +552,40 @@ def test_legacy_and_solver_entry_points_raise_on_cuda_without_card(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     AcousticWaveSolver(g.model, g, device="cpu")
+
+
+def test_legacy_source_runs_one_cluster_launch_a_sweep():
+    """B15's entry point launches one thread-block cluster kernel a sweep
+    (``cudaLaunchKernelEx`` with a cluster dimension, after the shared-
+    memory attribute and an occupancy check), not a launch a step; it
+    takes the source as a cell list and no u / up scratch in device
+    memory; its ctypes signature and the occupancy query's follow the
+    source."""
+    from devito_fwi_tpu_torch.ops import cuda_legacy as cl
+    src = open(os.path.join(PKG, "csrc", "acoustic2d_legacy.cu")).read()
+    assert _kernels_launched("acoustic2d_legacy.cu") == set()
+    assert "<<<" not in src
+    for needle in ("cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "cudaOccupancyMaxActiveClusters", "map_shared_rank",
+                   "barrier.cluster.arrive", "barrier.cluster.wait",
+                   "cudaGetLastError"):
+        assert needle in src, needle
+    params = src[src.index("int acoustic2d_legacy_forward("):].split(")")[0]
+    assert "src_cells" in params and "src_vals" in params
+    assert "inj" not in params and "float* up" not in params
+    assert set(cl.SIGNATURES) == {"acoustic2d_legacy_forward",
+                                  "acoustic2d_legacy_max_clusters",
+                                  "acoustic2d_legacy_error_string"}
+    _check_signatures(cl, "acoustic2d_legacy.cu")
+
+
+@pytest.mark.parametrize("module", ["fwi.py", "optimize/math.py"])
+def test_eager_route_and_math_modules_are_scanned(module):
+    """The objective layer with its eager route and the port's copy of
+    the optimizer's math module are among the sources the scans above read
+    (and so import no JAX)."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
 
 
 def test_legacy_wrapper_rejects_other_devices():
