@@ -180,12 +180,38 @@ result line is printed:
    circle 201 x 201, space order 6, nbl 40, receivers on the vertical line
    x = 1980 m, which no kernel takes) on cuda: the route counted in
    ``fwi.EAGER``, no twin called, a finite gradient;
-38. a ``kernels`` JSON line; the card's name and power limit; the script's
+38. main path, the forward-modeling drivers: ``marmousi_fm`` and
+   ``marmousi2_fm`` (``run_fm``, 21 shots each, at SMARMN's and SMARM2's
+   full grids) on cuda: the 63 files of each under the JAX driver's names,
+   float32 of the JAX shape, the observed data bitwise a direct
+   ``fm_multi`` of the true model, row 1's kernel launched, no twin
+   called; the driver's wall time;
+39. main path, ``circle_fwi`` (``BASELINE.json`` config 0) at its full
+   width (201 x 201, nbl 40, space order 6, tn 1000 ms, ``--maxiter 1``;
+   4 shots, cut from its 11: ``CIRCLE_SHOTS``) on cuda, the eager route: a
+   finite misfit, the log files, every objective call counted in
+   ``fwi.EAGER``; the wall time of the iteration and of each objective
+   call;
+40. the self-adjoint solver at float64 on cuda: the Hankel far field of
+   ``examples/sa_far_field.py`` within 2%, with the forward's time, and
+   the F and J adjoint dot tests (71 x 61, space order 8; 1e-12, 1e-11);
+41. PML and HABC on cuda: the reflection checks of ``tests/test_abc.py``
+   (PML under 1% of hard truncation's error, HABC under 5%, Higdon under
+   0.5%) and the stability check, with each forward's time;
+42. viscoelastic on cuda: the solver's goldens 12.28040 / 0.312461 (atol
+   1e-3) and the five-parameter gradient of ``bench.py``'s
+   ``_bench_viscoelastic`` workload (SMARM2, 4 shots) through
+   ``viscoelastic_value_and_grad``, timed, finite and non-zero;
+43. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
+
+Phases 38-42 run no kernel of their own (the JAX package wrote none for
+these modules) other than row 1 in phase 38.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
 import gc
+import importlib
 import json
 import subprocess
 import sys
@@ -2207,6 +2233,342 @@ def eager_route_phase(dev, fwi, counters, report):
         raise AssertionError("the eager route did not give a gradient")
 
 
+# the fm drivers' default --nsrc
+FM_SHOTS = 21
+# phase 39's shots, cut from circle_fwi's 11: at 11 shots one iteration
+# took 92.6-133.0 s on the card (host-bound eager steps, the host's speed
+# sets it) and the whole script 1039.7 s of its 1200 s; shots are the
+# batch, not the width
+CIRCLE_SHOTS = 4
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fm_driver_phase(dev, marm, fwi, ca, counters, report, workdir):
+    """Phase 38: ``marmousi_fm`` and ``marmousi2_fm`` (``run_fm``) at their
+    full grids and default shots: the files of the JAX driver's names,
+    float32 and shape, the observed data bitwise a direct ``fm_multi`` of
+    the true model, row 1's kernel launched and no twin called."""
+    phase(f"38 main path: marmousi_fm and marmousi2_fm, {FM_SHOTS} shots "
+          f"each, on {dev.type}")
+    t_phase = time.perf_counter()
+    for cfg in (marm.SMARMN, marm.SMARM2):
+        odir = f"{workdir}/{cfg.name}"
+        for reset in counters:
+            reset()
+        t0 = time.perf_counter()
+        obs, syn, dw = marm.run_fm(cfg, ["--odir", odir, "--device",
+                                         dev.type])
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launched = ca.LAUNCHES["forward_rec_segments"]
+        report(f"{cfg.name} fm", ("forward_rec_segments",), record=False)
+        nt, nrec = obs[0].data.shape
+        args = marm.make_parser(cfg, fm=True).parse_args(["--device",
+                                                          dev.type])
+        _, geoms, _, _ = marm.setup(cfg, args, FM_SHOTS)
+        direct = fwi.fm_multi(geoms[0], device=dev.type)
+        for i in range(FM_SHOTS):
+            for name, shots in (("obs", obs), ("syn", syn), ("dw", dw)):
+                data = np.fromfile(f"{odir}/data/{name}{i}", np.float32)
+                if data.size != nt * nrec or not np.array_equal(
+                        data.reshape(nt, nrec), shots[i].data):
+                    raise AssertionError(f"{cfg.name} data/{name}{i} is "
+                                         "not the gather it modeled")
+                if not (np.isfinite(data).all() and np.abs(data).max() > 0):
+                    raise AssertionError(f"{cfg.name} data/{name}{i} not "
+                                         "finite and non-zero")
+            if not np.array_equal(np.fromfile(
+                    f"{odir}/data/obs{i}", np.float32).reshape(nt, nrec),
+                    direct[i].data):
+                raise AssertionError(f"{cfg.name} data/obs{i} differs from "
+                                     "a direct fm_multi of the true model")
+        print(f"   {cfg.name}: padded {geoms[0].model.padded_shape}, nt {nt},"
+              f" {nrec} receivers; {3 * FM_SHOTS} files of {nt} x {nrec} "
+              f"float32; forward_rec_segments launched {launched} times; "
+              f"obs == direct fm_multi bitwise; the driver {wall:.3f} s")
+    print(f"   phase 38: {time.perf_counter() - t_phase:.1f} s")
+
+
+def circle_phase(dev, fwi, counters, report, workdir):
+    """Phase 39: ``drivers/circle_fwi.py`` at its full width, one L-BFGS
+    iteration on the eager route: a finite misfit, the log files, every
+    objective call counted in ``fwi.EAGER``, the wall time of the iteration
+    and of each objective call."""
+    from devito_fwi_tpu_torch.drivers import circle_fwi
+    phase(f"39 main path: circle_fwi, 201 x 201 at 10 m, nbl 40, space "
+          f"order 6, tn 1000 ms, {CIRCLE_SHOTS} shots (cut from its 11 for "
+          f"the script's time limit), --maxiter 1, on {dev.type}")
+    t_phase = time.perf_counter()
+    odir = f"{workdir}/circle"
+    for reset in counters:
+        reset()
+    t0 = time.perf_counter()
+    m, stats = circle_fwi.main(["--maxiter", "1", "--nsrc",
+                                str(CIRCLE_SHOTS), "--odir", odir,
+                                "--device", dev.type])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    report("circle_fwi", (), record=False)
+    calls = stats["calls"]
+    for i, (grad, f, secs) in enumerate(calls):
+        print(f"   objective call {i + 1}: "
+              f"{'gradient' if grad else 'trial'}, {f!r}, {secs:.3f} s")
+    print(f"   observed data (fm_multi, {CIRCLE_SHOTS} shots) "
+          f"{stats['model_s']:.3f} s; the iteration {stats['fwi_s']:.3f} s;"
+          f" the driver {wall:.3f} s; eager route calls {fwi.EAGER}")
+    with open(f"{odir}/log0/misfit") as fh:
+        log = fh.read().split()
+    result = np.fromfile(f"{odir}/circle_result_misfit_0", np.float32)
+    values = [c[1] for c in calls]
+    if not (len(calls) >= 2 and calls[0][0]
+            and fwi.EAGER["objective"] == len(calls)
+            and fwi.EAGER["fm_multi"] == 1
+            and np.all(np.isfinite(values)) and min(values) > 0
+            and len(log) == 2 and np.isfinite(float(log[0]))
+            and float(log[0]) == float(f"{calls[0][1]:10.3e}")
+            and result.size == m.size and np.isfinite(result).all()
+            and np.isfinite(m).all()):
+        raise AssertionError("circle_fwi did not run its iteration on the "
+                             "eager route, or its logs are off")
+    with open(f"{odir}/log0/optim_info") as fh:
+        print(f"   log0/misfit: {' '.join(log)}; log0/optim_info:")
+        print("   " + fh.read().strip().replace("\n", "\n   "))
+    print(f"   phase 39: {time.perf_counter() - t_phase:.1f} s")
+
+
+def self_adjoint_phase(dev):
+    """Phase 40: the self-adjoint solver at float64: the analytic far field
+    (``examples/sa_far_field.py``) and the F and J adjoint dot tests of
+    ``tests/test_self_adjoint.py`` at their size and tolerance."""
+    from devito_fwi_tpu_torch.examples import sa_far_field
+    from devito_fwi_tpu_torch.ops.sa_wavesolver import acoustic_sa_setup
+    phase(f"40 the self-adjoint solver at float64 on {dev.type}: the Hankel "
+          "far field (401 x 401 at 0.5 m, npad 50, nt 1001) and the F and J "
+          "dot tests (71 x 61, space order 8)")
+    t_phase = time.perf_counter()
+    got, want, summary, padded = sa_far_field.far_field(dev.type)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    cells = padded[0] * padded[1]
+    print(f"   far field: max|numerical - analytic| / max = {err:.4e} "
+          f"[{sa_far_field.TOLERANCE}]; the forward {summary.elapsed:.3f} s "
+          f"for 1001 steps of {padded[0]} x {padded[1]} "
+          f"({1001 * cells / summary.elapsed / 1e6:.1f} Mcell-steps/s)")
+    if not err < sa_far_field.TOLERANCE:
+        raise AssertionError("the self-adjoint far field is off the "
+                             "analytic trace")
+    solver = acoustic_sa_setup(shape=(71, 61), spacing=(10., 10.), tn=500.,
+                               space_order=8, nbl=10, dtype=np.float64,
+                               device=dev.type)
+    rng = np.random.default_rng(SEED)
+    src1 = solver.geometry.src
+    rec1 = solver.geometry.new_rec()
+    rec1.data[:] = rng.random(rec1.data.shape)
+    rec2, _, _ = solver.forward(src1)
+    src2, _, _ = solver.adjoint(rec1)
+    sum_s = np.dot(src1.data.ravel(), src2.data.ravel())
+    sum_r = np.dot(rec1.data.ravel(), rec2.data.ravel())
+    diff_f = (sum_s - sum_r) / (sum_s + sum_r)
+    m0 = np.full(solver.model.padded_shape, 1.5)
+    dm1 = np.zeros(solver.model.padded_shape)
+    ctr = [n // 2 for n in solver.model.padded_shape]
+    dm1[ctr[0] - 5:ctr[0] + 6, ctr[1] - 5:ctr[1] + 6] = \
+        -1 + 2 * rng.random((11, 11))
+    rec3, u0, _, _ = solver.jacobian(dm1, src=src1, vp=m0, save=True)
+    dm2, _, _, _ = solver.jacobian_adjoint(rec1, u0, vp=m0)
+    sum_m = np.dot(dm1.ravel(), dm2.ravel())
+    sum_d = np.dot(rec1.data.ravel(), rec3.data.ravel())
+    diff_j = (sum_m - sum_d) / (sum_m + sum_d)
+    print(f"   F dot test {diff_f:.3e} [1e-12], J dot test {diff_j:.3e} "
+          f"[1e-11]; phase 40: {time.perf_counter() - t_phase:.1f} s")
+    if not (abs(diff_f) <= 1e-12 and abs(diff_j) <= 1e-11):
+        raise AssertionError("a self-adjoint dot test failed")
+
+
+def abc_phase(dev):
+    """Phase 41: the PML and HABC reflection checks of
+    ``tests/test_abc.py`` (a 101 x 101 interior at 10 m, 1.5 km/s, tn 800
+    ms, against a boundary-free trace with a 200-cell margin) and the
+    stability check (tn 8000 ms), float32."""
+    from devito_fwi_tpu_torch.models.sources import RickerSource, TimeAxis
+    from devito_fwi_tpu_torch.ops import abc
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    phase(f"41 PML and HABC on {dev.type}: the reflection checks and the "
+          "stability check")
+    t_phase = time.perf_counter()
+    h, n = 10.0, 101
+
+    def case(margin, tn=800.0):
+        v = abc.extend_velocity(np.full((n, n), 1.5, np.float32), margin)
+        dt = 0.4 * h / 1.5
+        ta = TimeAxis(start=0.0, stop=tn, step=dt)
+        src = RickerSource(name="src", f0=0.015, time_range=ta,
+                           coordinates=np.array([[n // 2 * h, 3 * h]]))
+        rc = np.array([[n // 2 * h + 200.0, 400.0],
+                       [n // 2 * h - 300.0, 150.0]])
+        si, sw = interp_table(src.coordinates, (-margin * h, 0.0), (h, h))
+        ri, rw = interp_table(rc, (-margin * h, 0.0), (h, h))
+        return (torch.as_tensor(v, device=dev),
+                torch.as_tensor(src.data, device=dev), si, sw, ri, rw, dt,
+                dict(nt=ta.num, spacing=(h, h), npml=margin))
+
+    def run(fwd, margin, tn=800.0, **kw):
+        v, wav, si, sw, ri, rw, dt, static = case(margin, tn)
+        t0 = time.perf_counter()
+        rec, _ = fwd(v, wav, si, sw, ri, rw, dt, **static, **kw)
+        sync(dev)
+        return rec.cpu().numpy(), time.perf_counter() - t0, static["nt"]
+
+    ref, t_ref, nt = run(abc.pml_acoustic_forward, 200, quibar=0.0)
+    hard, _, _ = run(abc.pml_acoustic_forward, 20, quibar=0.0)
+
+    def err(rec):
+        return np.linalg.norm(rec - ref) / np.linalg.norm(ref)
+    err_hard = err(hard)
+    print(f"   boundary-free reference (501 x 301, {nt} steps) "
+          f"{t_ref:.3f} s; hard truncation error {err_hard:.4e} [> 0.1]")
+    fails = [] if err_hard > 0.1 else ["hard truncation"]
+    pml, secs, _ = run(abc.pml_acoustic_forward, 20, quibar=0.05)
+    print(f"   PML (141 x 121): error {err(pml):.4e}, "
+          f"{err(pml) / err_hard:.4e} of hard [0.01]; {secs:.3f} s")
+    if not err(pml) < 0.01 * err_hard:
+        fails.append("PML")
+    for habctype in (1, 2, 3):
+        rec, secs, _ = run(abc.habc_acoustic_forward, 20, habctype=habctype,
+                           habcw=2)
+        limit = 0.005 if habctype == 3 else 0.05
+        print(f"   HABC type {habctype}: error {err(rec):.4e}, "
+              f"{err(rec) / err_hard:.4e} of hard [{limit}]; {secs:.3f} s")
+        if not err(rec) < limit * err_hard:
+            fails.append(f"HABC {habctype}")
+    for name, fwd, kw in (("PML", abc.pml_acoustic_forward,
+                           dict(quibar=0.05)),
+                          ("HABC type 3", abc.habc_acoustic_forward,
+                           dict(habctype=3))):
+        rec, secs, nt = run(fwd, 20, tn=8000.0, **kw)
+        norm = float(np.linalg.norm(rec))
+        print(f"   stability, {name}, {nt} steps: |rec| {norm:.4e}, "
+              f"{secs:.3f} s")
+        if not np.isfinite(norm):
+            fails.append(f"{name} stability")
+    print(f"   phase 41: {time.perf_counter() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError(f"boundary checks failed: {fails}")
+
+
+def viscoelastic_phase(dev, marm):
+    """Phase 42: the viscoelastic solver's goldens and a timed
+    five-parameter gradient on ``bench.py``'s ``_bench_viscoelastic``
+    workload."""
+    from scipy.ndimage import gaussian_filter
+    from devito_fwi_tpu_torch.elastic_fwi import model_vp_vs_rho
+    from devito_fwi_tpu_torch.misfit import least_square_torch
+    from devito_fwi_tpu_torch.models.geometry import (AcquisitionGeometry,
+                                                      setup_geometry)
+    from devito_fwi_tpu_torch.models.model import SeismicModel
+    from devito_fwi_tpu_torch.models.presets import demo_model, load_velocity
+    from devito_fwi_tpu_torch.ops import staggered as st
+    from devito_fwi_tpu_torch.ops import staggered_grad as sg
+    from devito_fwi_tpu_torch.ops.elastic_wavesolver import (
+        ViscoelasticWaveSolver)
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    phase(f"42 viscoelastic on {dev.type}: the solver's goldens and the "
+          "five-parameter gradient of bench.py's viscoelastic workload")
+    t_phase = time.perf_counter()
+    model = demo_model("layers-viscoelastic", space_order=4, shape=(50, 50),
+                       nbl=40, dtype=np.float32, spacing=(20., 20.))
+    geometry = setup_geometry(model, 1000.)
+    rec1, rec2, _, _, summary = ViscoelasticWaveSolver(
+        model, geometry, space_order=4, device=dev.type).forward()
+    n1, n2 = np.linalg.norm(rec1.data), np.linalg.norm(rec2.data)
+    print(f"   goldens: |rec1| {n1:.6f} [12.28040], |rec2| {n2:.6f} "
+          f"[0.312461] (atol 1e-3); forward {summary.elapsed:.3f} s, "
+          f"nt {geometry.nt}")
+    if not (abs(n1 - 12.28040) <= 1e-3 and abs(n2 - 0.312461) <= 1e-3):
+        raise AssertionError("the viscoelastic goldens are off")
+
+    # bench.py _bench_viscoelastic: SMARM2, vp smoothed at sigma 20, vs
+    # floored at 0.6, qp = 3.516 vp^2.2 1e-6, qs = 0.6 qp, 4 shots,
+    # receivers and sources at 60 m, space order 4
+    cfg = marm.SMARM2
+    v_true = load_velocity(f"{marm.default_data_dir()}/{cfg.name}/vp.true",
+                           cfg.shape)
+    v_init = gaussian_filter(v_true, sigma=20).astype(np.float32)
+    vs_t, rho_t = marm.elastic_fields(cfg, v_true)
+    vs_t = np.maximum(vs_t, 0.6).astype(np.float32)
+    qp = (3.516 * ((v_true * 1000.0) ** 2.2) * 1e-6).astype(np.float32)
+    qs = (qp * 0.6).astype(np.float32)
+
+    def mk(vp, dt=None):
+        return SeismicModel(origin=(0., 0.), spacing=cfg.spacing,
+                            shape=cfg.shape, space_order=4, vp=vp, vs=vs_t,
+                            b=(1.0 / rho_t), qp=qp, qs=qs, nbl=cfg.nbl,
+                            dt=dt, bcs="mask")
+
+    dt_e = min(float(mk(v_true).critical_dt), float(mk(v_init).critical_dt))
+    m1, m0 = mk(v_true, dt_e), mk(v_init, dt_e)
+    nsrc, nrec = 4, cfg.shape[0]
+    src = np.stack([np.linspace(0, m1.domain_size[0], nsrc),
+                    np.full(nsrc, 60.0)], 1)
+    rec = np.stack([np.linspace(cfg.spacing[0],
+                                m1.domain_size[0] - cfg.spacing[0], nrec),
+                    np.full(nrec, 60.0)], 1)
+    g0 = AcquisitionGeometry(m0, rec, src, 0.0, cfg.tn, f0=cfg.f0,
+                             src_type="Ricker")
+    nt = g0.nt
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    damp = T(m0.damp if np.ndim(m0.damp) else
+             np.ones(m0.padded_shape, np.float32))
+    r_idx, r_w = interp_table(g0.rec_positions, m0.origin_pml, m0.spacing)
+    # one shot a call: its source point and its column of the wavelets
+    tables = [interp_table(src[i:i + 1], m0.origin_pml, m0.spacing) +
+              (T(g0.src.data[:, i:i + 1]),) for i in range(nsrc)]
+    kw = dict(nt=nt, spacing=m0.spacing, space_order=4)
+    t0 = time.perf_counter()
+    obs = [st.viscoelastic_forward(T(m1.lam), T(m1.mu), T(m0.b), T(m0.qp),
+                                   T(m0.qs), damp, g0.f0, wav, si, sw, r_idx,
+                                   r_w, dt_e, **kw)[0]
+           for si, sw, wav in tables]
+    sync(dev)
+    t_obs = time.perf_counter() - t0
+    params = [T(x) for x in model_vp_vs_rho(m0)] + [T(m0.qp), T(m0.qs)]
+    zeros = torch.zeros_like(obs[0])
+    t0 = time.perf_counter()
+    fval, grads, shot_s = 0.0, None, []
+    for (si, sw, wav), o in zip(tables, obs):
+        t1 = time.perf_counter()
+        f, g, _, _ = sg.viscoelastic_value_and_grad(
+            *params, damp, g0.f0, wav, si, sw, r_idx, r_w, o, zeros, dt_e,
+            least_square_torch, **kw)
+        fval += float(f)
+        grads = list(g) if grads is None else [a + b for a, b in
+                                               zip(grads, g)]
+        shot_s.append(time.perf_counter() - t1)
+    sync(dev)
+    t_grad = time.perf_counter() - t0
+    cells = m0.padded_shape[0] * m0.padded_shape[1]
+    print(f"   workload: padded {m0.padded_shape}, nt {nt}, dt {dt_e:.4f} "
+          f"ms, {nsrc} shots; observed data {t_obs:.3f} s")
+    per_shot = [round(x, 3) for x in shot_s]
+    print(f"   gradient: objective {fval!r}, {t_grad:.3f} s ({per_shot} s "
+          f"a shot; {2 * nsrc * nt * cells / t_grad / 1e6:.1f} "
+          "Mcell-steps/s)")
+    ok = np.isfinite(fval) and fval > 0
+    for name, g in zip(("vp", "vs", "rho", "qp", "qs"), grads):
+        gmax = float(g.abs().max())
+        print(f"   max|g_{name}| = {gmax:.4e}")
+        ok = ok and bool(torch.isfinite(g).all()) and gmax > 0
+    print(f"   phase 42: {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        raise AssertionError("the viscoelastic gradient is not finite and "
+                             "non-zero")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2214,7 +2576,9 @@ def main():
         return 2
     from devito_fwi_tpu_torch import elastic_fwi, fwi, visco_fwi
     from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
-    from devito_fwi_tpu_torch.misfit import bfm, least_square, qWasserstein
+    from devito_fwi_tpu_torch.misfit import least_square, qWasserstein
+    # the module: the package exports the class ``bfm`` under the same name
+    bfm = importlib.import_module("devito_fwi_tpu_torch.misfit.bfm")
     from devito_fwi_tpu_torch.ops import cuda_acoustic as ca
     from devito_fwi_tpu_torch.ops import cuda_acoustic3 as c3
     from devito_fwi_tpu_torch.ops import cuda_acoustic3d as c3d
@@ -2616,8 +2980,14 @@ def main():
     legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
                          plain_ms, err, bounds)
     eager_route_phase(dev, fwi, counters, report)
+    with tempfile.TemporaryDirectory() as workdir:
+        fm_driver_phase(dev, marm, fwi, ca, counters, report, workdir)
+        circle_phase(dev, fwi, counters, report, workdir)
+    self_adjoint_phase(dev)
+    abc_phase(dev)
+    viscoelastic_phase(dev, marm)
 
-    phase("38 result")
+    phase("43 result")
     rows = []
     sources = (("acoustic2d", ca), ("bfm_push", cb), ("elastic2d", cs),
                ("visco2d", cv), ("tti2d", ct), ("acoustic3d", c3d),

@@ -20,7 +20,11 @@ observed data's length, as in the JAX driver. The 2-D solver's backends are
 a keyword of ``run_fwi`` (``bfm_options``), not a flag: the JAX driver reads
 them from the environment.
 
-Not ported yet: the forward-modeling drivers (ROADMAP.md queue A item 6).
+``run_fm`` is the forward-modeling flow of ``marmousi_fm`` and
+``marmousi2_fm`` (``make_parser(cfg, fm=True)``: 21 shots by default, no
+inversion flags): the true, smooth and water models' gathers through
+``fm_multi``, written as float32 ``data/obs<i>``, ``data/syn<i>`` and
+``data/dw<i>`` under ``--odir``.
 """
 import argparse
 import os
@@ -67,45 +71,51 @@ def default_data_dir():
         os.path.abspath(__file__)))), "model_data")
 
 
-def make_parser(cfg):
-    p = argparse.ArgumentParser(description="Full waveform inversion")
-    p.add_argument("--misfit", type=int, default=0, choices=[0, 1, 2],
-                   help="misfit function type:"
-                        "0=least square/1=1d W2/2=2d W2")
-    p.add_argument("--precond", type=int, default=1,
-                   help="apply precondition")
-    p.add_argument("--check-gradient", type=int, default=0,
-                   help="check the gradient at 1st iteration")
-    p.add_argument("--resample", type=float, default=0.,
-                   help="resample dt, default 0 will not resample")
-    p.add_argument("--ftol", type=float, default=1e-5,
-                   help="Optimizing loss tolerance")
-    p.add_argument("--gtol", type=float, default=1e-10,
-                   help="Optimizing gradient norm tolerance")
-    p.add_argument("--maxiter", type=int, default=200,
-                   help="FWI iteration")
-    p.add_argument("--steplen", type=float, default=0.1,
-                   help="initial step length for line search")
-    p.add_argument("--maxls", type=int, default=5,
-                   help="max number of line search in each iteration")
-    p.add_argument("--batch-size", type=int, default=0,
-                   help="random shot subset per iteration (0 = all shots)")
-    p.add_argument("--physics", type=str, default="acoustic",
-                   choices=["acoustic", "elastic", "viscoacoustic"],
-                   help="propagator: acoustic, elastic staggered-grid "
-                        "Vp/Vs/rho FWI, or viscoacoustic SLS "
-                        "(Q-compensated) FWI")
-    p.add_argument("--resume", type=int, default=0,
-                   help="resume from the latest checkpoint under the log "
-                        "dir")
-    p.add_argument("--checkpoint-freq", type=int, default=1,
-                   help="write an optimizer-state checkpoint every N "
-                        "iterations (0 disables)")
+def make_parser(cfg, fm=False):
+    """The FWI drivers' flags, or with ``fm`` the forward-modeling drivers'
+    (21 shots by default, no inversion flags); both add ``--device``."""
+    p = argparse.ArgumentParser(description="Full waveform inversion"
+                                if not fm else "Forward modeling")
+    if not fm:
+        p.add_argument("--misfit", type=int, default=0, choices=[0, 1, 2],
+                       help="misfit function type:"
+                            "0=least square/1=1d W2/2=2d W2")
+        p.add_argument("--precond", type=int, default=1,
+                       help="apply precondition")
+        p.add_argument("--check-gradient", type=int, default=0,
+                       help="check the gradient at 1st iteration")
+        p.add_argument("--resample", type=float, default=0.,
+                       help="resample dt, default 0 will not resample")
+        p.add_argument("--ftol", type=float, default=1e-5,
+                       help="Optimizing loss tolerance")
+        p.add_argument("--gtol", type=float, default=1e-10,
+                       help="Optimizing gradient norm tolerance")
+        p.add_argument("--maxiter", type=int, default=200,
+                       help="FWI iteration")
+        p.add_argument("--steplen", type=float, default=0.1,
+                       help="initial step length for line search")
+        p.add_argument("--maxls", type=int, default=5,
+                       help="max number of line search in each iteration")
+        p.add_argument("--batch-size", type=int, default=0,
+                       help="random shot subset per iteration (0 = all "
+                            "shots)")
+        p.add_argument("--physics", type=str, default="acoustic",
+                       choices=["acoustic", "elastic", "viscoacoustic"],
+                       help="propagator: acoustic, elastic staggered-grid "
+                            "Vp/Vs/rho FWI, or viscoacoustic SLS "
+                            "(Q-compensated) FWI")
+        p.add_argument("--resume", type=int, default=0,
+                       help="resume from the latest checkpoint under the "
+                            "log dir")
+        p.add_argument("--checkpoint-freq", type=int, default=1,
+                       help="write an optimizer-state checkpoint every N "
+                            "iterations (0 disables)")
     p.add_argument("--odir", type=str, default="./result/" + cfg.name,
                    help="directory to output result")
     p.add_argument("--bathy", type=int, default=1, help="apply bathy mask")
     p.add_argument("--filter", type=int, default=0, help="filtering data")
-    p.add_argument("--nsrc", type=int, default=cfg.nsrc_default,
+    p.add_argument("--nsrc", type=int,
+                   default=cfg.nsrc_default if not fm else 21,
                    help="number of shots")
     p.add_argument("--data-dir", type=str, default=default_data_dir(),
                    help="directory holding %s/vp.true etc." % cfg.name)
@@ -492,3 +502,29 @@ def run_fwi(cfg, argv=None, bfm_options=None):
                      "marmousi_result_misfit_" + str(misfit_type)))
     print("final model range: %.3f %.3f km/s" % (vp.min(), vp.max()))
     return m, dict(calls=loss.calls, model_s=model_s)
+
+
+def run_fm(cfg, argv=None):
+    """Forward-modeling driver (reference ``marmousi_fm.py:107-118``): parse
+    ``argv`` (default: the command line), model the true, smooth and
+    constant-water gathers of every shot through ``fm_multi`` and write
+    them as float32 ``data/obs<i>``, ``data/syn<i>`` and ``data/dw<i>``
+    under ``--odir``. Returns the three lists of shot records."""
+    args = make_parser(cfg, fm=True).parse_args(argv)
+    result_dir = args.odir
+    os.makedirs(os.path.join(result_dir, "data"), exist_ok=True)
+    nsources = args.nsrc
+
+    models, geoms, _, _ = setup(cfg, args, nsources)
+    geometry1, geometry0, geometry2 = geoms
+
+    obs = fm_multi(geometry1, device=args.device)
+    syn = fm_multi(geometry0, device=args.device)
+    direct_wave = fm_multi(geometry2, device=args.device)
+    print(obs[0].data.shape)
+    for i in range(nsources):
+        for name, shots in (("obs", obs), ("syn", syn),
+                            ("dw", direct_wave)):
+            shots[i].data[:].astype(np.float32).tofile(
+                os.path.join(result_dir, "data", name + str(i)))
+    return obs, syn, direct_wave

@@ -30,6 +30,10 @@ kernel ``ops.cuda_bfm.legendre_banded`` with its certificate, the full
 transform where it fails) or "full". The vectorized slab fold ("vec", a
 negative result the JAX package keeps for comparisons) is not ported and
 raises ``NotImplementedError``.
+
+``bfm_torch`` solves one gather through ``bfm_batch``; ``bfm`` (alias
+``bfmx``) is the host-facing class of the reference driver,
+``gradient(f, g) -> (loss, grad)`` on numpy (nt, ntraces) gathers.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import torch.nn.functional as F
 from ..ops import cuda_bfm as _cb
 from ..ops.cuda_acoustic import matmul_full
 
-__all__ = ["bfm_batch", "resolve_backends", "COUNTS", "reset_counts"]
+__all__ = ["bfm_batch", "bfm_torch", "bfm", "bfmx", "resolve_backends",
+           "COUNTS", "reset_counts"]
 
 # host reads of device flags and the branches they chose
 COUNTS = dict(push_slab=0, push_banded=0, push_scatter=0, predicate_reads=0,
@@ -671,3 +676,45 @@ def bfm_batch(f_b, g_b, num_steps=10, step_scale=1.0, nsub=2, dmax=127,
     term = psum(mu * dual_f)[:, None, None] / pcount
     grad = torch.where(sum1 > 0, (dual_f - term) / sum1, zero)
     return torch.where(live, old, torch.zeros_like(old)), grad
+
+
+def bfm_torch(f, g, num_steps=10, step_scale=1.0, nsub=2, device=None,
+              **backends):
+    """Single-gather quadratic-Wasserstein distance and gradient: ``bfm_batch``
+    on a batch of one. ``f``, ``g`` (n2, n1) densities (rows = time);
+    tensors run where they lie, numpy arrays go to ``device`` (default
+    "cuda", which raises without a card); ``backends`` are ``bfm_batch``'s
+    (push, prep, legendre). Returns (loss, grad) as tensors."""
+    if not torch.is_tensor(f):
+        from ..fwi import _resolve_device
+        f = torch.as_tensor(np.asarray(f),
+                            device=_resolve_device(device or "cuda"))
+    g = torch.as_tensor(g, dtype=f.dtype, device=f.device)
+    loss, grad = bfm_batch(f[None], g[None], num_steps=num_steps,
+                           step_scale=step_scale, nsub=nsub, **backends)
+    return loss[0], grad[0]
+
+
+class bfm:
+    """Host-facing wrapper matching the reference driver's call shape
+    (``misfit/bfm.py:145-192``): ``gradient(f, g) -> (loss, grad)`` with f,
+    g numpy arrays of shape (nt, ntraces), solved on ``device`` ("cuda",
+    raising without a card, or "cpu")."""
+
+    def __init__(self, num_steps=10, step_scale=8.0, nsub=2, device="cuda"):
+        from ..fwi import _resolve_device
+        self.num_steps = num_steps
+        self.step_scale = step_scale
+        self.nsub = nsub
+        self.device = _resolve_device(device)
+
+    def gradient(self, f, g):
+        # reference layout: rows = time (y in the C solver), cols = traces
+        loss, grad = bfm_torch(np.asarray(f), np.asarray(g),
+                               num_steps=self.num_steps,
+                               step_scale=self.step_scale, nsub=self.nsub,
+                               device=self.device)
+        return float(loss), grad.cpu().numpy()
+
+
+bfmx = bfm  # reference alias: bfmx was the subprocess driver

@@ -12,7 +12,8 @@
   (``misfit/misfit.py:69-79``), or with ``bfm_backend="native"`` through
   the C++ solver of ``misfit.native`` on the host (the gathers make one
   round trip; the FWI objective sends this misfit to its host-misfit
-  path).
+  path);
+* ``Misfit``, the reference's wrapper of a misfit callable.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["least_square", "least_square_torch", "qWasserstein",
-           "transform_torch", "w2_1d_torch"]
+           "transform_torch", "w2_1d_torch", "Misfit"]
 
 
 def least_square(x, y):
@@ -219,3 +220,13 @@ def _transform_np_batch(f, g, trans_type, gamma):
         # the true derivative (see transform_torch)
         return mu, nu, gamma / (1.0 + np.exp(-gamma * f))
     return f, g, np.ones_like(f)
+
+
+class Misfit:
+    """Wrapper (reference ``misfit/misfit.py:106-111``)."""
+
+    def __init__(self, operator):
+        self.operator = operator
+
+    def __call__(self, x, y):
+        return self.operator(x, y)

@@ -217,12 +217,21 @@ def _torch_dtype(save_dtype, default):
     return getattr(torch, name)
 
 
-def _injector(idx, w, m, s2, shape):
+def _injector(idx, w, m, s2, shape, mul=None):
     """``inject(field, vals)``: ``field`` plus ``vals[:, None] * w * s^2 /
     m`` scattered at the corners of ``idx`` (out-of-grid corners add
-    nothing)."""
-    coords, wt = _point_table(idx, w, shape, m.device, m.dtype)
-    scale = wt * s2 / m[coords]
+    nothing). With ``m`` None the scale is ``w * s2 * mul`` at the
+    corners, or ``w * s2`` without ``mul``, and the tensor ``s2`` gives the
+    device and type: the self-adjoint, PML and HABC sources scale by ``dt^2
+    v^2/b`` or ``dt^2 v^2``, the staggered ones by ``dt``, and an adjoint's
+    residuals by 1."""
+    coords, wt = _point_table(idx, w, shape, s2.device, s2.dtype)
+    if m is not None:
+        scale = wt * s2 / m[coords]
+    elif mul is not None:
+        scale = wt * s2 * mul[coords]
+    else:
+        scale = wt * s2
 
     def inject(field, vals):
         return field.index_put(coords, vals[:, None] * scale,

@@ -12,18 +12,27 @@ Port of the elastic part of ``devito_fwi_tpu.ops.staggered_grad``:
   residual at the receivers and accumulates the (lam, mu, b) gradients;
   the parameter averages transpose once at the end (``avg_to_T``).
 
-``elastic_born`` and the viscoelastic functions are not ported yet
-(ROADMAP.md queue A items 11 and 13).
+The SLS viscoelastic twin of that pair: ``viscoelastic_forward_hist``
+keeps (vn_i, dtau_i, rdn_i, ron_ij) a step, and
+``viscoelastic_adjoint_from_hist`` sweeps back over them with the node
+coefficient fields ``A1 = s/t_s``, ``B2 = A1 mu (t_es/t_s - 1)``, ``B3 = A1
+lam (t_ep/t_s - 1)``, ``Kp = lam t_ep/t_s``, ``Ks = mu t_es/t_s`` and the
+averaged off-diagonal triple; the chain rule to (vp, vs, rho, qp, qs) is
+``torch.autograd.grad`` of the pointwise coefficient maps (the JAX module's
+``jax.vjp``). ``viscoelastic_value_and_grad`` runs forward, misfit and
+adjoint. ``elastic_born`` is not ported yet (ROADMAP.md queue A item 11).
 """
 from __future__ import annotations
 
 import torch
 
-from .acoustic import _point_table
-from .staggered import _elastic_step, _pairs, _wgt, avg_to, d_minus, d_plus
+from .acoustic import _injector, _point_table
+from .staggered import (_elastic_step, _pairs, _relax, _viscoelastic_step,
+                        _wgt, avg_to, d_minus, d_plus)
 
 __all__ = ["elastic_forward_hist", "elastic_adjoint_from_hist", "avg_to_T",
-           "pad_fold"]
+           "pad_fold", "viscoelastic_forward_hist",
+           "viscoelastic_adjoint_from_hist", "viscoelastic_value_and_grad"]
 
 
 def avg_to_T(q, dims, ndim):
@@ -178,3 +187,217 @@ def elastic_adjoint_from_hist(lam, mu, b, damp, rec_idx, rec_w, res,
     for i in range(ndim):
         g_b = g_b + (avg_to_T(gbi[i], (i,), ndim) if avg else gbi[i])
     return glam, g_mu, g_b
+
+
+# ---------------------------------------------------------------------------
+# viscoelastic (SLS) saved-history adjoint
+# ---------------------------------------------------------------------------
+
+def viscoelastic_forward_hist(lam, mu, b, qp, qs, damp, f0, src_wav,
+                              src_idx, src_w, rec_idx, rec_w, dt, *, nt,
+                              spacing, space_order=4, avg=True,
+                              hist_dtype=None):
+    """SLS viscoelastic forward that also returns the imaging-condition
+    history: (vn_i, dtau_i, rdn_i, ron_ij) per step, 7 fields in 2-D, each
+    (nt-1, *grid) in ``hist_dtype`` (default the compute type). The field
+    updates and receivers are those of ``staggered.viscoelastic_forward``.
+    Returns (rec1, illum, hist)."""
+    hist_dtype = hist_dtype or lam.dtype
+    step, carry = _viscoelastic_step(lam, mu, b, qp, qs, damp, f0, src_idx,
+                                     src_w, rec_idx, rec_w, dt, spacing,
+                                     space_order, avg, collect_hist=True)
+    ndim = len(spacing)
+    nfields = 3 * ndim + len(_pairs(ndim))
+    rec1 = lam.new_zeros((nt, rec_idx.shape[0]))
+    illum = torch.zeros_like(lam)
+    hist = [lam.new_empty((nt - 1,) + tuple(lam.shape), dtype=hist_dtype)
+            for _ in range(nfields)]
+    for t in range(nt - 1):
+        carry, (rec1[t], h) = step(carry, src_wav[t])
+        illum = illum + sum(x * x for x in carry[0])
+        for buf, x in zip(hist, h):
+            buf[t] = x
+    return rec1, illum, tuple(hist)
+
+
+def _vjp(fn, inputs, cotangents):
+    """The vector-Jacobian product of the pointwise map ``fn`` at
+    ``inputs`` with ``cotangents`` (one per output of ``fn``), through
+    ``torch.autograd.grad``."""
+    with torch.enable_grad():
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        return torch.autograd.grad(fn(*xs), xs, cotangents)
+
+
+def viscoelastic_adjoint_from_hist(vp, vs, rho, qp, qs, damp, f0,
+                                   rec_idx, rec_w, res, hist, dt, *, nt,
+                                   spacing, space_order=4, avg=True):
+    """Adjoint SLS viscoelastic sweep over the saved history. Takes the
+    physical parameterization (vp, vs, rho, qp, qs) on the padded grid and
+    the (nt, nrec) residual ``res`` (the cotangent of the rec1 gather) and
+    returns the five padded-grid gradients of ``sum_t <res[t],
+    rec1[t]>``."""
+    dtype, dev = vp.dtype, vp.device
+    ndim = len(spacing)
+    wgt = _wgt(space_order, dtype, dev)
+    inv_h = [torch.as_tensor(1.0 / h, dtype=dtype, device=dev)
+             for h in spacing]
+    s = torch.as_tensor(dt, dtype=dtype, device=dev)
+    f0 = torch.as_tensor(f0, dtype=dtype, device=dev)
+    pairs = _pairs(ndim)
+
+    def mavg(p, dims):
+        return avg_to(p, dims, ndim) if avg else p
+
+    def node_coeffs(vp_, vs_, rho_, qp_, qs_):
+        lam_ = rho_ * (vp_ * vp_ - 2.0 * vs_ * vs_)
+        mu_ = rho_ * vs_ * vs_
+        t_s, t_ep, t_es = _relax(qp_, qs_, f0)
+        A1 = s / t_s
+        B2 = A1 * (mu_ * (t_es / t_s - 1.))
+        B3 = A1 * (lam_ * (t_ep / t_s - 1.))
+        Kp = lam_ * t_ep / t_s
+        Ks = mu_ * t_es / t_s
+        # mu/qp/qs/b ride along so that the off-diagonal (averaged) and
+        # buoyancy cotangents chain through the same product
+        return A1, B2, B3, Kp, Ks, mu_, qp_, qs_, 1.0 / rho_
+
+    def off_coeffs(mu_a, qp_a, qs_a):
+        ts_a, _, tes_a = _relax(qp_a, qs_a, f0)
+        A1a = s / ts_a
+        B2a = A1a * (mu_a * (tes_a / ts_a - 1.))
+        Ksa = mu_a * tes_a / ts_a
+        return A1a, B2a, Ksa
+
+    mu = rho * vs * vs
+    binv = 1.0 / rho
+    A1, B2, B3, Kp, Ks, _, _, _, _ = node_coeffs(vp, vs, rho, qp, qs)
+    b_i = [mavg(binv, (i,)) for i in range(ndim)]
+    damp_i = [mavg(damp, (i,)) for i in range(ndim)]
+    mu_a = {ij: mavg(mu, ij) for ij in pairs}
+    qp_a = {ij: mavg(qp, ij) for ij in pairs}
+    qs_a = {ij: mavg(qs, ij) for ij in pairs}
+    damp_a = {ij: mavg(damp, ij) for ij in pairs}
+    offc = {ij: off_coeffs(mu_a[ij], qp_a[ij], qs_a[ij]) for ij in pairs}
+    # the residual lands unscaled in tau_zz's adjoint
+    inject = _injector(rec_idx, rec_w, None, torch.ones_like(s),
+                       tuple(vp.shape))
+
+    z = torch.zeros_like(vp)
+    lv = [z] * ndim
+    ltd = [z] * ndim
+    lto = {ij: z for ij in pairs}
+    lrd = [z] * ndim
+    lro = {ij: z for ij in pairs}
+    gA1, gB2, gB3, gKp, gKs = z, z, z, z, z
+    gbi = [z] * ndim
+    goff = {ij: (z, z, z) for ij in pairs}
+    pend_Rd = [z] * ndim
+    pend_Ro = {ij: z for ij in pairs}
+    for t in range(nt - 2, -1, -1):
+        vn = [hist[i][t].to(dtype) for i in range(ndim)]
+        dtau = [hist[ndim + i][t].to(dtype) for i in range(ndim)]
+        rdn = [hist[2 * ndim + i][t].to(dtype) for i in range(ndim)]
+        ron = {ij: hist[3 * ndim + k][t].to(dtype)
+               for k, ij in enumerate(pairs)}
+
+        dv = [d_minus(vn[i], wgt, i, inv_h[i]) for i in range(ndim)]
+        div_vn = sum(dv)
+        gsh = {ij: d_plus(vn[ij[0]], wgt, ij[1], inv_h[ij[1]]) +
+               d_plus(vn[ij[1]], wgt, ij[0], inv_h[ij[0]])
+               for ij in pairs}
+
+        T = [damp * ltd[i] for i in range(ndim)]
+        O = {ij: damp_a[ij] * lto[ij] for ij in pairs}
+        Rd = [damp * (lrd[i] + s * T[i]) for i in range(ndim)]
+        Ro = {ij: damp_a[ij] * (lro[ij] + s * O[ij]) for ij in pairs}
+        sT = sum(T)
+        sRd = sum(Rd)
+
+        # imaging: node coefficients of the tau and memory updates
+        gKp = gKp + s * div_vn * sT
+        gKs = gKs + 2.0 * s * sum(dv[i] * T[i] for i in range(ndim))
+        gB2 = gB2 - 2.0 * sum(dv[i] * Rd[i] for i in range(ndim))
+        gB3 = gB3 - div_vn * sRd
+        # gA1's rd multiplicand is rdn^{t-1}: deferred one iteration
+        gA1 = gA1 - sum(rdn[i] * pend_Rd[i] for i in range(ndim))
+        goff_new = {}
+        for ij in pairs:
+            gKsa, gA1a, gB2a = goff[ij]
+            gKsa = gKsa + s * gsh[ij] * O[ij]
+            gB2a = gB2a - gsh[ij] * Ro[ij]
+            gA1a = gA1a - ron[ij] * pend_Ro[ij]
+            goff_new[ij] = (gKsa, gA1a, gB2a)
+        goff = goff_new
+
+        # cotangents into vn through dv/div/g
+        dvb = [2.0 * s * Ks * T[i] - 2.0 * B2 * Rd[i] +
+               (s * Kp * sT - B3 * sRd) for i in range(ndim)]
+        gb_ = {ij: s * offc[ij][2] * O[ij] - offc[ij][1] * Ro[ij]
+               for ij in pairs}
+        vbt = []
+        for i in range(ndim):
+            acc = lv[i] - d_plus(dvb[i], wgt, i, inv_h[i])
+            for (a, c) in pairs:
+                if a == i:
+                    acc = acc - d_minus(gb_[(a, c)], wgt, c, inv_h[c])
+                elif c == i:
+                    acc = acc - d_minus(gb_[(a, c)], wgt, a, inv_h[a])
+            vbt.append(acc)
+        vhat = [damp_i[i] * vbt[i] for i in range(ndim)]
+        gbi = [gbi[i] + s * dtau[i] * vhat[i] for i in range(ndim)]
+
+        dtb = [s * b_i[i] * vhat[i] for i in range(ndim)]
+        ltd = [T[i] - d_minus(dtb[i], wgt, i, inv_h[i]) for i in range(ndim)]
+        lto = {ij: O[ij] - d_plus(dtb[ij[0]], wgt, ij[1], inv_h[ij[1]])
+               - d_plus(dtb[ij[1]], wgt, ij[0], inv_h[ij[0]])
+               for ij in pairs}
+        lrd = [Rd[i] - A1 * Rd[i] for i in range(ndim)]
+        lro = {ij: Ro[ij] - offc[ij][0] * Ro[ij] for ij in pairs}
+        ltd[-1] = inject(ltd[-1], res[t])
+        lv = vhat
+        pend_Rd, pend_Ro = Rd, Ro
+    # the last pending terms pair with rd^0 = ro^0 = 0: dropped exactly
+
+    # staggered-average transposes
+    gb_node = torch.zeros_like(vp)
+    for i in range(ndim):
+        gb_node = gb_node + (avg_to_T(gbi[i], (i,), ndim) if avg else gbi[i])
+    gmu_off = torch.zeros_like(vp)
+    gqp_off = torch.zeros_like(vp)
+    gqs_off = torch.zeros_like(vp)
+    for ij in pairs:
+        gKsa, gA1a, gB2a = goff[ij]
+        gm, gq, gs_ = _vjp(off_coeffs, (mu_a[ij], qp_a[ij], qs_a[ij]),
+                           (gA1a, gB2a, gKsa))
+        if avg:
+            gm, gq, gs_ = (avg_to_T(gm, ij, ndim), avg_to_T(gq, ij, ndim),
+                           avg_to_T(gs_, ij, ndim))
+        gmu_off = gmu_off + gm
+        gqp_off = gqp_off + gq
+        gqs_off = gqs_off + gs_
+
+    return _vjp(node_coeffs, (vp, vs, rho, qp, qs),
+                (gA1, gB2, gB3, gKp, gKs, gmu_off, gqp_off, gqs_off,
+                 gb_node))
+
+
+def viscoelastic_value_and_grad(vp, vs, rho, qp, qs, damp, f0, src_wav,
+                                src_idx, src_w, rec_idx, rec_w, obs, dw,
+                                dt, misfit, *, nt, spacing, space_order=4,
+                                avg=True, hist_dtype=None):
+    """(fval, (g_vp, g_vs, g_rho, g_qp, g_qs), illum, res) of one shot
+    through the saved-history route. ``misfit`` maps the (nt, nrec)
+    tensors (syn - dw, obs - dw) to (fval, residual), e.g.
+    ``misfit.least_square_torch``."""
+    lam = rho * (vp * vp - 2.0 * vs * vs)
+    mu = rho * vs * vs
+    rec1, illum, hist = viscoelastic_forward_hist(
+        lam, mu, 1.0 / rho, qp, qs, damp, f0, src_wav, src_idx, src_w,
+        rec_idx, rec_w, dt, nt=nt, spacing=spacing, space_order=space_order,
+        avg=avg, hist_dtype=hist_dtype)
+    f, res = misfit(rec1 - dw, obs - dw)
+    grads = viscoelastic_adjoint_from_hist(
+        vp, vs, rho, qp, qs, damp, f0, rec_idx, rec_w, res.to(vp.dtype),
+        hist, dt, nt=nt, spacing=spacing, space_order=space_order, avg=avg)
+    return f, grads, illum, res

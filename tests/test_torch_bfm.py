@@ -48,9 +48,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from devito_fwi_tpu_torch.misfit import bfm as T
 from devito_fwi_tpu_torch.ops import cuda_bfm as cb
 
+# the module: the package exports the class ``bfm`` under the same name
+T = importlib.import_module("devito_fwi_tpu_torch.misfit.bfm")
 JB = importlib.import_module("devito_fwi_tpu.misfit.bfm")
 PB = importlib.import_module("devito_fwi_tpu.ops.pallas_bfm")
 

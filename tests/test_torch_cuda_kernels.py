@@ -43,7 +43,10 @@ divide, with z0 and the sources on slab boundaries, equal to its twin
 exactly; it raises, launching nothing, for a grid past a cluster of 8.
 The eager objective route on the card (receivers on a vertical line) is
 held against the same call on the CPU. Select them with ``-k "legacy or
-eager"``.
+eager"``. The operators that run no kernel on the card (the self-adjoint
+solver, the PML and HABC forwards, the viscoelastic solver and gradient)
+are held against the same float32 calls on the CPU: select them with ``-k
+cpu``.
 """
 import numpy as np
 import pytest
@@ -370,7 +373,8 @@ def test_legendre_kernel_raises_for_what_it_does_not_take(cuda):
 def test_banded_w2_route_equals_anchor_on_the_card(cuda):
     """``bfm_batch(legendre="banded")`` launches the kernel and gives the
     anchored route's loss and gradient bitwise."""
-    from devito_fwi_tpu_torch.misfit import bfm
+    import importlib
+    bfm = importlib.import_module("devito_fwi_tpu_torch.misfit.bfm")
     t = np.arange(200)[:, None]
     x = np.arange(64)[None, :]
 
@@ -1212,3 +1216,139 @@ def test_eager_route_on_the_card_matches_the_cpu(cuda):
     f_p, g_p, _ = fwi.fwi_loss(x.copy(), g0, obs, None, device="cpu")
     assert abs(f_c - f_p) <= 1e-5 * abs(f_p)
     assert np.abs(g_c - g_p).max() <= 3e-5 * np.abs(g_p).max()
+
+
+def _close_to_cpu(got, want, rtol):
+    """max|got - want| within ``rtol`` of max|want| (``got`` on the card,
+    ``want`` the CPU's)."""
+    got = got.cpu() if torch.is_tensor(got) else torch.as_tensor(got)
+    want = want.cpu() if torch.is_tensor(want) else torch.as_tensor(want)
+    err = float((got - want).abs().max())
+    assert err <= rtol * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_sa_solver_on_the_card_matches_the_cpu(cuda):
+    """``SaIsoAcousticWaveSolver`` on cuda (the eager operators, no kernel)
+    against the same float32 calls on the CPU, on the (71, 61) set-up of
+    ``tests/test_self_adjoint.py``: forward, adjoint and Born traces within
+    1e-5 and the Jacobian adjoint within 3e-5 of the CPU's max."""
+    from devito_fwi_tpu_torch.ops.sa_wavesolver import acoustic_sa_setup
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = acoustic_sa_setup(shape=(71, 61), spacing=(10., 10.), tn=500.,
+                              space_order=8, nbl=10, device=dev)
+        dm = np.zeros(s.model.padded_shape, np.float32)
+        dm[40:50, 30:40] = 0.1
+        rec, u0, _ = s.forward(save=True)
+        res = s.geometry.new_rec()
+        res.data[:] = np.random.default_rng(1).standard_normal(
+            res.data.shape)
+        srca, _, _ = s.adjoint(res)
+        born, _, _, _ = s.jacobian(dm)
+        grad, _, _, _ = s.jacobian_adjoint(res, u0)
+        assert u0.data.device.type == dev
+        out[dev] = (rec.data.copy(), srca.data.copy(), born.data.copy(),
+                    grad)
+    for got, want, rtol in zip(out["cuda"], out["cpu"],
+                               (1e-5, 1e-5, 1e-5, 3e-5)):
+        _close_to_cpu(got, want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("habctype", [0, 1, 2, 3])
+def test_abc_forwards_on_the_card_match_the_cpu(cuda, habctype):
+    """The PML (``habctype`` 0 here) and HABC forwards on cuda against the
+    CPU at float32 (margin 20 around a 101 x 101 interior with a fast
+    block, tn 300 ms): traces within 1e-5 of the CPU's max."""
+    from devito_fwi_tpu_torch.models.sources import RickerSource, TimeAxis
+    from devito_fwi_tpu_torch.ops import abc
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    h, margin, n = 10.0, 20, 101
+    v = abc.extend_velocity(np.full((n, n), 1.5, np.float32), margin)
+    v[60:90, 40:] = 2.0
+    dt = 0.4 * h / 2.0
+    ta = TimeAxis(start=0.0, stop=300.0, step=dt)
+    src = RickerSource(name="src", f0=0.015, time_range=ta,
+                       coordinates=np.array([[n // 2 * h, 3 * h]]))
+    rc = np.array([[n // 2 * h + 200.0, 400.0], [n // 2 * h - 300.0, 150.0]])
+    si, sw = interp_table(src.coordinates, (-margin * h, 0.0), (h, h))
+    ri, rw = interp_table(rc, (-margin * h, 0.0), (h, h))
+    kw = dict(nt=ta.num, spacing=(h, h), npml=margin)
+    out = []
+    for dev in ("cuda", "cpu"):
+        if habctype == 0:
+            rec, _ = abc.pml_acoustic_forward(v, src.data, si, sw, ri, rw,
+                                              dt, device=dev, **kw)
+        else:
+            rec, _ = abc.habc_acoustic_forward(v, src.data, si, sw, ri, rw,
+                                               dt, habctype=habctype,
+                                               device=dev, **kw)
+        assert rec.device.type == dev
+        out.append(rec)
+    _close_to_cpu(out[0], out[1], 1e-5)
+
+
+@pytest.mark.cuda
+def test_viscoelastic_on_the_card_matches_the_cpu(cuda):
+    """``ViscoelasticWaveSolver`` on cuda gives the reference goldens
+    12.28040 / 0.312461 (atol 1e-3) and the CPU's traces within 1e-5 of
+    their max; ``viscoelastic_value_and_grad`` on cuda (the (41, 36)
+    set-up of ``tests/test_visco_grad.py`` at float32) the CPU's misfit
+    within 1e-5 and five gradients within 3e-5 of their max."""
+    from devito_fwi_tpu_torch.misfit import least_square_torch
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.models.model import SeismicModel
+    from devito_fwi_tpu_torch.ops import staggered_grad as sg
+    from devito_fwi_tpu_torch.ops.elastic_wavesolver import (
+        ViscoelasticWaveSolver)
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        model = demo_model("layers-viscoelastic", space_order=4,
+                           shape=(50, 50), nbl=40, spacing=(20., 20.))
+        geometry = setup_geometry(model, 1000.)
+        rec1, rec2, _, _, _ = ViscoelasticWaveSolver(
+            model, geometry, space_order=4, device=dev).forward()
+        recs[dev] = (rec1.data.copy(), rec2.data.copy())
+    assert np.isclose(np.linalg.norm(recs["cuda"][0]), 12.28040, atol=1e-3,
+                      rtol=0)
+    assert np.isclose(np.linalg.norm(recs["cuda"][1]), 0.312461, atol=1e-3,
+                      rtol=0)
+    for got, want in zip(recs["cuda"], recs["cpu"]):
+        _close_to_cpu(got, want, 1e-5)
+
+    shape = (41, 36)
+    vp = np.full(shape, 2.0, np.float32)
+    vp[:, 18:] = 2.4
+    vs = vp / 2
+    rho = (0.31 * (1e3 * vp) ** 0.25).astype(np.float32)
+    qp = np.full(shape, 60.0, np.float32)
+    qs = np.full(shape, 40.0, np.float32)
+    model = SeismicModel(origin=(0., 0.), spacing=(10., 10.), shape=shape,
+                         space_order=4, vp=vp, vs=vs, b=1.0 / rho, qp=qp,
+                         qs=qs, nbl=8, bcs="mask", dt=1.0)
+    geom = AcquisitionGeometry(model, np.stack(
+        [np.linspace(0., 400., 21), np.full(21, 30.0)], 1),
+        np.array([[200., 20.0]]), 0., 140., f0=0.015, src_type="Ricker")
+    s_idx, s_w = interp_table(geom.src_positions, model.origin_pml,
+                              model.spacing)
+    r_idx, r_w = interp_table(geom.rec_positions, model.origin_pml,
+                              model.spacing)
+    pads = tuple(tuple(p) for p in model.padsizes)
+    phys = [np.pad(x, pads, mode="edge") for x in (vp, vs, rho, qp, qs)]
+    obs = np.random.default_rng(2).standard_normal(
+        (geom.nt, 21)).astype(np.float32) * 1e-3
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        f, grads, _, _ = sg.viscoelastic_value_and_grad(
+            *[T(a) for a in phys], T(model.damp), geom.f0, T(geom.src.data),
+            s_idx, s_w, r_idx, r_w, T(obs), torch.zeros_like(T(obs)),
+            float(model.critical_dt), least_square_torch, nt=geom.nt,
+            spacing=model.spacing, space_order=4)
+        outs[dev] = (float(f), [g.cpu() for g in grads])
+    assert abs(outs["cuda"][0] - outs["cpu"][0]) <= 1e-5 * abs(
+        outs["cpu"][0])
+    for got, want in zip(outs["cuda"][1], outs["cpu"][1]):
+        _close_to_cpu(got, want, 3e-5)

@@ -595,3 +595,75 @@ def test_legacy_wrapper_rejects_other_devices():
         cl.forward_rows(t, t, torch.zeros(4, device="meta"),
                         torch.zeros((1, 8, 4), device="meta"), 1.0, nt=6,
                         nx=8, nz=4, space_order=4, spacing=(10., 10.), z0=1)
+
+
+SLICE16_MODULES = ("ops/self_adjoint.py", "ops/sa_wavesolver.py",
+                   "ops/abc.py", "ops/staggered.py", "ops/staggered_grad.py",
+                   "ops/elastic_wavesolver.py", "misfit/bfm.py",
+                   "misfit/w2.py", "drivers/circle_fwi.py",
+                   "drivers/marmousi_fm.py", "drivers/marmousi2_fm.py",
+                   "drivers/test_misfit.py", "drivers/_marmousi_common.py")
+
+
+@pytest.mark.parametrize("module", SLICE16_MODULES)
+def test_slice16_modules_are_scanned(module):
+    """The self-adjoint, boundary and viscoelastic modules, the misfit
+    wrappers and the remaining drivers are among the sources the scans
+    above read (and so import no JAX)."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+
+
+@pytest.mark.parametrize("entry", [
+    "SaIsoAcousticWaveSolver", "acoustic_sa_setup",
+    "ViscoelasticWaveSolver", "pml_acoustic_forward",
+    "habc_acoustic_forward", "bfm", "bfm_torch", "circle_fwi", "run_fm",
+    "test_misfit"])
+def test_slice16_entry_points_raise_on_cuda_without_card(entry, monkeypatch,
+                                                         tmp_path):
+    """The self-adjoint and viscoelastic solvers, the boundary forwards
+    handed numpy arrays, the one-gather BFM wrappers and the drivers
+    default to the card: without one they raise for the missing device
+    instead of running on the CPU; with ``device="cpu"`` the solvers
+    build."""
+    from devito_fwi_tpu_torch.drivers import circle_fwi
+    from devito_fwi_tpu_torch.drivers import test_misfit
+    from devito_fwi_tpu_torch.misfit import bfm, bfm_torch
+    from devito_fwi_tpu_torch.models.geometry import setup_geometry
+    from devito_fwi_tpu_torch.ops import abc
+    from devito_fwi_tpu_torch.ops.elastic_wavesolver import (
+        ViscoelasticWaveSolver)
+    from devito_fwi_tpu_torch.ops.sa_wavesolver import (
+        SaIsoAcousticWaveSolver, acoustic_sa_setup)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    sa = acoustic_sa_setup(shape=(21, 21), spacing=(10., 10.), tn=50.,
+                           nbl=4, device="cpu")
+    ve = demo_model("layers-viscoelastic", shape=(21, 21),
+                    spacing=(20., 20.), nbl=4, space_order=4)
+    vg = setup_geometry(ve, 50.)
+    v = np.full((21, 21), 1.5, np.float32)
+    idx, w = np.zeros((1, 4, 2), np.int32), np.zeros((1, 4), np.float32)
+    wav = np.zeros((10, 1), np.float32)
+    gather = np.ones((8, 4), np.float32)
+    calls = {
+        "SaIsoAcousticWaveSolver": lambda: SaIsoAcousticWaveSolver(
+            sa.model, sa.geometry),
+        "acoustic_sa_setup": lambda: acoustic_sa_setup(
+            shape=(21, 21), spacing=(10., 10.), tn=50., nbl=4),
+        "ViscoelasticWaveSolver": lambda: ViscoelasticWaveSolver(ve, vg),
+        "pml_acoustic_forward": lambda: abc.pml_acoustic_forward(
+            v, wav, idx, w, idx, w, 1.0, nt=10, spacing=(10., 10.),
+            npml=4),
+        "habc_acoustic_forward": lambda: abc.habc_acoustic_forward(
+            v, wav, idx, w, idx, w, 1.0, nt=10, spacing=(10., 10.),
+            npml=4),
+        "bfm": lambda: bfm(),
+        "bfm_torch": lambda: bfm_torch(gather, gather),
+        "circle_fwi": lambda: circle_fwi.main(["--maxiter", "1"]),
+        "run_fm": lambda: marm.run_fm(marm.SMARMN, ["--nsrc", "1"]),
+        "test_misfit": lambda: test_misfit.main([]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    SaIsoAcousticWaveSolver(sa.model, sa.geometry, device="cpu")
+    ViscoelasticWaveSolver(ve, vg, device="cpu")

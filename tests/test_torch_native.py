@@ -14,16 +14,20 @@ runs several workers):
 * the library is built under the port's ``_build/``, never in ``native/``,
   and a compiler that fails raises with its message.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from devito_fwi_tpu.misfit import native as jnative
 from devito_fwi_tpu.misfit import qWasserstein as JqW
-from devito_fwi_tpu_torch.misfit import bfm as tbfm
 from devito_fwi_tpu_torch.misfit import native as tnative
 from devito_fwi_tpu_torch.misfit import qWasserstein as TqW
 from devito_fwi_tpu_torch.ops.cuda_build import BUILD_DIR
+
+# the module: the package exports the class ``bfm`` under the same name
+tbfm = importlib.import_module("devito_fwi_tpu_torch.misfit.bfm")
 
 
 @pytest.fixture(autouse=True, scope="module")
