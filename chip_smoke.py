@@ -123,14 +123,14 @@ result line is printed:
    --maxiter 2``, ``run_fwi(..., bfm_options={"legendre": "banded"})``):
    finite and decreasing misfit, the banded kernel and the sweeps launched,
    no twin called;
-27. the native W2-2d solver: a 4-shot SMARMN gradient with
+27. the native W2-2d solver: a 2-shot SMARMN gradient (``NATIVE_SHOTS``) with
    ``bfm_backend="native"`` (the host-misfit path, the sweeps on the card)
    against the torch BFM route's;
 28. main path, the driver's data options: the SMARMN L2 driver with
    ``--filter 1`` (finite and decreasing misfit) and with ``--resample 4``
    (stops as the JAX driver does, on the observed data's length), and a
    2-iteration L-BFGS of ``fwi_obj_multi(resample_dt=4)`` on the host-misfit
-   path at 4 shots;
+   path at those 2 shots;
 29. 3-D kernel vs twin, quick gate: at bench config 5's grid (96^3 at 15
    m, space order 8, nbl 16, padded 128^3, 333 steps) with 3 shots, the
    three streamed 3-D CUDA kernels against their twins on every output,
@@ -188,7 +188,7 @@ result line is printed:
    called; the driver's wall time;
 39. main path, ``circle_fwi`` (``BASELINE.json`` config 0) at its full
    width (201 x 201, nbl 40, space order 6, tn 1000 ms, ``--maxiter 1``;
-   4 shots, cut from its 11: ``CIRCLE_SHOTS``) on cuda, the eager route: a
+   2 shots, cut from its 11: ``CIRCLE_SHOTS``) on cuda, the eager route: a
    finite misfit, the log files, every objective call counted in
    ``fwi.EAGER``; the wall time of the iteration and of each objective
    call;
@@ -200,16 +200,46 @@ result line is printed:
    0.5%) and the stability check, with each forward's time;
 42. viscoelastic on cuda: the solver's goldens 12.28040 / 0.312461 (atol
    1e-3) and the five-parameter gradient of ``bench.py``'s
-   ``_bench_viscoelastic`` workload (SMARM2, 4 shots) through
+   ``_bench_viscoelastic`` workload (SMARM2; its second shot of 4:
+   ``VE_SHOTS``) through
    ``viscoelastic_value_and_grad``, timed, finite and non-zero;
-43. a ``kernels`` JSON line; the card's name and power limit; the script's
+43. the elastic objective's routes on SMARM2's full grid (420 x 220
+   padded, one shot: ``ROUTE_SHOT``; every run of the phase with nt cut
+   from 1421 to 401: ``CUT_STEPS``): the "saved" and "vjp" gradients
+   against the kernel route's (objective 1e-5 relative, each
+   gradient 1e-4 of its max: ``ROUTE_RTOL``), no kernel launched on
+   either, each route's time and peak device bytes, and an eager
+   route's shot chunk's own peak (``chunk_peaks``), which may not pass
+   the figure its chunks are sized with; a
+   geometry with its receivers on a vertical line through "auto" on cuda,
+   landing on the saved route, counted in ``elastic_fwi.EAGER``;
+   ``elastic_born`` timed, its primal against the kernel's traces; the
+   Born dot test
+   (jvp against ``elastic_adjoint_from_hist``) at float64 on the CPU
+   tests' 41 x 36 grid, within 1e-11;
+44. the viscoacoustic objective's routes on SMARMN's full grid (380 x 186
+   padded, one shot; nt cut from 1338 to 401 as in phase 43): sls/2's
+   "saved" and "vjp" against the kernel route's, to the same limits; each
+   of the five other kernels: ``visco_fm_multi`` and one "vjp" gradient
+   (auto), counted, timed; ``visco_born``'s dot test at
+   float64 on the small grid, within 1e-11;
+45. main path, viscoacoustic on SMARM2: the SMARM2 driver with
+   ``--physics viscoacoustic --misfit 0 --maxiter 2`` at its 31 shots on
+   cuda: finite and decreasing misfit at the two gradients, every visco
+   kernel launched, no twin called, the gradient and trial times, the
+   trials past the pinned dt's CFL speed (a fault of the JAX driver that
+   the port mirrors: ``run_visco_smarm2``); the seconds of phases 43-45;
+46. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
-Phases 38-42 run no kernel of their own (the JAX package wrote none for
-these modules) other than row 1 in phase 38.
+Phases 38-44 run no kernel of their own (the JAX package wrote none for
+these modules, and the objectives' saved and vjp routes are its XLA scans
+in eager torch) other than row 1 in phase 38 and the kernel route the
+routes of phases 43-44 are held against.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import gc
 import importlib
 import json
@@ -281,6 +311,10 @@ ZERO_ANISOTROPY_RTOL = 1e-4
 # the driver's --resample value of phase 28 (ms): 1001 samples of the 4000 ms
 # window against the observed data's 1357
 RESAMPLE_DT = 4.0
+# the SMARMN shots of phases 27 and 28: the native BFM solves its gathers one
+# after another on one host thread where OpenMP does not link (about 9 s a
+# shot on the card's host), and the host resamples every trace by splines
+NATIVE_SHOTS = 2
 # bench config 5 (``bench.py`` ``_bench_3d``): layers-isotropic 96^3, 4
 # shots and 48 receivers along x at y = extent/2, z = 30 m, tn 500 ms
 C5_SHOTS = 4
@@ -363,47 +397,53 @@ def compare(name, got, want):
     return worst
 
 
+def device_events(prof):
+    """(name, start ns, end ns) of each device event of a finished
+    ``torch.profiler`` run, read from the profiler's records as they are:
+    the Python event list that ``prof.events()`` builds from them took
+    seconds of host time for a call of many small kernels."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def profile_call(fn):
     """Run ``fn`` once under torch.profiler: (wall s, device-busy s, {kernel
     name: device s}). Busy is the union of the kernels' intervals; None
-    when the profiler recorded no device activity."""
-    from torch.autograd import DeviceType
+    when the profiler recorded no device activity. Device activity only:
+    recording the host's operators too costs host time on each of the
+    W2-2d trial's many small calls and inflates the wall it measures."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     if not kernels:
         return wall, None, {}
-    busy, end = 0.0, -np.inf
+    busy, end = 0, -1
     by_name = {}
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        lo, hi = e.time_range.start, e.time_range.end
-        busy += max(0.0, hi - max(lo, end))
+    for name, lo, hi in sorted(kernels, key=lambda e: e[1]):
+        busy += max(0, hi - max(lo, end))
         end = max(end, hi)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (hi - lo) * 1e-6
-    return wall, busy * 1e-6, by_name
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo) * 1e-9
+    return wall, busy * 1e-9, by_name
 
 
 def kernel_device_ms(fn, reps, match):
     """Run ``fn`` ``reps`` times under torch.profiler: (the number of
     device kernels whose name holds ``match``, their summed device ms)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and match in e.name]
-    return len(hits), sum(e.time_range.end - e.time_range.start
-                          for e in hits) * 1e-3
+    hits = [hi - lo for name, lo, hi in device_events(prof) if match in name]
+    return len(hits), sum(hits) * 1e-6
 
 
 def report_profile(what, call):
@@ -1646,9 +1686,10 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
         raise AssertionError("the banded W2-2d path did not run the sweeps")
     report("banded W2-2d", ("legendre_banded",))
 
-    phase("27 native W2-2d: a 4-shot SMARMN gradient, the sweeps on cuda")
+    phase(f"27 native W2-2d: a {NATIVE_SHOTS}-shot SMARMN gradient, the "
+          "sweeps on cuda")
     args4 = marm.make_parser(marm.SMARMN).parse_args(["--device", "cuda"])
-    _, geoms4, _, mask4 = marm.setup(marm.SMARMN, args4, 4)
+    _, geoms4, _, mask4 = marm.setup(marm.SMARMN, args4, NATIVE_SHOTS)
     obs4 = fwi.fm_multi(geoms4[0], device="cuda")
     dw4 = fwi.fm_multi(geoms4[2], device="cuda")
     native = qWasserstein(gamma=1.01, method="2d",
@@ -1716,7 +1757,7 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
                                  shot_indices=shot_indices, device="cuda")
 
     # the host resamples every trace by splines (~14 s an objective at 29
-    # shots on the card's host): 4 shots keep the phase short
+    # shots on the card's host): phase 27's NATIVE_SHOTS keep it short
     loss = marm.TimedLoss("cuda", resampled)
     m0 = 1.0 / vps[1].reshape(-1).astype(np.float64) ** 2
     for reset in counters:
@@ -1730,7 +1771,7 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
                                                1.0 / 1.5 ** 2])
     torch.cuda.synchronize()
     print(f"   L-BFGS of fwi_obj_multi(resample_dt={RESAMPLE_DT:g}) on the "
-          "host-misfit path, 4 shots:")
+          f"host-misfit path, {NATIVE_SHOTS} shots:")
     check_history(dict(calls=loss.calls, model_s=0.0))
     report("L2 resample_dt", sweeps, record=False)
     del obs, dw, obs4, dw4
@@ -2237,9 +2278,9 @@ def eager_route_phase(dev, fwi, counters, report):
 FM_SHOTS = 21
 # phase 39's shots, cut from circle_fwi's 11: at 11 shots one iteration
 # took 92.6-133.0 s on the card (host-bound eager steps, the host's speed
-# sets it) and the whole script 1039.7 s of its 1200 s; shots are the
-# batch, not the width
-CIRCLE_SHOTS = 4
+# sets it) and the whole script 1039.7 s of its 1200 s; at 4 shots 45.6 s;
+# shots are the batch, not the width
+CIRCLE_SHOTS = 2
 
 
 def sync(dev):
@@ -2459,6 +2500,11 @@ def abc_phase(dev):
         raise AssertionError(f"boundary checks failed: {fails}")
 
 
+# phase 42's shots of bench.py's 4 (a slice): about 10 s a shot for the
+# gradient and 5 s for its observed data, host-bound eager steps
+VE_SHOTS = slice(1, 2)
+
+
 def viscoelastic_phase(dev, marm):
     """Phase 42: the viscoelastic solver's goldens and a timed
     five-parameter gradient on ``bench.py``'s ``_bench_viscoelastic``
@@ -2519,6 +2565,7 @@ def viscoelastic_phase(dev, marm):
     g0 = AcquisitionGeometry(m0, rec, src, 0.0, cfg.tn, f0=cfg.f0,
                              src_type="Ricker")
     nt = g0.nt
+    run = range(nsrc)[VE_SHOTS]
 
     def T(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -2527,7 +2574,7 @@ def viscoelastic_phase(dev, marm):
     r_idx, r_w = interp_table(g0.rec_positions, m0.origin_pml, m0.spacing)
     # one shot a call: its source point and its column of the wavelets
     tables = [interp_table(src[i:i + 1], m0.origin_pml, m0.spacing) +
-              (T(g0.src.data[:, i:i + 1]),) for i in range(nsrc)]
+              (T(g0.src.data[:, i:i + 1]),) for i in run]
     kw = dict(nt=nt, spacing=m0.spacing, space_order=4)
     t0 = time.perf_counter()
     obs = [st.viscoelastic_forward(T(m1.lam), T(m1.mu), T(m0.b), T(m0.qp),
@@ -2553,10 +2600,11 @@ def viscoelastic_phase(dev, marm):
     t_grad = time.perf_counter() - t0
     cells = m0.padded_shape[0] * m0.padded_shape[1]
     print(f"   workload: padded {m0.padded_shape}, nt {nt}, dt {dt_e:.4f} "
-          f"ms, {nsrc} shots; observed data {t_obs:.3f} s")
+          f"ms, shots {list(run)} of {nsrc} (VE_SHOTS); observed data "
+          f"{t_obs:.3f} s")
     per_shot = [round(x, 3) for x in shot_s]
     print(f"   gradient: objective {fval!r}, {t_grad:.3f} s ({per_shot} s "
-          f"a shot; {2 * nsrc * nt * cells / t_grad / 1e6:.1f} "
+          f"a shot; {2 * len(run) * nt * cells / t_grad / 1e6:.1f} "
           "Mcell-steps/s)")
     ok = np.isfinite(fval) and fval > 0
     for name, g in zip(("vp", "vs", "rho", "qp", "qs"), grads):
@@ -2567,6 +2615,424 @@ def viscoelastic_phase(dev, marm):
     if not ok:
         raise AssertionError("the viscoelastic gradient is not finite and "
                              "non-zero")
+
+
+# phases 43-44: the shot of the full-width geometry the routes run (the
+# middle one of SMARM2's 31 and near SMARMN's middle), the routes' limits
+# against the kernel route (float32: the same discrete gradient rounded in
+# another order; objective relative, gradient of its max), and the steps
+# every eager run of the two phases is cut to (the time limit's cut, about
+# 0.3 of the drivers' nt; the widths stay): at full nt the two phases took
+# 143.4 s of a script that ran past its limit on a slower host
+ROUTE_SHOT = 15
+ROUTE_RTOL = (1e-5, 1e-4)
+CUT_STEPS = 400
+DOT_RTOL = 1e-11
+
+
+# the functions that run one shot chunk of an eager route
+EAGER_CHUNKS = {"elastic": ("_eager_chunk",),
+                "visco": ("_saved_grads", "_vjp_grads")}
+
+
+@contextlib.contextmanager
+def chunk_peaks(fwi_mod, names, dev):
+    """Within the block, each call of ``fwi_mod``'s functions ``names``
+    records its peak device bytes above those allocated at its entry:
+    yields (those peaks, the call's whole peak in absolute bytes). The
+    shots of a chunk hold what the chunk allocates; what the objective
+    holds around its chunks (the observed data, the parameters, the
+    illumination masks, which it forms before the first chunk and frees)
+    is not a shot's."""
+    peaks, before = [], []
+    originals = {n: getattr(fwi_mod, n) for n in names}
+
+    def spy(*a, _orig, **k):
+        torch.cuda.synchronize()
+        before.append(torch.cuda.max_memory_allocated(dev))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = _orig(*a, **k)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+        return out
+
+    for n, orig in originals.items():
+        setattr(fwi_mod, n, lambda *a, _orig=orig, **k: spy(
+            *a, _orig=_orig, **k))
+    whole = []
+    try:
+        yield peaks, whole
+    finally:
+        for n, orig in originals.items():
+            setattr(fwi_mod, n, orig)
+        torch.cuda.synchronize()
+        whole.append(max(before + [torch.cuda.max_memory_allocated(dev)]))
+
+
+def run_routes(family, fwi_mod, mod, geometry, obs, counters, dev, **kw):
+    """The objective of ``fwi_mod`` on ``geometry`` on the kernel route
+    ("auto") and the eager "saved" and "vjp" routes, one shot: each route's
+    (fval, grads), seconds and peak device bytes; on an eager route also
+    its shot chunk's own peak, held against the bytes a shot its chunks
+    are sized with; the kernels of ``mod`` launched on the kernel route
+    alone, nothing counted as a fallback."""
+    out = {}
+    # the observed data's device copy first (cached across calls), so the
+    # peaks below are the routes' own
+    fwi_mod._device_stack(obs, dev)
+    for route in ("auto", "saved", "vjp"):
+        for reset in counters:
+            reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with chunk_peaks(fwi_mod, EAGER_CHUNKS[family], dev) as (
+                chunks, whole):
+            f, g, _ = getattr(fwi_mod, f"{family}_fwi_obj_multi")(
+                geometry, obs, calc_grad=True, shot_indices=[ROUTE_SHOT],
+                grad_route=route, device="cuda", **kw)
+        sec = time.perf_counter() - t0
+        peak = whole[0] - base
+        launched = sum(mod.LAUNCHES.values())
+        st = fwi_mod._Setup(geometry, dev, [ROUTE_SHOT])
+        if route == "auto":
+            sized = fwi_mod._bytes_per_shot(fwi_mod._Tables(
+                geometry, dev, [ROUTE_SHOT]), True, "least_square")
+        elif family == "elastic":
+            sized = fwi_mod._eager_bytes_per_shot(st, True, "least_square",
+                                                  route, 0)
+        else:
+            sized = fwi_mod._eager_bytes_per_shot(st, True, "least_square",
+                                                  route, ("sls", 2), 0)
+        held = f", its chunk {chunks[0] / 1e9:.4f} GB" if chunks else ""
+        print(f"   {route}: objective {f!r}, {sec:.3f} s, peak "
+              f"{peak / 1e9:.4f} GB{held} (sized {sized / 1e9:.4f} GB a "
+              f"shot), kernel launches {launched}")
+        if (launched > 0) != (route == "auto") or \
+                fwi_mod.EAGER["objective"] != 0 or \
+                (route != "auto") != (len(chunks) == 1):
+            raise AssertionError(f"{family} {route}: the route ran the wrong "
+                                 "path")
+        # the kernel route's figure is a shot's share of a chunk, the fixed
+        # operands apart (held against a 31-shot chunk in phase 14)
+        if route != "auto" and chunks[0] > sized:
+            raise AssertionError(f"{family} {route}: the shot holds more "
+                                 "than its chunks are sized with")
+        if not np.isfinite(f) or any(not np.isfinite(v).all()
+                                     for v in g.values()):
+            raise AssertionError(f"{family} {route}: not finite")
+        out[route] = (f, g, sec, peak, sized)
+    f0, g0 = out["auto"][:2]
+    ok = True
+    for route in ("saved", "vjp"):
+        f, g = out[route][:2]
+        rel_f = abs(f - f0) / abs(f0)
+        rel_g = {k: float(np.abs(g[k] - g0[k]).max() / np.abs(g0[k]).max())
+                 for k in g}
+        print(f"   {route} vs kernels: objective {rel_f:.3e} (limit "
+              f"{ROUTE_RTOL[0]:g}), gradients "
+              f"{ {k: f'{v:.3e}' for k, v in rel_g.items()} } of their max "
+              f"(limit {ROUTE_RTOL[1]:g})")
+        ok = ok and rel_f <= ROUTE_RTOL[0] and \
+            max(rel_g.values()) <= ROUTE_RTOL[1]
+    if not ok:
+        raise AssertionError(f"the {family} routes disagree with the kernel "
+                             "route")
+    return out
+
+
+def dot_check(name, lhs, rhs):
+    rel = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    print(f"   {name} dot test at float64: <J dm, dr> = {lhs!r}, "
+          f"<dm, J^T dr> = {rhs!r}, relative {rel:.3e} (limit {DOT_RTOL:g})")
+    if not rel <= DOT_RTOL:
+        raise AssertionError(f"the {name} dot test fails")
+
+
+def small_model(dev, visco):
+    """The CPU tests' small case on ``dev`` at float64: a two-layer 41 x 36
+    model at 10 m (nbl 8, space order 4, dt 1 ms, the mask boundary), one
+    source at (80, 20) m, 21 receivers at 30 m, tn 140 ms; its padded
+    fields as tensors, the wavelet, the tables and the op keywords."""
+    from devito_fwi_tpu_torch.elastic_fwi import model_vp_vs_rho
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.models.model import SeismicModel
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    shape = (41, 36)
+    vp = np.full(shape, 2.0)
+    vp[:, 18:] = 2.4
+    rho = 0.31 * (1e3 * vp) ** 0.25
+    extra = dict(qp=np.where(vp > 2.2, 90.0, 60.0)) if visco else \
+        dict(vs=vp / 2.0)
+    model = SeismicModel(origin=(0., 0.), spacing=(10., 10.), shape=shape,
+                         space_order=4, vp=vp, b=1.0 / rho, nbl=8,
+                         bcs="mask", dtype=np.float64, dt=1.0, **extra)
+    rec = np.stack([np.linspace(0., 400., 21), np.full(21, 30.0)], 1)
+    g = AcquisitionGeometry(model, rec, np.array([[80., 20.]]), 0., 140.,
+                            f0=0.015, src_type="Ricker")
+    tables = (*interp_table(g.src_positions, model.origin_pml,
+                            model.spacing, dtype=np.float64),
+              *interp_table(g.rec_positions, model.origin_pml,
+                            model.spacing, dtype=np.float64))
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    if visco:
+        fields = tuple(T(getattr(model, n)) for n in ("vp", "b", "qp",
+                                                      "damp"))
+    else:
+        fields = tuple(T(x) for x in model_vp_vs_rho(model))
+    kw = dict(nt=g.nt, spacing=model.spacing, space_order=4)
+    return g, fields, T(g.src.data), tables, kw, float(model.critical_dt)
+
+
+def cut_geometries(*geometries):
+    """Each geometry with its sources and receivers, its tn cut to
+    ``CUT_STEPS`` of its model's dt."""
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    return [AcquisitionGeometry(g.model, g.rec_positions, g.src_positions,
+                                0., CUT_STEPS * float(g.model.critical_dt),
+                                f0=g.f0, src_type="Ricker")
+            for g in geometries]
+
+
+def smooth_perturbation(field, seed):
+    """A smooth random perturbation of 1% of the field's mean."""
+    from scipy.ndimage import gaussian_filter
+    d = gaussian_filter(np.random.RandomState(seed).randn(*field.shape), 3)
+    d *= 1e-2 * float(field.abs().mean()) / np.abs(d).max()
+    return torch.as_tensor(d, device=field.device)
+
+
+def elastic_routes_phase(dev, marm, elastic_fwi, cs, counters):
+    """Phase 43: the elastic objective's routes, Born and the Born dot
+    test."""
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.ops import staggered_grad as sg
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    phase(f"43 elastic routes on SMARM2's full grid, shot {ROUTE_SHOT}: "
+          "saved and vjp against the kernels, auto off the kernels, Born")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    eargs = marm.make_parser(marm.SMARM2).parse_args(
+        ["--physics", "elastic", "--device", "cuda"])
+    _, geoms, fields, _ = marm.setup_elastic(
+        marm.SMARM2, eargs, marm.SMARM2.nsrc_default)
+    g1, g0 = geoms[:2]
+    _, smooth_vp, vs0, rho0 = fields
+    c1, c0 = cut_geometries(g1, g0)
+    print(f"   the routes at nt {c0.nt}, cut from {g0.nt}: CUT_STEPS")
+    obs, _ = elastic_fwi.elastic_fm_multi(c1, device="cuda")
+    run_routes("elastic", elastic_fwi, cs, c0, obs, counters, dev,
+               vp=smooth_vp, vs=vs0, rho=rho0)
+
+    # receivers on a vertical line: no kernel takes it, auto runs "saved"
+    m0, m1 = g0.model, g1.model
+    xs, zs = m0.domain_size
+    rec = np.stack([np.full(60, 0.5 * xs), np.linspace(
+        2 * m0.spacing[1], zs - m0.spacing[1], 60)], 1)
+    src = g0.src_positions[ROUTE_SHOT:ROUTE_SHOT + 1]
+    gv1, gv0 = (AcquisitionGeometry(m, rec, src, 0.,
+                                    CUT_STEPS * float(m0.critical_dt),
+                                    f0=g0.f0, src_type="Ricker")
+                for m in (m1, m0))
+    for reset in counters:
+        reset()
+    elastic_fwi.reset_counters()
+    t0 = time.perf_counter()
+    obs_v, _ = elastic_fwi.elastic_fm_multi(gv1, device="cuda")
+    t_fm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_v, g_v, _ = elastic_fwi.elastic_fwi_obj_multi(
+        gv0, obs_v, calc_grad=True, vp=smooth_vp, vs=vs0, rho=rho0,
+        device="cuda")
+    t_obj = time.perf_counter() - t0
+    print(f"   vertical line (60 receivers at x = {0.5 * xs:.0f} m, nt "
+          f"{gv0.nt}, cut from {g0.nt}: CUT_STEPS): "
+          f"elastic_fm_multi {t_fm:.3f} s, auto gradient {t_obj:.3f} s, "
+          f"objective {f_v!r}; elastic_fwi.EAGER {elastic_fwi.EAGER}, "
+          f"kernel launches {sum(cs.LAUNCHES.values())}")
+    if not (elastic_fwi.EAGER == {"objective": 1, "fm_multi": 1} and
+            sum(cs.LAUNCHES.values()) == 0 and np.isfinite(f_v) and
+            all(np.isfinite(v).all() and np.abs(v).max() > 0
+                for v in g_v.values())):
+        raise AssertionError("the vertical line did not take the counted "
+                             "saved route, or its gradient is not finite")
+
+    # Born on the full grid, nt cut to CUT_STEPS: the primal against the
+    # kernel's traces
+    gb = AcquisitionGeometry(m0, g0.rec_positions, src, 0.,
+                             CUT_STEPS * float(m0.critical_dt), f0=g0.f0,
+                             src_type="Ricker")
+    vp, vs, rho = (torch.as_tensor(x, device=dev)
+                   for x in elastic_fwi.model_vp_vs_rho(m0))
+    s_idx, s_w = interp_table(src, m0.origin_pml, m0.spacing)
+    r_idx, r_w = interp_table(g0.rec_positions, m0.origin_pml, m0.spacing)
+    damp = torch.as_tensor(elastic_fwi._damp_field(m0), device=dev)
+    # the shots share one wavelet: the first column of the geometry's
+    wav = torch.as_tensor(gb.src.data, device=dev)
+    dvp = 0.01 * vp
+    sync(dev)
+    t0 = time.perf_counter()
+    (rec1, _), (drec1, drec2) = sg.elastic_born(
+        vp, vs, rho, dvp, None, None, damp, wav, s_idx, s_w, r_idx, r_w,
+        float(m0.critical_dt), nt=gb.nt, spacing=m0.spacing,
+        space_order=m0.space_order)
+    sync(dev)
+    t_born = time.perf_counter() - t0
+    kern = elastic_fwi.elastic_fm_multi(gb, device="cuda")[0][0]
+    want = torch.as_tensor(kern.data, device=dev)
+    rel = float((rec1 - want).abs().max() / want.abs().max())
+    print(f"   elastic_born (1% vp): {t_born:.3f} s ({gb.nt - 1} steps, cut "
+          f"from {g0.nt - 1}: CUT_STEPS), "
+          f"max|drec1| {float(drec1.abs().max()):.4e}, primal vs the "
+          f"kernel's traces {rel:.3e} of the max (limit {ROUTE_RTOL[1]:g})")
+    if not (rel <= ROUTE_RTOL[1] and bool(torch.isfinite(drec1).all()) and
+            bool(torch.isfinite(drec2).all()) and drec1.abs().max() > 0):
+        raise AssertionError("elastic_born disagrees or is not finite")
+    del rec1, drec1, drec2, obs
+
+    # the Born dot test at float64 on the small grid
+    g, (vp, vs, rho), wav, tables, kw, dt = small_model(dev, visco=False)
+    damp = torch.ones_like(vp)
+    dvp = smooth_perturbation(vp, 9)
+    (_, _), (drec1, _) = sg.elastic_born(vp, vs, rho, dvp, None, None, damp,
+                                         wav, *tables, dt, **kw)
+    dr = torch.as_tensor(np.random.RandomState(2).randn(*drec1.shape),
+                         device=dev)
+    lam, mu, b = rho * (vp * vp - 2.0 * vs * vs), rho * vs * vs, 1.0 / rho
+    _, _, hist = sg.elastic_forward_hist(lam, mu, b, damp, wav, *tables, dt,
+                                         **kw)
+    glam, _, _ = sg.elastic_adjoint_from_hist(lam, mu, b, damp, tables[2],
+                                              tables[3], dr, hist, dt, **kw)
+    dot_check("elastic Born", float(torch.sum(drec1 * dr)),
+              float(torch.sum(2.0 * rho * vp * glam * dvp)))
+    print(f"   phase 43: {time.perf_counter() - t_phase:.1f} s")
+
+
+def visco_routes_phase(dev, marm, visco_fwi, cv, counters):
+    """Phase 44: the viscoacoustic objective's routes, the five other
+    kernels and the Born dot test."""
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.ops import visco_grad as vg
+    from devito_fwi_tpu_torch.ops.viscoacoustic import KERNELS
+    phase(f"44 viscoacoustic routes on SMARMN's full grid, shot "
+          f"{ROUTE_SHOT}: sls/2 saved and vjp against the kernels, the five "
+          "other kernels, Born")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    vargs = marm.make_parser(marm.SMARMN).parse_args(
+        ["--physics", "viscoacoustic", "--device", "cuda"])
+    _, geoms, smooth_vp, _ = marm.setup_visco(
+        marm.SMARMN, vargs, marm.SMARMN.nsrc_default)
+    g1, g0 = geoms[:2]
+    c1, c0 = cut_geometries(g1, g0)
+    print(f"   the routes and the five other kernels at nt {c0.nt}, cut from "
+          f"{g0.nt}: CUT_STEPS")
+    obs = visco_fwi.visco_fm_multi(c1, device="cuda")
+    run_routes("visco", visco_fwi, cv, c0, obs, counters, dev, vp=smooth_vp)
+    del obs
+
+    m1, m0 = g1.model, g0.model
+    src = g0.src_positions[ROUTE_SHOT:ROUTE_SHOT + 1]
+    dt = float(m0.critical_dt)
+
+    def one_shot(m, tn):
+        return AcquisitionGeometry(m, g0.rec_positions, src, 0., tn,
+                                   f0=g0.f0, src_type="Ricker")
+
+    cut1, cut0 = (one_shot(m, CUT_STEPS * dt) for m in (m1, m0))
+    for kind in sorted(KERNELS - {("sls", 2)}):
+        for reset in counters:
+            reset()
+        visco_fwi.reset_counters()
+        t0 = time.perf_counter()
+        obs_c = visco_fwi.visco_fm_multi(cut1, *kind, device="cuda")
+        t_fm = time.perf_counter() - t0
+        rec = obs_c[0].data
+        t0 = time.perf_counter()
+        f, g, _ = visco_fwi.visco_fwi_obj_multi(
+            cut0, obs_c, calc_grad=True, vp=smooth_vp, kernel=kind[0],
+            time_order=kind[1], device="cuda")
+        t_grad = time.perf_counter() - t0
+        print(f"   {kind[0]}/{kind[1]}: visco_fm_multi {t_fm:.3f} s "
+              f"(max|rec| {np.abs(rec).max():.4e}), vjp gradient "
+              f"{t_grad:.3f} s (objective {f!r}); visco_fwi.EAGER "
+              f"{visco_fwi.EAGER}, kernel launches "
+              f"{sum(cv.LAUNCHES.values())}")
+        if not (visco_fwi.EAGER == {"objective": 1, "fm_multi": 1} and
+                sum(cv.LAUNCHES.values()) == 0 and np.isfinite(rec).all()
+                and np.abs(rec).max() > 0 and np.isfinite(f) and f > 0 and
+                all(np.isfinite(v).all() for v in g.values())):
+            raise AssertionError(f"{kind}: not the counted eager route, or "
+                                 "not finite")
+
+    # visco_born's dot test at float64 on the small grid
+    g, (vp, b, qp, damp), wav, tables, kw, dt = small_model(dev, visco=True)
+    dvp, dqp = smooth_perturbation(vp, 4), smooth_perturbation(qp, 5)
+    rec, drec = vg.visco_born(vp, b, qp, dvp, dqp, damp, wav, *tables, dt,
+                              g.f0, **kw)
+    dr = torch.as_tensor(np.random.RandomState(6).randn(*rec.shape),
+                         device=dev)
+    _, _, hist = vg.visco_sls2_forward_hist(vp, b, qp, damp, wav, *tables,
+                                            dt, g.f0, **kw)
+    g_vp, g_qp = vg.visco_sls2_adjoint_from_hist(
+        vp, b, qp, damp, wav, *tables, dr, hist, dt, g.f0, **kw)
+    dot_check("viscoacoustic sls/2 Born", float(torch.sum(drec * dr)),
+              float(torch.sum(g_vp * dvp) + torch.sum(g_qp * dqp)))
+    print(f"   phase 44: {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_visco_smarm2(marm, counters):
+    """Phase 45's driver run. A fault of the JAX driver that the port
+    mirrors (ROADMAP.md queue C): ``setup_visco`` pins dt at the true
+    model's CFL speed (4.66 km/s at SMARM2) while the inversion's bounds
+    reach 5.2 km/s, so a trial at the bound diverges (a NaN objective);
+    when the finite trials keep descending toward it the line search fails,
+    and ``minimize`` retries the same direction without end. The run here
+    allows the one retry and then lets the optimizer stop."""
+    from devito_fwi_tpu_torch.optimize import optimizers
+    retry = optimizers.base.retry_status
+    retries = []
+
+    def retry_once(self, g, p):
+        retries.append(1)
+        return retry(self, g, p) if len(retries) == 1 else 0
+
+    optimizers.base.retry_status = retry_once
+    try:
+        stats = run_driver(marm, marm.SMARM2, [
+            "--physics", "viscoacoustic", "--misfit", "0"], counters)
+    finally:
+        optimizers.base.retry_status = retry
+    stats["retries"] = len(retries)
+    return stats
+
+
+def visco_smarm2_check(stats):
+    """Finite, decreasing misfit at the two gradients; the trials printed,
+    the non-finite ones (the dt fault) counted."""
+    calls = stats["calls"]
+    f = [c[1] for c in calls if c[0]]
+    trials = [c[1] for c in calls if not c[0]]
+    print(f"   misfit at each gradient: {f}")
+    print(f"   line-search trials: {trials}")
+    print(f"   time per gradient: {[c[2] for c in calls if c[0]]} s")
+    print(f"   time per line-search trial: "
+          f"{[c[2] for c in calls if not c[0]]} s")
+    print(f"   forward modeling of obs + direct wave: {stats['model_s']:.3f}"
+          " s")
+    bad = sum(1 for v in trials if not np.isfinite(v))
+    print(f"   non-finite trials (past the pinned dt's CFL speed): {bad}; "
+          f"failed searches retried or stopped: {stats['retries']}")
+    if not (len(f) == 2 and np.all(np.isfinite(f)) and f[1] < f[0]):
+        raise AssertionError(f"misfit not finite and decreasing: {calls}")
 
 
 def main():
@@ -2805,7 +3271,8 @@ def main():
     counters = (ca.reset_counters, cb.reset_counters, cs.reset_counters,
                 cv.reset_counters, ct.reset_counters, c3.reset_counters,
                 c3d.reset_counters, cl.reset_counters, bfm.reset_counts,
-                fwi.reset_counters)
+                fwi.reset_counters, elastic_fwi.reset_counters,
+                visco_fwi.reset_counters)
     modules = (ca, cb, cs, cv, ct, c3, c3d, cl)
     launches = {}
 
@@ -2987,7 +3454,21 @@ def main():
     abc_phase(dev)
     viscoelastic_phase(dev, marm)
 
-    phase("43 result")
+    t_new = time.perf_counter()
+    elastic_routes_phase(dev, marm, elastic_fwi, cs, counters)
+    visco_routes_phase(dev, marm, visco_fwi, cv, counters)
+    phase(f"45 main path: SMARM2 viscoacoustic FWI, "
+          f"{marm.SMARM2.nsrc_default} shots, --physics viscoacoustic "
+          "--misfit 0 --maxiter 2, on cuda")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    visco_smarm2_check(run_visco_smarm2(marm, counters))
+    report("SMARM2 viscoacoustic", cv.KERNELS, record=False)
+    print(f"   phase 45: {time.perf_counter() - t_phase:.1f} s; phases "
+          f"43-45: {time.perf_counter() - t_new:.1f} s")
+
+    phase("46 result")
     rows = []
     sources = (("acoustic2d", ca), ("bfm_push", cb), ("elastic2d", cs),
                ("visco2d", cv), ("tti2d", ct), ("acoustic3d", c3d),

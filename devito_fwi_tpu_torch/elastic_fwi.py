@@ -1,32 +1,46 @@
 """Elastic FWI objective on torch: misfit and (vp, vs, rho) gradients
-through the 2-D staggered-grid velocity-stress propagator.
+through the staggered-grid velocity-stress propagator.
 
 Port of ``devito_fwi_tpu.elastic_fwi``. ``elastic_fm_multi``,
 ``elastic_fwi_obj_multi`` and ``ElasticFwiLoss`` keep their signatures and
-add ``device``: "cuda" (the default) runs the CUDA kernels of
-``ops.cuda_staggered`` and raises when no card is present or when the
-geometry is one the kernels do not take; "cpu" runs their plain torch
-twins. One gradient evaluation of a shot chunk is
+add ``device``: "cuda" (the default) raises when no card is present, "cpu"
+runs everything in plain torch. ``grad_route`` picks the gradient's route
+as in the JAX package:
 
-1. the physical (vp, vs, rho) edge-padded, lam = rho (vp^2 - 2 vs^2),
-   mu = rho vs^2, b = 1/rho and their staggered averages;
-2. ``elastic_fwd_hist_segments``: tau_zz receiver rows, the
-   (vx', vz', dtau_x, dtau_z) history in float32 and the illumination;
-3. the traces, the batched misfit of the gathers after direct-wave
-   subtraction, and the residual folded onto the two receiver rows;
-4. ``elastic_grad_stream_segments``: the five images;
-5. ``avg_to_T``, the chain rule to (vp, vs, rho), ``pad_fold`` and the
-   per-shot source/receiver illumination fix, summed over shots,
+* the kernels (None, "auto" or "pallas"; their plain twins on the CPU),
+  when ``cuda_staggered.unsupported_reason`` takes the geometry: 2-D
+  float32 (the twins also float64), one source point a shot, receivers
+  between two adjacent z-planes. One gradient evaluation of a shot chunk
+  is
 
-and the illumination precondition and the mask follow on the device.
-Line-search trials and forward modeling run ``elastic_segments``. Shot
-chunks are sized, as the acoustic objective's are, from
-``fwi._device_budget`` and each route's bytes per shot (the history:
-(nt-1) x 4 fields per shot, 2.1 GB at SMARM2).
+  1. the physical (vp, vs, rho) edge-padded, lam = rho (vp^2 - 2 vs^2),
+     mu = rho vs^2, b = 1/rho and their staggered averages;
+  2. ``elastic_fwd_hist_segments``: tau_zz receiver rows, the (vx', vz',
+     dtau_x, dtau_z) history in float32 and the illumination;
+  3. the traces, the batched misfit of the gathers after direct-wave
+     subtraction, and the residual folded onto the two receiver rows;
+  4. ``elastic_grad_stream_segments``: the five images;
+  5. ``avg_to_T``, the chain rule to (vp, vs, rho), ``pad_fold`` and the
+     per-shot source/receiver illumination fix, summed over shots,
 
-The eager torch "saved" route (``ops.staggered_grad``) and the autograd
-route are not wired into the objective yet: ``grad_route="saved"`` and
-``"vjp"`` raise (ROADMAP.md queue A item 11).
+  and line-search trials and forward modeling run ``elastic_segments``;
+* "saved": the eager saved-history route of ``ops.staggered_grad`` shot by
+  shot (``elastic_forward_hist``, the chunk's misfit,
+  ``elastic_adjoint_from_hist``, the chain rule and ``pad_fold``), any
+  dimension, float type and device;
+* "vjp": ``torch.autograd`` through the checkpointed
+  ``staggered.elastic_forward_seg`` shot by shot, the edge pad inside the
+  graph, so halo cotangents fold onto the edge cells;
+* "auto" on a geometry the kernels do not take (3-D, float64 on cuda,
+  receivers off two adjacent z-planes, several source points) runs
+  "saved", adds one to ``EAGER["objective"]`` and warns once per reason;
+  ``elastic_fm_multi`` models such geometries shot by shot on the eager
+  ``staggered.elastic_forward`` (``EAGER["fm_multi"]``). "pallas" on such
+  a geometry raises ``ValueError``.
+
+The illumination precondition and the mask follow on the device. Shot
+chunks are sized from ``fwi._device_budget`` and each route's bytes per
+shot (``_bytes_per_shot``, ``_eager_bytes_per_shot``).
 """
 from __future__ import annotations
 
@@ -34,15 +48,37 @@ import numpy as np
 import torch
 
 from .fwi import (MISFIT_BYTES_PER_SAMPLE, ResidualStack, _batched_tables,
-                  _crop, _device_budget, _device_stack, _illum_fix_factors,
-                  _misfit_batch, _resolve_device, _shots_per_batch)
+                  _crop, _device_budget, _device_stack, _eager_warn,
+                  _illum_factors, _misfit_batch, _resolve_device,
+                  _shots_per_batch)
 from .models.sources import PointSource
 from .ops import cuda_staggered as _cs
+from .ops import staggered as _st
 from .ops import staggered_grad as _sg
 from .ops.cuda_acoustic import matmul_full
+from .ops.remat import segment_layout
 
 __all__ = ["elastic_fm_multi", "elastic_fwi_obj_multi", "ElasticFwiLoss",
-           "model_vp_vs_rho"]
+           "model_vp_vs_rho", "EAGER", "reset_counters"]
+
+# calls that took an eager route because the kernels do not take their
+# geometry: objectives ("auto" -> "saved") and elastic_fm_multi
+EAGER = {"objective": 0, "fm_multi": 0}
+
+# the grid fields autograd saves a step of the elastic forward, by
+# dimension: what one rebuilt segment of elastic_forward_seg holds a step
+# (counted with torch.autograd.graph.saved_tensors_hooks, rounded up;
+# tests/test_torch_elastic_routes.py holds the figures)
+GRAPH_FIELDS_PER_STEP = {2: 14, 3: 23}
+# the grid fields an eager route's shot holds besides its history or its
+# segments: the reverse sweep's working set, the padded parameters and the
+# graph around the loop, the gradients and the illumination
+EAGER_FIELDS = 48
+
+
+def reset_counters():
+    for key in EAGER:
+        EAGER[key] = 0
 
 
 def model_vp_vs_rho(model):
@@ -76,8 +112,9 @@ def _pad_edge(t, pads):
     return t
 
 
-class _Tables:
-    """Tables, operands and layout one elastic call needs on the device."""
+class _Setup:
+    """Tables and operands every route of one elastic call needs on the
+    device."""
 
     def __init__(self, geometry, dev, shot_indices=None):
         model = geometry.model
@@ -88,30 +125,47 @@ class _Tables:
             sel = np.asarray(shot_indices, dtype=np.int64)
             s_idx, s_w, self.src_pos = s_idx[sel], s_w[sel], \
                 self.src_pos[sel]
-        if dev.type == "cuda":
-            why = _cs.unsupported_reason(model, s_idx, r_idx, src_wav)
-            if why is not None:
-                raise ValueError(f"elastic kernels on cuda: {why} (run other "
-                                 "geometries with device='cpu')")
-        self.s_idx, self.s_w, self.r_idx = s_idx, s_w, r_idx
+        self.s_idx, self.s_w, self.r_idx, self.r_w_np = s_idx, s_w, r_idx, r_w
+        self.reason = _cs.unsupported_reason(model, s_idx, r_idx, src_wav,
+                                             twins=dev.type == "cpu")
         self.dtype = torch.float32 if model.dtype == np.float32 \
             else torch.float64
         self.dev = dev
         self.nt = geometry.nt
         self.nsteps = self.nt - 1
         self.dt = float(model.critical_dt)
-        self.nx, self.nz = model.padded_shape
-        self.z0 = int(np.asarray(r_idx)[..., 1].min())
-        self.r_w = torch.as_tensor(r_w, device=dev)
-        self.W = _cs.zplane_weight_matrix(r_idx, self.r_w, self.nx, self.z0)
         self.src_wav = torch.as_tensor(np.asarray(src_wav, model.dtype),
                                        device=dev)
         self.damp = torch.as_tensor(_damp_field(model), device=dev)
+        self.spacing = model.spacing
+        self.space_order = model.space_order
+        self.op_kw = dict(nt=self.nt, spacing=model.spacing,
+                          space_order=model.space_order)
+
+    def shot(self, i):
+        """The eager operators' source arguments of shot i."""
+        return self.src_wav, self.s_idx[i], self.s_w[i]
+
+
+class _Tables(_Setup):
+    """Tables, operands and layout one call of the kernels needs on the
+    device."""
+
+    def __init__(self, geometry, dev, shot_indices=None):
+        super().__init__(geometry, dev, shot_indices)
+        if dev.type == "cuda" and self.reason is not None:
+            raise ValueError(f"elastic kernels on cuda: {self.reason} (the "
+                             "objective's saved route takes such "
+                             "geometries)")
+        model = geometry.model
+        self.nx, self.nz = model.padded_shape
+        self.z0 = int(np.asarray(self.r_idx)[..., 1].min())
+        self.r_w = torch.as_tensor(self.r_w_np, device=dev)
+        self.W = _cs.zplane_weight_matrix(self.r_idx, self.r_w, self.nx,
+                                          self.z0)
         self.kw = dict(nt=self.nt, nx=self.nx, nz=self.nz,
                        space_order=model.space_order, spacing=model.spacing,
                        z0=self.z0)
-        self.spacing = model.spacing
-        self.space_order = model.space_order
 
     def injT(self, lo, hi):
         inj = _cs.source_pattern(self.s_idx[lo:hi], self.s_w[lo:hi],
@@ -153,21 +207,35 @@ def _shots(rec_all, geometry):
     return out
 
 
+def _lame(vpp, vsp, rhp):
+    """(lam, mu, b) of padded (vp, vs, rho)."""
+    return rhp * (vpp * vpp - 2.0 * vsp * vsp), rhp * vsp * vsp, 1.0 / rhp
+
+
 def elastic_fm_multi(geometry, device="cuda"):
-    """Model all shots through ``elastic_segments`` in one batch; returns
-    (rec1 list, rec2 list) of PointSource gathers (tau_zz and div v)."""
+    """Model all shots through ``elastic_segments`` in one batch, or shot by
+    shot through the eager ``staggered.elastic_forward`` on a geometry the
+    kernels do not take (counted in ``EAGER["fm_multi"]``); returns (rec1
+    list, rec2 list) of PointSource gathers (tau_zz and div v)."""
     dev = _resolve_device(device)
     model = geometry.model
-    tb = _Tables(geometry, dev)
-    vp, vs, rho = model_vp_vs_rho(model)
-    lam = torch.as_tensor(rho * (vp * vp - 2.0 * vs * vs), device=dev)
-    mu = torch.as_tensor(rho * vs * vs, device=dev)
-    b = torch.as_tensor(1.0 / rho, device=dev)
-    rows = _cs.elastic_segments(*_cs.stagger_params(lam, mu, b, tb.damp),
-                                tb.injT(0, geometry.nsrc),
-                                tb.wav_pad(tb.nsteps), tb.dt, **tb.kw)
-    r1, r2 = _cs._stag_assemble(rows, tb.r_idx, tb.r_w, z0=tb.z0, nt=tb.nt,
-                                nsteps=tb.nsteps, nx=tb.nx)
+    st = _Setup(geometry, dev)
+    lam, mu, b = (torch.as_tensor(x, device=dev)
+                  for x in _lame(*model_vp_vs_rho(model)))
+    if st.reason is not None:
+        EAGER["fm_multi"] += 1
+        _eager_warn(f"elastic: {st.reason}", "ops.staggered")
+        recs = [_st.elastic_forward(lam, mu, b, st.damp, *st.shot(i),
+                                    st.r_idx, st.r_w_np, st.dt, **st.op_kw)
+                for i in range(geometry.nsrc)]
+        r1, r2 = (torch.stack(r) for r in zip(*recs))
+    else:
+        tb = _Tables(geometry, dev)
+        rows = _cs.elastic_segments(*_cs.stagger_params(lam, mu, b, tb.damp),
+                                    tb.injT(0, geometry.nsrc),
+                                    tb.wav_pad(tb.nsteps), tb.dt, **tb.kw)
+        r1, r2 = _cs._stag_assemble(rows, tb.r_idx, tb.r_w, z0=tb.z0,
+                                    nt=tb.nt, nsteps=tb.nsteps, nx=tb.nx)
     return (_shots(r1.cpu().numpy(), geometry),
             _shots(r2.cpu().numpy(), geometry))
 
@@ -213,6 +281,128 @@ def _kernel_images(tb, prm, injT, seg, misfit, obs, dw):
     return fvals, res, glam, g_mu, g_b, illumT.transpose(1, 2)
 
 
+def _eager_bytes_per_shot(st, calc_grad, kind, route, n_checkpoints):
+    """Device bytes one shot of an eager chunk holds at its peak: its
+    traces, residual and misfit, and ``EAGER_FIELDS`` grid fields (the
+    reverse sweep's working set, the padded parameters and the outer
+    graph, its gradients and illumination); on the saved route also its
+    history (2 ndim fields a step); on the vjp route each segment's start
+    (the 2 ndim + npairs state fields and the illumination) and one
+    rebuilt segment's graph, ``GRAPH_FIELDS_PER_STEP`` saved fields a step
+    (running it back holds no more). A trial holds the traces alone. A
+    shot chunk's own peak on the card (H100, SMARM2, one shot; nt 1421 and
+    401): saved 2.1206 and 0.6099 GB against 2.1364 and 0.6146 sized, vjp
+    0.2871 and 0.1552 against 0.3231 and 0.1733
+    (``tools/probe_eager_peaks.py``). Before its first chunk the call
+    forms the illumination fix's receiver masks, (nrec, *shape) float64 at
+    once, and frees them: its whole peak, 0.41-0.46 GB at SMARM2, is
+    theirs and no shot's."""
+    f = 4 if st.dtype == torch.float32 else 8
+    field = int(np.prod(st.damp.shape)) * f
+    ndim = st.damp.dim()
+    nrec = st.r_idx.shape[0]
+    traces = (2 + MISFIT_BYTES_PER_SAMPLE[kind] // f) * st.nt * nrec * f
+    if not calc_grad:
+        return traces
+    if route == "saved":
+        return (st.nsteps * 2 * ndim + EAGER_FIELDS) * field + traces
+    seg, nseg = segment_layout(st.nsteps, n_checkpoints)
+    state = 2 * ndim + ndim * (ndim - 1) // 2
+    return ((nseg + 1) * (state + 1) + EAGER_FIELDS + seg * (
+        GRAPH_FIELDS_PER_STEP[ndim])) * field + \
+        traces
+
+
+def _vjp_shots(forward, phys, pads, lo, hi, misfit, obs, dw, dtype):
+    """The vjp route on shots lo..hi-1: ``forward(i, *padded)`` gives shot
+    i's (traces, illumination) through a checkpointed forward of the
+    edge-padded physical parameters ``phys``, the pad inside the graph.
+    Each shot's forward, the chunk's batched misfit, each shot's
+    ``torch.autograd.grad``. Returns (fvals, residuals, the physical
+    gradients of each parameter (B, *shape), the illuminations (B,
+    *grid))."""
+    leaves, fwd = [], []
+    with torch.enable_grad():
+        for i in range(lo, hi):
+            xs = [x.detach().clone().requires_grad_(True) for x in phys]
+            fwd.append(forward(i, *(_pad_edge(x, pads) for x in xs)))
+            leaves.append(xs)
+    fvals, res = misfit(torch.stack([r.detach() for r, _ in fwd]) - dw,
+                        obs - dw)
+    res = res.to(dtype)
+    grads, illums = [], []
+    for j in range(hi - lo):
+        rec, illum = fwd[j]
+        grads.append(torch.autograd.grad(rec, leaves[j], res[j]))
+        # free this shot's graph before the next reverse
+        fwd[j] = leaves[j] = None
+        illums.append(illum)
+    return (fvals, res, tuple(torch.stack(g) for g in zip(*grads)),
+            torch.stack(illums))
+
+
+def _eager_chunk(st, route, phys, pads, shape, misfit, obs, dw, lo, hi,
+                 calc_grad, n_checkpoints):
+    """Shots lo..hi-1 on an eager route: (fvals, residuals, and on a
+    gradient (g_vp, g_vs, g_rho) (B, *shape) and the cropped illumination
+    (B, *shape)). Each shot's forward, the chunk's batched misfit, each
+    shot's reverse."""
+    pad = [_pad_edge(x, pads) for x in phys]
+    lam, mu, b = _lame(*pad)
+    args = (st.r_idx, st.r_w_np, st.dt)
+    shots = range(lo, hi)
+    if not calc_grad:
+        with torch.no_grad():
+            recs = [_st.elastic_forward(lam, mu, b, st.damp, *st.shot(i),
+                                        *args, **st.op_kw)[0] for i in shots]
+        fvals, res = misfit(torch.stack(recs) - dw, obs - dw)
+        return fvals, res, None, None
+    if route == "vjp":
+        def forward(i, *padded):
+            rec1, _, illum = _st.elastic_forward_seg(
+                *_lame(*padded), st.damp, *st.shot(i), *args,
+                n_checkpoints=n_checkpoints, **st.op_kw)
+            return rec1, illum
+
+        fvals, res, grads, illum = _vjp_shots(forward, phys, pads, lo, hi,
+                                              misfit, obs, dw, st.dtype)
+        return fvals, res, grads, _crop(illum, pads, shape)
+    fwd = [_sg.elastic_forward_hist(lam, mu, b, st.damp, *st.shot(i), *args,
+                                    **st.op_kw) for i in shots]
+    fvals, res = misfit(torch.stack([f[0] for f in fwd]) - dw, obs - dw)
+    res = res.to(st.dtype)
+    grads, illums = [], []
+    for j in range(hi - lo):
+        _, illum, hist = fwd[j]
+        glam, g_mu, g_b = _sg.elastic_adjoint_from_hist(
+            lam, mu, b, st.damp, st.r_idx, st.r_w_np, res[j], hist, st.dt,
+            **st.op_kw)
+        grads.append(_finish(glam, g_mu, g_b, *pad, pads))
+        # free this shot's history before the next reverse
+        fwd[j] = None
+        illums.append(_crop(illum, pads, shape))
+    return (fvals, res, tuple(torch.stack(g) for g in zip(*grads)),
+            torch.stack(illums))
+
+
+def _resolve_route(grad_route, reason):
+    """"kernels", "saved" or "vjp" for ``grad_route`` on a geometry the
+    kernels refuse for ``reason`` (None: they take it)."""
+    if grad_route not in (None, "auto", "pallas", "saved", "vjp"):
+        raise ValueError(f"grad_route={grad_route!r}: expected 'auto', "
+                         "'pallas', 'saved' or 'vjp'")
+    if grad_route in ("saved", "vjp"):
+        return grad_route
+    if reason is None:
+        return "kernels"
+    if grad_route == "pallas":
+        raise ValueError(f"grad_route='pallas': the elastic kernels do not "
+                         f"take this geometry ({reason})")
+    EAGER["objective"] += 1
+    _eager_warn(f"elastic: {reason}", "ops.staggered_grad")
+    return "saved"
+
+
 def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
                           mask=None, precond=True, calc_grad=False,
                           vp=None, vs=None, rho=None, shot_chunk=None,
@@ -228,20 +418,17 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
     the physical domain as float64 numpy (None when not ``calc_grad``).
     ``shot_chunk`` caps the shots per batch (default: as many as the
     card's memory holds). ``grad_route``: None, "auto" or "pallas" run the
-    gradient kernels (their twins on the CPU); "saved" and "vjp" raise.
-    ``n_checkpoints`` is accepted for signature parity and changes
-    nothing."""
-    if grad_route not in (None, "auto", "pallas", "saved", "vjp"):
-        raise ValueError(f"grad_route={grad_route!r}: expected 'auto', "
-                         "'pallas', 'saved' or 'vjp'")
-    if grad_route in ("saved", "vjp"):
-        raise NotImplementedError(
-            f"grad_route={grad_route!r} is not wired into the port's "
-            "objective yet (ROADMAP.md queue A item 11)")
+    kernels (their twins on the CPU) where they take the geometry, and
+    "auto" runs "saved" elsewhere; "saved" the eager saved-history route;
+    "vjp" autograd through the checkpointed forward, whose segments
+    ``n_checkpoints`` sets (<= 0: about sqrt(nt))."""
     dev = _resolve_device(device)
     model = geometry.model
     misfit, kind = _misfit_batch(misfit_func)
-    tb = _Tables(geometry, dev, shot_indices)
+    st = _Setup(geometry, dev, shot_indices)
+    route = _resolve_route(grad_route, st.reason)
+    if route == "kernels":
+        tb = st = _Tables(geometry, dev, shot_indices)
     crop_slc = tuple(slice(lo, lo + n)
                      for (lo, _), n in zip(model.padsizes, model.shape))
     mvp, mvs, mrho = model_vp_vs_rho(model)
@@ -256,18 +443,16 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         return torch.as_tensor(user, device=dev)
 
     pads = tuple(tuple(p) for p in model.padsizes)
-    vpp, vsp, rhp = (_pad_edge(param(u, f), pads)
-                     for u, f in ((vp, mvp), (vs, mvs), (rho, mrho)))
-    lam = rhp * (vpp * vpp - 2.0 * vsp * vsp)
-    mu = rhp * vsp * vsp
-    b = 1.0 / rhp
-    prm = _cs.stagger_params(lam, mu, b, tb.damp)
+    phys = [param(u, f) for u, f in ((vp, mvp), (vs, mvs), (rho, mrho))]
+    vpp, vsp, rhp = (_pad_edge(x, pads) for x in phys)
+    if route == "kernels":
+        prm = _cs.stagger_params(*_lame(vpp, vsp, rhp), tb.damp)
 
     obs_stack = _device_stack(obs, dev)
-    if obs_stack.shape[1] != tb.nt:
+    if obs_stack.shape[1] != st.nt:
         raise ValueError(
             "observed data has %d time samples but the geometry's time axis "
-            "has %d" % (obs_stack.shape[1], tb.nt))
+            "has %d" % (obs_stack.shape[1], st.nt))
     if direct_wave is not None:
         dw_stack = _device_stack(direct_wave, dev)
     if shot_indices is not None:
@@ -276,14 +461,15 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         obs_stack = obs_stack[sel]
         if direct_wave is not None:
             dw_stack = dw_stack[sel]
-    nsrc = tb.s_idx.shape[0]
-    chunk = _shots_per_batch(
-        nsrc, shot_chunk, _bytes_per_shot(tb, calc_grad, kind),
-        _device_budget(dev) if dev.type == "cuda" else None)
+    nsrc = st.s_idx.shape[0]
+    per_shot = _bytes_per_shot(tb, calc_grad, kind) if route == "kernels" \
+        else _eager_bytes_per_shot(st, calc_grad, kind, route, n_checkpoints)
+    chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
+                             _device_budget(dev) if dev.type == "cuda"
+                             else None)
     shape = model.shape
     if calc_grad:
-        keep_src, rec_prod = _illum_fix_factors(
-            tb.src_pos, geometry.rec_positions, model.spacing, shape, dev)
+        factors = _illum_factors(geometry, st.src_pos, dev)
     fval = 0.0
     residuals = []
     grads = illum = None
@@ -291,25 +477,31 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         hi = min(lo + chunk, nsrc)
         obs_c = obs_stack[lo:hi]
         dw = dw_stack[lo:hi] if direct_wave is not None else 0.0
-        if not calc_grad:
+        if route != "kernels":
+            fvals, res, gs, il = _eager_chunk(
+                st, route, phys, pads, shape, misfit, obs_c, dw, lo, hi,
+                calc_grad, n_checkpoints)
+        elif not calc_grad:
             rows = _cs.elastic_segments(*prm, tb.injT(lo, hi),
                                         tb.wav_pad(tb.nsteps), tb.dt,
                                         **tb.kw)
             fvals, res = misfit(tb.traces(rows[:, :, :, 0]) - dw, obs_c - dw)
-            fval = fval + torch.sum(fvals)
-            residuals.append(res)
-            continue
-        # the history as one segment of all the steps, as the modeling
-        # sweep's: on the card the segment is only a layout, and one
-        # segment pads nothing
-        fvals, res, glam, g_mu, g_b, il = _kernel_images(
-            tb, prm, tb.injT(lo, hi), tb.nsteps, misfit, obs_c, dw)
+        else:
+            # the history as one segment of all the steps, as the modeling
+            # sweep's: on the card the segment is only a layout, and one
+            # segment pads nothing
+            fvals, res, glam, g_mu, g_b, il = _kernel_images(
+                tb, prm, tb.injT(lo, hi), tb.nsteps, misfit, obs_c, dw)
+            gs = _finish(glam, g_mu, g_b, vpp, vsp, rhp, pads)
+            il = _crop(il, pads, shape)
         fval = fval + torch.sum(fvals)
         residuals.append(res)
-        fix = keep_src[lo:hi] * rec_prod if illum_fix else 1.0
-        gs = tuple(torch.sum(g.double() * fix, dim=0)
-                   for g in _finish(glam, g_mu, g_b, vpp, vsp, rhp, pads))
-        il = torch.sum(_crop(il, pads, shape).double() * fix, dim=0)
+        if not calc_grad:
+            continue
+        keep, rec_prod = factors(lo, hi)
+        fix = keep * rec_prod if illum_fix else 1.0
+        gs = tuple(torch.sum(g.double() * fix, dim=0) for g in gs)
+        il = torch.sum(il.double() * fix, dim=0)
         grads = gs if grads is None else tuple(a + g for a, g in
                                                zip(grads, gs))
         illum = il if illum is None else illum + il

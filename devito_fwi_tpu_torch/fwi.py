@@ -100,15 +100,16 @@ def reset_counters():
         EAGER[key] = 0
 
 
-def _eager_warn(reason):
+def _eager_warn(reason, ops="ops.acoustic"):
     """One warning per reason when a geometry takes the eager operators
-    instead of the kernels (the JAX package's ``_pallas_cliff_warn``)."""
+    (of the module ``ops``) instead of the kernels (the JAX package's
+    ``_pallas_cliff_warn``)."""
     if reason in _eager_warn.seen:
         return
     _eager_warn.seen.add(reason)
     warnings.warn(f"devito_fwi_tpu_torch: no kernel route takes this call "
-                  f"({reason}); running the eager operators of "
-                  "ops.acoustic", stacklevel=3)
+                  f"({reason}); running the eager operators of {ops}",
+                  stacklevel=3)
 
 
 _eager_warn.seen = set()
@@ -816,13 +817,12 @@ def _eager_traces(es, lo, hi):
         for i in range(lo, hi)])
 
 
-def _illum_fixer(geometry, src_pos, dev):
-    """``fix(lo, hi, *fields)``: each padded-grid field (hi-lo, *grid) of
-    shots lo..hi-1 cropped, times (1 - source mask) and then the product of
-    (1 - receiver mask), summed over the shots, in float64 (the JAX
-    package's ``_fix_illum_jax``)."""
+def _illum_factors(geometry, src_pos, dev):
+    """``factors(lo, hi)``: (1 - source mask) of shots lo..hi-1 (hi-lo,
+    *shape) and the product of (1 - receiver mask) (*shape) on the physical
+    grid, in float64 (the JAX package's ``_fix_illum_jax``, 2-D or 3-D)."""
     model = geometry.model
-    pads, shape = _pads(model), model.shape
+    shape = model.shape
     if model.dim == 3:
         fix3 = _IllumFix3(geometry.rec_positions, model.spacing, shape, dev)
 
@@ -834,6 +834,17 @@ def _illum_fixer(geometry, src_pos, dev):
 
         def factors(lo, hi):
             return keep[lo:hi], rec_prod
+    return factors
+
+
+def _illum_fixer(geometry, src_pos, dev):
+    """``fix(lo, hi, *fields)``: each padded-grid field (hi-lo, *grid) of
+    shots lo..hi-1 cropped, times (1 - source mask) and then the product of
+    (1 - receiver mask), summed over the shots, in float64 (the JAX
+    package's ``_fix_illum_jax``)."""
+    model = geometry.model
+    pads, shape = _pads(model), model.shape
+    factors = _illum_factors(geometry, src_pos, dev)
 
     def fix(lo, hi, *fields):
         k, rp = factors(lo, hi)

@@ -93,15 +93,17 @@ def reset_counters():
 # geometry gates
 # ---------------------------------------------------------------------------
 
-def unsupported_reason(model, src_idx, rec_idx, src_wav=None):
+def unsupported_reason(model, src_idx, rec_idx, src_wav=None, twins=False):
     """None when the kernels take the geometry, else the condition that
     fails: the grid must be 2-D float32, each shot one source point (with
     one shared wavelet), and every receiver on two adjacent z-planes z0,
     z0+1 inside the padded grid. ``src_idx`` is an ``interp_table`` output,
-    (npt, 4, 2) for one shot or (B, npt, 4, 2) for a batch."""
+    (npt, 4, 2) for one shot or (B, npt, 4, 2) for a batch. ``twins=True``
+    asks for the plain twins' conditions, which take float64 as well."""
     if model.dim != 2:
         return f"the kernels are 2-D; the model is {model.dim}-D"
-    if model.dtype != np.float32:
+    if model.dtype != np.float32 and not (twins and
+                                          model.dtype == np.float64):
         return f"the kernels are float32; the model is {model.dtype}"
     s_idx = np.asarray(src_idx)
     if s_idx.ndim not in (3, 4):

@@ -29,7 +29,10 @@ viscoelastic one. Same conventions as that module:
 
 The functions run where their tensors lie, for 1-3 dims; ``fwi``-level code
 on the card goes through the CUDA kernels of ``ops.cuda_staggered``
-instead, which repeat the 2-D update term for term.
+instead, which repeat the 2-D update term for term, where they take the
+geometry. ``elastic_forward_seg`` and ``viscoelastic_forward_seg`` run the
+same steps in checkpointed segments (``remat.checkpointed_loop``) for
+autograd: the objective's "vjp" route.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 
 from ..utils.fd import fd_weights
 from .acoustic import _injector, _point_table, _sampler
+from .remat import checkpointed_loop
 from .self_adjoint import shifted_derivative, staggered_weights
 
 __all__ = ["elastic_forward", "elastic_forward_seg", "viscoelastic_forward",
@@ -109,15 +113,16 @@ def _pairs(ndim):
 # ---------------------------------------------------------------------------
 
 def _elastic_step(lam, mu, b, damp, src_idx, src_w, rec_idx, rec_w, dt,
-                  spacing, space_order, avg, collect_hist=False):
+                  spacing, space_order, avg, collect_hist=False, hoist=True):
     """The per-step elastic update shared by the plain forward and the
     history forward. Returns (step, init) with ``step(carry, src_t) ->
     (carry', (rec1_t, rec2_t))``, or with ``collect_hist`` ``(carry',
     (rec1_t, hist_t))`` where ``hist_t`` is the tuple ``(vn_0..vn_{d-1},
     dtau_0..dtau_{d-1})`` the adjoint sweep needs (rec2 is then not
-    computed). ``src_idx``/``src_w`` and ``rec_idx``/``rec_w`` are numpy
-    ``interp_table`` outputs; the other operands tensors (``b`` and
-    ``damp`` may be 0-dim)."""
+    computed). ``hoist=False`` forms the staggered parameter averages in
+    each step instead of once (the same values). ``src_idx``/``src_w`` and
+    ``rec_idx``/``rec_w`` are numpy ``interp_table`` outputs; the other
+    operands tensors (``b`` and ``damp`` may be 0-dim)."""
     dtype, dev = lam.dtype, lam.device
     ndim = len(spacing)
     wgt = _wgt(space_order, dtype, dev)
@@ -131,15 +136,19 @@ def _elastic_step(lam, mu, b, damp, src_idx, src_w, rec_idx, rec_w, dt,
     def mavg(p, dims):
         return avg_to(p, dims, ndim) if avg else p
 
-    b_i = [mavg(b, (i,)) for i in range(ndim)]
-    damp_i = [mavg(damp, (i,)) for i in range(ndim)]
-    mu_ij = {ij: mavg(mu, ij) for ij in pairs}
-    damp_ij = {ij: mavg(damp, ij) for ij in pairs}
+    def make_avgs():
+        return ([mavg(b, (i,)) for i in range(ndim)],
+                [mavg(damp, (i,)) for i in range(ndim)],
+                {ij: mavg(mu, ij) for ij in pairs},
+                {ij: mavg(damp, ij) for ij in pairs})
+
+    hoisted = make_avgs() if hoist else None
     s_coords, s_wt = _point_table(src_idx, src_w, shape, dev, dtype)
     r_coords, r_wt = _point_table(rec_idx, rec_w, shape, dev, dtype)
     src_scale = s_wt * s  # inject w_p * src[t] * dt (operators.py:20-25)
 
     def step(carry, src_t):
+        b_i, damp_i, mu_ij, damp_ij = hoisted or make_avgs()
         v, td, to = carry
         # receivers sample the fields at time t
         rec1_t = torch.sum(td[-1][r_coords] * r_wt, dim=-1)
@@ -203,24 +212,46 @@ def elastic_forward(lam, mu, b, damp, src_wav, src_idx, src_w, rec_idx,
     return rec1, rec2
 
 
+def _as_params(like, values):
+    """The parameters of a checkpointed loop as tensors of ``like``'s type
+    and device (scalars become 0-dim tensors; tensors pass unchanged)."""
+    return tuple(torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                 for v in values)
+
+
+def _rec_rows(recs, t0, nt):
+    """The (nt, nrec) gather of the step rows ``recs`` (steps t0..nt-2),
+    zero elsewhere, assembled functionally (autograd and forward AD)."""
+    z = recs.new_zeros((1,) + tuple(recs.shape[1:]))
+    return torch.cat([z.expand((t0,) + tuple(recs.shape[1:])), recs, z])
+
+
 def elastic_forward_seg(lam, mu, b, damp, src_wav, src_idx, src_w, rec_idx,
                         rec_w, dt, *, nt, spacing, space_order=4, avg=True,
                         n_checkpoints=0, hoist=None):
-    """``elastic_forward`` that also returns the illumination
-    ``illum = sum_t |v[t+1]|^2`` over the nt-1 steps. The JAX function
-    nests its scan in checkpointed segments for ``jax.vjp``; here the
-    loop is plain, and ``n_checkpoints`` and ``hoist`` are accepted for
-    signature parity and change nothing. Returns (rec1, rec2, illum)."""
-    step, carry = _elastic_step(lam, mu, b, damp, src_idx, src_w, rec_idx,
-                                rec_w, dt, spacing, space_order, avg)
-    nrec = rec_idx.shape[0]
-    rec1 = lam.new_zeros((nt, nrec))
-    rec2 = lam.new_zeros((nt, nrec))
-    illum = torch.zeros_like(lam)
-    for t in range(nt - 1):
-        carry, (rec1[t], rec2[t]) = step(carry, src_wav[t])
-        illum = illum + sum(x * x for x in carry[0])
-    return rec1, rec2, illum
+    """Differentiable ``elastic_forward``: the same steps in checkpointed
+    segments (``remat.checkpointed_loop``; ``n_checkpoints`` <= 0 picks
+    about sqrt(nt) of them), so autograd through it is the exact discrete
+    adjoint and keeps only the segment starts and one segment's graph.
+    ``hoist=False`` forms the staggered parameter averages inside each
+    step (the same values; autograd then carries cotangents for the four
+    base parameters instead of the averaged fields); None means True.
+    Returns (rec1, rec2, illum) with ``illum = sum_t |v[t+1]|^2`` over the
+    nt-1 steps, accumulated detached."""
+    hoist = True if hoist is None else hoist
+
+    def make_step(*prm):
+        return _elastic_step(*prm, src_idx, src_w, rec_idx, rec_w, dt,
+                             spacing, space_order, avg, hoist=hoist)[0]
+
+    params = _as_params(lam, (lam, mu, b, damp))
+    _, carry = _elastic_step(*params, src_idx, src_w, rec_idx, rec_w, dt,
+                             spacing, space_order, avg)
+    _, (r1, r2), illum = checkpointed_loop(
+        make_step, params, carry, src_wav[0:nt - 1], torch.zeros_like(lam),
+        n_checkpoints=n_checkpoints,
+        energy=lambda c: sum(x * x for x in c[0]))
+    return _rec_rows(r1, 0, nt), _rec_rows(r2, 0, nt), illum
 
 
 # ---------------------------------------------------------------------------
@@ -352,19 +383,20 @@ def viscoelastic_forward_seg(lam, mu, b, qp, qs, damp, f0, src_wav,
                              src_idx, src_w, rec_idx, rec_w, dt, *, nt,
                              spacing, space_order=4, avg=True,
                              n_checkpoints=0):
-    """``viscoelastic_forward`` that also returns the illumination ``illum
-    = sum_t |v[t+1]|^2`` over the nt-1 steps. The JAX function nests its
-    scan in checkpointed segments for ``jax.vjp``; here the loop is plain
-    and ``n_checkpoints`` is accepted for signature parity. Returns (rec1,
-    rec2, illum)."""
-    step, carry = _viscoelastic_step(lam, mu, b, qp, qs, damp, f0, src_idx,
-                                     src_w, rec_idx, rec_w, dt, spacing,
-                                     space_order, avg)
-    nrec = rec_idx.shape[0]
-    rec1 = lam.new_zeros((nt, nrec))
-    rec2 = lam.new_zeros((nt, nrec))
-    illum = torch.zeros_like(lam)
-    for t in range(nt - 1):
-        carry, (rec1[t], rec2[t]) = step(carry, src_wav[t])
-        illum = illum + sum(x * x for x in carry[0])
-    return rec1, rec2, illum
+    """Differentiable ``viscoelastic_forward``: the same steps in
+    checkpointed segments, as ``elastic_forward_seg``. Returns (rec1,
+    rec2, illum = sum_t |v[t+1]|^2, accumulated detached)."""
+    def make_step(lam_, mu_, b_, qp_, qs_, damp_):
+        return _viscoelastic_step(lam_, mu_, b_, qp_, qs_, damp_, f0,
+                                  src_idx, src_w, rec_idx, rec_w, dt,
+                                  spacing, space_order, avg)[0]
+
+    params = _as_params(lam, (lam, mu, b, qp, qs, damp))
+    _, carry = _viscoelastic_step(*params[:5], params[5], f0, src_idx,
+                                  src_w, rec_idx, rec_w, dt, spacing,
+                                  space_order, avg)
+    _, (r1, r2), illum = checkpointed_loop(
+        make_step, params, carry, src_wav[0:nt - 1], torch.zeros_like(lam),
+        n_checkpoints=n_checkpoints,
+        energy=lambda c: sum(x * x for x in c[0]))
+    return _rec_rows(r1, 0, nt), _rec_rows(r2, 0, nt), illum

@@ -17,15 +17,16 @@ Port of ``visco_sls2_forward_hist``, ``visco_sls2_adjoint_from_hist`` and
 * the (vp, qp) gradient is the vector-Jacobian product of that pointwise
   coefficient map, taken with ``torch.autograd.grad``.
 
-``visco_born`` (forward-mode Born modeling) is not ported yet (ROADMAP.md
-queue A item 12).
+``visco_born`` is the Born modeling of any of the six kernels, by
+forward-mode AD through ``viscoacoustic.forward`` (the JAX ``jax.jvp``).
 """
 from __future__ import annotations
 
 import torch
 
 from .acoustic import _point_table
-from .viscoacoustic import _common, _forward_step
+from .staggered_grad import jvp
+from .viscoacoustic import _common, _forward_step, forward
 
 __all__ = ["visco_sls2_forward_hist", "visco_sls2_adjoint_from_hist",
            "visco_sls2_value_and_grad", "visco_born", "coefficient_map",
@@ -159,8 +160,20 @@ def visco_sls2_value_and_grad(vp, b, qp, damp, src_wav, src_idx, src_w,
     return f, (g_vp, g_qp), illum, res
 
 
-def visco_born(*args, **kwargs):
-    """Born viscoacoustic modeling (forward-mode AD in the JAX package):
-    not ported yet (ROADMAP.md queue A item 12)."""
-    raise NotImplementedError("visco_born is not ported yet (ROADMAP.md "
-                              "queue A item 12)")
+def visco_born(vp, b, qp, dvp, dqp, damp, src_wav, src_idx, src_w,
+               rec_idx, rec_w, dt, f0, *, kernel="sls", time_order=2, nt,
+               spacing, space_order=4, avg=True):
+    """Linearised (Born) viscoacoustic modeling for any of the six kernels:
+    the exact directional derivative of ``viscoacoustic.forward`` at
+    padded-grid (vp, qp) along (dvp, dqp) (None: zero), by forward-mode AD
+    through the step loop (the JAX package's ``jax.jvp``). Returns (rec,
+    drec), each (nt, nrec)."""
+    def fwd(vp_, qp_):
+        rec, _ = forward(vp_, b, qp_, damp, src_wav, src_idx, src_w,
+                         rec_idx, rec_w, dt, f0, kernel=kernel,
+                         time_order=time_order, nt=nt, spacing=spacing,
+                         space_order=space_order, avg=avg)
+        return (rec,)
+
+    (rec,), (drec,) = jvp(fwd, (vp, qp), (dvp, dqp))
+    return rec, drec

@@ -20,10 +20,11 @@ recursions of the reference's backward kernels. Time loops: t = 0..nt-2
 staggered points (``staggered.avg_to``).
 
 Out-of-grid interpolation corners are masked and clamped
-(``acoustic._point_table``), as a torch index may not leave the grid. The
-checkpointed differentiable forward ``forward_seg`` is not ported
-(ROADMAP.md queue A item 12): the port's gradient is the hand-written
-adjoint of ``ops.visco_grad`` and of the kernels of ``ops.cuda_visco``.
+(``acoustic._point_table``), as a torch index may not leave the grid.
+``forward_seg`` runs the same steps in checkpointed segments for autograd
+(the objective's "vjp" route, any kernel); the sls/2 gradient's other
+routes are the hand-written adjoint of ``ops.visco_grad`` and the kernels
+of ``ops.cuda_visco``.
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ import numpy as np
 import torch
 
 from .acoustic import _point_table
+from .remat import checkpointed_loop
 from .self_adjoint import laplacian_sa
-from .staggered import _wgt, avg_to, d_minus, d_plus
+from .staggered import _as_params, _rec_rows, _wgt, avg_to, d_minus, d_plus
 
 __all__ = ["forward", "forward_seg", "adjoint", "KERNELS"]
 
@@ -215,14 +217,40 @@ def forward(vp, b, qp, damp, src_wav, src_idx, src_w, rec_idx, rec_w, dt,
     return rec, final(carry)
 
 
-def forward_seg(*args, **kwargs):
-    """The JAX package's checkpointed differentiable forward, for
-    ``jax.vjp``: not ported (ROADMAP.md queue A item 12). The port's
-    gradient is the explicit adjoint (``ops.visco_grad``, the kernels of
-    ``ops.cuda_visco``)."""
-    raise NotImplementedError(
-        "viscoacoustic.forward_seg (the autograd route) is not ported "
-        "(ROADMAP.md queue A item 12)")
+def forward_seg(vp, b, qp, damp, src_wav, src_idx, src_w, rec_idx, rec_w,
+                dt, f0, *, kernel="sls", time_order=2, nt, spacing,
+                space_order=4, avg=True, n_checkpoints=0):
+    """Differentiable ``forward`` for any of the six kernels: the same
+    steps in checkpointed segments (``remat.checkpointed_loop``;
+    ``n_checkpoints`` <= 0 picks about sqrt(steps) of them), so autograd
+    through it is the exact discrete adjoint and keeps only the segment
+    starts and one segment's graph. Returns (rec (nt, nrec), illum =
+    sum_t p[t+1]^2, accumulated detached)."""
+    if (kernel, time_order) not in KERNELS:
+        raise ValueError(f"kernel {(kernel, time_order)}: expected one of "
+                         f"{sorted(KERNELS)}")
+    def make_step(vp_, b_, qp_, damp_):
+        step = _forward_step(vp_, b_, qp_, damp_, src_idx, src_w, rec_idx,
+                             rec_w, dt, f0, kernel, time_order, spacing,
+                             space_order, avg)[0]
+
+        def rec_step(c, src_t):
+            c, (rec_t, _) = step(c, src_t)
+            return c, (rec_t,)
+        return rec_step
+
+    params = _as_params(vp, (vp, b, qp, damp))
+    _, carry, t0, _ = _forward_step(
+        *params, src_idx, src_w, rec_idx, rec_w, dt, f0, kernel, time_order,
+        spacing, space_order, avg)
+    # p's slot in the carry: last for the 1st-order kernels (v, [r,] p),
+    # first for the 2nd-order ones (p, p_prev[, r or L])
+    p_slot = -1 if time_order == 1 else 0
+    _, (recs,), illum = checkpointed_loop(
+        make_step, params, carry, src_wav[t0:nt - 1], torch.zeros_like(vp),
+        n_checkpoints=n_checkpoints,
+        energy=lambda c: c[p_slot] * c[p_slot])
+    return _rec_rows(recs, t0, nt), illum
 
 
 def adjoint(vp, b, qp, damp, rec_data, rec_idx, rec_w, src_idx, src_w, dt,

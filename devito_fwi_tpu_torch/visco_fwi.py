@@ -1,54 +1,86 @@
 """Viscoacoustic FWI objective on torch: misfit and (vp, qp) gradients
-through the 2-D SLS 2nd-order propagator.
+through the six viscoacoustic propagators.
 
 Port of ``devito_fwi_tpu.visco_fwi``. ``visco_fm_multi``,
 ``visco_fwi_obj_multi`` and ``ViscoFwiLoss`` keep their signatures and add
-``device``: "cuda" (the default) runs the CUDA kernels of
-``ops.cuda_visco`` and raises when no card is present or when the geometry
-is one the kernels do not take; "cpu" runs their plain torch twins. One
-gradient evaluation of a shot chunk is
+``device``: "cuda" (the default) raises when no card is present, "cpu"
+runs everything in plain torch. ``grad_route`` picks the gradient's route
+as in the JAX package:
 
-1. the physical (vp, qp) edge-padded, the coefficient fields
-   ``visco_grad.coefficient_map`` and the source patterns ``w s^2 vp^2``
-   rebuilt from this iterate;
-2. ``visco_fwd_hist_segments``: the receiver rows of p, the (L, rn)
-   history in float32 and the illumination;
-3. the traces, the batched misfit of the gathers after direct-wave
-   subtraction, and the residual folded onto the two receiver rows;
-4. ``visco_grad_stream_segments``: the images ga1..ga4 and the source
-   cotangent;
-5. the chain rule to (vp, qp) (``visco_grad.coefficient_vjp``),
-   ``pad_fold`` and the per-shot source/receiver illumination fix, summed
-   over shots,
+* the kernels (None, "auto" or "pallas"; their plain twins on the CPU),
+  for the sls/2 kernel on a geometry ``cuda_staggered.unsupported_reason``
+  takes (2-D float32, the twins also float64; one source point a shot;
+  receivers between two adjacent z-planes). One gradient evaluation of a
+  shot chunk is
 
-and the illumination precondition and the mask follow on the device.
-Forward modeling and line-search trials run ``visco_sls2_segments``. Shot
-chunks are sized, as the other objectives' are, from ``fwi._device_budget``
-and this route's bytes per shot (the history: (nt-2) x 2 fields per shot,
-755 MB at SMARMN).
+  1. the physical (vp, qp) edge-padded, the coefficient fields
+     ``visco_grad.coefficient_map`` and the source patterns ``w s^2 vp^2``
+     rebuilt from this iterate;
+  2. ``visco_fwd_hist_segments``: the receiver rows of p, the (L, rn)
+     history in float32 and the illumination;
+  3. the traces, the batched misfit of the gathers after direct-wave
+     subtraction, and the residual folded onto the two receiver rows;
+  4. ``visco_grad_stream_segments``: the images ga1..ga4 and the source
+     cotangent;
+  5. the chain rule to (vp, qp) (``visco_grad.coefficient_vjp``),
+     ``pad_fold`` and the per-shot source/receiver illumination fix,
+     summed over shots,
 
-``grad_route="saved"`` runs the eager torch saved-history route of
-``ops.visco_grad`` shot by shot; ``"vjp"`` (autograd through a
-checkpointed forward) and kernels other than sls/2 raise (ROADMAP.md queue
-A item 12).
+  and forward modeling and line-search trials run ``visco_sls2_segments``;
+* "saved" (sls/2 only): the eager saved-history route of
+  ``ops.visco_grad`` shot by shot, any geometry, float type and device;
+* "vjp" (any kernel): ``torch.autograd`` through the checkpointed
+  ``viscoacoustic.forward_seg`` shot by shot, the edge pad inside the
+  graph, so halo cotangents fold onto the edge cells;
+* "auto" runs sls/2 geometries the kernels do not take on "saved" and the
+  five other kernels on "vjp", adds one to ``EAGER["objective"]`` and warns
+  once per reason; ``visco_fm_multi`` models them shot by shot on the
+  eager ``viscoacoustic.forward`` (``EAGER["fm_multi"]``). "pallas" where
+  the kernels do not apply, and "saved" on a kernel other than sls/2,
+  raise ``ValueError``.
+
+The illumination precondition and the mask follow on the device. Shot
+chunks are sized from ``fwi._device_budget`` and each route's bytes per
+shot (``_bytes_per_shot``, ``_eager_bytes_per_shot``; the kernels'
+history: (nt-2) x 2 fields per shot, 755 MB at SMARMN).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .elastic_fwi import _pad_edge, _shots
+from .elastic_fwi import EAGER_FIELDS, _pad_edge, _shots, _vjp_shots
 from .fwi import (MISFIT_BYTES_PER_SAMPLE, ResidualStack, _batched_tables,
-                  _crop, _device_budget, _device_stack, _illum_fix_factors,
-                  _misfit_batch, _resolve_device, _shots_per_batch,
-                  _traces_from_rows)
+                  _crop, _device_budget, _device_stack, _eager_warn,
+                  _illum_factors, _misfit_batch, _resolve_device,
+                  _shots_per_batch, _traces_from_rows)
 from .ops import cuda_staggered as _cs
 from .ops import cuda_visco as _cv
+from .ops import viscoacoustic as _va
 from .ops import visco_grad as _vg
-from .ops.viscoacoustic import KERNELS
+from .ops.remat import segment_layout
 from .ops.staggered_grad import pad_fold
+from .ops.viscoacoustic import KERNELS
 
-__all__ = ["visco_fm_multi", "visco_fwi_obj_multi", "ViscoFwiLoss"]
+__all__ = ["visco_fm_multi", "visco_fwi_obj_multi", "ViscoFwiLoss", "EAGER",
+           "reset_counters"]
+
+# calls that took an eager route because the kernels do not take them:
+# objectives ("auto" -> "saved" or "vjp") and visco_fm_multi
+EAGER = {"objective": 0, "fm_multi": 0}
+
+# the grid fields autograd saves a step of each kernel's forward in 2-D:
+# what one rebuilt segment of viscoacoustic.forward_seg holds a step
+# (counted with torch.autograd.graph.saved_tensors_hooks, rounded up;
+# tests/test_torch_visco_routes.py holds the figures)
+GRAPH_FIELDS_PER_STEP = {("sls", 1): 11, ("sls", 2): 10, ("ren", 1): 6,
+                         ("ren", 2): 5, ("deng_mcmechan", 1): 6,
+                         ("deng_mcmechan", 2): 5}
+
+
+def reset_counters():
+    for key in EAGER:
+        EAGER[key] = 0
 
 
 def _field(model, name, default=None):
@@ -63,9 +95,9 @@ def _field(model, name, default=None):
     return val
 
 
-class _Tables:
-    """Tables, operands and layout one viscoacoustic call needs on the
-    device."""
+class _Setup:
+    """Tables and operands every route of one viscoacoustic call needs on
+    the device."""
 
     def __init__(self, geometry, dev, shot_indices=None):
         model = geometry.model
@@ -76,33 +108,53 @@ class _Tables:
             sel = np.asarray(shot_indices, dtype=np.int64)
             s_idx, s_w, self.src_pos = s_idx[sel], s_w[sel], \
                 self.src_pos[sel]
-        if dev.type == "cuda":
-            why = _cs.unsupported_reason(model, s_idx, r_idx, src_wav)
-            if why is not None:
-                raise ValueError(f"viscoacoustic kernels on cuda: {why} (run "
-                                 "other geometries with device='cpu')")
         self.s_idx, self.s_w, self.r_idx, self.r_w_np = s_idx, s_w, r_idx, r_w
+        self.reason = _cs.unsupported_reason(model, s_idx, r_idx, src_wav,
+                                             twins=dev.type == "cpu")
         self.dtype = torch.float32 if model.dtype == np.float32 \
             else torch.float64
         self.dev = dev
         self.nt = geometry.nt
-        self.nsteps = self.nt - 2
         self.dt = float(model.critical_dt)
         self.f0 = float(geometry.f0)
-        self.nx, self.nz = model.padded_shape
-        self.z0 = int(np.asarray(r_idx)[..., 1].min())
-        self.W = _cs.zplane_weight_matrix(r_idx, torch.as_tensor(r_w,
-                                                                 device=dev),
-                                          self.nx, self.z0)
         self.src_wav = torch.as_tensor(np.asarray(src_wav, model.dtype),
                                        device=dev)
         self.b = torch.as_tensor(_field(model, "b", 1.0), device=dev)
         self.damp = torch.as_tensor(_field(model, "damp", 1.0), device=dev)
+        self.spacing = model.spacing
+        self.space_order = model.space_order
+        self.op_kw = dict(nt=self.nt, spacing=model.spacing,
+                          space_order=model.space_order)
+
+    def forward(self, vpp, qpp, i, kind):
+        """Shot i's traces through the eager ``viscoacoustic.forward`` of
+        kernel ``kind`` = (name, time order)."""
+        return _va.forward(vpp, self.b, qpp, self.damp, self.src_wav,
+                           self.s_idx[i], self.s_w[i], self.r_idx,
+                           self.r_w_np, self.dt, self.f0, kernel=kind[0],
+                           time_order=kind[1], **self.op_kw)[0]
+
+
+class _Tables(_Setup):
+    """Tables, operands and layout one call of the sls/2 kernels needs on
+    the device."""
+
+    def __init__(self, geometry, dev, shot_indices=None):
+        super().__init__(geometry, dev, shot_indices)
+        if dev.type == "cuda" and self.reason is not None:
+            raise ValueError(f"viscoacoustic kernels on cuda: {self.reason} "
+                             "(the objective's saved and vjp routes take "
+                             "such geometries)")
+        model = geometry.model
+        self.nsteps = self.nt - 2
+        self.nx, self.nz = model.padded_shape
+        self.z0 = int(np.asarray(self.r_idx)[..., 1].min())
+        self.W = _cs.zplane_weight_matrix(
+            self.r_idx, torch.as_tensor(self.r_w_np, device=dev), self.nx,
+            self.z0)
         self.kw = dict(nt=self.nt, nx=self.nx, nz=self.nz,
                        space_order=model.space_order, spacing=model.spacing,
                        z0=self.z0)
-        self.spacing = model.spacing
-        self.space_order = model.space_order
 
     def operands(self, vpp, qpp):
         """The kernels' six coefficient operands and vp^2 at the padded
@@ -136,24 +188,36 @@ def _check_kernel(kernel, time_order):
     if (kernel, time_order) not in KERNELS:
         raise ValueError(f"kernel {(kernel, time_order)}: expected one of "
                          f"{sorted(KERNELS)}")
-    if (kernel, time_order) != ("sls", 2):
-        raise NotImplementedError(
-            f"kernel {(kernel, time_order)}: the port's viscoacoustic "
-            "objective and batched modeling run the sls/2 kernel; the other "
-            "kernels' gradient (autograd in the JAX package) is not ported "
-            "(ROADMAP.md queue A item 12)")
+
+
+def _kernel_reason(kind, st):
+    """Why the sls/2 kernels do not run kernel ``kind`` on the geometry of
+    ``st``, or None."""
+    if kind != ("sls", 2):
+        return f"viscoacoustic kernel {kind[0]}/{kind[1]}: the kernels " \
+               "run sls/2"
+    return st.reason
 
 
 def visco_fm_multi(geometry, kernel="sls", time_order=2, device="cuda"):
-    """Model all shots through ``visco_sls2_segments`` in one batch; returns
-    a list of PointSource gathers. Kernels other than sls/2 raise
-    (``ViscoacousticWaveSolver`` models them shot by shot)."""
+    """Model all shots through ``visco_sls2_segments`` in one batch, or shot
+    by shot through the eager ``viscoacoustic.forward`` for the other
+    kernels and the geometries the kernels do not take (counted in
+    ``EAGER["fm_multi"]``); returns a list of PointSource gathers."""
     _check_kernel(kernel, time_order)
     dev = _resolve_device(device)
     model = geometry.model
-    tb = _Tables(geometry, dev)
+    st = _Setup(geometry, dev)
     vp = torch.as_tensor(_field(model, "vp"), device=dev)
     qp = torch.as_tensor(_field(model, "qp"), device=dev)
+    reason = _kernel_reason((kernel, time_order), st)
+    if reason is not None:
+        EAGER["fm_multi"] += 1
+        _eager_warn(reason, "ops.viscoacoustic")
+        recs = torch.stack([st.forward(vp, qp, i, (kernel, time_order))
+                            for i in range(geometry.nsrc)])
+        return _shots(recs.cpu().numpy(), geometry)
+    tb = _Tables(geometry, dev)
     prm, vp2 = tb.operands(vp, qp)
     injT, _ = tb.patterns(vp2, 0, geometry.nsrc)
     return _shots(tb.model_rows(prm, injT).cpu().numpy(), geometry)
@@ -213,6 +277,81 @@ def _saved_grads(tb, vpp, qpp, lo, hi, misfit, obs, dw):
     return fvals, res, g_vp, g_qp, torch.stack([o[2] for o in out])
 
 
+def _eager_bytes_per_shot(st, calc_grad, kind, route, kernel,
+                          n_checkpoints):
+    """Device bytes one shot of an eager chunk holds at its peak: its
+    traces, residual and misfit, and ``EAGER_FIELDS`` grid fields (the
+    reverse sweep's working set, the padded parameters and the graph
+    around the loop, its gradients and illumination); on the saved route
+    (shot by shot) also the (L, rn) history of (nt-2) x 2 fields; on the
+    vjp route each segment's start (the kernel's state fields and the
+    illumination) and one rebuilt segment's graph,
+    ``GRAPH_FIELDS_PER_STEP`` saved fields a step (running it back holds
+    no more). A trial holds the traces alone. A shot chunk's own peak on
+    the card (H100, SMARMN, sls/2, one shot; nt 1338 and 401): saved
+    0.7731 and 0.2416 GB against 0.7851 and 0.2440 sized, vjp 0.1472 and
+    0.0823 against 0.1789 and 0.1004 (``tools/probe_eager_peaks.py``)."""
+    f = 4 if st.dtype == torch.float32 else 8
+    field = int(np.prod(st.damp.shape)) * f
+    ndim = st.damp.dim()
+    traces = (2 + MISFIT_BYTES_PER_SAMPLE[kind] // f) * st.nt * \
+        st.r_idx.shape[0] * f
+    if not calc_grad:
+        return traces
+    if route == "saved":
+        return ((st.nt - 2) * 2 + EAGER_FIELDS) * field + traces
+    nsteps = st.nt - 1 - (kernel[1] - 1)
+    seg, nseg = segment_layout(nsteps, n_checkpoints)
+    if kernel[1] == 1:
+        state = ndim + (2 if kernel[0] == "sls" else 1)
+    else:
+        state = 2 if kernel[0] == "deng_mcmechan" else 3
+    return ((nseg + 1) * (state + 1) + EAGER_FIELDS + seg * (
+        GRAPH_FIELDS_PER_STEP[kernel])) * field + \
+        traces
+
+
+def _vjp_grads(st, kind, phys, pads, shape, lo, hi, misfit, obs, dw,
+               n_checkpoints):
+    """The vjp route on shots lo..hi-1 (``elastic_fwi._vjp_shots`` over the
+    checkpointed ``viscoacoustic.forward_seg`` of kernel ``kind``). Returns
+    (fvals, residuals, g_vp, g_qp (B, *shape), the cropped illumination
+    (B, *shape))."""
+    def forward(i, vpp, qpp):
+        return _va.forward_seg(
+            vpp, st.b, qpp, st.damp, st.src_wav, st.s_idx[i], st.s_w[i],
+            st.r_idx, st.r_w_np, st.dt, st.f0, kernel=kind[0],
+            time_order=kind[1], n_checkpoints=n_checkpoints, **st.op_kw)
+
+    fvals, res, (g_vp, g_qp), illum = _vjp_shots(
+        forward, phys, pads, lo, hi, misfit, obs, dw, st.dtype)
+    return fvals, res, g_vp, g_qp, _crop(illum, pads, shape)
+
+
+def _resolve_route(grad_route, kind, reason):
+    """"kernels", "saved" or "vjp" for ``grad_route`` with kernel ``kind``,
+    where the kernels refuse the call for ``reason`` (None: they take
+    it)."""
+    if grad_route not in (None, "auto", "pallas", "saved", "vjp"):
+        raise ValueError(f"grad_route={grad_route!r}: expected 'auto', "
+                         "'pallas', 'saved' or 'vjp'")
+    if grad_route in ("saved", "pallas") and kind != ("sls", 2):
+        raise ValueError(f"grad_route={grad_route!r}: the saved-history "
+                         "adjoints and the kernels cover the sls/2 kernel "
+                         f"only, not {kind[0]}/{kind[1]}")
+    if grad_route in ("saved", "vjp"):
+        return grad_route
+    if reason is None:
+        return "kernels"
+    if grad_route == "pallas":
+        raise ValueError(f"grad_route='pallas': the viscoacoustic kernels "
+                         f"do not take this call ({reason})")
+    EAGER["objective"] += 1
+    _eager_warn(reason, "ops.visco_grad" if kind == ("sls", 2)
+                else "ops.viscoacoustic")
+    return "saved" if kind == ("sls", 2) else "vjp"
+
+
 def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
                         mask=None, precond=True, calc_grad=False,
                         vp=None, qp=None, kernel="sls", time_order=2,
@@ -224,22 +363,20 @@ def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
     override the model's fields (physical-domain arrays, or padded ones,
     which are cropped); None reads the model. ``shot_chunk`` caps the shots
     per batch (default: as many as the card's memory holds).
-    ``grad_route``: None, "auto" or "pallas" run the gradient kernels
-    (their twins on the CPU); "saved" the eager saved-history route;
-    "vjp" raises, and so do kernels other than sls/2. ``n_checkpoints`` is
-    accepted for signature parity and changes nothing."""
-    if grad_route not in (None, "auto", "pallas", "saved", "vjp"):
-        raise ValueError(f"grad_route={grad_route!r}: expected 'auto', "
-                         "'pallas', 'saved' or 'vjp'")
+    ``grad_route``: None, "auto" or "pallas" run the sls/2 kernels (their
+    twins on the CPU) where they take the call, and "auto" runs "saved"
+    (sls/2) or "vjp" (the other kernels) elsewhere; "saved" the eager
+    saved-history route; "vjp" autograd through the checkpointed forward,
+    whose segments ``n_checkpoints`` sets (<= 0: about sqrt(nt))."""
     _check_kernel(kernel, time_order)
-    if grad_route == "vjp":
-        raise NotImplementedError(
-            "grad_route='vjp' (autograd through a checkpointed forward) is "
-            "not ported (ROADMAP.md queue A item 12)")
+    kind = (kernel, time_order)
     dev = _resolve_device(device)
     model = geometry.model
-    misfit, kind = _misfit_batch(misfit_func)
-    tb = _Tables(geometry, dev, shot_indices)
+    misfit, mkind = _misfit_batch(misfit_func)
+    st = _Setup(geometry, dev, shot_indices)
+    route = _resolve_route(grad_route, kind, _kernel_reason(kind, st))
+    if route == "kernels":
+        tb = st = _Tables(geometry, dev, shot_indices)
     crop_slc = tuple(slice(lo, lo + n)
                      for (lo, _), n in zip(model.padsizes, model.shape))
 
@@ -252,15 +389,16 @@ def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         return torch.as_tensor(user, device=dev)
 
     pads = tuple(tuple(p) for p in model.padsizes)
-    vpp = _pad_edge(param(vp, "vp"), pads)
-    qpp = _pad_edge(param(qp, "qp"), pads)
-    prm, vp2 = tb.operands(vpp, qpp)
+    phys = [param(vp, "vp"), param(qp, "qp")]
+    vpp, qpp = (_pad_edge(x, pads) for x in phys)
+    if route == "kernels":
+        prm, vp2 = tb.operands(vpp, qpp)
 
     obs_stack = _device_stack(obs, dev)
-    if obs_stack.shape[1] != tb.nt:
+    if obs_stack.shape[1] != st.nt:
         raise ValueError(
             "observed data has %d time samples but the geometry's time axis "
-            "has %d" % (obs_stack.shape[1], tb.nt))
+            "has %d" % (obs_stack.shape[1], st.nt))
     if direct_wave is not None:
         dw_stack = _device_stack(direct_wave, dev)
     if shot_indices is not None:
@@ -269,14 +407,16 @@ def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         obs_stack = obs_stack[sel]
         if direct_wave is not None:
             dw_stack = dw_stack[sel]
-    nsrc = tb.s_idx.shape[0]
-    chunk = _shots_per_batch(
-        nsrc, shot_chunk, _bytes_per_shot(tb, calc_grad, kind),
-        _device_budget(dev) if dev.type == "cuda" else None)
+    nsrc = st.s_idx.shape[0]
+    per_shot = _bytes_per_shot(tb, calc_grad, mkind) if route == "kernels" \
+        else _eager_bytes_per_shot(st, calc_grad, mkind, route, kind,
+                                   n_checkpoints)
+    chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
+                             _device_budget(dev) if dev.type == "cuda"
+                             else None)
     shape = model.shape
     if calc_grad:
-        keep_src, rec_prod = _illum_fix_factors(
-            tb.src_pos, geometry.rec_positions, model.spacing, shape, dev)
+        factors = _illum_factors(geometry, st.src_pos, dev)
     fval = 0.0
     residuals = []
     grads = illum = None
@@ -285,23 +425,36 @@ def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         obs_c = obs_stack[lo:hi]
         dw = dw_stack[lo:hi] if direct_wave is not None else 0.0
         if not calc_grad:
-            injT, _ = tb.patterns(vp2, lo, hi)
-            fvals, res = misfit(tb.model_rows(prm, injT) - dw, obs_c - dw)
+            if route == "kernels":
+                injT, _ = tb.patterns(vp2, lo, hi)
+                syn = tb.model_rows(prm, injT)
+            else:
+                with torch.no_grad():
+                    syn = torch.stack([st.forward(vpp, qpp, i, kind)
+                                       for i in range(lo, hi)])
+            fvals, res = misfit(syn - dw, obs_c - dw)
             fval = fval + torch.sum(fvals)
             residuals.append(res)
             continue
-        if grad_route == "saved":
-            out = _saved_grads(tb, vpp, qpp, lo, hi, misfit, obs_c, dw)
+        if route == "vjp":
+            fvals, res, g_vp, g_qp, il = _vjp_grads(
+                st, kind, phys, pads, shape, lo, hi, misfit, obs_c, dw,
+                n_checkpoints)
         else:
-            out = _kernel_grads(tb, prm, vp2, vpp, qpp, lo, hi, misfit,
-                                obs_c, dw)
-        fvals, res, g_vp, g_qp, il = out
+            if route == "saved":
+                out = _saved_grads(st, vpp, qpp, lo, hi, misfit, obs_c, dw)
+            else:
+                out = _kernel_grads(tb, prm, vp2, vpp, qpp, lo, hi, misfit,
+                                    obs_c, dw)
+            fvals, res, g_vp, g_qp, il = out
+            g_vp, g_qp = pad_fold(g_vp, pads), pad_fold(g_qp, pads)
+            il = _crop(il, pads, shape)
         fval = fval + torch.sum(fvals)
         residuals.append(res)
-        fix = keep_src[lo:hi] * rec_prod if illum_fix else 1.0
-        gs = tuple(torch.sum(pad_fold(g, pads).double() * fix, dim=0)
-                   for g in (g_vp, g_qp))
-        il = torch.sum(_crop(il, pads, shape).double() * fix, dim=0)
+        keep, rec_prod = factors(lo, hi)
+        fix = keep * rec_prod if illum_fix else 1.0
+        gs = tuple(torch.sum(g.double() * fix, dim=0) for g in (g_vp, g_qp))
+        il = torch.sum(il.double() * fix, dim=0)
         grads = gs if grads is None else tuple(a + g for a, g in
                                                zip(grads, gs))
         illum = il if illum is None else illum + il

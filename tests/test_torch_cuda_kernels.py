@@ -550,15 +550,30 @@ def test_elastic_objective_on_the_card_matches_the_twins(cuda):
 
 @pytest.mark.cuda
 def test_elastic_rejects_what_the_kernels_do_not_take(cuda):
+    """Receivers off two adjacent z-planes: the kernels' layer refuses the
+    geometry on the card, "pallas" raises, and ``elastic_fm_multi`` runs
+    the eager forward instead (counted, no kernel launched), equal to the
+    same call on the CPU within 1e-5 of the max."""
     from devito_fwi_tpu_torch import elastic_fwi as tel
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
     model, geom, *_ = _elastic_operands(4, cuda)
-    obs, _ = tel.elastic_fm_multi(geom, device="cpu")
     rec = np.stack([np.linspace(0., 600., 41), np.linspace(30., 200., 41)],
                    1)
     bad = AcquisitionGeometry(model, rec, geom.src_positions, 0., 250.,
                               f0=0.015, src_type="Ricker")
     with pytest.raises(ValueError, match="adjacent z-planes"):
-        tel.elastic_fm_multi(bad, device="cuda")
+        tel._Tables(bad, cuda)
+    cs.reset_counters()
+    tel.reset_counters()
+    got = tel.elastic_fm_multi(bad, device="cuda")
+    assert tel.EAGER["fm_multi"] == 1 and sum(cs.LAUNCHES.values()) == 0
+    want = tel.elastic_fm_multi(bad, device="cpu")
+    for g, w in zip(got, want):
+        _close_to_cpu(np.stack([s.data for s in g]),
+                      np.stack([s.data for s in w]), 1e-5)
+    with pytest.raises(ValueError, match="grad_route='pallas'"):
+        tel.elastic_fwi_obj_multi(bad, want[0], calc_grad=True,
+                                  grad_route="pallas", device="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +687,9 @@ def test_visco_solver_golden_on_the_card(cuda):
 @pytest.mark.cuda
 def test_visco_rejects_what_the_kernels_do_not_take(cuda):
     """Receivers off two adjacent z-planes: the sls/2 solver forward and the
-    batched modeling raise on the card rather than run the eager torch."""
+    kernels' layer raise on the card rather than run the eager torch; the
+    batched modeling runs the eager forward instead, counted, equal to the
+    CPU's within 1e-5 of the max."""
     from devito_fwi_tpu_torch import visco_fwi as tvf
     from devito_fwi_tpu_torch.ops import cuda_visco as cv
     from devito_fwi_tpu_torch.ops.viscoacoustic_wavesolver import (
@@ -686,8 +703,15 @@ def test_visco_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="adjacent z-planes"):
         ViscoacousticWaveSolver(model, bad, space_order=4).forward()
     with pytest.raises(ValueError, match="adjacent z-planes"):
-        tvf.visco_fm_multi(bad, device="cuda")
+        tvf._Tables(bad, cuda)
+    # the batched modeling takes the eager forward instead, counted
+    tvf.reset_counters()
+    got = tvf.visco_fm_multi(bad, device="cuda")
+    assert tvf.EAGER["fm_multi"] == 1
     assert sum(cv.LAUNCHES.values()) == 0
+    _close_to_cpu(np.stack([s.data for s in got]),
+                  np.stack([s.data for s in tvf.visco_fm_multi(
+                      bad, device="cpu")]), 1e-5)
 
 
 @pytest.mark.cuda
@@ -1352,3 +1376,109 @@ def test_viscoelastic_on_the_card_matches_the_cpu(cuda):
         outs["cpu"][0])
     for got, want in zip(outs["cuda"][1], outs["cpu"][1]):
         _close_to_cpu(got, want, 3e-5)
+
+
+# ---------------------------------------------------------------------------
+# the objectives' eager routes and Born (elastic_fwi, visco_fwi,
+# ops.staggered_grad.elastic_born, ops.visco_grad.visco_born)
+# ---------------------------------------------------------------------------
+
+# the eager routes against the kernel route on the card, float32: the same
+# discrete gradient rounded in another order (objective relative, gradient
+# of its max)
+ROUTE_RTOL = (1e-5, 1e-4)
+
+
+@pytest.mark.cuda
+def test_elastic_routes_on_the_card_match_the_kernels(cuda):
+    """The "saved" and "vjp" routes of the elastic objective on the card
+    (two shots, 6 segments) against its kernel route; no kernel launched on
+    either eager route; Born on the card against the CPU's (1e-5)."""
+    from devito_fwi_tpu_torch import elastic_fwi as tel
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    from devito_fwi_tpu_torch.ops import staggered_grad as sg
+    model, geom, _, _, wav, dt, kw = _elastic_operands(4, cuda, nsrc=2)
+    obs, _ = tel.elastic_fm_multi(geom, device="cuda")
+    vp, vs, rho = tel.model_vp_vs_rho(model)
+    vp0 = model.crop(vp) * 1.03
+    out = {}
+    for route in ("auto", "saved", "vjp"):
+        cs.reset_counters()
+        out[route] = tel.elastic_fwi_obj_multi(geom, obs, calc_grad=True,
+                                               vp=vp0, grad_route=route,
+                                               n_checkpoints=6,
+                                               device="cuda")
+        assert (sum(cs.LAUNCHES.values()) > 0) == (route == "auto")
+    f0, g0, _ = out["auto"]
+    for route in ("saved", "vjp"):
+        f, g, _ = out[route]
+        assert abs(f - f0) <= ROUTE_RTOL[0] * abs(f0), route
+        for k in ("vp", "vs", "rho"):
+            assert np.abs(g[k] - g0[k]).max() <= \
+                ROUTE_RTOL[1] * np.abs(g0[k]).max(), (route, k)
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    s_idx, s_w = interp_table(geom.src_positions[:1], model.origin_pml,
+                              model.spacing)
+    r_idx, r_w = interp_table(geom.rec_positions, model.origin_pml,
+                              model.spacing)
+    born = {}
+    for dev in (cuda, torch.device("cpu")):
+        T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        born[dev.type] = sg.elastic_born(
+            T(vp), T(vs), T(rho), T(0.01 * vp), None, None, T(model.damp),
+            T(geom.src.data[:, :1]), s_idx, s_w, r_idx, r_w, dt, nt=geom.nt,
+            spacing=model.spacing, space_order=4)
+    for got, want in zip(born["cuda"][0] + born["cuda"][1],
+                         born["cpu"][0] + born["cpu"][1]):
+        _close_to_cpu(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_visco_routes_on_the_card_match_the_kernels(cuda):
+    """sls/2's "saved" and "vjp" routes on the card (two shots) against its
+    kernel route; ren/1 on auto (the vjp route) and its Born on the card
+    against the same calls on the CPU (1e-5 objective and Born, 1e-4 of
+    the gradient's max)."""
+    from devito_fwi_tpu_torch import visco_fwi as tvf
+    from devito_fwi_tpu_torch.ops import cuda_visco as cv
+    from devito_fwi_tpu_torch.ops import visco_grad as vg
+    model, geom, *_ = _visco_operands(4, cuda, nsrc=2)
+    obs = tvf.visco_fm_multi(geom, device="cuda")
+    vp0 = model.crop(model.vp) * 1.03
+    out = {}
+    for route in ("auto", "saved", "vjp"):
+        cv.reset_counters()
+        out[route] = tvf.visco_fwi_obj_multi(geom, obs, calc_grad=True,
+                                             vp=vp0, grad_route=route,
+                                             device="cuda")
+        assert (sum(cv.LAUNCHES.values()) > 0) == (route == "auto")
+    f0, g0, _ = out["auto"]
+    for route in ("saved", "vjp"):
+        f, g, _ = out[route]
+        assert abs(f - f0) <= ROUTE_RTOL[0] * abs(f0), route
+        for k in ("vp", "qp"):
+            assert np.abs(g[k] - g0[k]).max() <= \
+                ROUTE_RTOL[1] * np.abs(g0[k]).max(), (route, k)
+    tvf.reset_counters()
+    ren = {dev: tvf.visco_fwi_obj_multi(
+        geom, obs, calc_grad=True, vp=vp0, kernel="ren", time_order=1,
+        device=dev) for dev in ("cuda", "cpu")}
+    assert tvf.EAGER["objective"] == 2
+    assert abs(ren["cuda"][0] - ren["cpu"][0]) <= 1e-5 * ren["cpu"][0]
+    for k in ("vp", "qp"):
+        _close_to_cpu(ren["cuda"][1][k], ren["cpu"][1][k], 1e-4)
+    from devito_fwi_tpu_torch.ops.interp import interp_table
+    s_idx, s_w = interp_table(geom.src_positions[:1], model.origin_pml,
+                              model.spacing)
+    r_idx, r_w = interp_table(geom.rec_positions, model.origin_pml,
+                              model.spacing)
+    born = {}
+    for dev in (cuda, torch.device("cpu")):
+        T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        born[dev.type] = vg.visco_born(
+            T(model.vp), T(model.b), T(model.qp), T(0.01 * model.vp), None,
+            T(model.damp), T(geom.src.data[:, :1]), s_idx, s_w, r_idx, r_w,
+            float(model.critical_dt), geom.f0, kernel="ren", time_order=1,
+            nt=geom.nt, spacing=model.spacing, space_order=4)
+    for got, want in zip(born["cuda"], born["cpu"]):
+        _close_to_cpu(got, want, 1e-5)

@@ -482,13 +482,20 @@ def test_obj_multi_matches_jax_f64(misfit):
         assert _rel(gt[k], gj[k]) < 1e-10, k
 
 
-@pytest.mark.parametrize("route", ["saved", "vjp"])
-def test_obj_multi_unported_routes_raise(route):
-    g0, obs = _obs(np.float32)
-    p0 = _port_geometry(g0)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        tel.elastic_fwi_obj_multi(p0, _port_shots(obs, p0), calc_grad=True,
-                                  grad_route=route, device="cpu")
+@pytest.mark.parametrize("route", ["pallas", "bfgs"])
+def test_obj_multi_refusals_raise(route):
+    """What the objective still refuses, as the JAX one does: "pallas" on a
+    geometry the kernels do not take (receivers on a vertical line) and a
+    route it does not know."""
+    g0 = _jax_geometry(np.float32)
+    rec = np.stack([np.full(9, 300.), np.linspace(20., 340., 9)], 1)
+    p = _port_geometry(AcquisitionGeometry(g0.model, rec, g0.src_positions,
+                                           0., g0.tn, f0=g0.f0,
+                                           src_type="Ricker"))
+    obs = tel.elastic_fm_multi(p, device="cpu")[0]
+    with pytest.raises(ValueError, match=f"grad_route='{route}'"):
+        tel.elastic_fwi_obj_multi(p, obs, calc_grad=True, grad_route=route,
+                                  device="cpu")
 
 
 def test_geometry_gates_match_jax():

@@ -667,3 +667,47 @@ def test_slice16_entry_points_raise_on_cuda_without_card(entry, monkeypatch,
         calls[entry]()
     SaIsoAcousticWaveSolver(sa.model, sa.geometry, device="cpu")
     ViscoelasticWaveSolver(ve, vg, device="cpu")
+
+
+SLICE17_MODULES = ("ops/remat.py", "utils/nmo.py", "utils/plotting.py",
+                   "utils/profiling.py", "examples/staggered_acoustic.py",
+                   "examples/time_update.py", "examples/time_blocking.py")
+
+
+@pytest.mark.parametrize("module", SLICE17_MODULES)
+def test_slice17_modules_are_scanned(module):
+    """The checkpointed loop, the utilities and the three tutorial examples
+    are among the sources the scans above read (and so import no JAX)."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+
+
+@pytest.mark.parametrize("entry", [
+    "staggered_acoustic", "time_update", "time_blocking", "elastic_saved",
+    "elastic_vjp", "visco_vjp", "visco_other_kernel", "visco_fm_other"])
+def test_slice17_entry_points_raise_on_cuda_without_card(entry, monkeypatch):
+    """The examples and the objectives' eager routes default to the card:
+    without one they raise for the missing device instead of running on
+    the CPU."""
+    from devito_fwi_tpu_torch.examples import (staggered_acoustic,
+                                               time_blocking, time_update)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eg = _elastic_geometry()
+    eobs, _ = tel.elastic_fm_multi(eg, device="cpu")
+    vg = _visco_geometry()
+    vobs = tvf.visco_fm_multi(vg, device="cpu")
+    calls = {
+        "staggered_acoustic": lambda: staggered_acoustic.main([]),
+        "time_update": lambda: time_update.main([]),
+        "time_blocking": lambda: time_blocking.main([]),
+        "elastic_saved": lambda: tel.elastic_fwi_obj_multi(
+            eg, eobs, calc_grad=True, grad_route="saved"),
+        "elastic_vjp": lambda: tel.elastic_fwi_obj_multi(
+            eg, eobs, calc_grad=True, grad_route="vjp"),
+        "visco_vjp": lambda: tvf.visco_fwi_obj_multi(
+            vg, vobs, calc_grad=True, grad_route="vjp"),
+        "visco_other_kernel": lambda: tvf.visco_fwi_obj_multi(
+            vg, vobs, calc_grad=True, kernel="ren", time_order=1),
+        "visco_fm_other": lambda: tvf.visco_fm_multi(vg, "deng_mcmechan", 1),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
