@@ -123,14 +123,14 @@ result line is printed:
    --maxiter 2``, ``run_fwi(..., bfm_options={"legendre": "banded"})``):
    finite and decreasing misfit, the banded kernel and the sweeps launched,
    no twin called;
-27. the native W2-2d solver: a 2-shot SMARMN gradient (``NATIVE_SHOTS``) with
+27. the native W2-2d solver: a 1-shot SMARMN gradient (``NATIVE_SHOTS``) with
    ``bfm_backend="native"`` (the host-misfit path, the sweeps on the card)
    against the torch BFM route's;
 28. main path, the driver's data options: the SMARMN L2 driver with
    ``--filter 1`` (finite and decreasing misfit) and with ``--resample 4``
    (stops as the JAX driver does, on the observed data's length), and a
    2-iteration L-BFGS of ``fwi_obj_multi(resample_dt=4)`` on the host-misfit
-   path at those 2 shots;
+   path at that shot;
 29. 3-D kernel vs twin, quick gate: at bench config 5's grid (96^3 at 15
    m, space order 8, nbl 16, padded 128^3, 333 steps) with 3 shots, the
    three streamed 3-D CUDA kernels against their twins on every output,
@@ -175,11 +175,11 @@ result line is printed:
    free-surface forward's norm against 369.955, the fs=False forward
    through the B14 step hook bitwise equal to ``step3=False`` and its norm
    against 459.1678 (rtol 1e-3 each); the seconds of phases 33-36;
-37. main path, the eager route: a 2-shot gradient of ``fwi_loss`` on
-   ``drivers/circle_fwi.py``'s geometry (``BASELINE.json`` config 0:
-   circle 201 x 201, space order 6, nbl 40, receivers on the vertical line
-   x = 1980 m, which no kernel takes) on cuda: the route counted in
-   ``fwi.EAGER``, no twin called, a finite gradient;
+37. main path, the eager route: a 1-shot gradient (``EAGER_SHOTS``) of
+   ``fwi_loss`` on ``drivers/circle_fwi.py``'s geometry (``BASELINE.json``
+   config 0: circle 201 x 201, space order 6, nbl 40, receivers on the
+   vertical line x = 1980 m, which no kernel takes) on cuda: the route
+   counted in ``fwi.EAGER``, no twin called, a finite gradient;
 38. main path, the forward-modeling drivers: ``marmousi_fm`` and
    ``marmousi2_fm`` (``run_fm``, 21 shots each, at SMARMN's and SMARM2's
    full grids) on cuda: the 63 files of each under the JAX driver's names,
@@ -188,7 +188,7 @@ result line is printed:
    called; the driver's wall time;
 39. main path, ``circle_fwi`` (``BASELINE.json`` config 0) at its full
    width (201 x 201, nbl 40, space order 6, tn 1000 ms, ``--maxiter 1``;
-   2 shots, cut from its 11: ``CIRCLE_SHOTS``) on cuda, the eager route: a
+   1 shot, cut from its 11: ``CIRCLE_SHOTS``) on cuda, the eager route: a
    finite misfit, the log files, every objective call counted in
    ``fwi.EAGER``; the wall time of the iteration and of each objective
    call;
@@ -201,11 +201,11 @@ result line is printed:
 42. viscoelastic on cuda: the solver's goldens 12.28040 / 0.312461 (atol
    1e-3) and the five-parameter gradient of ``bench.py``'s
    ``_bench_viscoelastic`` workload (SMARM2; its second shot of 4:
-   ``VE_SHOTS``) through
+   ``VE_SHOTS``; nt cut from 1178 to ``CUT_STEPS`` + 1) through
    ``viscoelastic_value_and_grad``, timed, finite and non-zero;
 43. the elastic objective's routes on SMARM2's full grid (420 x 220
    padded, one shot: ``ROUTE_SHOT``; every run of the phase with nt cut
-   from 1421 to 401: ``CUT_STEPS``): the "saved" and "vjp" gradients
+   from 1421 to 301: ``CUT_STEPS``): the "saved" and "vjp" gradients
    against the kernel route's (objective 1e-5 relative, each
    gradient 1e-4 of its max: ``ROUTE_RTOL``), no kernel launched on
    either, each route's time and peak device bytes, and an eager
@@ -218,7 +218,7 @@ result line is printed:
    (jvp against ``elastic_adjoint_from_hist``) at float64 on the CPU
    tests' 41 x 36 grid, within 1e-11;
 44. the viscoacoustic objective's routes on SMARMN's full grid (380 x 186
-   padded, one shot; nt cut from 1338 to 401 as in phase 43): sls/2's
+   padded, one shot; nt cut from 1338 to 301 as in phase 43): sls/2's
    "saved" and "vjp" against the kernel route's, to the same limits; each
    of the five other kernels: ``visco_fm_multi`` and one "vjp" gradient
    (auto), counted, timed; ``visco_born``'s dot test at
@@ -229,13 +229,40 @@ result line is printed:
    kernel launched, no twin called, the gradient and trial times, the
    trials past the pinned dt's CFL speed (a fault of the JAX driver that
    the port mirrors: ``run_visco_smarm2``); the seconds of phases 43-45;
-46. a ``kernels`` JSON line; the card's name and power limit; the script's
+46. the parallel layer, a world of one: ``torch.distributed`` on NCCL in
+   this process, ``parallel.fwi_obj_sharded`` of the 29 SMARMN shots (the
+   L2 gradient and a trial) bitwise ``fwi_obj_multi``'s, timed;
+47. the parallel layer on ``PAR_RANKS`` gloo ranks spawned on the one card
+   (``parallel.spawn``, when the script starts; they wait off the card
+   until phase 46 is done; NCCL refuses two ranks on a card): the SMARMN L2
+   gradient and trial, the SMARM2 elastic (31 shots) and the SMARMN
+   viscoacoustic (29) sharded gradients and trials, each within
+   ``PAR_RTOL`` of the single-process objective's; every rank launching
+   rows 1-3 and 18-23, no twin called, each rank's peak under its part of
+   the card's budget (``group.budget_share``);
+48. the same ranks: ``tti_fwi_obj_sharded`` at marmousi-tti2d's width
+   (``PAR_TTI_SHOTS`` shots, nt cut to ``CUT_STEPS``) against the same
+   function on one rank (the eager checkpoint pair),
+   ``viscoacoustic_fm_sharded`` (row 19 on every rank) against
+   ``visco_fm_multi``, and the viscoelastic and self-adjoint sharded
+   gradients of the CPU tests' small cases against one rank;
+49. the same ranks: the domain decomposition at SMARMN's padded grid
+   (380 x 186, nt cut to ``CUT_STEPS``) on meshes (4, 1) and (2, 2) and
+   config 5's 128^3 on (2, 2) (``PAR_C5_STEPS``), the forward and the
+   checkpointed gradient each with max|decomposed - undecomposed| = 0
+   against the eager operators on the whole grid, computed in this
+   process beside the ranks; ``fwi_obj_sharded2d`` on (2, 2) against
+   ``fwi_obj_multi`` (``ROUTE_RTOL``); no kernel launched;
+50. the same ranks: ``parallel.dryrun.dryrun_multichip(4)`` on the card
+   (its lines, from rank 0); the seconds of phases 46-50;
+51. a ``kernels`` JSON line; the card's name and power limit; the script's
    total seconds; and last ``{"ok": true, "device": {...}}``.
 
 Phases 38-44 run no kernel of their own (the JAX package wrote none for
 these modules, and the objectives' saved and vjp routes are its XLA scans
 in eager torch) other than row 1 in phase 38 and the kernel route the
-routes of phases 43-44 are held against.
+routes of phases 43-44 are held against. The ranks of phases 47-50
+print nothing; this process joins them before it prints their results.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -243,6 +270,8 @@ import contextlib
 import gc
 import importlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -314,7 +343,7 @@ RESAMPLE_DT = 4.0
 # the SMARMN shots of phases 27 and 28: the native BFM solves its gathers one
 # after another on one host thread where OpenMP does not link (about 9 s a
 # shot on the card's host), and the host resamples every trace by splines
-NATIVE_SHOTS = 2
+NATIVE_SHOTS = 1
 # bench config 5 (``bench.py`` ``_bench_3d``): layers-isotropic 96^3, 4
 # shots and 48 receivers along x at y = extent/2, z = 30 m, tn 500 ms
 C5_SHOTS = 4
@@ -1227,13 +1256,29 @@ def tti_bounds(b, B):
     return {name: bound(*w) for name, w in work.items()}
 
 
+def tti_config4(nsrc, model=None):
+    """Bench config 4's geometry (``bench.py`` ``_bench_tti``) with ``nsrc``
+    shots on ``model`` (default the port's marmousi-tti2d at space order
+    8, nbl 40): sources and receivers at 60 m along the surface, a
+    receiver a column, tn 4000 ms, f0 7 Hz."""
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.models.presets import demo_model
+    if model is None:
+        model = demo_model("marmousi-tti2d", space_order=8, nbl=40)
+    xmax = model.domain_size[0]
+    src = np.stack([np.linspace(0., xmax, nsrc), np.full(nsrc, 60.)], 1)
+    nrec = model.shape[0]
+    rec = np.stack([np.linspace(0., xmax, nrec), np.full(nrec, 60.)], 1)
+    return AcquisitionGeometry(model, rec, src, 0.0, 4000.0, f0=0.007,
+                               src_type="Ricker")
+
+
 class TtiCase:
     """One marmousi-tti2d configuration on the card (bench config 4's grid
     and acquisition, ``nsrc`` shots): the fields, the tables, and the
     kernels' operands for shots lo..hi-1 on both layouts."""
 
     def __init__(self, dev, nsrc, zero_anisotropy=False):
-        from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
         from devito_fwi_tpu_torch.models.model import SeismicModel
         from devito_fwi_tpu_torch.models.presets import demo_model
         from devito_fwi_tpu_torch.ops import cuda_tti as ct
@@ -1247,12 +1292,7 @@ class TtiCase:
                                  vp=model.crop(model.vp), nbl=40,
                                  bcs="damp", epsilon=z, delta=z, theta=z)
         self.model = model
-        xmax = model.domain_size[0]
-        src = np.stack([np.linspace(0., xmax, nsrc), np.full(nsrc, 60.)], 1)
-        nrec = model.shape[0]
-        rec = np.stack([np.linspace(0., xmax, nrec), np.full(nrec, 60.)], 1)
-        self.geom = AcquisitionGeometry(model, rec, src, 0.0, 4000.0,
-                                        f0=0.007, src_type="Ricker")
+        self.geom = tti_config4(nsrc, model)
         self.dev = dev
         s_idx, s_w = interp_table(self.geom.src_positions, model.origin_pml,
                                   model.spacing)
@@ -2241,20 +2281,25 @@ def legacy_solver_phases(dev, g0, fwi, cl, c3, counters, report, ms,
     print(f"   phases 33-36: {time.perf_counter() - t_new:.1f} s")
 
 
+# phase 37's shots, the first of its two for the script's time (9.2 s at 2)
+EAGER_SHOTS = 1
+
+
 def eager_route_phase(dev, fwi, counters, report):
-    """Phase 37: a 2-shot gradient on ``drivers/circle_fwi.py``'s geometry,
-    whose receivers on the vertical line x = 1980 m no kernel takes,
-    through the eager route on cuda."""
+    """Phase 37: a gradient of ``EAGER_SHOTS`` shots on
+    ``drivers/circle_fwi.py``'s geometry, whose receivers on the vertical
+    line x = 1980 m no kernel takes, through the eager route on cuda."""
     from devito_fwi_tpu_torch.misfit import least_square
     from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
     from devito_fwi_tpu_torch.models.presets import demo_model
     phase("37 main path: the eager route, circle_fwi's geometry (receivers "
-          "on x = 1980 m), 2 shots, on cuda")
+          f"on x = 1980 m), {EAGER_SHOTS} shot, on cuda")
     kw = dict(vp_background=3, r=60, origin=(0, 0), shape=(201, 201),
               spacing=(10., 10.), space_order=6, nbl=40, dt=1.)
     true = demo_model("circle-isotropic", vp_circle=3.6, **kw)
     init = demo_model("circle-isotropic", vp_circle=3, **kw)
-    src = np.stack([np.full(2, 20.), np.linspace(0, 2000., 2)], 1)
+    src = np.stack([np.full(2, 20.), np.linspace(0, 2000., 2)],
+                   1)[:EAGER_SHOTS]
     rec = np.stack([np.full(201, 1980.), np.linspace(10., 1990., 201)], 1)
     g1, g0 = (AcquisitionGeometry(m, rec, src, 0., 1000., f0=0.010,
                                   src_type="Ricker") for m in (true, init))
@@ -2278,9 +2323,9 @@ def eager_route_phase(dev, fwi, counters, report):
 FM_SHOTS = 21
 # phase 39's shots, cut from circle_fwi's 11: at 11 shots one iteration
 # took 92.6-133.0 s on the card (host-bound eager steps, the host's speed
-# sets it) and the whole script 1039.7 s of its 1200 s; at 4 shots 45.6 s;
-# shots are the batch, not the width
-CIRCLE_SHOTS = 2
+# sets it) and the whole script 1039.7 s of its 1200 s; at 4 shots 45.6 s,
+# at 2 25.4 s; shots are the batch, not the width
+CIRCLE_SHOTS = 1
 
 
 def sync(dev):
@@ -2562,7 +2607,9 @@ def viscoelastic_phase(dev, marm):
     rec = np.stack([np.linspace(cfg.spacing[0],
                                 m1.domain_size[0] - cfg.spacing[0], nrec),
                     np.full(nrec, 60.0)], 1)
-    g0 = AcquisitionGeometry(m0, rec, src, 0.0, cfg.tn, f0=cfg.f0,
+    # nt cut to CUT_STEPS (from 1178) for the script's time
+    g0 = AcquisitionGeometry(m0, rec, src, 0.0,
+                             min(cfg.tn, CUT_STEPS * dt_e), f0=cfg.f0,
                              src_type="Ricker")
     nt = g0.nt
     run = range(nsrc)[VE_SHOTS]
@@ -2621,12 +2668,13 @@ def viscoelastic_phase(dev, marm):
 # middle one of SMARM2's 31 and near SMARMN's middle), the routes' limits
 # against the kernel route (float32: the same discrete gradient rounded in
 # another order; objective relative, gradient of its max), and the steps
-# every eager run of the two phases is cut to (the time limit's cut, about
-# 0.3 of the drivers' nt; the widths stay): at full nt the two phases took
-# 143.4 s of a script that ran past its limit on a slower host
+# every eager run of the two phases (and of phases 42, 48 and 49) is cut to
+# (the time limit's cut, about 0.2 of the drivers' nt; the widths stay): at
+# full nt the two phases took 143.4 s of a script that ran past its limit
+# on a slower host, at 400 steps 72.5 s, at 300 63.0-68.4 s
 ROUTE_SHOT = 15
 ROUTE_RTOL = (1e-5, 1e-4)
-CUT_STEPS = 400
+CUT_STEPS = 300
 DOT_RTOL = 1e-11
 
 
@@ -3035,6 +3083,490 @@ def visco_smarm2_check(stats):
         raise AssertionError(f"misfit not finite and decreasing: {calls}")
 
 
+# ---------------------------------------------------------------------------
+# phases 46-50: the parallel layer (devito_fwi_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+# ranks spawned on the one card (gloo: NCCL refuses two ranks on a card)
+PAR_RANKS = 4
+# phase 47's limits against the single-process objectives: the ranks' sums
+# meet in another order (objective relative, gradient of its max)
+PAR_RTOL = (1e-6, 1e-5)
+# phase 48's TTI shots (one a rank), phase 49's shots x domain shots (one a
+# shot group), both at CUT_STEPS
+PAR_TTI_SHOTS = 4
+PAR_HIER_SHOTS = 2
+# phase 49's 3-D steps (config 5's 333, cut in depth)
+PAR_C5_STEPS = 100
+
+
+def par_geometries(marm):
+    """The parallel phases' geometries, the same in this process and every
+    rank: SMARMN acoustic and viscoacoustic and SMARM2 elastic (true,
+    initial) at their shots; marmousi-tti2d at PAR_TTI_SHOTS shots and
+    CUT_STEPS; SMARMN (true, initial) at CUT_STEPS with PAR_HIER_SHOTS
+    shots; config 5 at PAR_C5_STEPS, one shot; the CPU tests' small
+    viscoelastic case (33 x 29, qp 60, qs 40, nbl 6, 2 shots) and
+    self-adjoint case (41 x 36, space order 8, w/Q damping, 3 shots)."""
+    from devito_fwi_tpu_torch.models.geometry import AcquisitionGeometry
+    from devito_fwi_tpu_torch.models.model import SeismicModel
+    from devito_fwi_tpu_torch.ops.self_adjoint import setup_w_over_q
+
+    def parse(cfg, *argv):
+        return marm.make_parser(cfg).parse_args([*argv, "--device", "cuda"])
+
+    def cut(g, steps, pick):
+        return AcquisitionGeometry(g.model, g.rec_positions,
+                                   g.src_positions[pick], 0.,
+                                   steps * float(g.model.critical_dt),
+                                   f0=g.f0, src_type="Ricker")
+    out = {}
+    _, geoms, _, _ = marm.setup(marm.SMARMN, parse(marm.SMARMN),
+                                marm.SMARMN.nsrc_default)
+    out["smarmn"] = geoms[:2]
+    _, geoms, _, _ = marm.setup_elastic(
+        marm.SMARM2, parse(marm.SMARM2, "--physics", "elastic"),
+        marm.SMARM2.nsrc_default)
+    out["elastic"] = geoms[:2]
+    _, geoms, _, _ = marm.setup_visco(
+        marm.SMARMN, parse(marm.SMARMN, "--physics", "viscoacoustic"),
+        marm.SMARMN.nsrc_default)
+    out["visco"] = geoms[:2]
+    out["tti"], = cut_geometries(tti_config4(PAR_TTI_SHOTS))
+    g0 = out["smarmn"][1]
+    pick = np.linspace(0, g0.nsrc - 1, PAR_HIER_SHOTS).round().astype(int)
+    out["cut"] = [cut(g, CUT_STEPS, pick) for g in out["smarmn"]]
+    out["c5"] = cut(config5(1), PAR_C5_STEPS, [0])
+    shape = (33, 29)
+    vp = np.full(shape, 2.0, np.float32)
+    vp[:, 14:] = 2.2
+    rho = (0.31 * (1e3 * vp) ** 0.25).astype(np.float32)
+    ve = SeismicModel(origin=(0., 0.), spacing=(10., 10.), shape=shape,
+                      space_order=4, vp=vp, vs=vp / 2.0, b=1.0 / rho,
+                      qp=np.full(shape, 60.0, np.float32),
+                      qs=np.full(shape, 40.0, np.float32), nbl=6,
+                      bcs="mask", dt=1.0)
+    out["ve"] = AcquisitionGeometry(
+        ve, np.stack([np.linspace(0., 320., 17), np.full(17, 30.)], 1),
+        np.stack([np.linspace(60., 260., 2), np.full(2, 20.)], 1), 0., 160.,
+        f0=0.015, src_type="Ricker")
+    shape = (41, 36)
+    vp = np.full(shape, 2.0, np.float32)
+    vp[:, 18:] = 2.4
+    sa = SeismicModel(origin=(0., 0.), spacing=(10., 10.), shape=shape,
+                      space_order=8, vp=vp, b=np.ones(shape, np.float32),
+                      nbl=8, bcs="damp", dt=0.8)
+    sa.damp[:] = setup_w_over_q(sa.padded_shape, w=2 * np.pi * 0.015,
+                                qmin=0.1, qmax=100.0, npad=8,
+                                dtype=np.float32)
+    out["sa"] = AcquisitionGeometry(
+        sa, np.stack([np.linspace(0., 400., 21), np.full(21, 30.)], 1),
+        np.stack([np.linspace(50., 350., 3), np.full(3, 20.)], 1), 0., 160.,
+        f0=0.015, src_type="Ricker")
+    return out
+
+
+def zero_obs(g):
+    return np.zeros((g.nsrc, g.nt, g.rec_positions.shape[0]), np.float32)
+
+
+def par_rank(work):
+    """One spawned rank of phases 47-50 (gloo on the card): its results,
+    counts, times and peak, returned to this process, which prints them;
+    the rank prints nothing. Spawned when the script starts, it builds its
+    geometries and waits for ``work/go`` before it touches the card: the
+    earlier phases and phase 46 hold the card until then."""
+    import contextlib
+    import io
+    import warnings
+    warnings.simplefilter("ignore")
+    from devito_fwi_tpu_torch import fwi
+    from devito_fwi_tpu_torch.drivers import _marmousi_common as marm
+    from devito_fwi_tpu_torch.misfit import least_square
+    from devito_fwi_tpu_torch.ops import (cuda_acoustic, cuda_acoustic3,
+                                          cuda_acoustic3d, cuda_bfm,
+                                          cuda_legacy, cuda_staggered,
+                                          cuda_tti, cuda_visco)
+    from devito_fwi_tpu_torch.parallel import group
+    from devito_fwi_tpu_torch.parallel import sharding as sh
+    from devito_fwi_tpu_torch.parallel.dryrun import dryrun_multichip
+    modules = (cuda_acoustic, cuda_bfm, cuda_staggered, cuda_visco,
+               cuda_tti, cuda_acoustic3, cuda_acoustic3d, cuda_legacy)
+    laps = {}
+
+    def lap(what, t0):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        laps[what] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    def reset():
+        for mod in modules:
+            mod.reset_counters()
+
+    def counts():
+        return ({k: v for mod in modules for k, v in mod.LAUNCHES.items()},
+                {k: v for mod in modules for k, v in mod.TWIN_CALLS.items()})
+
+    t = time.perf_counter()
+    geoms = par_geometries(marm)
+    t = lap("setup", t)
+    while not os.path.exists(f"{work}/go"):
+        time.sleep(0.05)
+    t = lap("wait", t)
+    mesh = sh.shot_mesh()
+    dev = mesh.device
+    t = lap("cuda", t)
+    data = np.load(f"{work}/payload.npz")
+    out = dict(rank=mesh.rank, device=str(dev), share=mesh.share)
+    with group.budget_share(mesh):
+        out["budget"] = fwi._device_budget(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    g1, g0 = geoms["smarmn"]
+    obs = fwi._shot_records(data["smarmn"], g1)
+    out["smarmn"] = sh.fwi_obj_sharded(g0, obs, least_square,
+                                       calc_grad=True, mesh=mesh)
+    out["smarmn_trial"] = sh.fwi_obj_sharded(g0, obs, least_square,
+                                             mesh=mesh)[0]
+    t = lap("47 SMARMN", t)
+    e0 = geoms["elastic"][1]
+    out["elastic"] = sh.elastic_fwi_obj_sharded(
+        e0, data["elastic"], least_square, calc_grad=True, mesh=mesh)
+    out["elastic_trial"] = sh.elastic_fwi_obj_sharded(
+        e0, data["elastic"], least_square, mesh=mesh)[0]
+    t = lap("47 elastic", t)
+    v1, v0 = geoms["visco"]
+    out["visco"] = sh.viscoacoustic_fwi_obj_sharded(
+        v0, data["visco"], least_square, calc_grad=True, mesh=mesh)
+    out["visco_trial"] = sh.viscoacoustic_fwi_obj_sharded(
+        v0, data["visco"], least_square, mesh=mesh)[0]
+    t = lap("47 visco", t)
+    out["counts47"] = counts()
+    out["peak47"] = torch.cuda.max_memory_allocated(dev)
+
+    reset()
+    out["tti"] = sh.tti_fwi_obj_sharded(
+        geoms["tti"], zero_obs(geoms["tti"]), least_square, calc_grad=True,
+        mesh=mesh, n_checkpoints=TTI_CHECKPOINTS)
+    t = lap("48 TTI", t)
+    fm = sh.viscoacoustic_fm_sharded(v1, mesh=mesh)
+    out["visco_fm"] = fm if mesh.rank == 0 else None
+    t = lap("48 visco fm", t)
+    for name, fn in (("ve", sh.viscoelastic_fwi_obj_sharded),
+                     ("sa", sh.sa_fwi_obj_sharded)):
+        out[name] = fn(geoms[name], zero_obs(geoms[name]), least_square,
+                       calc_grad=True, mesh=mesh)
+        t = lap(f"48 {name}", t)
+    out["counts48"] = counts()
+
+    reset()
+    c0 = geoms["cut"][1]
+    for axes in ((4, 1), (2, 2)):
+        dmesh = sh.domain_mesh(axes)
+        rec = sh.forward_domain_sharded(c0, mesh=dmesh)
+        grad = sh.gradient_domain_sharded(c0, 0.5 * rec, mesh=dmesh)
+        out[f"domain{axes}"] = (rec, grad)
+        t = lap(f"49 domain {axes}", t)
+    dmesh = sh.domain_mesh((2, 2))
+    rec = sh.forward_domain_sharded(geoms["c5"], mesh=dmesh)
+    grad = sh.gradient_domain_sharded(geoms["c5"], 0.5 * rec, mesh=dmesh)
+    out["domain3d"] = (rec, grad)
+    t = lap("49 domain 3-D (2, 2)", t)
+    out["hier"] = sh.fwi_obj_sharded2d(c0, data["cut"], least_square,
+                                       calc_grad=True,
+                                       mesh=sh.hier_mesh((2, 2)))
+    t = lap("49 shots x domain (2, 2)", t)
+    out["counts49"] = counts()
+
+    lines = io.StringIO()
+    with contextlib.redirect_stdout(lines):
+        out["dryrun"] = dryrun_multichip(PAR_RANKS, "cuda")
+    out["dryrun_lines"] = lines.getvalue()
+    lap("50 dry run", t)
+    out["laps"] = laps
+    return out
+
+
+def par_check(what, got, want, rtol):
+    """Print and hold (fval, grad) or (fval, {name: grad}) against a
+    reference: the objective relative, each gradient of its max."""
+    f, g = got
+    fr, gr = want
+    ferr = abs(f - fr) / abs(fr)
+    pairs = g.items() if isinstance(g, dict) else [("grad", g)]
+    ref = gr if isinstance(gr, dict) else {"grad": gr}
+    gerr = {k: float(np.abs(np.asarray(v).reshape(-1) - np.asarray(
+        ref[k]).reshape(-1)).max() / np.abs(ref[k]).max()) for k, v in pairs}
+    errs = ", ".join(f"{k} {e:.2e}" for k, e in gerr.items())
+    print(f"   {what}: objective {f!r} against {fr!r} ({ferr:.2e} "
+          f"relative){'; gradients ' + errs + ' of their max' if errs else ''}"
+          f" (limits {rtol[0]:g}, {rtol[1]:g})")
+    if not (ferr <= rtol[0] and all(e <= rtol[1] for e in gerr.values())):
+        raise AssertionError(f"{what} disagrees with its reference")
+
+
+def undecomposed(geometry, axes):
+    """The eager operators of ``ops.acoustic`` on the whole (edge-padded)
+    grid on the card: the traces of ``forward`` and the checkpointed
+    gradient of half of them, cropped to the padded grid, the references
+    of phase 49."""
+    from devito_fwi_tpu_torch import fwi
+    from devito_fwi_tpu_torch.ops import acoustic as ac
+    from devito_fwi_tpu_torch.parallel.domain import _padded_fields
+    model = geometry.model
+    dev = torch.device("cuda", 0)
+    vp, damp, _ = _padded_fields(model, axes)
+    es = fwi._EagerSetup(geometry, dev)
+    vp = torch.as_tensor(vp, device=dev)
+    damp = torch.as_tensor(damp, device=dev) \
+        if isinstance(damp, np.ndarray) else damp
+    shot = (vp, damp, es.src_wav, es.s_idx[0], es.s_w[0])
+    kw = dict(nt=geometry.nt, spacing=model.spacing,
+              space_order=model.space_order, fs=model.fs, step3=False)
+    nck = fwi._default_checkpoints(geometry.nt)
+    dt = float(fwi._solver_dt(geometry))
+    rec = ac.forward(*shot, es.r_idx, es.r_w_np, dt, **kw)[0]
+    _, starts, _ = ac.forward_ckpt(*shot, es.r_idx, es.r_w_np, dt,
+                                   n_checkpoints=nck, **kw)
+    g, _ = ac.gradient_from_ckpt(*shot, starts, 0.5 * rec, es.r_idx,
+                                 es.r_w_np, dt, n_checkpoints=nck, **kw)
+    crop = tuple(slice(0, n) for n in model.padded_shape)
+    return rec.cpu().numpy(), g[crop].cpu().numpy()
+
+
+class ParallelRanks:
+    """The PAR_RANKS gloo ranks of phases 47-50 on the card, spawned when
+    the script starts (a spawned rank takes seconds to reach its
+    function), waiting for ``go``. A daemon thread runs ``parallel.spawn``,
+    so a failed earlier phase ends the script and its ranks with it."""
+
+    def __init__(self):
+        import threading
+        from devito_fwi_tpu_torch.parallel import group
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_par_")
+        self.out = {}
+
+        def run():
+            try:
+                self.out["ranks"] = group.spawn(
+                    par_rank, PAR_RANKS, "gloo", "cuda", (self.work,), 1500)
+            except BaseException as err:
+                self.out["error"] = err
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def go(self):
+        open(f"{self.work}/go", "w").close()
+
+    def join(self):
+        """The ranks' results; raises what failed in them."""
+        self.go()
+        self.thread.join()
+        shutil.rmtree(self.work, ignore_errors=True)
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["ranks"]
+
+
+def parallel_phases(dev, marm, fwi, elastic_fwi, visco_fwi, card, world):
+    """Phases 46-50: the parallel layer on the card. This process runs
+    phase 46 (a world of one on NCCL) and the single-process references
+    that need the card's memory, then lets the ranks of ``world`` (a
+    ``ParallelRanks``) run phases 47-50 and computes the eager references
+    beside them."""
+    import torch.distributed as dist
+    from devito_fwi_tpu_torch.misfit import least_square
+    from devito_fwi_tpu_torch.parallel import sharding as sh
+
+    t_all = time.perf_counter()
+    phase("46 parallel: a world of one on NCCL, SMARMN "
+          f"{marm.SMARMN.nsrc_default} shots, fwi_obj_sharded against "
+          "fwi_obj_multi")
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = world.work
+    try:
+        geoms = par_geometries(marm)
+        # NCCL's bootstrap needs an interface even for one rank
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{work}/store46", 1), rank=0, world_size=1)
+        try:
+            mesh = sh.shot_mesh()
+            g1, g0 = geoms["smarmn"]
+            obs = fwi.fm_multi(g1)
+            ref = fwi.fwi_obj_multi(g0, obs, least_square, calc_grad=True)
+            ref_trial = fwi.fwi_obj_multi(g0, obs, least_square)[0]
+            sync(dev)
+            t0 = time.perf_counter()
+            got = sh.fwi_obj_sharded(g0, obs, least_square, calc_grad=True,
+                                     mesh=mesh)
+            sync(dev)
+            t_grad = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got_trial = sh.fwi_obj_sharded(g0, obs, least_square,
+                                           mesh=mesh)[0]
+            t_trial = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+        same = got[0] == ref[0] and got_trial == ref_trial and \
+            np.array_equal(got[1].reshape(-1), ref[1])
+        print(f"   {mesh}: gradient {t_grad:.3f} s, trial {t_trial:.3f} s "
+              f"(host clock, the kernels' first calls in this process "
+              f"were earlier phases'; {card}); objective {got[0]!r}, "
+              f"trial {got_trial!r}; bitwise fwi_obj_multi's: {same}")
+        if not same:
+            raise AssertionError("a world of one is not fwi_obj_multi "
+                                 "bitwise")
+
+        # the single-process references that need the card's memory, before
+        # the ranks allocate theirs
+        e1, e0 = geoms["elastic"]
+        eobs = np.stack([o.data for o in
+                         elastic_fwi.elastic_fm_multi(e1)[0]])
+        eref = elastic_fwi.elastic_fwi_obj_multi(e0, eobs, least_square,
+                                                 calc_grad=True)[:2]
+        eref_trial = elastic_fwi.elastic_fwi_obj_multi(e0, eobs,
+                                                       least_square)[0]
+        v1, v0 = geoms["visco"]
+        vobs = np.stack([o.data for o in visco_fwi.visco_fm_multi(v1)])
+        vref = visco_fwi.visco_fwi_obj_multi(v0, vobs, least_square,
+                                             calc_grad=True)[:2]
+        vref_trial = visco_fwi.visco_fwi_obj_multi(v0, vobs,
+                                                   least_square)[0]
+        c1, c0 = geoms["cut"]
+        cobs = np.stack([o.data for o in fwi.fm_multi(c1)])
+        np.savez(f"{work}/payload.npz",
+                 smarmn=np.stack([o.data for o in obs]), elastic=eobs,
+                 visco=vobs, cut=cobs)
+        del obs
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_go = time.perf_counter() - t_all
+        world.go()
+        # the eager references of phases 48-49, beside the ranks (a world
+        # of one: the same functions on every shot)
+        t0 = time.perf_counter()
+        tti_ref = sh.tti_fwi_obj_sharded(
+            geoms["tti"], zero_obs(geoms["tti"]), least_square,
+            calc_grad=True, n_checkpoints=TTI_CHECKPOINTS)
+        t_tti = time.perf_counter() - t0
+        small_ref = {name: fn(geoms[name], zero_obs(geoms[name]),
+                              least_square, calc_grad=True)
+                     for name, fn in (("ve", sh.viscoelastic_fwi_obj_sharded),
+                                      ("sa", sh.sa_fwi_obj_sharded))}
+        dom_ref = undecomposed(c0, (2, 2))
+        c5_ref = undecomposed(geoms["c5"], (2, 2))
+        hier_ref = fwi.fwi_obj_multi(c0, fwi._shot_records(cobs, c1),
+                                     least_square, calc_grad=True)[:2]
+        t_refs = time.perf_counter() - t0
+    finally:
+        # the ranks run (or, after a failure here, fail) and end
+        ranks = world.join()
+    t_ranks = time.perf_counter() - t_all
+    laps = ranks[0]["laps"]
+    print(f"   phase 46 and the references before the ranks' go: "
+          f"{t_go:.1f} s; the ranks (spawned at the script's start) built "
+          f"their geometries in {laps['setup']:.1f} s, waited "
+          f"{laps['wait']:.1f} s, then reached the card in "
+          f"{laps['cuda']:.1f} s")
+
+    phase(f"47 parallel: {PAR_RANKS} gloo ranks on the card, fwi_obj_sharded "
+          f"(SMARMN), elastic (SMARM2 {e0.nsrc} shots) and viscoacoustic "
+          f"(SMARMN {v0.nsrc}) sharded gradients and trials")
+    print(f"   the ranks: {[r['device'] for r in ranks]}, {ranks[0]['share']}"
+          f" a card; phase 46 to joined {t_ranks:.1f} s; this process's "
+          f"references beside them {t_refs:.1f} s (TTI {t_tti:.1f})")
+    r0 = ranks[0]
+    par_check("SMARMN L2 gradient", r0["smarmn"], (got[0], got[1]), PAR_RTOL)
+    par_check("SMARMN L2 trial", (r0["smarmn_trial"], {}), (got_trial, {}),
+              PAR_RTOL)
+    par_check("SMARM2 elastic gradient", r0["elastic"], eref, PAR_RTOL)
+    par_check("SMARM2 elastic trial", (r0["elastic_trial"], {}),
+              (eref_trial, {}), PAR_RTOL)
+    par_check("SMARMN viscoacoustic gradient", r0["visco"], vref, PAR_RTOL)
+    par_check("SMARMN viscoacoustic trial", (r0["visco_trial"], {}),
+              (vref_trial, {}), PAR_RTOL)
+    rows = ("forward_rec_segments", "forward_dt2_segments",
+            "gradient_stream_segments", "elastic_segments",
+            "elastic_fwd_hist_segments", "elastic_grad_stream_segments",
+            "visco_sls2_segments", "visco_fwd_hist_segments",
+            "visco_grad_stream_segments")
+    total = {n: sum(r["counts47"][0][n] for r in ranks) for n in rows}
+    print(f"   launches summed over the ranks: {total}")
+    for r in ranks:
+        la, tw = r["counts47"]
+        print(f"   rank {r['rank']}: SMARMN {r['laps']['47 SMARMN']:.2f} s, "
+              f"elastic {r['laps']['47 elastic']:.2f} s, visco "
+              f"{r['laps']['47 visco']:.2f} s; peak "
+              f"{r['peak47'] / 1e9:.3f} GB of its budget share "
+              f"{r['budget'] / 1e9:.3f} GB; twin calls {sum(tw.values())}")
+        if min(la[n] for n in rows) < 1 or any(tw.values()) or \
+                r["peak47"] > r["budget"]:
+            raise AssertionError(f"rank {r['rank']} did not launch every "
+                                 "row, called a twin, or passed its budget "
+                                 "share")
+
+    phase(f"48 parallel: TTI (marmousi-tti2d, {PAR_TTI_SHOTS} shots, nt "
+          f"{geoms['tti'].nt}: CUT_STEPS), viscoacoustic_fm_sharded (SMARMN "
+          f"{v1.nsrc} shots), the viscoelastic and self-adjoint objectives "
+          "(the CPU tests' small cases)")
+    par_check("TTI gradient, against one rank's (the eager pair shot by "
+              "shot)", r0["tti"], tti_ref, PAR_RTOL)
+    fm_err = float(np.abs(r0["visco_fm"] - vobs).max() /
+                   np.abs(vobs).max())
+    print(f"   viscoacoustic_fm_sharded against visco_fm_multi: "
+          f"{fm_err:.2e} of the max (limit {RTOL:g})")
+    for name, what in (("ve", "viscoelastic"), ("sa", "self-adjoint")):
+        par_check(f"{what} gradient, against one rank's", r0[name],
+                  small_ref[name], PAR_RTOL)
+    la = [r["counts48"][0] for r in ranks]
+    tti_rows = [n for n in la[0] if n.startswith("tti_")]
+    print("   rank 0: " + ", ".join(f"{k[3:]} {v:.2f} s" for k, v in
+                                     laps.items() if k.startswith("48")) +
+          f"; visco_sls2_segments launches "
+          f"{[x['visco_sls2_segments'] for x in la]}, TTI kernel launches "
+          f"{sum(x[n] for x in la for n in tti_rows)}")
+    if not (fm_err <= RTOL and all(x["visco_sls2_segments"] >= 1
+                                   for x in la) and
+            not any(any(r["counts48"][1].values()) for r in ranks)):
+        raise AssertionError("phase 48: the sharded modeling disagrees, a "
+                             "rank did not launch row 19, or a twin ran")
+
+    phase(f"49 parallel: domain decomposition at SMARMN's padded grid "
+          f"({c0.model.padded_shape[0]} x {c0.model.padded_shape[1]}, nt "
+          f"{c0.nt}: CUT_STEPS) on (4, 1) and (2, 2), config 5 (nt "
+          f"{geoms['c5'].nt}) on (2, 2), fwi_obj_sharded2d on (2, 2)")
+    for key, want, lapk in (
+            ("domain(4, 1)", dom_ref, "49 domain (4, 1)"),
+            ("domain(2, 2)", dom_ref, "49 domain (2, 2)"),
+            ("domain3d", c5_ref, "49 domain 3-D (2, 2)")):
+        rec, grad = r0[key]
+        errs = [float(np.abs(a - b).max()) for a, b in zip((rec, grad),
+                                                          want)]
+        print(f"   {lapk[3:]}: forward and gradient {laps[lapk]:.2f} s; "
+              f"max|decomposed - undecomposed| = {errs[0]!r} (traces), "
+              f"{errs[1]!r} (gradient); |grad|max "
+              f"{np.abs(want[1]).max():.3e}")
+        if any(errs) or not np.isfinite(grad).all():
+            raise AssertionError(f"{key}: not the undecomposed operators")
+    par_check(f"fwi_obj_sharded2d (2, 2), {c0.nsrc} shots, against "
+              "fwi_obj_multi (the kernel route)", r0["hier"],
+              (hier_ref[0], hier_ref[1].reshape(c0.model.shape)),
+              ROUTE_RTOL)
+    launched = sum(sum(r["counts49"][0].values()) for r in ranks)
+    print(f"   shots x domain {laps['49 shots x domain (2, 2)']:.2f} s; "
+          f"kernel launches {launched} (the domain paths are eager)")
+    if launched:
+        raise AssertionError("a domain path launched a kernel")
+
+    phase(f"50 parallel: dryrun_multichip({PAR_RANKS}) on the cuda ranks")
+    print("".join(f"   {line}\n" for line in
+                  r0["dryrun_lines"].splitlines()), end="")
+    print(f"   dry run {laps['50 dry run']:.1f} s; phases 46-50: "
+          f"{time.perf_counter() - t_all:.1f} s")
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3062,6 +3594,8 @@ def main():
     print(f"   torch: {kind}, {torch.cuda.device_count()} device(s), torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
+    # the ranks of phases 47-50 start now and wait, off the card
+    world = ParallelRanks()
 
     phase("2 build")
     t0 = time.perf_counter()
@@ -3468,7 +4002,9 @@ def main():
     print(f"   phase 45: {time.perf_counter() - t_phase:.1f} s; phases "
           f"43-45: {time.perf_counter() - t_new:.1f} s")
 
-    phase("46 result")
+    parallel_phases(dev, marm, fwi, elastic_fwi, visco_fwi, card, world)
+
+    phase("51 result")
     rows = []
     sources = (("acoustic2d", ca), ("bfm_push", cb), ("elastic2d", cs),
                ("visco2d", cv), ("tti2d", ct), ("acoustic3d", c3d),

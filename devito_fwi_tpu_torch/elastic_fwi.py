@@ -423,6 +423,34 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
     "vjp" autograd through the checkpointed forward, whose segments
     ``n_checkpoints`` sets (<= 0: about sqrt(nt))."""
     dev = _resolve_device(device)
+    fval, grads, illum, residuals = _elastic_sums(
+        geometry, obs, misfit_func, direct_wave, calc_grad, vp, vs, rho,
+        shot_chunk, n_checkpoints, shot_indices, illum_fix, grad_route, dev)
+    if not calc_grad:
+        return float(fval), None, residuals
+    return float(fval), _finish_grads(grads, illum, precond, mask,
+                                ("vp", "vs", "rho")), residuals
+
+
+def _finish_grads(grads, illum, precond, mask, names):
+    """The illumination precondition and the mask of the gradient sums on
+    the device: {name: float64 numpy}."""
+    if precond:
+        scale = 1.0 / torch.sqrt(illum + 1e-30)
+        grads = tuple(g * scale for g in grads)
+    if mask is not None:
+        m = torch.as_tensor(np.asarray(mask), dtype=torch.float64,
+                            device=illum.device)
+        grads = tuple(g * m for g in grads)
+    return {name: g.cpu().numpy() for name, g in zip(names, grads)}
+
+
+def _elastic_sums(geometry, obs, misfit_func, direct_wave, calc_grad, vp,
+                  vs, rho, shot_chunk, n_checkpoints, shot_indices,
+                  illum_fix, grad_route, dev):
+    """``elastic_fwi_obj_multi`` before the precondition: (fval, the three
+    gradient sums, illum sum, residuals), the sums fixed and float64 on
+    ``dev`` (None without ``calc_grad``)."""
     model = geometry.model
     misfit, kind = _misfit_batch(misfit_func)
     st = _Setup(geometry, dev, shot_indices)
@@ -505,19 +533,7 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         grads = gs if grads is None else tuple(a + g for a, g in
                                                zip(grads, gs))
         illum = il if illum is None else illum + il
-    residuals = ResidualStack(residuals)
-    if not calc_grad:
-        return float(fval), None, residuals
-    if precond:
-        scale = 1.0 / torch.sqrt(illum + 1e-30)
-        grads = tuple(g * scale for g in grads)
-    if mask is not None:
-        m = torch.as_tensor(np.asarray(mask), dtype=torch.float64,
-                            device=dev)
-        grads = tuple(g * m for g in grads)
-    out = {name: g.cpu().numpy() for name, g in
-           zip(("vp", "vs", "rho"), grads)}
-    return float(fval), out, residuals
+    return fval, grads, illum, ResidualStack(residuals)
 
 
 class ElasticFwiLoss:

@@ -87,8 +87,9 @@ from .ops.wavesolver import AcousticWaveSolver
 from .utils.filters import bandpass, highpass, lowpass
 
 __all__ = ["seismic_filter", "Filter", "resample", "fm_single", "fm_multi",
-           "fix_source_illumination", "fwi_obj_single", "fwi_obj_multi",
-           "fwi_loss", "ResidualStack", "EAGER", "reset_counters"]
+           "fm_multi_parallel", "fix_source_illumination", "fwi_obj_single",
+           "fwi_obj_multi", "fwi_obj_multi_parallel", "fwi_loss",
+           "ResidualStack", "EAGER", "reset_counters"]
 
 # calls that took the eager route because no kernel takes their geometry:
 # objectives, fm_multi, and saved-route sweeps stepped by the eager update
@@ -197,6 +198,18 @@ def _shot_geometry(geometry, i):
                                a=geometry._a, t0w=geometry._t0w,
                                src_data=geometry._src_data,
                                filter=geometry._filter)
+
+
+def _subset_geometry(geometry, shot_indices):
+    """Geometry restricted to a shot subset (propagation at the model's
+    critical dt, as ``_shot_geometry``)."""
+    idx = np.asarray(shot_indices, dtype=np.int64)
+    return AcquisitionGeometry(
+        geometry.model, geometry.rec_positions,
+        np.asarray(geometry.src_positions)[idx], geometry.t0, geometry.tn,
+        f0=geometry.f0, src_type=geometry.src_type, a=geometry._a,
+        t0w=geometry._t0w, src_data=geometry._src_data,
+        filter=geometry._filter)
 
 
 def _batched_tables(geometry):
@@ -443,7 +456,9 @@ def _device_stack(objs, dev):
     inversion). Entries keep strong references to the records, so a
     recycled id() cannot alias freed objects. The gathers are not
     content-hashed: build new records rather than editing ``data`` in
-    place between calls."""
+    place between calls. An (nsrc, nt, nrec) array is copied as it is."""
+    if hasattr(objs, "shape"):
+        return torch.as_tensor(np.asarray(objs), device=dev)
     key = (tuple(id(o) for o in objs), str(dev))
     entry = _DEVICE_STACK_CACHE.get(key)
     if entry is not None and all(a is b for a, b in zip(entry[0], objs)):
@@ -470,6 +485,46 @@ def fm_single(geometry, save=False, device="cuda"):
     return rec, u
 
 
+def _traces(geometry, dev, sel=None):
+    """Traces (nsel, nt, nrec) on ``dev`` of the shots ``sel`` (None: all)
+    through ``forward_rec_segments`` (3-D: ``forward_rec3``; the geometries
+    no kernel takes: the eager ``forward``, counted in ``EAGER``)."""
+    model = geometry.model
+    reason = _eager_reason(geometry, False, None)
+    if reason is not None:
+        EAGER["fm_multi"] += 1
+        _eager_warn(reason)
+        st = _EagerSetup(geometry, dev)
+    elif model.dim == 3:
+        st = _Setup3(geometry, dev)
+    else:
+        st = _Setup(geometry, dev)
+    if sel is not None:
+        st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
+    nsrc = st.s_idx.shape[0]
+    if reason is not None:
+        return _eager_traces(st, 0, nsrc)
+    if model.dim == 3:
+        return st.traces(_c3d.forward_rec3(st.m3, st.hd3,
+                                           *st.planes(0, nsrc), st.dt,
+                                           **st.kw))
+    rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
+                                        st.injT(0, nsrc), st.dt, **st.kw)
+    return st.traces(rec_rows)
+
+
+def _shot_records(rec_all, geometry):
+    """PointSource records of an (nsrc, nt, nrec) gather stack."""
+    shots = []
+    for i in range(rec_all.shape[0]):
+        shot = PointSource(name="rec", time_range=geometry.time_axis,
+                           coordinates=geometry.rec_positions,
+                           dtype=geometry.model.dtype)
+        shot.data[:] = rec_all[i]
+        shots.append(shot)
+    return shots
+
+
 def fm_multi(geometry, save=False, device="cuda"):
     """Model all shots of ``geometry`` in one batch through
     ``forward_rec_segments`` (3-D: ``forward_rec3``); returns a list of
@@ -477,32 +532,15 @@ def fm_multi(geometry, save=False, device="cuda"):
     ``save`` is accepted for signature parity and changes nothing (the
     reference's ``fm_multi`` discards the saved wavefield too)."""
     dev = _resolve_device(device)
-    model = geometry.model
-    reason = _eager_reason(geometry, False, None)
-    if reason is not None:
-        EAGER["fm_multi"] += 1
-        _eager_warn(reason)
-        rec_all = _eager_traces(_EagerSetup(geometry, dev), 0,
-                                geometry.nsrc).cpu().numpy()
-    elif model.dim == 3:
-        st = _Setup3(geometry, dev)
-        rec_all = st.traces(_c3d.forward_rec3(
-            st.m3, st.hd3, *st.planes(0, geometry.nsrc), st.dt,
-            **st.kw)).cpu().numpy()
-    else:
-        st = _Setup(geometry, dev)
-        rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
-                                            st.injT(0, geometry.nsrc),
-                                            st.dt, **st.kw)
-        rec_all = st.traces(rec_rows).cpu().numpy()
-    shots = []
-    for i in range(geometry.nsrc):
-        shot = PointSource(name="rec", time_range=geometry.time_axis,
-                           coordinates=geometry.rec_positions,
-                           dtype=model.dtype)
-        shot.data[:] = rec_all[i]
-        shots.append(shot)
-    return shots
+    return _shot_records(_traces(geometry, dev).cpu().numpy(), geometry)
+
+
+def fm_multi_parallel(client, geometry, save=False, mesh=None):
+    """Shot-parallel modeling over the ranks of ``mesh`` (default
+    ``parallel.shot_mesh()``). ``client`` is accepted for signature parity
+    with the dask-based reference (``fwi.py:83-102``) and ignored."""
+    from .parallel.sharding import fm_multi_sharded
+    return fm_multi_sharded(geometry, save=save, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -662,8 +700,15 @@ def _host_misfit_chunk(geometry, rec_host, obs, misfit_func, direct_wave,
     return sum(fvals_c), residuals
 
 
+# the ranks of a parallel mesh that share this process's card
+# (``parallel.group.budget_share`` sets it for the length of a sharded
+# call): each plans its chunks for its part of the budget
+_BUDGET_SHARE = 1
+
+
 def _device_budget(dev):
-    """80% of the largest single block the caching allocator can hand out:
+    """80% of the largest single block the caching allocator can hand out,
+    divided by ``_BUDGET_SHARE``:
     the card's free memory plus the cached segments no live tensor holds
     (the allocator returns those to the card before an allocation fails),
     or the largest unused block of a segment a live tensor holds, whichever
@@ -681,7 +726,7 @@ def _device_budget(dev):
             releasable += seg["total_size"]
         elif unused:
             held = max(held, max(unused))
-    return int(0.8 * max(free + releasable, held))
+    return int(0.8 * max(free + releasable, held)) // _BUDGET_SHARE
 
 
 def _shots_per_batch(nsrc, shot_chunk, per_shot, budget):
@@ -1071,6 +1116,33 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
     dev = _resolve_device(device)
     sel = None if shot_indices is None else \
         np.asarray(shot_indices, dtype=np.int64)
+    fval, grad, illum, residuals = _objective_sums(
+        geometry, obs, misfit_func, direct_wave, calc_grad, resample_dt,
+        shot_chunk, sel, dev, stream, saved3)
+    if not calc_grad:
+        return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
+                residuals)
+    grad = _precondition(grad, illum, precond, mask)
+    return (float(fval), grad.cpu().numpy().reshape(-1).astype(np.float64),
+            residuals)
+
+
+def _precondition(grad, illum, precond, mask):
+    """The illumination precondition and the mask, on the device."""
+    if precond:
+        grad = grad / torch.sqrt(illum + 1e-30)
+    if mask is not None:
+        grad = grad * torch.as_tensor(np.asarray(mask), dtype=grad.dtype,
+                                      device=grad.device)
+    return grad
+
+
+def _objective_sums(geometry, obs, misfit_func, direct_wave, calc_grad,
+                    resample_dt, shot_chunk, sel, dev, stream=None,
+                    saved3=False):
+    """``fwi_obj_multi`` of the shots ``sel`` (None: all) before the
+    precondition: (fval, grad sum, illum sum, residuals), the sums cropped,
+    fixed and float64 on ``dev`` (None without ``calc_grad``)."""
     if _host_misfit(misfit_func, resample_dt, geometry):
         # the gathers cross to the host anyway: the shot subset is taken
         # from the host lists
@@ -1111,20 +1183,20 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
             fvals, res = misfit(syn - dw, obs_stack[lo:hi] - dw)
             return torch.sum(fvals), res
 
-    fval, grad, illum, residuals = _shot_objective(
-        geometry, misfit_chunk, kind, calc_grad, shot_chunk, sel, stream,
-        dev, saved3)
-    if not calc_grad:
-        return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
-                residuals)
-    # precondition + mask on the device, then one field to the host
-    if precond:
-        grad = grad / torch.sqrt(illum + 1e-30)
-    if mask is not None:
-        grad = grad * torch.as_tensor(np.asarray(mask), dtype=grad.dtype,
-                                      device=dev)
-    return (float(fval), grad.cpu().numpy().reshape(-1).astype(np.float64),
-            residuals)
+    return _shot_objective(geometry, misfit_chunk, kind, calc_grad,
+                           shot_chunk, sel, stream, dev, saved3)
+
+
+def fwi_obj_multi_parallel(client, geometry, obs, misfit_func,
+                           direct_wave=None, mask=None, precond=True,
+                           calc_grad=False, mesh=None):
+    """Shot-parallel objective over the ranks of ``mesh`` (default
+    ``parallel.shot_mesh()``; reference dask path, ``fwi.py:207-234``):
+    (fval, grad on the model's shape). ``client`` is accepted for parity
+    and ignored."""
+    from .parallel.sharding import fwi_obj_sharded
+    return fwi_obj_sharded(geometry, obs, misfit_func, direct_wave, mask,
+                           precond, calc_grad, mesh=mesh)
 
 
 def fwi_loss(x, geometry, obs, misfit_func, direct_wave=None, mask=None,

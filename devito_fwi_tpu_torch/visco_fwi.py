@@ -49,7 +49,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .elastic_fwi import EAGER_FIELDS, _pad_edge, _shots, _vjp_shots
+from .elastic_fwi import (EAGER_FIELDS, _finish_grads, _pad_edge,
+                          _shots, _vjp_shots)
 from .fwi import (MISFIT_BYTES_PER_SAMPLE, ResidualStack, _batched_tables,
                   _crop, _device_budget, _device_stack, _eager_warn,
                   _illum_factors, _misfit_batch, _resolve_device,
@@ -369,8 +370,24 @@ def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
     saved-history route; "vjp" autograd through the checkpointed forward,
     whose segments ``n_checkpoints`` sets (<= 0: about sqrt(nt))."""
     _check_kernel(kernel, time_order)
-    kind = (kernel, time_order)
     dev = _resolve_device(device)
+    fval, grads, illum, residuals = _visco_sums(
+        geometry, obs, misfit_func, direct_wave, calc_grad, vp, qp, kernel,
+        time_order, shot_chunk, n_checkpoints, shot_indices, illum_fix,
+        grad_route, dev)
+    if not calc_grad:
+        return float(fval), None, residuals
+    return float(fval), _finish_grads(grads, illum, precond, mask,
+                                ("vp", "qp")), residuals
+
+
+def _visco_sums(geometry, obs, misfit_func, direct_wave, calc_grad, vp, qp,
+                kernel, time_order, shot_chunk, n_checkpoints, shot_indices,
+                illum_fix, grad_route, dev):
+    """``visco_fwi_obj_multi`` before the precondition: (fval, the two
+    gradient sums, illum sum, residuals), the sums fixed and float64 on
+    ``dev`` (None without ``calc_grad``)."""
+    kind = (kernel, time_order)
     model = geometry.model
     misfit, mkind = _misfit_batch(misfit_func)
     st = _Setup(geometry, dev, shot_indices)
@@ -458,18 +475,7 @@ def visco_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
         grads = gs if grads is None else tuple(a + g for a, g in
                                                zip(grads, gs))
         illum = il if illum is None else illum + il
-    residuals = ResidualStack(residuals)
-    if not calc_grad:
-        return float(fval), None, residuals
-    if precond:
-        scale = 1.0 / torch.sqrt(illum + 1e-30)
-        grads = tuple(g * scale for g in grads)
-    if mask is not None:
-        m = torch.as_tensor(np.asarray(mask), dtype=torch.float64,
-                            device=dev)
-        grads = tuple(g * m for g in grads)
-    out = {name: g.cpu().numpy() for name, g in zip(("vp", "qp"), grads)}
-    return float(fval), out, residuals
+    return fval, grads, illum, ResidualStack(residuals)
 
 
 class ViscoFwiLoss:

@@ -46,7 +46,9 @@ held against the same call on the CPU. Select them with ``-k "legacy or
 eager"``. The operators that run no kernel on the card (the self-adjoint
 solver, the PML and HABC forwards, the viscoelastic solver and gradient)
 are held against the same float32 calls on the CPU: select them with ``-k
-cpu``.
+cpu``. Two gloo ranks spawned on cuda:0 run the shot-sharded objective and
+the domain-decomposed forward against one rank: select them with ``-k
+parallel``.
 """
 import numpy as np
 import pytest
@@ -1482,3 +1484,60 @@ def test_visco_routes_on_the_card_match_the_kernels(cuda):
             nt=geom.nt, spacing=model.spacing, space_order=4)
     for got, want in zip(born["cuda"], born["cpu"]):
         _close_to_cpu(got, want, 1e-5)
+
+
+def _parallel_case():
+    """(true, initial) geometries for the parallel layer on the card:
+    circle 61 x 61, nbl 10, space order 4, 3 shots, receivers at 20 m (the
+    kernel route)."""
+    def mk(vc, dt=None):
+        return demo_model("circle-isotropic", vp_circle=vc,
+                          vp_background=2.5, origin=(0., 0.),
+                          shape=(61, 61), spacing=(10., 10.), nbl=10,
+                          space_order=4, dt=dt)
+    true = mk(3.0)
+    # the initial model keeps the true model's time step (and nt)
+    init = mk(2.5, float(true.critical_dt))
+    src = np.stack([np.linspace(0., 600., 3), np.full(3, 20.)], 1)
+    rec = np.stack([np.linspace(0., 600., 41), np.full(41, 20.)], 1)
+    return [AcquisitionGeometry(m, rec, src, 0., 300., f0=0.010,
+                                src_type="Ricker") for m in (true, init)]
+
+
+def _two_ranks_on_the_card():
+    """One of two gloo ranks on cuda:0: the shot-sharded objective and the
+    domain-decomposed forward of ``_parallel_case``."""
+    from devito_fwi_tpu_torch.parallel import sharding as sh
+    g1, g0 = _parallel_case()
+    obs = fwi.fm_multi(g1)
+    out = sh.fwi_obj_sharded(g0, obs, None, calc_grad=True,
+                             mesh=sh.shot_mesh())
+    rec = sh.forward_domain_sharded(g1, mesh=sh.domain_mesh((2, 1)))
+    return out, rec, str(torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+def test_parallel_ranks_on_the_card_match_one_rank(cuda):
+    """Two gloo ranks spawned on cuda:0: ``fwi_obj_sharded`` within 1e-6
+    (objective) and 1e-5 of the max (gradient) of ``fwi_obj_multi`` in this
+    process (the kernel route), and ``forward_domain_sharded`` on (2, 1)
+    equal to the undecomposed eager forward on the same grid."""
+    from devito_fwi_tpu_torch.ops import acoustic as ac
+    from devito_fwi_tpu_torch.parallel import domain, group
+    outs = group.spawn(_two_ranks_on_the_card, 2, "gloo", "cuda",
+                       timeout=600)
+    g1, g0 = _parallel_case()
+    obs = fwi.fm_multi(g1)
+    f, g, _ = fwi.fwi_obj_multi(g0, obs, None, calc_grad=True)
+    vp, damp, _ = domain._padded_fields(g1.model, (2, 1))
+    es = fwi._EagerSetup(g1, cuda)
+    rec, _ = ac.forward(torch.as_tensor(vp, device=cuda),
+                        torch.as_tensor(damp, device=cuda), es.src_wav,
+                        es.s_idx[0], es.s_w[0], es.r_idx, es.r_w_np,
+                        float(fwi._solver_dt(g1)), nt=g1.nt,
+                        spacing=g1.model.spacing, space_order=4, step3=False)
+    for (fs, gs), recs, device in outs:
+        assert device == "0"
+        assert abs(fs - f) <= 1e-6 * abs(f)
+        assert np.abs(gs.reshape(-1) - g).max() <= 1e-5 * np.abs(g).max()
+        assert np.array_equal(recs, rec.cpu().numpy())

@@ -711,3 +711,64 @@ def test_slice17_entry_points_raise_on_cuda_without_card(entry, monkeypatch):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/group.py",
+                    "parallel/sharding.py", "parallel/domain.py",
+                    "parallel/dryrun.py", "tools/probe_allreduce.py")
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_are_scanned(module):
+    """The parallel layer's modules are among the sources the scans above
+    read (and so import no JAX)."""
+    assert os.path.join(PKG, *module.split("/")) in _port_sources()
+
+
+@pytest.mark.parametrize("entry", [
+    "shot_mesh", "domain_mesh", "hier_mesh", "fm_multi_sharded",
+    "fwi_obj_sharded", "tti_fwi_obj_sharded", "viscoacoustic_fm_sharded",
+    "elastic_fwi_obj_sharded", "viscoacoustic_fwi_obj_sharded",
+    "viscoelastic_fwi_obj_sharded", "sa_fwi_obj_sharded",
+    "forward_domain_sharded", "gradient_domain_sharded",
+    "fwi_obj_sharded2d", "fm_multi_parallel", "fwi_obj_multi_parallel",
+    "spawn", "dryrun_multichip"])
+def test_parallel_entry_points_raise_on_cuda_without_card(entry,
+                                                         monkeypatch):
+    """A mesh asked for the card (the default) on a host without one
+    raises before anything runs, as does ``spawn`` before it starts a
+    process: the parallel layer never falls back to the CPU."""
+    from devito_fwi_tpu_torch.parallel import dryrun, group
+    from devito_fwi_tpu_torch.parallel import sharding as sh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = _geometry()
+    obs = tfwi.fm_multi(g, device="cpu")
+    zeros = np.zeros((1, g.nt, 11), np.float32)
+    calls = {
+        "shot_mesh": lambda: sh.shot_mesh(),
+        "domain_mesh": lambda: sh.domain_mesh((1, 1)),
+        "hier_mesh": lambda: sh.hier_mesh((1, 1)),
+        "fm_multi_sharded": lambda: sh.fm_multi_sharded(g),
+        "fwi_obj_sharded": lambda: sh.fwi_obj_sharded(g, obs, None,
+                                                      calc_grad=True),
+        "tti_fwi_obj_sharded": lambda: sh.tti_fwi_obj_sharded(g, zeros),
+        "viscoacoustic_fm_sharded": lambda: sh.viscoacoustic_fm_sharded(g),
+        "elastic_fwi_obj_sharded": lambda: sh.elastic_fwi_obj_sharded(
+            g, zeros),
+        "viscoacoustic_fwi_obj_sharded":
+            lambda: sh.viscoacoustic_fwi_obj_sharded(g, zeros),
+        "viscoelastic_fwi_obj_sharded":
+            lambda: sh.viscoelastic_fwi_obj_sharded(g, zeros),
+        "sa_fwi_obj_sharded": lambda: sh.sa_fwi_obj_sharded(g, zeros),
+        "forward_domain_sharded": lambda: sh.forward_domain_sharded(g),
+        "gradient_domain_sharded": lambda: sh.gradient_domain_sharded(
+            g, zeros[0]),
+        "fwi_obj_sharded2d": lambda: sh.fwi_obj_sharded2d(g, obs, None),
+        "fm_multi_parallel": lambda: tfwi.fm_multi_parallel(None, g),
+        "fwi_obj_multi_parallel": lambda: tfwi.fwi_obj_multi_parallel(
+            None, g, obs, None, calc_grad=True),
+        "spawn": lambda: group.spawn(print, 2, device="cuda"),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
