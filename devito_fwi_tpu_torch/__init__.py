@@ -11,11 +11,21 @@ Entry points run on the card ("cuda") unless the caller passes
 """
 
 from .models.timeaxis import TimeAxis
-from .models.sources import PointSource, Receiver, RickerSource
-from .models.model import SeismicModel
-from .models.geometry import AcquisitionGeometry
-from .models.presets import demo_model
+from .models.sources import (PointSource, Receiver, Shot, WaveletSource,
+                             RickerSource, GaborSource, DGaussSource)
+from .models.model import (SeismicModel, Model, ModelElastic,
+                           ModelViscoelastic, ModelViscoacoustic)
+from .models.geometry import (AcquisitionGeometry, setup_geometry,
+                              setup_rec_coords, seismic_args)
+from .models.presets import demo_model, load_velocity
 from .ops.wavesolver import AcousticWaveSolver
+from .ops.sa_wavesolver import SaIsoAcousticWaveSolver, acoustic_sa_setup
+from .ops.elastic_wavesolver import ElasticWaveSolver, ViscoelasticWaveSolver
+from .ops.viscoacoustic_wavesolver import ViscoacousticWaveSolver
+from .ops.tti_wavesolver import AnisotropicWaveSolver
+from .ops.self_adjoint import setup_w_over_q
+from .utils.plotting import (plot_perturbation, plot_velocity,
+                             plot_shotrecord, plot_image)
 from .inversion import compute_residual, update_with_box
 
 __version__ = "0.1.0"

@@ -2,19 +2,13 @@
 of ``devito_fwi_tpu.utils.plotting``.
 
 The same four entry points. Fields may be numpy arrays or torch tensors
-(on any device). matplotlib is imported under a guard: a machine without
-it imports this module, and only a call to a plotting function needs it.
+(on any device). matplotlib is imported at the first call of a plotting
+function: a machine without it imports this module (and the package, which
+exports the four), and only a call raises.
 """
 from __future__ import annotations
 
 import numpy as np
-
-try:
-    import matplotlib.pyplot as plt
-    from matplotlib import cm
-except ImportError:  # pragma: no cover - matplotlib absent
-    plt = None
-    cm = None
 
 __all__ = ["plot_perturbation", "plot_velocity", "plot_shotrecord",
            "plot_image"]
@@ -28,10 +22,14 @@ def _np(x):
 
 
 def _pyplot():
-    if plt is None:
+    """(pyplot, cm), imported on first use."""
+    try:
+        import matplotlib.pyplot as plt
+        from matplotlib import cm
+    except ImportError as e:
         raise ImportError("plotting needs matplotlib, which is not "
-                          "installed")
-    return plt
+                          "installed") from e
+    return plt, cm
 
 
 def _extent(model):
@@ -42,7 +40,7 @@ def _extent(model):
 
 def plot_perturbation(model, model1, colorbar=True, show=True):
     """Plot the velocity difference between two models."""
-    pl = _pyplot()
+    pl, cm = _pyplot()
     dv = np.transpose(_np(model.crop(_np(model1.vp)))) - \
         np.transpose(_np(model.crop(_np(model.vp))))
     plot = pl.imshow(dv, animated=True, cmap=cm.jet,
@@ -59,7 +57,7 @@ def plot_perturbation(model, model1, colorbar=True, show=True):
 def plot_velocity(model, source=None, receiver=None, colorbar=True,
                   cmap="jet", show=True):
     """Plot a 2-D velocity field with optional source/receiver overlays."""
-    pl = _pyplot()
+    pl, _ = _pyplot()
     vp = model.vp
     field = _np(model.crop(_np(vp))) if np.ndim(_np(vp)) else \
         np.full(model.shape, float(_np(vp)))
@@ -84,7 +82,7 @@ def plot_velocity(model, source=None, receiver=None, colorbar=True,
 
 def plot_shotrecord(rec, model, t0, tn, colorbar=True, show=True, clim=None):
     """Plot a shot record (time vs. receiver position)."""
-    pl = _pyplot()
+    pl, cm = _pyplot()
     rec = _np(rec)
     scale = np.max(rec) / 10.
     if clim is not None:
@@ -104,7 +102,7 @@ def plot_shotrecord(rec, model, t0, tn, colorbar=True, show=True, clim=None):
 def plot_image(data, vmin=None, vmax=None, colorbar=True, cmap="gray",
                show=True):
     """Plot a 2-D image field (gradient, image, section)."""
-    pl = _pyplot()
+    pl, _ = _pyplot()
     data = _np(data)
     plot = pl.imshow(np.transpose(data),
                      vmin=vmin or 0.9 * np.min(data),
