@@ -1,0 +1,8 @@
+"""acoustic_gradient_roofline: the kernels' share of their roofline, the least
+time of the traced gradient calls over the device time of the role's
+kernels (roles/acoustic_gradient.json) inside them. Moves gradient_ms."""
+from fwibench.lib import role_share
+
+
+def read(rec):
+    return role_share(rec, "acoustic_gradient")

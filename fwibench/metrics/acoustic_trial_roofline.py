@@ -1,0 +1,8 @@
+"""acoustic_trial_roofline: the kernels' share of their roofline, the least
+time of the traced trial calls over the device time of the role's
+kernels (roles/acoustic_trial.json) inside them. Moves trial_ms."""
+from fwibench.lib import role_share
+
+
+def read(rec):
+    return role_share(rec, "acoustic_trial")
