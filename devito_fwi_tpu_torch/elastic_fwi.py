@@ -57,6 +57,7 @@ from .ops import staggered as _st
 from .ops import staggered_grad as _sg
 from .ops.cuda_acoustic import matmul_full
 from .ops.remat import segment_layout
+from .utils.profiling import span
 
 __all__ = ["elastic_fm_multi", "elastic_fwi_obj_multi", "ElasticFwiLoss",
            "model_vp_vs_rho", "EAGER", "reset_counters"]
@@ -266,19 +267,31 @@ def _finish(glam, g_mu, g_b, vpp, vsp, rhp, pads):
     return tuple(_sg.pad_fold(g, pads) for g in (gvp, gvs, grho))
 
 
-def _kernel_images(tb, prm, injT, seg, misfit, obs, dw):
-    """The gradient kernels on one chunk: (fvals, residuals, glam, g_mu,
-    g_b (B, nx, nz), illum (B, nx, nz))."""
-    rows, hist, illumT = _cs.elastic_fwd_hist_segments(
-        *prm, injT, tb.wav_pad(seg), tb.dt, seg=seg, **tb.kw)
-    fvals, res = misfit(tb.traces(rows) - dw, obs - dw)
-    imgs = _cs.elastic_grad_stream_segments(
-        *prm, hist, tb.res_rows(res, seg), tb.dt, seg=seg, **tb.kw)
-    del hist
-    glam, gmun, gmup, gb0, gb1 = (g.transpose(1, 2) for g in imgs)
+def _kernel_images(tb, prm, lo, hi, seg, misfit, obs, dw):
+    """The gradient kernels on shots lo..hi-1: (fvals, residuals, the five
+    images (B, nx, nz) of ``elastic_grad_stream_segments``, illum (B, nx,
+    nz))."""
+    with span("fwi.forward"):
+        rows, hist, illumT = _cs.elastic_fwd_hist_segments(
+            *prm, tb.injT(lo, hi), tb.wav_pad(seg), tb.dt, seg=seg,
+            **tb.kw)
+    with span("fwi.misfit"):
+        fvals, res = misfit(tb.traces(rows) - dw, obs - dw)
+    with span("fwi.adjoint"):
+        imgs = _cs.elastic_grad_stream_segments(
+            *prm, hist, tb.res_rows(res, seg), tb.dt, seg=seg, **tb.kw)
+        del hist
+    return (fvals, res, tuple(g.transpose(1, 2) for g in imgs),
+            illumT.transpose(1, 2))
+
+
+def _kernel_grads(imgs, vpp, vsp, rhp, pads):
+    """The five images of ``_kernel_images`` on the lam, mu and b grids,
+    chain-ruled to (vp, vs, rho) and folded (``_finish``)."""
+    glam, gmun, gmup, gb0, gb1 = imgs
     g_mu = gmun + _sg.avg_to_T(gmup, (0, 1), 2)
     g_b = _sg.avg_to_T(gb0, (0,), 2) + _sg.avg_to_T(gb1, (1,), 2)
-    return fvals, res, glam, g_mu, g_b, illumT.transpose(1, 2)
+    return _finish(glam, g_mu, g_b, vpp, vsp, rhp, pads)
 
 
 def _eager_bytes_per_shot(st, calc_grad, kind, route, n_checkpoints):
@@ -426,10 +439,11 @@ def elastic_fwi_obj_multi(geometry, obs, misfit_func=None, direct_wave=None,
     fval, grads, illum, residuals = _elastic_sums(
         geometry, obs, misfit_func, direct_wave, calc_grad, vp, vs, rho,
         shot_chunk, n_checkpoints, shot_indices, illum_fix, grad_route, dev)
-    if not calc_grad:
-        return float(fval), None, residuals
-    return float(fval), _finish_grads(grads, illum, precond, mask,
-                                ("vp", "vs", "rho")), residuals
+    with span("fwi.finish"):
+        if not calc_grad:
+            return float(fval), None, residuals
+        return float(fval), _finish_grads(grads, illum, precond, mask,
+                                          ("vp", "vs", "rho")), residuals
 
 
 def _finish_grads(grads, illum, precond, mask, names):
@@ -451,53 +465,56 @@ def _elastic_sums(geometry, obs, misfit_func, direct_wave, calc_grad, vp,
     """``elastic_fwi_obj_multi`` before the precondition: (fval, the three
     gradient sums, illum sum, residuals), the sums fixed and float64 on
     ``dev`` (None without ``calc_grad``)."""
-    model = geometry.model
-    misfit, kind = _misfit_batch(misfit_func)
-    st = _Setup(geometry, dev, shot_indices)
-    route = _resolve_route(grad_route, st.reason)
-    if route == "kernels":
-        tb = st = _Tables(geometry, dev, shot_indices)
-    crop_slc = tuple(slice(lo, lo + n)
-                     for (lo, _), n in zip(model.padsizes, model.shape))
-    mvp, mvs, mrho = model_vp_vs_rho(model)
+    with span("fwi.prepare"):
+        model = geometry.model
+        misfit, kind = _misfit_batch(misfit_func)
+        st = _Setup(geometry, dev, shot_indices)
+        route = _resolve_route(grad_route, st.reason)
+        if route == "kernels":
+            tb = st = _Tables(geometry, dev, shot_indices)
+        crop_slc = tuple(slice(lo, lo + n)
+                         for (lo, _), n in zip(model.padsizes, model.shape))
+        mvp, mvs, mrho = model_vp_vs_rho(model)
 
-    def param(user, fallback):
-        if user is None:
-            return torch.as_tensor(np.asarray(fallback)[crop_slc],
-                                   device=dev)
-        user = np.asarray(user, dtype=model.dtype)
-        if user.shape != model.shape:
-            user = user[crop_slc]
-        return torch.as_tensor(user, device=dev)
+        def param(user, fallback):
+            if user is None:
+                return torch.as_tensor(np.asarray(fallback)[crop_slc],
+                                       device=dev)
+            user = np.asarray(user, dtype=model.dtype)
+            if user.shape != model.shape:
+                user = user[crop_slc]
+            return torch.as_tensor(user, device=dev)
 
-    pads = tuple(tuple(p) for p in model.padsizes)
-    phys = [param(u, f) for u, f in ((vp, mvp), (vs, mvs), (rho, mrho))]
-    vpp, vsp, rhp = (_pad_edge(x, pads) for x in phys)
-    if route == "kernels":
-        prm = _cs.stagger_params(*_lame(vpp, vsp, rhp), tb.damp)
+        pads = tuple(tuple(p) for p in model.padsizes)
+        phys = [param(u, f)
+                for u, f in ((vp, mvp), (vs, mvs), (rho, mrho))]
+        vpp, vsp, rhp = (_pad_edge(x, pads) for x in phys)
+        if route == "kernels":
+            prm = _cs.stagger_params(*_lame(vpp, vsp, rhp), tb.damp)
 
-    obs_stack = _device_stack(obs, dev)
-    if obs_stack.shape[1] != st.nt:
-        raise ValueError(
-            "observed data has %d time samples but the geometry's time axis "
-            "has %d" % (obs_stack.shape[1], st.nt))
-    if direct_wave is not None:
-        dw_stack = _device_stack(direct_wave, dev)
-    if shot_indices is not None:
-        sel = torch.as_tensor(np.asarray(shot_indices, dtype=np.int64),
-                              device=dev)
-        obs_stack = obs_stack[sel]
+        obs_stack = _device_stack(obs, dev)
+        if obs_stack.shape[1] != st.nt:
+            raise ValueError(
+                "observed data has %d time samples but the geometry's time "
+                "axis has %d" % (obs_stack.shape[1], st.nt))
         if direct_wave is not None:
-            dw_stack = dw_stack[sel]
-    nsrc = st.s_idx.shape[0]
-    per_shot = _bytes_per_shot(tb, calc_grad, kind) if route == "kernels" \
-        else _eager_bytes_per_shot(st, calc_grad, kind, route, n_checkpoints)
-    chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
-                             _device_budget(dev) if dev.type == "cuda"
-                             else None)
-    shape = model.shape
-    if calc_grad:
-        factors = _illum_factors(geometry, st.src_pos, dev)
+            dw_stack = _device_stack(direct_wave, dev)
+        if shot_indices is not None:
+            sel = torch.as_tensor(np.asarray(shot_indices, dtype=np.int64),
+                                  device=dev)
+            obs_stack = obs_stack[sel]
+            if direct_wave is not None:
+                dw_stack = dw_stack[sel]
+        nsrc = st.s_idx.shape[0]
+        per_shot = _bytes_per_shot(tb, calc_grad, kind) \
+            if route == "kernels" else _eager_bytes_per_shot(
+                st, calc_grad, kind, route, n_checkpoints)
+        chunk = _shots_per_batch(nsrc, shot_chunk, per_shot,
+                                 _device_budget(dev) if dev.type == "cuda"
+                                 else None)
+        shape = model.shape
+        if calc_grad:
+            factors = _illum_factors(geometry, st.src_pos, dev)
     fval = 0.0
     residuals = []
     grads = illum = None
@@ -510,29 +527,35 @@ def _elastic_sums(geometry, obs, misfit_func, direct_wave, calc_grad, vp,
                 st, route, phys, pads, shape, misfit, obs_c, dw, lo, hi,
                 calc_grad, n_checkpoints)
         elif not calc_grad:
-            rows = _cs.elastic_segments(*prm, tb.injT(lo, hi),
-                                        tb.wav_pad(tb.nsteps), tb.dt,
-                                        **tb.kw)
-            fvals, res = misfit(tb.traces(rows[:, :, :, 0]) - dw, obs_c - dw)
+            with span("fwi.forward"):
+                rows = _cs.elastic_segments(*prm, tb.injT(lo, hi),
+                                            tb.wav_pad(tb.nsteps), tb.dt,
+                                            **tb.kw)
+            with span("fwi.misfit"):
+                fvals, res = misfit(tb.traces(rows[:, :, :, 0]) - dw,
+                                    obs_c - dw)
         else:
             # the history as one segment of all the steps, as the modeling
             # sweep's: on the card the segment is only a layout, and one
             # segment pads nothing
-            fvals, res, glam, g_mu, g_b, il = _kernel_images(
-                tb, prm, tb.injT(lo, hi), tb.nsteps, misfit, obs_c, dw)
-            gs = _finish(glam, g_mu, g_b, vpp, vsp, rhp, pads)
-            il = _crop(il, pads, shape)
-        fval = fval + torch.sum(fvals)
-        residuals.append(res)
+            fvals, res, imgs, il = _kernel_images(
+                tb, prm, lo, hi, tb.nsteps, misfit, obs_c, dw)
+        with span("fwi.misfit"):
+            fval = fval + torch.sum(fvals)
+            residuals.append(res)
         if not calc_grad:
             continue
-        keep, rec_prod = factors(lo, hi)
-        fix = keep * rec_prod if illum_fix else 1.0
-        gs = tuple(torch.sum(g.double() * fix, dim=0) for g in gs)
-        il = torch.sum(il.double() * fix, dim=0)
-        grads = gs if grads is None else tuple(a + g for a, g in
-                                               zip(grads, gs))
-        illum = il if illum is None else illum + il
+        with span("fwi.imaging"):
+            if route == "kernels":
+                gs = _kernel_grads(imgs, vpp, vsp, rhp, pads)
+                il = _crop(il, pads, shape)
+            keep, rec_prod = factors(lo, hi)
+            fix = keep * rec_prod if illum_fix else 1.0
+            gs = tuple(torch.sum(g.double() * fix, dim=0) for g in gs)
+            il = torch.sum(il.double() * fix, dim=0)
+            grads = gs if grads is None else tuple(a + g for a, g in
+                                                   zip(grads, gs))
+            illum = il if illum is None else illum + il
     return fval, grads, illum, ResidualStack(residuals)
 
 
@@ -556,15 +579,18 @@ class ElasticFwiLoss:
     def __call__(self, x, geometry, obs, misfit_func, direct_wave=None,
                  mask=None, precond=True, calc_grad=True,
                  shot_indices=None):
-        shape = geometry.model.shape
-        vp = 1.0 / np.sqrt(x.reshape(shape))
+        with span("fwi.prepare"):
+            shape = geometry.model.shape
+            vp = 1.0 / np.sqrt(x.reshape(shape))
+            vp_model = vp.astype(geometry.model.dtype)
         fval, grads, residuals = elastic_fwi_obj_multi(
             geometry, obs, misfit_func, direct_wave, mask, precond,
-            calc_grad, vp=vp.astype(geometry.model.dtype), vs=self.vs,
+            calc_grad, vp=vp_model, vs=self.vs,
             rho=self.rho, shot_chunk=self.shot_chunk,
             n_checkpoints=self.n_checkpoints, shot_indices=shot_indices,
             device=self.device)
-        if not calc_grad:
-            return fval, None, residuals
-        g = grads["vp"] * (-0.5 * vp ** 3)
-        return fval, g.reshape(-1).astype(np.float64), residuals
+        with span("fwi.finish"):
+            if not calc_grad:
+                return fval, None, residuals
+            g = grads["vp"] * (-0.5 * vp ** 3)
+            return fval, g.reshape(-1).astype(np.float64), residuals

@@ -85,6 +85,7 @@ from .ops.acoustic import _ckpt_layout
 from .ops.interp import interp_table
 from .ops.wavesolver import AcousticWaveSolver
 from .utils.filters import bandpass, highpass, lowpass
+from .utils.profiling import span
 
 __all__ = ["seismic_filter", "Filter", "resample", "fm_single", "fm_multi",
            "fm_multi_parallel", "fix_source_illumination", "fwi_obj_single",
@@ -779,60 +780,68 @@ def _shot_objective(geometry, misfit_chunk, kind, calc_grad, shot_chunk,
     if calc_grad and saved3 and stream is False:
         raise ValueError("saved3=True and stream=False pick two different "
                          "gradient routes")
-    reason = _eager_reason(geometry, calc_grad, stream)
+    with span("fwi.prepare"):
+        reason = _eager_reason(geometry, calc_grad, stream)
     if reason is not None:
         return _eager_objective(geometry, misfit_chunk, kind, calc_grad,
                                 shot_chunk, sel, dev, reason)
     if model.dim == 3:
         return _shot_objective3(geometry, misfit_chunk, kind, calc_grad,
                                 shot_chunk, sel, stream, dev, saved3)
-    st = _Setup(geometry, dev)
-    src_pos = np.asarray(geometry.src_positions)
-    if sel is not None:
-        st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
-        src_pos = src_pos[sel]
-    nsrc = st.s_idx.shape[0]
-    chunk, stream = _route(
-        nsrc, shot_chunk, calc_grad, stream, st, dev, st.m.element_size(),
-        MISFIT_BYTES_PER_SAMPLE[kind] * st.nt * st.r_idx.shape[0])
-    if calc_grad:
-        fix = _illum_fixer(geometry, src_pos, dev)
+    with span("fwi.prepare"):
+        st = _Setup(geometry, dev)
+        src_pos = np.asarray(geometry.src_positions)
+        if sel is not None:
+            st.s_idx, st.s_w = st.s_idx[sel], st.s_w[sel]
+            src_pos = src_pos[sel]
+        nsrc = st.s_idx.shape[0]
+        chunk, stream = _route(
+            nsrc, shot_chunk, calc_grad, stream, st, dev,
+            st.m.element_size(),
+            MISFIT_BYTES_PER_SAMPLE[kind] * st.nt * st.r_idx.shape[0])
+        if calc_grad:
+            fix = _illum_fixer(geometry, src_pos, dev)
     fval = 0.0
     residuals = []
     grad = illum = None
     for lo in range(0, nsrc, chunk):
         hi = min(lo + chunk, nsrc)
-        injT = st.injT(lo, hi)
-        if not calc_grad:
-            rec_rows = _ca.forward_rec_segments(st.mT, st.hdT, st.wav_pad,
-                                                injT, st.dt, **st.kw)
-        elif stream:
-            rec_rows, hist, illumT = _ca.forward_dt2_segments(
-                st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
-        else:
-            rec_rows, pairs, illumT = _ca.forward_ckpt_segments(
-                st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
-        f_c, res = misfit_chunk(st.traces(rec_rows), lo, hi)
-        fval = fval + f_c
-        residuals.append(res)
+        with span("fwi.forward"):
+            injT = st.injT(lo, hi)
+            if not calc_grad:
+                rec_rows = _ca.forward_rec_segments(
+                    st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
+            elif stream:
+                rec_rows, hist, illumT = _ca.forward_dt2_segments(
+                    st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
+            else:
+                rec_rows, pairs, illumT = _ca.forward_ckpt_segments(
+                    st.mT, st.hdT, st.wav_pad, injT, st.dt, **st.kw)
+        with span("fwi.misfit"):
+            f_c, res = misfit_chunk(st.traces(rec_rows), lo, hi)
+            fval = fval + f_c
+            residuals.append(res)
         if not calc_grad:
             continue
-        rows = _ca.residual_rows(res, st.r_idx, st.r_w, st.m,
-                                 st.dt * st.dt, st.z0, st.nsteps, st.seg,
-                                 st.nseg)
-        if stream:
-            gradT = _ca.gradient_stream_segments(st.mT, st.hdT, hist, rows,
-                                                 st.dt, **st.kw)
-            # free this chunk's history before the next forward allocates
-            # one
-            del hist
-        else:
-            gradT = _ca.gradient_segments(st.mT, st.hdT, st.wav_pad, injT,
-                                          pairs, rows, st.dt, **st.kw)
-        g, il = fix(lo, hi, gradT.transpose(-1, -2),
-                    illumT.transpose(-1, -2))
-        grad = g if grad is None else grad + g
-        illum = il if illum is None else illum + il
+        with span("fwi.adjoint"):
+            rows = _ca.residual_rows(res, st.r_idx, st.r_w, st.m,
+                                     st.dt * st.dt, st.z0, st.nsteps,
+                                     st.seg, st.nseg)
+            if stream:
+                gradT = _ca.gradient_stream_segments(
+                    st.mT, st.hdT, hist, rows, st.dt, **st.kw)
+                # free this chunk's history before the next forward
+                # allocates one
+                del hist
+            else:
+                gradT = _ca.gradient_segments(
+                    st.mT, st.hdT, st.wav_pad, injT, pairs, rows, st.dt,
+                    **st.kw)
+        with span("fwi.imaging"):
+            g, il = fix(lo, hi, gradT.transpose(-1, -2),
+                        illumT.transpose(-1, -2))
+            grad = g if grad is None else grad + g
+            illum = il if illum is None else illum + il
     return fval, grad, illum, ResidualStack(residuals)
 
 
@@ -1119,12 +1128,13 @@ def fwi_obj_multi(geometry, obs, misfit_func, direct_wave=None, mask=None,
     fval, grad, illum, residuals = _objective_sums(
         geometry, obs, misfit_func, direct_wave, calc_grad, resample_dt,
         shot_chunk, sel, dev, stream, saved3)
-    if not calc_grad:
-        return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
-                residuals)
-    grad = _precondition(grad, illum, precond, mask)
-    return (float(fval), grad.cpu().numpy().reshape(-1).astype(np.float64),
-            residuals)
+    with span("fwi.finish"):
+        if not calc_grad:
+            return (float(fval), np.zeros(geometry.model.shape).reshape(-1),
+                    residuals)
+        grad = _precondition(grad, illum, precond, mask)
+        return (float(fval),
+                grad.cpu().numpy().reshape(-1).astype(np.float64), residuals)
 
 
 def _precondition(grad, illum, precond, mask):
@@ -1161,22 +1171,24 @@ def _objective_sums(geometry, obs, misfit_func, direct_wave, calc_grad,
         # figure bounds them
         kind = "least_square"
     else:
-        misfit, kind = _misfit_batch(misfit_func)
-        obs_stack = _device_stack(obs, dev)
-        if obs_stack.shape[1] != geometry.nt:
-            raise ValueError(
-                "observed data has %d time samples but the geometry's time "
-                "axis has %d — resample the traces or rebuild the geometry "
-                "with a matching dt" % (obs_stack.shape[1], geometry.nt))
-        if direct_wave is not None:
-            dw_stack = _device_stack(direct_wave, dev)
-        else:
-            dw_stack = obs_stack.new_zeros((obs_stack.shape[0], 1, 1))
-        if sel is not None:
-            sel_t = torch.as_tensor(sel, device=dev)
-            obs_stack = obs_stack[sel_t]
-            if dw_stack.shape[0] > 1:
-                dw_stack = dw_stack[sel_t]
+        with span("fwi.prepare"):
+            misfit, kind = _misfit_batch(misfit_func)
+            obs_stack = _device_stack(obs, dev)
+            if obs_stack.shape[1] != geometry.nt:
+                raise ValueError(
+                    "observed data has %d time samples but the geometry's "
+                    "time axis has %d — resample the traces or rebuild the "
+                    "geometry with a matching dt"
+                    % (obs_stack.shape[1], geometry.nt))
+            if direct_wave is not None:
+                dw_stack = _device_stack(direct_wave, dev)
+            else:
+                dw_stack = obs_stack.new_zeros((obs_stack.shape[0], 1, 1))
+            if sel is not None:
+                sel_t = torch.as_tensor(sel, device=dev)
+                obs_stack = obs_stack[sel_t]
+                if dw_stack.shape[0] > 1:
+                    dw_stack = dw_stack[sel_t]
 
         def misfit_chunk(syn, lo, hi):
             dw = dw_stack[lo:hi] if dw_stack.shape[0] > 1 else dw_stack
@@ -1204,8 +1216,9 @@ def fwi_loss(x, geometry, obs, misfit_func, direct_wave=None, mask=None,
              stream=None, saved3=False):
     """Objective in squared-slowness parameterization
     (reference ``fwi.py:236-246``)."""
-    v = 1.0 / np.sqrt(x.reshape(geometry.model.shape))
-    geometry.model.update("vp", v.reshape(geometry.model.shape))
+    with span("fwi.prepare"):
+        v = 1.0 / np.sqrt(x.reshape(geometry.model.shape))
+        geometry.model.update("vp", v.reshape(geometry.model.shape))
     return fwi_obj_multi(geometry, obs, misfit_func, direct_wave, mask,
                          precond, calc_grad, shot_indices=shot_indices,
                          device=device, stream=stream, saved3=saved3)

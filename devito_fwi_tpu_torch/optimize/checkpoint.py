@@ -13,6 +13,8 @@ import os
 
 import numpy as np
 
+from .tools import count_file
+
 __all__ = ["save_state", "load_state", "latest_checkpoint"]
 
 
@@ -85,8 +87,10 @@ def save_state(path, iter_count, m, f0, optimizer):
     state.update(_optimizer_state(optimizer))
     fname = os.path.join(path, "ckpt_%06d.npz" % iter_count)
     tmp = fname + ".tmp.npz"
+    created = not os.path.exists(fname)
     np.savez(tmp, **state)
     os.replace(tmp, fname)
+    count_file(os.path.getsize(fname), created)
     return fname
 
 

@@ -12,6 +12,8 @@ import os
 
 import numpy as np
 
+from .tools import append_text
+
 __all__ = ["Bracket", "Backtrack", "backtrack2", "polyfit2"]
 
 
@@ -64,28 +66,21 @@ class Writer:
             self.write_header()
 
     def __call__(self, steplen=None, funcval=None):
-        with open(self.filename, "a") as fileobj:
-            if self.iter == 0 or steplen == 0.0:
-                self.iter += 1
-                fileobj.write("%10d  %10.3e  %10.3e\n"
-                              % (self.iter, steplen, funcval))
-            else:
-                fileobj.write(12 * " " + "%10.3e  %10.3e\n"
-                              % (steplen, funcval))
+        if self.iter == 0 or steplen == 0.0:
+            self.iter += 1
+            row = "%10d  %10.3e  %10.3e\n" % (self.iter, steplen, funcval)
+        else:
+            row = 12 * " " + "%10.3e  %10.3e\n" % (steplen, funcval)
+        append_text(self.filename, row)
 
     def write_header(self):
         headers = ["ITER", "STEPLEN", "MISFIT"]
-        with open(self.filename, "a") as fileobj:
-            for header in headers:
-                fileobj.write("%10s  " % header)
-            fileobj.write("\n")
-            for _ in headers:
-                fileobj.write("%10s  " % (10 * "="))
-            fileobj.write("\n")
+        append_text(self.filename,
+                    "".join("%10s  " % h for h in headers) + "\n"
+                    + "%10s  " % (10 * "=") * len(headers) + "\n")
 
     def newline(self):
-        with open(self.filename, "a") as fileobj:
-            fileobj.write("\n")
+        append_text(self.filename, "\n")
 
 
 class Base:

@@ -17,6 +17,8 @@ import os
 import numpy as np
 
 from ..fwi import fwi_loss
+from ..utils.profiling import span
+from .tools import append_text, write_array
 
 __all__ = ["minimize"]
 
@@ -109,50 +111,62 @@ class minimize:
                 return m
             if iter_count == 0:
                 self.f0 = fval
-            self.save_misfit(fval, g)
-            if divides(iter_count, self.save_grad_freq):
-                self.save_gradient(g, iter_count)
-            if divides(iter_count, self.save_res_freq):
-                self.save_residual(res, iter_count)
+            with span("loop.dumps"):
+                self.save_misfit(fval, g)
+                if divides(iter_count, self.save_grad_freq):
+                    self.save_gradient(g, iter_count)
+                if divides(iter_count, self.save_res_freq):
+                    self.save_residual(res, iter_count)
             print("\t Computing search direction")
-            p = self.optimizer.compute_direction(m, g)
+            with span("loop.direction"):
+                p = self.optimizer.compute_direction(m, g)
             print("\t Computing step length")
 
             do_line_search = True
             while do_line_search:
-                alpha = self.optimizer.initialize_search(m, g, p, fval)
+                with span("loop.search"):
+                    alpha = self.optimizer.initialize_search(m, g, p, fval)
                 while True:
                     print(" trial step",
                           self.optimizer.line_search.step_count + 1)
-                    m_temp = self.apply_bounds(m + alpha * p, bounds)
+                    with span("loop.search"):
+                        m_temp = self.apply_bounds(m + alpha * p, bounds)
                     fval_try, _, _ = self.loss_fn(
                         m_temp, geometry, obs_data, misfit_func,
                         direct_wave, mask, precond, calc_grad=False,
                         shot_indices=sel)
                     print("\t fval_try: %10.3e" % fval_try)
-                    alpha, status = self.optimizer.update_search(alpha,
-                                                                 fval_try)
+                    with span("loop.search"):
+                        alpha, status = self.optimizer.update_search(
+                            alpha, fval_try)
+                        if status > 0:
+                            self.optimizer.finalize_search(g, p)
+                        elif status < 0:
+                            retry = self.optimizer.retry_status(g, p)
+                            if retry:
+                                self.optimizer.restart()
                     if status > 0:
-                        self.optimizer.finalize_search(g, p)
                         do_line_search = False
                         break
                     elif status == 0:
                         continue
                     elif status < 0:
-                        if self.optimizer.retry_status(g, p):
+                        if retry:
                             print(" Line search failed\n\n Retrying...")
-                            self.optimizer.restart()
                             break
                         else:
                             print(" Line search failed\n\n Aborting...")
                             return m
-            m = self.apply_bounds(m + alpha * p, bounds)
+            with span("loop.search"):
+                m = self.apply_bounds(m + alpha * p, bounds)
 
             if divides(iter_count + 1, self.checkpoint_freq):
                 from .checkpoint import save_state
-                save_state(self.ckpt_path, iter_count + 1, m, self.f0,
-                           self.optimizer)
-            stop = self.finalize(m, g, fval, fval_try, iter_count)
+                with span("loop.checkpoint"):
+                    save_state(self.ckpt_path, iter_count + 1, m, self.f0,
+                               self.optimizer)
+            with span("loop.dumps"):
+                stop = self.finalize(m, g, fval, fval_try, iter_count)
             print("")
             if stop:
                 return m
@@ -183,33 +197,33 @@ class minimize:
         v = 1. / np.sqrt(m)
         path = os.path.join(self.log_path, "model_est")
         os.makedirs(path, exist_ok=True)
-        v.astype(np.float32).tofile(os.path.join(path, "v_" + str(k)))
+        write_array(v.astype(np.float32), os.path.join(path, "v_" + str(k)))
 
     def save_gradient(self, g, k):
         path = os.path.join(self.log_path, "gradient")
         os.makedirs(path, exist_ok=True)
-        np.asarray(g).astype(np.float32).tofile(
-            os.path.join(path, "g_" + str(k)))
+        write_array(np.asarray(g).astype(np.float32),
+                    os.path.join(path, "g_" + str(k)))
 
     def save_misfit(self, fval, g):
         file = os.path.join(self.log_path, "misfit")
         norm_g = np.max(np.abs(g))
-        with open(file, "a") as f:
-            f.write("%10.3e  %10.3e\n" % (fval, norm_g))
+        append_text(file, "%10.3e  %10.3e\n" % (fval, norm_g))
         print("\t\t f: %10.3e \t |g|: %10.3e" % (fval, norm_g))
 
     def save_residual(self, res, k):
         path = os.path.join(self.log_path, "residual", str(k))
         os.makedirs(path, exist_ok=True)
         for i, r in enumerate(res):
-            np.asarray(r).astype(np.float32).tofile(
-                os.path.join(path, "res" + str(i)))
+            write_array(np.asarray(r).astype(np.float32),
+                        os.path.join(path, "res" + str(i)))
 
     def check_path(self):
-        os.makedirs(self.log_path, exist_ok=True)
-        file = os.path.join(self.log_path, "misfit")
-        if os.path.exists(file):
-            os.remove(file)
+        with span("loop.dumps"):
+            os.makedirs(self.log_path, exist_ok=True)
+            file = os.path.join(self.log_path, "misfit")
+            if os.path.exists(file):
+                os.remove(file)
 
     def write_count(self):
         """Simulation-count accounting (reference ``minimize.py:166-178``)."""

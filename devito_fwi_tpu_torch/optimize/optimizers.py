@@ -17,7 +17,9 @@ import os
 
 import numpy as np
 
+from ..utils.profiling import span
 from . import line_search as line_search_mod
+from .tools import append_text
 
 __all__ = ["SteepestDescent", "NLCG", "LBFGS", "dot", "angle"]
 
@@ -43,8 +45,7 @@ class Writer:
         self.__call__("step_count", 0)
 
     def __call__(self, filename, val):
-        with open(os.path.join(self.path, filename), "a") as f:
-            f.write("%e\n" % val)
+        append_text(os.path.join(self.path, filename), "%e\n" % val)
 
 
 _METRIC_FILES = ["factor", "gradient_norm_L1", "gradient_norm_L2", "fval",
@@ -122,10 +123,11 @@ class base:
         self.line_search.writer.newline()
 
     def check_path(self):
-        for name in _METRIC_FILES:
-            f = os.path.join(self.log_path, name)
-            if os.path.exists(f):
-                os.remove(f)
+        with span("loop.dumps"):
+            for name in _METRIC_FILES:
+                f = os.path.join(self.log_path, name)
+                if os.path.exists(f):
+                    os.remove(f)
 
     def retry_status(self, g, p):
         theta = angle(p, -g)

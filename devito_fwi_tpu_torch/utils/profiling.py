@@ -1,12 +1,15 @@
 """Profiling helpers; the port's counterpart of
-``devito_fwi_tpu.utils.profiling`` (same names) over ``torch.profiler``
-and the card's clock.
+``devito_fwi_tpu.utils.profiling`` (same names, and ``span``) over
+``torch.profiler`` and the card's clock.
 
     with profiling.trace("trace_dir"):
         elastic_fwi_obj_multi(...)      # writes trace_dir/trace.json
 
     with profiling.timed("gradient"):
         fwi_obj_multi(...)              # prints "gradient: 0.1234 s"
+
+    with profiling.span("fwi.forward"):
+        ...                             # an annotation in any active trace
 """
 from __future__ import annotations
 
@@ -16,7 +19,22 @@ import time
 
 import torch
 
-__all__ = ["trace", "timed"]
+__all__ = ["trace", "timed", "span"]
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """The block as a ``torch.profiler`` annotation ``name`` while a
+    profiler records, so the trace holds it on the host thread beside the
+    kernels and copies it launched; otherwise one shared no-op context.
+    The profiler being on is the only switch: with none, a span costs the
+    check (an annotation built regardless would cost some 20 times as
+    much)."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _OFF
 
 
 def _sync():
