@@ -859,6 +859,36 @@ def check_history(stats):
         raise AssertionError(f"misfit not finite and decreasing: {calls}")
 
 
+def elastic_march_small(dev, cs):
+    """Both elastic forwards on a 41 x 41 grid (one strip of the march,
+    segments of a few rows) at every radius the kernels take, on random
+    parameters and sources of 2 shots, held to their twins exactly."""
+    g = torch.Generator().manual_seed(41)
+    nz = nx = 41
+    B, nt, seg = 2, 13, 5
+    for r in range(1, 9):
+        prm = tuple((0.5 + torch.rand((nz, nx), generator=g)).to(dev)
+                    for _ in range(9))
+        inj = torch.zeros((B, nz * nx))
+        for b in range(B):
+            inj[b, torch.randperm(nz * nx, generator=g)[:4]] = \
+                torch.randn(4, generator=g)
+        inj = inj.reshape(B, nz, nx).to(dev)
+        wav = torch.randn(nt, 1, generator=g).to(dev)
+        kw = dict(nt=nt, nx=nx, nz=nz, space_order=2 * r,
+                  spacing=(10., 12.), z0=nz // 3)
+        wav1 = cs.pad_wavelet(wav, nt - 1, nt - 1)
+        wavs = cs.pad_wavelet(wav, nt - 1, seg * -(-(nt - 1) // seg))
+        compare(f"elastic_segments 41 x 41 r {r}",
+                [cs.elastic_segments(*prm, inj, wav1, 0.9, **kw)],
+                [cs.elastic_segments_plain(*prm, inj, wav1, 0.9, **kw)])
+        compare(f"elastic_fwd_hist_segments 41 x 41 r {r}",
+                cs.elastic_fwd_hist_segments(*prm, inj, wavs, 0.9, seg=seg,
+                                             **kw),
+                cs.elastic_fwd_hist_plain(*prm, inj, wavs, 0.9, seg=seg,
+                                          **kw))
+
+
 def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
                    plain_ms, err, bounds):
     """Phases 11-14: the elastic kernels against their twins at 3 SMARM2
@@ -913,6 +943,7 @@ def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
             cs.elastic_grad_stream_plain(*gops, seg=seg, **kw))
     del got, res, gops
     torch.cuda.empty_cache()
+    elastic_march_small(dev, cs)
     # the reference's elastic example through ElasticWaveSolver on the card
     from devito_fwi_tpu_torch.models.geometry import setup_geometry
     from devito_fwi_tpu_torch.models.presets import demo_model
@@ -1020,11 +1051,16 @@ def elastic_phases(dev, rng, marm, elastic_fwi, cs, counters, report, ms,
               f"({nbytes:.4g} B, {nops:.4g} f32 ops), "
               f"{b_ms / ms[name]:.1%} of the bound")
     r = kw["space_order"] // 2
-    for what, launch in (("forward", cs.forward_launch(B, tb.nz, tb.nx, r)),
-                         ("reverse", cs.adjoint_launch(B, tb.nz, tb.nx, r))):
-        print(f"   fused {what} step: tile {launch.tile}, {launch.threads} "
-              f"threads, grid {launch.grid}, {launch.smem} bytes of shared "
-              "memory a block")
+    blocks = cs._forward_blocks(cs._lib(), r)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd = cs.forward_launch(B, tb.nz, tb.nx, r, sms, blocks)
+    print(f"   forward march: strips of {fwd.strip} columns, segments of "
+          f"{fwd.seg} rows, {fwd.threads} threads, grid {fwd.grid}, "
+          f"{fwd.smem} bytes of shared memory a block, {blocks} blocks an "
+          "SM")
+    rev = cs.adjoint_launch(B, tb.nz, tb.nx, r)
+    print(f"   fused reverse step: tile {rev.tile}, {rev.threads} threads, "
+          f"grid {rev.grid}, {rev.smem} bytes of shared memory a block")
     print_floors(elastic_step_floors(tb, B), ms, tb.nsteps)
 
     phase(f"14 elastic profile: one steady-state gradient and one trial, "

@@ -40,22 +40,31 @@
 // sweep) for the first design's two launches a step, 10 fields (115 MB,
 // 48.6 ms) for one.
 //
-// What the forward's design does about it: one launch a step, a block a
-// kTX x kTZ tile of one shot (forward_step). The block loads the old
-// stresses on its tile and a 2R halo into shared memory once, computes the
-// new velocities on the tile and an R halo from them (the halo repeats the
-// neighbours' arithmetic, so it rounds alike), then the tile's stresses
-// from the velocities in shared memory; old and new state are two buffers,
-// swapped every step. The source adds only at its cells. Measured
-// (chip_smoke.py phase 13, H100 80GB HBM3 at 700 W; PERF.md, kernel table
-// rows 18 and 20): the modeling sweep 128.5 ms against the first design's
-// 170.9 ms, 90.5 us a step against the fused floor's 34.2 us, and the
-// history sweep 165.0 ms against 226.4 ms: 1.33x and 1.37x, short of the
-// 2x aimed at. The step runs about 400 instructions a cell (four 8-tap
-// derivatives a side at two float operations a tap under -fmad=false, the
-// halo's recompute, the tile and parameter loads) and is bound by that
-// instruction rate and latency, not bytes: shot groups that fit the L2
-// and a padded row pitch made it no faster.
+// What the forward's design does about it: one launch a step that marches
+// z (forward_step). A block of 64 threads owns a strip of 64 - 2R columns
+// of one shot and walks down a segment of rows, one thread a column of the
+// strip and its R halo; each thread keeps its column of the old tau_zz,
+// tau_xz and of the new vx, vz in register queues, so every z tap is a
+// register, and the x taps read one row of each field in shared memory
+// (two alternating sets, one barrier a row). Old and new state are two
+// buffers, swapped every step; the source adds only at its cells. The
+// first fused design took a 32 x 32 tile a block and recomputed the
+// velocities on an R halo along both axes (1.56x the velocity work) from
+// the stresses loaded with a 2R halo (2.25x the loads), every tap a
+// shared-memory read: 128.5 ms for the modelling sweep, 90.5 us a step
+// against the fused floor's 34.2 us, at about 400 instructions a cell. The
+// march recomputes only the x halo (64 / (64 - 2R) = 1.14x at R = 4) and a
+// segment's 2R lead-in rows of velocities, and reads half the taps from
+// registers; but a thread walks its column row by row, so the segments
+// must be short enough to fill the card (5 of 44 rows at 31 shots,
+// ``cuda_staggered.forward_launch`` from the blocks an SM holds,
+// elastic2d_forward_blocks), and the lead-in, the queue shifts and the
+// per-row loads cost about 450 instructions a thread and row (SASS), an
+// estimated 80% of the card's issue rate at 96 registers a thread and 10
+// blocks an SM. Measured (chip_smoke.py phase 13, H100 80GB HBM3 at 700 W;
+// PERF.md, kernel table rows 18 and 20): the modelling sweep 113.8 ms,
+// 80.1 us a step, and the history sweep 147.7 ms, against the tile's 128.3
+// and 165.6 ms on the same card (tools/probe_elastic.py --baseline).
 //
 // The adjoint: the first design ran the reverse step as two launches,
 // one thread a cell, every neighbour through L1/L2: a velocity phase (the
@@ -161,32 +170,10 @@ __device__ __forceinline__ float ddz(const float* __restrict__ u, int z,
                         weights<KIND>(c), c.ihz);
 }
 
-// Forward step t of a shot batch, one launch: a block takes a kTX x kTZ
-// tile of one shot. It loads the old stresses on the tile and a 2R halo
-// into shared memory (zeros beyond the grid), computes the new velocities
-// on the tile and an R halo from them (the halo repeats the neighbouring
-// blocks' arithmetic, so it rounds the same), writes the tile's velocities
-// and what FLAGS ask for, then updates the tile's stresses from the
-// velocities in shared memory. Old and new state are separate buffers: a
-// neighbour's halo reads the old stresses.
-constexpr int kTX = 32;
-constexpr int kTZ = 32;
-constexpr int kFThreads = 512;
 
-template <int R>
-struct FwdTile {
-  static constexpr int SX = kTX + 4 * R;  // stresses: the tile + 2R halo
-  static constexpr int SZ = kTZ + 4 * R;
-  static constexpr int VX = kTX + 2 * R;  // velocities: the tile + R halo
-  static constexpr int VZ = kTZ + 2 * R;
-  static constexpr int kRing = 2 * R * VX + 2 * R * kTZ;
-  static constexpr size_t kBytes =
-      sizeof(float) * (3 * SX * SZ + 2 * VX * VZ);
-};
-
-// The shifted derivative from a shared-memory tile: the taps at
-// s[tap(k) * stride] around the centre s, summed in tap order, times ih;
-// the tile holds zeros beyond the grid, as deriv reads them.
+// The shifted derivative from shared memory: the taps at s[tap(k) * stride]
+// around the centre s, summed in tap order, times ih; shared memory holds
+// zeros beyond the grid, as deriv reads them.
 template <int R, int KIND>
 __device__ __forceinline__ float sderiv(const float* s, int stride,
                                         const float* w, float ih) {
@@ -200,31 +187,53 @@ __device__ __forceinline__ float sderiv(const float* s, int stride,
   return acc * ih;
 }
 
-struct Vel {
-  float vx, vz, dtau_x, dtau_z;
-};
-
-// The new velocities at stress-tile index si, grid cell ``cell`` of a shot
-// whose old velocities are vx_b, vz_b.
-template <int R>
-__device__ __forceinline__ Vel velocity_at(const Params& p,
-                                           const float* sxx,
-                                           const float* szz,
-                                           const float* sxz,
-                                           const float* __restrict__ vx_b,
-                                           const float* __restrict__ vz_b,
-                                           int si, size_t cell,
-                                           const Coefs& c) {
-  constexpr int SX = FwdTile<R>::SX;
-  Vel v;
-  v.dtau_x = sderiv<R, kP>(sxx + si, 1, c.wp, c.ihx) +
-             sderiv<R, kM>(sxz + si, SX, c.wm, c.ihz);
-  v.dtau_z = sderiv<R, kP>(szz + si, SX, c.wp, c.ihz) +
-             sderiv<R, kM>(sxz + si, 1, c.wm, c.ihx);
-  v.vx = p.d0[cell] * (vx_b[cell] + (c.s * p.b0[cell]) * v.dtau_x);
-  v.vz = p.d1[cell] * (vz_b[cell] + (c.s * p.b1[cell]) * v.dtau_z);
-  return v;
+// The shifted derivative from a register queue: q[R] the centre, the taps
+// at q[R + tap(k)], summed in tap order, times ih.
+template <int R, int KIND>
+__device__ __forceinline__ float qderiv(const float (&q)[2 * R + 1],
+                                        const float* w, float ih) {
+  constexpr int kTaps = KIND == kC ? 2 * R + 1 : 2 * R;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+    const float term = w[k] * q[R + tap<R, KIND>(k)];
+    acc = k == 0 ? term : acc + term;
+  }
+  return acc * ih;
 }
+
+// q[k] <- q[k + 1], the new value at the front
+template <int R>
+__device__ __forceinline__ void push(float (&q)[2 * R + 1], float v) {
+#pragma unroll
+  for (int k = 0; k < 2 * R; ++k) q[k] = q[k + 1];
+  q[2 * R] = v;
+}
+
+// The forward step's march: a block owns a strip of W = kMarchCols - 2R
+// x-columns of one shot and walks down z over a segment of rows [zs, ze),
+// one thread a column of the strip and its R x halo. In iteration i the
+// thread computes the new velocity on row v = zs - R + i and the new
+// stresses on row z = v - R. Each thread keeps its column in four register
+// queues, so every z tap comes from registers: the old tau_zz and tau_xz
+// on rows v - R .. v + R, the new vx and vz on rows z - R .. z + R. The x
+// taps come from one row of each field in shared memory: tau_xx and tau_xz
+// of row v on the strip and a 2R halo, vx and vz of row z on the strip and
+// an R halo; two such sets alternate, one barrier an iteration. Only the x
+// halo of the velocities and a segment's 2R lead-in rows of velocities
+// repeat a neighbour's arithmetic.
+constexpr int kMarchCols = 64;
+constexpr int kFThreads = kMarchCols;
+
+template <int R>
+struct March {
+  static constexpr int W = kMarchCols - 2 * R;  // the strip's columns
+  static constexpr int PS = kMarchCols + 2 * R;  // stress rows: + 2R halo
+  static constexpr int PV = kMarchCols;          // velocity rows: + R halo
+  static constexpr int kSet = 2 * PS + 2 * PV;   // txx, txz, vx, vz rows
+  static constexpr size_t kBytes = sizeof(float) * 2 * kSet;
+};
+static_assert(2 * kMaxR <= kMarchCols / 2, "the halo loaders are threads");
 
 template <int R, int FLAGS>
 __global__ void __launch_bounds__(kFThreads)
@@ -238,153 +247,209 @@ forward_step(Params p, const float* __restrict__ vx,
              const float* __restrict__ src_val, int K,
              float* __restrict__ rec, float* __restrict__ hist,
              float* __restrict__ illum, int t, int total, int nsteps, int nz,
-             int nx, int z0, Coefs c) {
-  using T = FwdTile<R>;
+             int nx, int z0, int zlen, Coefs c) {
+  using M = March<R>;
+  constexpr int W = M::W, PS = M::PS, PV = M::PV;
   extern __shared__ float sm[];
-  float* sxx = sm;
-  float* szz = sxx + T::SX * T::SZ;
-  float* sxz = szz + T::SX * T::SZ;
-  float* svx = sxz + T::SX * T::SZ;
-  float* svz = svx + T::VX * T::VZ;
-  const int xt = blockIdx.x * kTX;
-  const int zt = blockIdx.y * kTZ;
+  const int x0 = blockIdx.x * W;
+  const int zs = blockIdx.y * zlen;
+  const int ze = min(zs + zlen, nz);
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int col = threadIdx.x;     // x = x0 - R + col
+  const int x = x0 - R + col;
+  const bool in_x = x >= 0 && x < nx;
+  const bool own = in_x && col >= R && col < R + W;
+  // the 2R halo loaders: stress row column hc, x = x0 - 2R + hc
+  const bool halo = col < 2 * R;
+  const int hc = col < R ? col : PS - 2 * R + col;
+  const int hx = x0 - 2 * R + hc;
+  const bool in_hx = halo && hx >= 0 && hx < nx;
+  // the shot's fields, indexed by the cell z * nx + x (below 2^31)
   const size_t field = (size_t)nz * nx;
   const size_t off = (size_t)b * field;
-  const float* vx_b = vx + off;
-  const float* vz_b = vz + off;
-
-  // 1. the old stresses on the tile and its 2R halo
-  for (int k = tid; k < T::SX * T::SZ; k += kFThreads) {
-    const int gx = xt - 2 * R + k % T::SX;
-    const int gz = zt - 2 * R + k / T::SX;
-    float axx = 0.0f, azz = 0.0f, axz = 0.0f;
-    if (gx >= 0 && gx < nx && gz >= 0 && gz < nz) {
-      const size_t o = off + (size_t)gz * nx + gx;
-      axx = txx[o];
-      azz = tzz[o];
-      axz = txz[o];
-    }
-    sxx[k] = axx;
-    szz[k] = azz;
-    sxz[k] = axz;
-  }
-  __syncthreads();
-
-  // 2a. the new velocities on the tile: to shared memory and out, with the
-  // receiver rows, the history and the illumination
+  const float* __restrict__ vx_b = vx + off;
+  const float* __restrict__ vz_b = vz + off;
+  const float* __restrict__ txx_b = txx + off;
+  const float* __restrict__ tzz_b = tzz + off;
+  const float* __restrict__ txz_b = txz + off;
+  float* __restrict__ vxo_b = vx_out + off;
+  float* __restrict__ vzo_b = vz_out + off;
+  float* __restrict__ txxo_b = txx_out + off;
+  float* __restrict__ tzzo_b = tzz_out + off;
+  float* __restrict__ txzo_b = txz_out + off;
+  float* __restrict__ il_b = FLAGS & kHist ? illum + off : nullptr;
   const size_t bt = (size_t)b * total + t;
-  for (int k = tid; k < kTX * kTZ; k += kFThreads) {
-    const int tx = k % kTX;
-    const int tz = k / kTX;
-    const int gx = xt + tx;
-    const int gz = zt + tz;
-    const int vi = (tz + R) * T::VX + tx + R;
-    if (gx >= nx || gz >= nz) {
-      svx[vi] = 0.0f;
-      svz[vi] = 0.0f;
-      continue;
-    }
-    const size_t cell = (size_t)gz * nx + gx;
-    const size_t o = off + cell;
-    const int si = (tz + 2 * R) * T::SX + tx + 2 * R;
-    const Vel v = velocity_at<R>(p, sxx, szz, sxz, vx_b, vz_b, si, cell, c);
-    svx[vi] = v.vx;
-    svz[vi] = v.vz;
-    vx_out[o] = v.vx;
-    vz_out[o] = v.vz;
-    if (gz == z0 || gz == z0 + 1) {
-      const int plane = gz - z0;
-      if (FLAGS & kRows) {
-        rec[((bt * 2 + 0) * 2 + plane) * nx + gx] = szz[si];
-        const float div_c = ddx<R, kC>(vx_b, gz, gx, nx, c) +
-                            ddz<R, kC>(vz_b, gz, gx, nz, nx, c);
-        rec[((bt * 2 + 1) * 2 + plane) * nx + gx] = div_c;
-      } else {
-        rec[(bt * 2 + plane) * nx + gx] = szz[si];
-      }
-    }
-    if (FLAGS & kHist) {
-      float* h = hist + bt * 4 * field + cell;
-      h[0] = v.vx;
-      h[field] = v.vz;
-      h[2 * field] = v.dtau_x;
-      h[3 * field] = v.dtau_z;
-      if (t < nsteps) {
-        float il = illum[o];
-        il = il + v.vx * v.vx;
-        il = il + v.vz * v.vz;
-        illum[o] = il;
-      }
-    }
-  }
-  // 2b. the new velocities on the R halo around the tile, to shared memory
-  for (int k = tid; k < T::kRing; k += kFThreads) {
-    int lx, lz;
-    if (k < 2 * R * T::VX) {  // the R rows above and below the tile
-      const int kk = k % (R * T::VX);
-      lz = kk / T::VX + (k / (R * T::VX)) * (R + kTZ);
-      lx = kk % T::VX;
-    } else {  // the R columns left and right of it
-      const int kk = k - 2 * R * T::VX;
-      const int k2 = kk % (kTZ * R);
-      lz = R + k2 / R;
-      lx = (kk / (kTZ * R)) * (R + kTX) + k2 % R;
-    }
-    const int gx = xt - R + lx;
-    const int gz = zt - R + lz;
-    const int vi = lz * T::VX + lx;
-    if (gx < 0 || gx >= nx || gz < 0 || gz >= nz) {
-      svx[vi] = 0.0f;
-      svz[vi] = 0.0f;
-      continue;
-    }
-    const size_t cell = (size_t)gz * nx + gx;
-    const int si = (lz + R) * T::SX + lx + R;
-    const Vel v = velocity_at<R>(p, sxx, szz, sxz, vx_b, vz_b, si, cell, c);
-    svx[vi] = v.vx;
-    svz[vi] = v.vz;
-  }
-  __syncthreads();
-
-  // 3. the stresses on the tile from the new velocities, then the source
-  // at step t on inj's non-zero cells of the shot (adding wt * 0 elsewhere
-  // would change no value)
+  float* __restrict__ h_b = FLAGS & kHist ? hist + bt * 4 * field : nullptr;
   const float wt = wav[t];
   const int* cells_b = src_cell + (size_t)b * K;
   const float* vals_b = src_val + (size_t)b * K;
-  for (int k = tid; k < kTX * kTZ; k += kFThreads) {
-    const int tx = k % kTX;
-    const int tz = k / kTX;
-    const int gx = xt + tx;
-    const int gz = zt + tz;
-    if (gx >= nx || gz >= nz) continue;
-    const size_t cell = (size_t)gz * nx + gx;
-    const size_t o = off + cell;
-    const int vi = (tz + R) * T::VX + tx + R;
-    const int si = (tz + 2 * R) * T::SX + tx + 2 * R;
-    const float dvx = sderiv<R, kM>(svx + vi, 1, c.wm, c.ihx);
-    const float dvz = sderiv<R, kM>(svz + vi, T::VX, c.wm, c.ihz);
-    const float div = dvx + dvz;
-    const float s_lam = c.s * p.lam[cell];
-    const float two_s_mu = c.two_s * p.mu[cell];
-    const float damp = p.damp[cell];
-    float txxn = damp * ((sxx[si] + s_lam * div) + two_s_mu * dvx);
-    float tzzn = damp * ((szz[si] + s_lam * div) + two_s_mu * dvz);
-    const float g = sderiv<R, kP>(svx + vi, T::VX, c.wp, c.ihz) +
-                    sderiv<R, kP>(svz + vi, 1, c.wp, c.ihx);
-    const float txzn = p.d01[cell] * (sxz[si] + (c.s * p.mu01[cell]) * g);
-    for (int q = 0; q < K; ++q) {
-      if (cells_b[q] == (int)cell) {
-        const float w = wt * vals_b[q];
-        txxn = txxn + w;
-        tzzn = tzzn + w;
+
+  // does a source cell of the shot lie on the block's rows and strip?
+  bool src_here = false;
+  for (int q = 0; q < K; ++q) {
+    const int cq = cells_b[q];
+    const int qz = cq / nx, qx = cq - (cq / nx) * nx;
+    src_here |= cq >= 0 && qz >= zs && qz < ze && qx >= x0 && qx < x0 + W;
+  }
+
+  // the queues: old tau_zz, tau_xz of the column on rows v - R .. v + R
+  // (shifted at the start of an iteration, the front loaded one iteration
+  // ahead), new vx, vz on rows v - 2R - 1 .. v - 1 before the push of row v;
+  // zero beyond the grid
+  float qzz[2 * R + 1], qxz[2 * R + 1], wx[2 * R + 1], wz[2 * R + 1];
+#pragma unroll
+  for (int k = 0; k < 2 * R; ++k) {
+    const int r = zs - 2 * R + k;
+    const bool in = in_x && r >= 0;
+    qzz[k + 1] = in ? tzz_b[(unsigned)(r * nx + x)] : 0.0f;
+    qxz[k + 1] = in ? txz_b[(unsigned)(r * nx + x)] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k <= 2 * R; ++k) wx[k] = wz[k] = 0.0f;
+  qzz[0] = qxz[0] = 0.0f;
+
+  // what iteration i reads from device memory, loaded one iteration ahead:
+  // the queues' fronts (row v + R), tau_xx on row v (and tau_xx, tau_xz of
+  // the halo column), the velocity's operands on row v, the stresses' on
+  // row z = v - R (zs <= v + R, and z < ze <= nz)
+  float fzz, fxz, fxx, hxx, hxz;
+  float vd0, vb0, vd1, vb1, vvx, vvz, vil;
+  float slam, smu, sdamp, sd01, smu01, sxx0;
+  auto fetch = [&](int i) {
+    const int v = zs - R + i, z = v - R;
+    const unsigned cv = v * nx + x;   // read only where row v is in the grid
+    const bool vin = v >= 0 && v < nz;
+    fzz = fxz = 0.0f;
+    if (in_x && v + R < nz) {
+      fzz = tzz_b[cv + R * nx];
+      fxz = txz_b[cv + R * nx];
+    }
+    fxx = vd0 = vb0 = vd1 = vb1 = vvx = vvz = vil = 0.0f;
+    if (in_x && vin) {
+      fxx = txx_b[cv];
+      vd0 = p.d0[cv];
+      vb0 = p.b0[cv];
+      vd1 = p.d1[cv];
+      vb1 = p.b1[cv];
+      vvx = vx_b[cv];
+      vvz = vz_b[cv];
+      if ((FLAGS & kHist) && own && v >= zs && v < ze && t < nsteps)
+        vil = il_b[cv];
+    }
+    hxx = hxz = 0.0f;
+    if (in_hx && vin) {
+      hxx = txx_b[(unsigned)(v * nx + hx)];
+      hxz = txz_b[(unsigned)(v * nx + hx)];
+    }
+    slam = smu = sdamp = sd01 = smu01 = sxx0 = 0.0f;
+    if (own && z >= zs && z < ze) {
+      const unsigned cz = cv - R * nx;
+      slam = p.lam[cz];
+      smu = p.mu[cz];
+      sdamp = p.damp[cz];
+      sd01 = p.d01[cz];
+      smu01 = p.mu01[cz];
+      sxx0 = txx_b[cz];
+    }
+  };
+  fetch(0);
+
+  const int iters = ze - zs + 2 * R;
+  for (int i = 0; i < iters; ++i) {
+    const int v = zs - R + i;
+    const int z = v - R;
+    push<R>(qzz, fzz);
+    push<R>(qxz, fxz);
+    const float d0 = vd0, b0 = vb0, d1 = vd1, b1 = vb1, vxo = vvx,
+                vzo = vvz, lam = slam, mu = smu, damp = sdamp, d01 = sd01,
+                mu01 = smu01, txx_old = sxx0;
+    float il = vil;
+    // this iteration's rows: tau_xx, tau_xz of row v, vx, vz of row z
+    float* sxx = sm + (i & 1) * M::kSet;
+    float* sxz = sxx + PS;
+    float* svx = sxz + PS;
+    float* svz = svx + PV;
+    sxx[col + R] = fxx;
+    sxz[col + R] = qxz[R];
+    if (halo) {
+      sxx[hc] = hxx;
+      sxz[hc] = hxz;
+    }
+    svx[col] = wx[R + 1];
+    svz[col] = wz[R + 1];
+    __syncthreads();
+    if (i + 1 < iters) fetch(i + 1);
+
+    // the new velocity on row v
+    float vxn = 0.0f, vzn = 0.0f;
+    if (in_x && v >= 0 && v < nz) {
+      const float dtau_x = sderiv<R, kP>(sxx + col + R, 1, c.wp, c.ihx) +
+                           qderiv<R, kM>(qxz, c.wm, c.ihz);
+      const float dtau_z = qderiv<R, kP>(qzz, c.wp, c.ihz) +
+                           sderiv<R, kM>(sxz + col + R, 1, c.wm, c.ihx);
+      vxn = d0 * (vxo + (c.s * b0) * dtau_x);
+      vzn = d1 * (vzo + (c.s * b1) * dtau_z);
+      if (own && v >= zs && v < ze) {
+        const unsigned cv = v * nx + x;
+        vxo_b[cv] = vxn;
+        vzo_b[cv] = vzn;
+        if (FLAGS & kHist) {
+          float* h = h_b + cv;
+          h[0] = vxn;
+          h[field] = vzn;
+          h[2 * field] = dtau_x;
+          h[3 * field] = dtau_z;
+          if (t < nsteps) {
+            il = il + vxn * vxn;
+            il = il + vzn * vzn;
+            il_b[cv] = il;
+          }
+        }
       }
     }
-    txx_out[o] = txxn;
-    tzz_out[o] = tzzn;
-    txz_out[o] = txzn;
+    push<R>(wx, vxn);
+    push<R>(wz, vzn);
+
+    // the new stresses on row z, then the source at step t on inj's
+    // non-zero cells of the shot (adding wt * 0 elsewhere would change no
+    // value)
+    if (!own || z < zs || z >= ze) continue;
+    const unsigned cz = z * nx + x;
+    const float dvx = sderiv<R, kM>(svx + col, 1, c.wm, c.ihx);
+    const float dvz = qderiv<R, kM>(wz, c.wm, c.ihz);
+    const float div = dvx + dvz;
+    const float s_lam = c.s * lam;
+    const float two_s_mu = c.two_s * mu;
+    float txxn = damp * ((txx_old + s_lam * div) + two_s_mu * dvx);
+    float tzzn = damp * ((qzz[0] + s_lam * div) + two_s_mu * dvz);
+    const float g = qderiv<R, kP>(wx, c.wp, c.ihz) +
+                    sderiv<R, kP>(svz + col, 1, c.wp, c.ihx);
+    const float txzn = d01 * (qxz[0] + (c.s * mu01) * g);
+    if (src_here) {
+      for (int q = 0; q < K; ++q) {
+        if (cells_b[q] == (int)cz) {
+          const float w = wt * vals_b[q];
+          txxn = txxn + w;
+          tzzn = tzzn + w;
+        }
+      }
+    }
+    txxo_b[cz] = txxn;
+    tzzo_b[cz] = tzzn;
+    txzo_b[cz] = txzn;
+    // the receiver rows: the old tau_zz and, for modelling, the centred
+    // divergence of the old velocities
+    if (z == z0 || z == z0 + 1) {
+      const int plane = z - z0;
+      if (FLAGS & kRows) {
+        rec[((bt * 2 + 0) * 2 + plane) * nx + x] = qzz[0];
+        const float div_c = ddx<R, kC>(vx_b, z, x, nx, c) +
+                            ddz<R, kC>(vz_b, z, x, nz, nx, c);
+        rec[((bt * 2 + 1) * 2 + plane) * nx + x] = div_c;
+      } else {
+        rec[(bt * 2 + plane) * nx + x] = qzz[0];
+      }
+    }
   }
 }
 
@@ -393,6 +458,9 @@ forward_step(Params p, const float* __restrict__ vx,
 // adjoint fields on the tile and a 2R halo (the outer corners beyond R of
 // both axes are not needed and not loaded); damp txxb, damp tzzb and
 // d01 txzb on the tile; the history's vx', vz' and the two products
+// (s b0) vhx, (s b1) vhz on the tile and an R halo along each axis.
+constexpr int kTX = 32;
+constexpr int kTZ = 32;
 // (s b0) vhx, (s b1) vhz on the tile and an R halo along each axis.
 constexpr int kAThreads = 512;
 static_assert(kTX * kTZ % kAThreads == 0, "whole cells a thread");
@@ -686,19 +754,20 @@ struct ForwardArgs {
   const int* src_cell;
   const float* src_val;
   float *rec, *hist, *illum, *scratch;
-  int K, B, nz, nx, total, nsteps, z0;
+  int K, B, nz, nx, total, nsteps, z0, zlen;
   Coefs c;
   cudaStream_t stream;
 };
 
 // The batch stepped from zero state through all steps; scratch holds two
-// states (vx, vz, txx, tzz, txz), swapped every step.
+// states (vx, vz, txx, tzz, txz), swapped every step. One march launch a
+// step: blockIdx.x the strip, .y the segment of zlen rows, .z the shot.
 template <int R, int FLAGS>
 int run_forward(const ForwardArgs& a) {
-  using T = FwdTile<R>;
+  using M = March<R>;
   cudaError_t err = cudaFuncSetAttribute(
       forward_step<R, FLAGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::kBytes);
+      (int)M::kBytes);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)a.B * a.nz * a.nx;
   float* st[2][5];
@@ -706,14 +775,15 @@ int run_forward(const ForwardArgs& a) {
     for (int f = 0; f < 5; ++f) st[k][f] = a.scratch + (5 * k + f) * n;
   err = cudaMemsetAsync(st[0][0], 0, 5 * n * sizeof(float), a.stream);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.nx + kTX - 1) / kTX, (a.nz + kTZ - 1) / kTZ, a.B);
+  const dim3 grid((a.nx + M::W - 1) / M::W, (a.nz + a.zlen - 1) / a.zlen,
+                  a.B);
   for (int t = 0; t < a.total; ++t) {
     float* const* cur = st[t & 1];
     float* const* nxt = st[(t & 1) ^ 1];
-    forward_step<R, FLAGS><<<grid, kFThreads, T::kBytes, a.stream>>>(
+    forward_step<R, FLAGS><<<grid, kFThreads, M::kBytes, a.stream>>>(
         a.p, cur[0], cur[1], cur[2], cur[3], cur[4], nxt[0], nxt[1], nxt[2],
         nxt[3], nxt[4], a.wav, a.src_cell, a.src_val, a.K, a.rec, a.hist,
-        a.illum, t, a.total, a.nsteps, a.nz, a.nx, a.z0, a.c);
+        a.illum, t, a.total, a.nsteps, a.nz, a.nx, a.z0, a.zlen, a.c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -771,6 +841,23 @@ struct Adj {
   static int run(const AdjointArgs& a) { return run_adjoint<R>(a); }
 };
 
+// The blocks of the forward march's modelling step an SM holds, or the
+// negated CUDA error.
+template <int R>
+struct FwdBlocks {
+  static int run(const int&) {
+    using M = March<R>;
+    cudaError_t err = cudaFuncSetAttribute(
+        forward_step<R, kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)M::kBytes);
+    int n = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, forward_step<R, kRows>, kFThreads, M::kBytes);
+    return err == cudaSuccess ? n : -(int)err;
+  }
+};
+
 // Dispatch the runtime radius onto the unrolled instantiations.
 template <template <int> class F, class A>
 int dispatch_r(int r, const A& a) {
@@ -819,22 +906,23 @@ extern "C" {
 // holding zeros on entry. The source pattern inj (B, nz, nx) comes as its
 // non-zero cells: src_cell (B, K) cell indices z * nx + x (-1 pads) and
 // src_val (B, K) their values. scratch is 10 (B, nz, nx) fields, two
-// states of vx, vz, txx, tzz, txz (the sweep zeroes them). wp and wm are the 2r taps of the D+ and D-
-// stencils, wc the 2r+1 of the centred one. Returns the first CUDA error
-// of a launch, or 0.
+// states of vx, vz, txx, tzz, txz (the sweep zeroes them). Each step
+// marches z in segments of zlen rows. wp and wm are the 2r taps of the D+
+// and D- stencils, wc the 2r+1 of the centred one. Returns the first CUDA
+// error of a launch, or 0.
 int elastic2d_forward(const float* lam, const float* mu, const float* b0,
                       const float* b1, const float* damp, const float* d0,
                       const float* d1, const float* mu01, const float* d01,
                       const float* wav, const int* src_cell,
                       const float* src_val, int K, float* rec, float* hist,
                       float* illum, float* scratch, int B, int nz, int nx,
-                      int total, int nsteps, int z0, int r,
+                      int total, int nsteps, int z0, int r, int zlen,
                       const float* wp, const float* wm, const float* wc,
                       float ihx, float ihz, float s, float two_s,
                       void* stream) {
   if (r < 1 || r > kMaxR || (hist == NULL) != (illum == NULL) ||
       z0 < 0 || z0 + 2 > nz || nsteps > total || K < 1 || B < 1 ||
-      (size_t)nz * nx > 0x7fffffffu)
+      zlen < 1 || (size_t)nz * nx > 0x7fffffffu)
     return (int)cudaErrorInvalidValue;
   ForwardArgs a = {};
   a.p = make_params(lam, mu, b0, b1, damp, d0, d1, mu01, d01);
@@ -852,6 +940,7 @@ int elastic2d_forward(const float* lam, const float* mu, const float* b0,
   a.total = total;
   a.nsteps = nsteps;
   a.z0 = z0;
+  a.zlen = zlen;
   a.c = make_coefs(r, wp, wm, wc, ihx, ihz, s, two_s);
   a.stream = (cudaStream_t)stream;
   return dispatch_r<Fwd>(r, a);
@@ -893,6 +982,14 @@ int elastic2d_adjoint(const float* lam, const float* mu, const float* b0,
   a.c = make_coefs(r, wp, wm, NULL, ihx, ihz, s, two_s);
   a.stream = (cudaStream_t)stream;
   return dispatch_r<Adj>(r, a);
+}
+
+// The blocks of elastic2d_forward's modelling step an SM holds at radius
+// r (the history step takes fewer registers); a negative value is the
+// negated CUDA error.
+int elastic2d_forward_blocks(int r) {
+  if (r < 1 || r > kMaxR) return -(int)cudaErrorInvalidValue;
+  return dispatch_r<FwdBlocks>(r, 0);
 }
 
 const char* elastic2d_error_string(int err) {

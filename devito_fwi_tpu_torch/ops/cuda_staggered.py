@@ -37,9 +37,11 @@ if the state never left the chip is 9.673 ms by operations (modeling) and
 19.5 ms by the 65 GB history write; the floor of a design that streams the
 state is its traffic a step: 16 fields for the first design's two phases
 (77.7 ms over 1420 steps on an H100), 10 for the fused step (48.6 ms). The
-fused step (``forward_launch``) takes a 32 x 32 tile a block: the old
-stresses with a 2r halo and the new velocities with an r halo (recomputed
-at the halo, the same arithmetic) in shared memory, ping-pong state, the
+fused step marches z (``forward_launch``): a block of 64 threads a strip
+of 64 - 2r columns of one shot walking down a segment of rows, the z taps
+from register queues of each thread's column and the x taps from one row
+of each field in shared memory, so that only the x halo and a segment's
+2r lead-in rows repeat a neighbour's arithmetic; ping-pong state, the
 source as ``inj``'s non-zero cells (``_source_list``). The reverse sweep
 moved 35 fields a step in the first design's two launches (170.0 ms over
 the sweep), among them three derived stress-adjoint fields written only to
@@ -351,10 +353,11 @@ _F = ctypes.c_float
 # (argtypes, restype) of the C entry points of csrc/elastic2d.cu; every
 # pointer and the stream are c_void_p, so no 64-bit value is cut
 SIGNATURES = {
-    "elastic2d_forward": ([_P] * 12 + [_I] + [_P] * 4 + [_I] * 7 + [_P] * 3
+    "elastic2d_forward": ([_P] * 12 + [_I] + [_P] * 4 + [_I] * 8 + [_P] * 3
                           + [_F] * 4 + [_P], _I),
     "elastic2d_adjoint": ([_P] * 13 + [_I] * 7 + [_P] * 2 + [_F] * 4 + [_P],
                           _I),
+    "elastic2d_forward_blocks": ([_I], _I),
     "elastic2d_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -391,23 +394,51 @@ def _taps32(st, name):
                       np.float32)
 
 
-# the fused step kernels' tile and threads (csrc/elastic2d.cu kTX x kTZ,
-# kFThreads, kAThreads)
-FWD_TILE = (32, 32)
-FWD_THREADS = 512
+# the forward march (csrc/elastic2d.cu March, kMarchCols): blocks of
+# FWD_THREADS threads, one a column of a strip of FWD_THREADS - 2r columns
+# and its r halo; the blocks an SM of an H100 holds at radius 4 (what
+# ``elastic2d_forward_blocks`` returns there for the modelling step); the
+# fused reverse step's tile and threads (kTX x kTZ, kAThreads)
+FWD_THREADS = 64
+FWD_BLOCKS_PER_SM = 10
+H100_SMS = 132
 ADJ_TILE = (32, 32)
 ADJ_THREADS = 512
-def forward_launch(B, nz, nx, r):
-    """The forward step kernel's launch at these shapes: the tile, threads,
-    grid of one step (x tiles, z tiles, shots) and shared-memory bytes of a
-    block (the old stresses on the tile and a 2r halo, the new velocities
-    on the tile and an r halo; at most 67,584 bytes, r = 8). Raises
+
+
+def _march_smem(r):
+    """Shared-memory bytes of a march block (csrc/elastic2d.cu
+    ``March<R>::kBytes``): two sets of rows, each tau_xx and tau_xz on the
+    strip and a 2r halo, vx and vz on the strip and an r halo."""
+    return 4 * 2 * (2 * (FWD_THREADS + 2 * r) + 2 * FWD_THREADS)
+
+
+def forward_launch(B, nz, nx, r, sms=H100_SMS, blocks_per_sm=None):
+    """The forward march's launch at these shapes: a block a strip of
+    ``strip`` = FWD_THREADS - 2r columns of one shot, walking down a
+    segment of ``seg`` rows after 2r lead-in rows; threads, grid of one
+    step (strips, segments, shots) and shared-memory bytes of a block.
+    The segments split z so that the card's ``sms`` multiprocessors,
+    ``blocks_per_sm`` blocks at a time (the card's count for the kernel,
+    ``FWD_BLOCKS_PER_SM`` if not given), take the blocks in the fewest
+    iterations: rounds of blocks times the rows a block walks. Raises
     ValueError for what the kernel does not take (``tile_launch``)."""
-    tx, tz = FWD_TILE
-    smem = 4 * (3 * (tx + 4 * r) * (tz + 4 * r) + 2 * (tx + 2 * r)
-                * (tz + 2 * r))
-    return tile_launch("elastic forward", B, nz, nx, r, FWD_TILE,
-                       FWD_THREADS, smem, shots_first=False)
+    strip = FWD_THREADS - 2 * r
+    tile_launch("elastic forward", B, nz, nx, r, (strip, max(nz, 1)),
+                FWD_THREADS, _march_smem(r), shots_first=False)
+    slots = sms * (blocks_per_sm or FWD_BLOCKS_PER_SM)
+    strips = -(-nx // strip) * B
+    best = None
+    for nseg in range(1, nz + 1):
+        seg = -(-nz // nseg)
+        rounds = -(-strips * -(-nz // seg) // slots)
+        cost = rounds * (seg + 2 * r)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+    launch = tile_launch("elastic forward", B, nz, nx, r, (strip, best[1]),
+                         FWD_THREADS, _march_smem(r), shots_first=False)
+    launch.strip, launch.seg = strip, best[1]
+    return launch
 
 
 def adjoint_launch(B, nz, nx, r):
@@ -425,10 +456,32 @@ def adjoint_launch(B, nz, nx, r):
                        ADJ_THREADS, smem, shots_first=True)
 
 
+_BLOCKS = {}
+
+
+def _forward_blocks(lib, r):
+    """The blocks of the forward march an SM of the current card holds at
+    radius r, asked of the library once. Both sweeps plan their segments
+    from the modelling step's count, the smaller: the history sweep, which
+    writes 45.8 MB of history a step at the SMARM2 main path, loses more to
+    the lead-in rows of shorter segments than it gains from more blocks."""
+    key = (torch.cuda.current_device(), r)
+    if key not in _BLOCKS:
+        n = lib.elastic2d_forward_blocks(r)
+        if n < 1:
+            _check(lib, "elastic2d_forward_blocks", -n or 1)
+        _BLOCKS[key] = n
+    return _BLOCKS[key]
+
+
 def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
     B, nz, nx = inj.shape
     forward_launch(B, nz, nx, st.r)
     lib = _lib()
+    sms = torch.cuda.get_device_properties(inj.device).multi_processor_count
+    with torch.cuda.device(inj.device):
+        zlen = forward_launch(B, nz, nx, st.r, sms,
+                              _forward_blocks(lib, st.r)).seg
     total = wav_pad.shape[0]
     if hist:
         # the history first, so that it takes the largest free block
@@ -447,8 +500,8 @@ def _forward_cuda(prm, wav_pad, inj, *, st, nsteps, z0, hist):
             cells.data_ptr(), vals.data_ptr(), K, rec.data_ptr(),
             H.data_ptr() if hist else None,
             illum.data_ptr() if hist else None, scratch.data_ptr(), B, nz,
-            nx, total, nsteps, z0, st.r, wp.ctypes.data, wm.ctypes.data,
-            wc.ctypes.data, st.ihx, st.ihz, st.s, st.two_s,
+            nx, total, nsteps, z0, st.r, zlen, wp.ctypes.data,
+            wm.ctypes.data, wc.ctypes.data, st.ihx, st.ihz, st.s, st.two_s,
             torch.cuda.current_stream(inj.device).cuda_stream)
     _check(lib, "elastic2d_forward", err)
     if hist:

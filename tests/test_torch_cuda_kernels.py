@@ -476,6 +476,41 @@ def test_elastic_kernels_match_twins(cuda, space_order, nsrc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nz,nx,r", [(41, 41, r) for r in range(1, 9)]
+                         + [(5, 300, 2), (300, 7, 4), (220, 130, 4)])
+def test_elastic_forward_march_matches_twins(cuda, nz, nx, r):
+    """The forward march at every radius it takes on a 41 x 41 grid (one
+    strip, segments of a few rows), on grids lower and narrower than a
+    strip and on one whose rows split into unequal segments: both forward
+    sweeps equal their twins exactly on random parameters and sources."""
+    from devito_fwi_tpu_torch.ops import cuda_staggered as cs
+    g = torch.Generator(device="cpu").manual_seed(nz * 1000 + nx + r)
+    prm = tuple((0.5 + torch.rand((nz, nx), generator=g)).to(cuda)
+                for _ in range(9))
+    B, nt, seg = 2, 13, 5
+    inj = torch.zeros((B, nz * nx))
+    for b in range(B):
+        cells = torch.randperm(nz * nx, generator=g)[:4]
+        inj[b, cells] = torch.randn(4, generator=g)
+    inj = inj.reshape(B, nz, nx).to(cuda)
+    wav = torch.randn(nt, 1, generator=g).to(cuda)
+    nsteps = nt - 1
+    kw = dict(nt=nt, nx=nx, nz=nz, space_order=2 * r, spacing=(10., 12.),
+              z0=min(nz - 2, nz // 3))
+    nseg = -(-nsteps // seg)
+    wav1 = cs.pad_wavelet(wav, nsteps, nsteps)
+    wavs = cs.pad_wavelet(wav, nsteps, seg * nseg)
+    rows = cs.elastic_segments(*prm, inj, wav1, 0.9, **kw)
+    fwd = cs.elastic_fwd_hist_segments(*prm, inj, wavs, 0.9, seg=seg, **kw)
+    assert torch.equal(rows, cs.elastic_segments_plain(*prm, inj, wav1, 0.9,
+                                                       **kw))
+    for got, want in zip(fwd, cs.elastic_fwd_hist_plain(
+            *prm, inj, wavs, 0.9, seg=seg, **kw)):
+        assert torch.equal(got, want)
+    assert float(fwd[2].abs().max()) > 0
+
+
+@pytest.mark.cuda
 def test_elastic_forward_raises_for_what_it_does_not_take(cuda):
     """Space order 18 (radius 9; the forward step takes 1..8) raises before
     any launch, on both forward sweeps."""

@@ -620,18 +620,124 @@ def test_chunks_follow_the_largest_allocation(monkeypatch):
 
 
 def test_forward_launch_fits_shared_memory():
-    """The fused forward step's launch at the SMARM2 main path (31 shots,
-    220 x 420 padded, space order 8) and at the largest radius the kernel
-    takes fits a block's 232,448 bytes; beyond the radius it refuses."""
+    """The forward march's launch at the SMARM2 main path (31 shots, 220 x
+    420 padded, space order 8): 8 strips of 56 columns, 5 segments of 44
+    rows, 1240 blocks for the H100's 132 SMs at 10 blocks each; at the
+    largest radius the kernel takes it fits a block's 232,448 bytes;
+    beyond the radius it refuses."""
     main = cs.forward_launch(31, 220, 420, 4)
-    assert main.smem == 40_448 and main.grid == (14, 7, 31)
-    assert main.threads == 512
-    assert cs.forward_launch(31, 220, 420, 8).smem == 67_584 <= 232_448
+    assert main.smem == 2_176 and main.grid == (8, 5, 31)
+    assert (main.strip, main.seg) == (56, 44)
+    assert main.threads == 64
+    assert cs.forward_launch(31, 220, 420, 8).smem == 2_304 <= 232_448
     for r in (0, 9):
         with pytest.raises(ValueError):
             cs.forward_launch(31, 220, 420, r)
     with pytest.raises(ValueError):
         cs.forward_launch(0, 220, 420, 4)
+
+
+def _march_block(nz, nx, r, launch, x0, zs, written, bad):
+    """Replay one march block of csrc/elastic2d.cu forward_step at row
+    granularity: its four register queues (the rows they hold), its two
+    sets of shared rows (the row and the columns each holds), its barriers.
+    Adds one to ``written[k, z, x]`` for every new velocity (k 0) and
+    stress (k 1) the block writes to the grid; appends to ``bad`` every
+    read of a queue or a shared row that holds another row, of a velocity
+    the block never computed, of a shared column no thread wrote, and every
+    set of shared rows written and read between the same two barriers.
+    Returns the shared-memory bytes the rows take."""
+    R, W, ncol = r, launch.strip, launch.threads
+    PS, PV = ncol + 2 * R, ncol             # stress and velocity rows
+    ze = min(zs + launch.seg, nz)
+    x_of = [x0 - R + col for col in range(ncol)]
+    own = [col for col in range(ncol) if R <= col < R + W and
+           0 <= x_of[col] < nx]
+    halo = [col if col < R else PS - 2 * R + col for col in range(2 * R)]
+    stress_cols = {col + R for col in range(ncol)} | set(halo)
+    sets = [{}, {}]                         # field -> (row, columns)
+    qs = [None] + list(range(zs - 2 * R, zs))   # tau_zz, tau_xz queues
+    qv = [None] * (2 * R + 1)               # vx, vz queues
+    touched = []                            # (interval, set, "r" | "w")
+    interval = 0
+
+    def read(k, field, row, cols, what):
+        held = sets[k].get(field)
+        touched.append((interval, k, "r"))
+        if held is None or held[0] != row or not cols <= held[1]:
+            bad.append((what, x0, zs, row, held and held[0]))
+
+    for i in range(ze - zs + 2 * R):
+        v, z = zs - R + i, zs - 2 * R + i
+        qs = qs[1:] + [v + R]               # the front, fetched ahead
+        k = i & 1
+        sets[k] = {"txx": (v, stress_cols), "txz": (qs[R], stress_cols),
+                   "vx": (qv[R + 1], set(range(PV))),
+                   "vz": (qv[R + 1], set(range(PV)))}
+        touched.append((interval, k, "w"))
+        interval += 1                       # the barrier
+        if qs != list(range(v - R, v + R + 1)):
+            bad.append(("stress queue", x0, zs, v, qs))
+        for col in range(ncol):
+            read(k, "txx", v, set(range(col + 1, col + 2 * R + 1)),
+                 "velocity reads tau_xx")
+            read(k, "txz", v, set(range(col, col + 2 * R)),
+                 "velocity reads tau_xz")
+        if zs <= v < ze:
+            for col in own:
+                written[0, v, x_of[col]] += 1
+        # a velocity outside the grid is its zero padding
+        qv = qv[1:] + [v if 0 <= v < nz else ("pad", v)]
+        if not zs <= z < ze:
+            continue
+        rows = [row if isinstance(row, int) else row[1] for row in qv]
+        if rows != list(range(z - R, z + R + 1)):
+            bad.append(("velocity queue", x0, zs, z, qv))
+        if qs[0] != z:
+            bad.append(("old stress", x0, zs, z, qs[0]))
+        for col in own:
+            for f in ("vx", "vz"):
+                read(k, f, z, set(range(col - R, col + R + 1)),
+                     "stress reads " + f)
+            written[1, z, x_of[col]] += 1
+    for n in range(interval + 1):
+        w = {k for m, k, a in touched if m == n and a == "w"}
+        r_ = {k for m, k, a in touched if m == n and a == "r"}
+        if w & r_:
+            bad.append(("race", x0, zs, n))
+    return 4 * len(sets) * (2 * PS + 2 * PV)
+
+
+@pytest.mark.parametrize("B,nz,nx,r", [
+    (31, 220, 420, 4), (3, 220, 420, 4),
+    *[(1, 41, 41, r) for r in range(1, 9)],
+    (1, 5, 300, 2), (1, 300, 7, 4), (31, 223, 130, 4)])
+def test_forward_march_covers_the_grid(B, nz, nx, r):
+    """A row-level replay of the forward march over its launch's blocks:
+    every cell's new velocity and stress is written by exactly one block;
+    every z tap finds its row in the thread's queue, a velocity the block
+    computed or the grid's zero padding; every x tap finds its row and
+    column in the shared rows written before the last barrier, and no set
+    of rows is written and read between two barriers; the rows take the
+    launch's shared-memory bytes."""
+    launch = cs.forward_launch(B, nz, nx, r)
+    nstrip, nseg, shots = launch.grid
+    assert shots == B and nstrip * launch.strip >= nx
+    assert (nseg - 1) * launch.seg < nz <= nseg * launch.seg
+    if (nz, nx) == (223, 130):
+        assert nz % launch.seg, "a last segment shorter than the others"
+    src = (cs.cuda_build.CSRC_DIR / "elastic2d.cu").read_text()
+    assert f"constexpr int kMarchCols = {launch.threads};" in src
+    assert launch.strip == launch.threads - 2 * r
+    written = np.zeros((2, nz, nx), np.int64)
+    bad = []
+    for i in range(nstrip):
+        for g in range(nseg):
+            smem = _march_block(nz, nx, r, launch, i * launch.strip,
+                                g * launch.seg, written, bad)
+            assert smem == launch.smem
+    assert bad == []
+    assert (written == 1).all()
 
 
 def test_source_list_holds_the_pattern():
