@@ -3,7 +3,9 @@ reference with its forward history (acoustic) or segment starts (elastic)
 and its traces kept in bfloat16, one precision below the configuration's
 float32, put in the program's place and read against the float32
 reference by the same readings as a run. It has to come out as not
-correct.
+correct. Both follow the workload's misfit and the configuration's family
+from their files (``reference/objective.py`` says how a family or a misfit
+is added), as the run's reference does.
 
     python3 -m fwibench.control --workload smarmn-l2-lbfgs \\
         --seeds 11 12 13 [--device cuda]
@@ -38,8 +40,9 @@ def readings(name, seed, device="cuda", root=ROOT, here=None,
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for label, low in (("reference", None), ("control", torch.bfloat16)):
-        obj = objective.build(config, src, rec, data_dir, device,
-                              hist_dtype=low, trace_dtype=low)
+        obj = objective.build(config, work, src, rec, data_dir, device,
+                              hist_dtype=low, trace_dtype=low,
+                              here=bench.here)
         m0 = 1.0 / obj.start_vp.reshape(-1).astype(np.float64) ** 2
         out[label] = lib.follow_reference(obj, m0, config, work)
         del obj

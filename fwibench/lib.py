@@ -1,11 +1,32 @@
 """The benchmark's shared pieces: finding a cell, its configuration, its
-metrics, roles and counts by name; the seed's acquisition and the sizes the
-counts read; the wrapper that times the objective calls of the window; the
-reading of the profiler's trace into spans and device intervals, and the
-arithmetic the metric readers share."""
+family, metrics, roles and counts by name; the seed's acquisition and the
+sizes the counts read; the wrapper that times the objective calls of the
+window; the reading of the profiler's trace into spans and device
+intervals, and the arithmetic the metric readers share.
+
+Everything a cell or a metric brings is a file of its own in the
+benchmark's folder, found by the name ``BENCHMARK.json`` or another file
+gives it, so that a later cell or metric is added by files alone:
+
+* a cell: ``workloads/<name>.json`` (its configuration's name, its
+  ``"misfit"`` index, jitter, optimizer, trace and check limits);
+* a configuration: ``configs/<name>.json``, whose ``"family"`` names the
+  system under test, ``families/<family>.py`` (``setup``), and the plain
+  reference's objective, ``reference/families/<family>.py``; the
+  workload's misfit is ``reference/misfits/<name>.py``
+  (``reference/objective.py`` says how);
+* a metric: ``metrics/<name>.py`` with ``read(rec)``, None where it finds
+  nothing to read;
+* a count: ``counts/<name>.py`` with ``work(kind, sizes)``, the
+  operations and bytes of one call at ``sizes()``; a family's count is
+  named after the family;
+* a role: ``roles/<name>.json`` with the ``"call"`` it times
+  (``gradient`` or ``trial``), the ``"kernels"`` whose device time it
+  takes inside that call and the ``"count"`` whose least time it divides
+  (the family's where it names none); a roofline metric reads its role
+  with ``role_share``."""
 from __future__ import annotations
 
-import importlib
 import importlib.util
 import json
 import math
@@ -17,7 +38,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-__all__ = ["load_json", "Bench", "family", "sizes", "acquisition", "bounds",
+__all__ = ["load_json", "Bench", "sizes", "acquisition", "bounds",
            "follow_reference", "peaks", "WindowEnd", "InversionStuck",
            "Recorder", "read_trace", "union", "kernel_matches",
            "nearest_rank", "calls", "least_seconds", "role_share", "inside"]
@@ -46,8 +67,13 @@ class Bench:
     def role(self, name):
         return load_json(self.here, "roles", name + ".json")
 
-    def count(self, family):
-        return _module(os.path.join(self.here, "counts", family + ".py"))
+    def family(self, name):
+        """The system under test of a configuration's family."""
+        return _module(os.path.join(self.here, "families", name + ".py"),
+                       "fwibench.families." + name)
+
+    def count(self, name):
+        return _module(os.path.join(self.here, "counts", name + ".py"))
 
     def metric(self, name):
         return _module(os.path.join(self.here, "metrics", name + ".py"))
@@ -61,29 +87,31 @@ class Bench:
                 if cell in m.get("workloads", [cell])]
 
 
-def _module(path):
+def _module(path, name=None):
     """A module of the benchmark loaded from its file (names may hold
-    dots)."""
-    name = "fwibench._by_path." + os.path.relpath(path, HERE).replace(
-        os.sep, "_").replace(".", "_")
+    dots); ``name``, where given, places it in a package of the benchmark,
+    for its relative imports."""
+    name = name or "fwibench._by_path." + os.path.relpath(
+        path, HERE).replace(os.sep, "_").replace(".", "_")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def family(name):
-    return importlib.import_module(f"fwibench.families.{name}")
-
-
-def sizes(config, nt):
+def sizes(config, nt, work):
     """What the counts read: shots, padded and physical cells, time
-    samples, receivers and space order of a configuration."""
+    samples, receivers and space order of a configuration; its W2 settings
+    (``w2_num_steps``, ``w2_step_scale``, as the port's driver configuration
+    takes them) and the workload's ``misfit`` index."""
     nx, nz = config["shape"]
     b = config["nbl"]
     return {"shots": config["shots"], "space_order": config["space_order"],
             "padded_cells": (nx + 2 * b) * (nz + 2 * b), "cells": nx * nz,
-            "nt": nt, "nrec": nx}
+            "nt": nt, "nrec": nx,
+            "w2_num_steps": config.get("w2_num_steps", 15),
+            "w2_step_scale": config.get("w2_step_scale", 1.0),
+            "misfit": work["misfit"]}
 
 
 def acquisition(config, work, seed):
@@ -251,21 +279,23 @@ def calls(rec, grad, profiled=None):
             and (profiled is None or c["profiled"] == profiled)]
 
 
-def least_seconds(rec, kind):
-    """The least time of one call of ``kind`` on the card: the larger of
-    the count's operations over the float32 peak and its bytes over the
-    memory peak; None on a card the peaks table does not know."""
+def least_seconds(rec, kind, count=None):
+    """The least time of one call of ``kind`` on the card by the count
+    ``count`` (default: the family's): the larger of its operations over
+    the float32 peak and its bytes over the memory peak; None on a card
+    the peaks table does not know."""
     if rec["peaks"] is None:
         return None
-    ops, nbytes = rec["bench"].count(rec["family"]).work(kind, rec["sizes"])
+    ops, nbytes = rec["bench"].count(count or rec["family"]).work(
+        kind, rec["sizes"])
     flops, bw = rec["peaks"]
     return max(ops / flops, nbytes / bw)
 
 
 def role_share(rec, role):
-    """100 x the least time of the role's calls over the device time of
-    the role's kernels inside them, in the traced stretch; None where the
-    trace holds none of them."""
+    """100 x the least time of the role's calls by the role's count over
+    the device time of the role's kernels inside them, in the traced
+    stretch; None where the trace holds none of them."""
     tr = rec.get("trace")
     if tr is None:
         return None
@@ -274,7 +304,7 @@ def role_share(rec, role):
     spans = [s for s in tr["spans"] if s["name"] == span]
     busy = sum(d["dur"] for s in spans for d in inside(tr["device"], s)
                if kernel_matches(d["name"], spec["kernels"]))
-    least = least_seconds(rec, spec["call"])
+    least = least_seconds(rec, spec["call"], spec.get("count"))
     if not spans or busy <= 0 or least is None:
         return None
     return 100.0 * least * len(spans) / (busy * 1e-6)

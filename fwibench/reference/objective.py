@@ -1,28 +1,86 @@
 """The FWI objective of the reference, whole: the observed and direct-wave
-data modeled from the configuration's true and water models, the L2 misfit
-of the direct-wave-free traces, the adjoint-state gradient, the
-source/receiver illumination fix, the illumination precondition and the
-bathymetry mask, in the squared-slowness parameterisation of the devito-fwi
-drivers (``fwi.py:131-246``, ``marmousi_fwi.py``, ``marmousi2_fwi.py``).
+data modeled from the configuration's true and water models, the
+workload's misfit of the direct-wave-free traces, the adjoint-state
+gradient, the source/receiver illumination fix, the illumination
+precondition and the bathymetry mask, in the squared-slowness
+parameterisation of the devito-fwi drivers (``fwi.py:131-246``,
+``marmousi_fwi.py``, ``marmousi2_fwi.py``).
 
-``build(config, geometry, device)`` returns the family's objective:
+``build(config, work, src, rec, data_dir, device)`` returns the objective
+of the configuration's family under the workload's misfit:
 ``objective(x, calc_grad) -> (f, g or None)`` with x the flat float64
 squared slowness of the physical grid and g float64 of the same shape.
 ``hist_dtype`` and ``trace_dtype`` lower the precision the objective keeps
 its forward history and its traces in (the control of the comparison).
+
+Both halves are found by file in the benchmark's folder ``here``, so that
+a cell of another family or misfit is added as files alone:
+
+* a family is ``reference/families/<config["family"]>.py`` with a class
+  ``Objective(config, src, rec, data_dir, dev, dtype, misfit=...,
+  hist_dtype=..., trace_dtype=...)``, as a rule a subclass of ``_Base``;
+* a misfit is ``reference/misfits/<name>.py`` with a function
+  ``misfit(syn, obs, dw) -> (value as a float in float64, residual)``,
+  the residual being the value's cotangent of the traces; ``name`` is the
+  workload's ``"misfit"`` index in the drivers' ``--misfit`` numbering
+  (``MISFITS``).
+
+``find`` loads both, and raises ``Missing`` naming the file it looked for
+where one is not there.
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import os
 
 import numpy as np
 import torch
 
 from . import grid as G
-from .acoustic import Acoustic
-from .elastic import Elastic, lame
 
-__all__ = ["build", "load_models", "elastic_fields"]
+__all__ = ["MISFITS", "Missing", "find", "build", "load_models",
+           "elastic_fields"]
+
+# the benchmark's folder
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the drivers' --misfit numbering (the port's ``misfits(cfg)``)
+MISFITS = ("l2", "w2_1d", "w2_2d")
+
+
+class Missing(FileNotFoundError):
+    """A cell names a family or a misfit that the reference has no module
+    for."""
+
+
+def _by_file(kind, name, here, what):
+    """The module ``reference/<kind>/<name>.py`` of the folder ``here``,
+    loaded from its file into this package (its relative imports reach the
+    reference's modules)."""
+    path = os.path.join(here, "reference", kind, name + ".py")
+    if not os.path.isfile(path):
+        raise Missing(f"the plain reference has no module for the {what}: "
+                      f"{path}")
+    importlib.import_module(f"{__package__}.{kind}")
+    spec = importlib.util.spec_from_file_location(
+        f"{__package__}.{kind}.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def find(config, work, here=None):
+    """(the family's ``Objective`` class, the workload's misfit function)
+    from their files under ``here`` (default: this benchmark's folder)."""
+    here = here or HERE
+    family = _by_file("families", config["family"], here,
+                      f"family {config['family']!r}")
+    index = work["misfit"]
+    if index not in range(len(MISFITS)):
+        raise Missing(f"misfit {index} is none of the drivers' --misfit "
+                      f"numbering {dict(enumerate(MISFITS))}")
+    misfit = _by_file("misfits", MISFITS[index], here, f"misfit {index}")
+    return family.Objective, misfit.misfit
 
 
 def load_models(config, data_dir):
@@ -48,7 +106,7 @@ def elastic_fields(vp, water_rows):
 
 
 class _Base:
-    def __init__(self, config, src, rec, data_dir, dev, dtype,
+    def __init__(self, config, src, rec, data_dir, dev, dtype, misfit,
                  hist_dtype=None, trace_dtype=None):
         self.cfg = config
         self.dev = dev
@@ -58,6 +116,7 @@ class _Base:
                            config["nbl"])
         self.hist_dtype = hist_dtype
         self.trace_dtype = trace_dtype
+        self._misfit = misfit
         self.true_vp, self.start_vp = load_models(config, data_dir)
         self.src_idx, self.src_w = self.grid.table(src)
         self.rec_idx, self.rec_w = self.grid.table(rec)
@@ -84,10 +143,9 @@ class _Base:
         return traces.to(self.trace_dtype).to(traces.dtype)
 
     def misfit(self, syn):
-        """L2 of the direct-wave-free traces: (0.5 sum r^2 in float64, r)."""
-        syn = self._rounded(syn)
-        res = (syn - self.dw) - (self.obs - self.dw)
-        return float(0.5 * torch.sum(res.double() ** 2)), res
+        """The workload's misfit of the traces, rounded first to
+        ``trace_dtype``: (value in float64, residual)."""
+        return self._misfit(self._rounded(syn), self.obs, self.dw)
 
     def _finish(self, grad, illum):
         """Per-shot fields (B, nx, nz) on the physical grid -> the fixed,
@@ -96,85 +154,6 @@ class _Base:
         il = torch.sum(illum.double() * self.fix, dim=0)
         g = g / torch.sqrt(il + 1e-30) * self.mask
         return g.cpu().numpy().reshape(-1)
-
-
-class AcousticObjective(_Base):
-    """The acoustic OT2 objective, every shot in one batch."""
-
-    def __init__(self, config, src, rec, data_dir, dev, dtype, **kw):
-        super().__init__(config, src, rec, data_dir, dev, dtype, **kw)
-        c = config
-        self.eta = self._profile("damp")
-        self.dt = float(c["dt"])
-        self.wav = G.ricker(G.num_steps(c["tn"], self.dt), self.dt, c["f0"])
-        self.obs = self.op(self.true_vp).forward(self.shots)[0]
-        self.dw = self.op(np.full(self.grid.shape, c["water_vp"])).forward(
-            self.shots)[0]
-
-    def op(self, vp):
-        return Acoustic(self._pad(vp), self.eta, self.dt, self.grid.spacing,
-                        self.cfg["space_order"], self.wav, self.src_idx,
-                        self.src_w, self.rec_idx, self.rec_w,
-                        hist_dtype=self.hist_dtype)
-
-    def __call__(self, x, calc_grad):
-        op = self.op(1.0 / np.sqrt(x.reshape(self.grid.shape)))
-        if not calc_grad:
-            return self.misfit(op.forward(self.shots)[0])[0], None
-        syn, illum, hist = op.forward(self.shots, history=True)
-        f, res = self.misfit(syn)
-        grad = op.gradient(hist, res)
-        del hist
-        return f, self._finish(self.grid.crop(grad), self.grid.crop(illum))
-
-
-class ElasticObjective(_Base):
-    """The elastic objective in vp with vs and rho pinned at the starting
-    model's fields, every shot in one batch."""
-
-    def __init__(self, config, src, rec, data_dir, dev, dtype, **kw):
-        super().__init__(config, src, rec, data_dir, dev, dtype, **kw)
-        c = config
-        rows = c["water_rows"]
-        self.eta = self._profile("mask")
-        vs_t, rho_t = elastic_fields(self.true_vp, rows)
-        self.vs0, self.rho0 = (self._pad(a) for a in
-                               elastic_fields(self.start_vp, rows))
-        # the time step: the true model's CFL step (float32 Lame fields, as
-        # the model holds them), scaled so that the inversion's upper vp
-        # bound stays stable
-        b_t = (1.0 / rho_t).astype(np.float32)
-        nb = c["nbl"]
-        self.dt = G.elastic_critical_dt(
-            G.pad_edge((self.true_vp ** 2 - 2.0 * vs_t ** 2) / b_t, nb),
-            G.pad_edge(vs_t ** 2 / b_t, nb), G.pad_edge(b_t, nb),
-            c["space_order"], self.grid.spacing)
-        self.dt *= min(1.0, float(self.true_vp.max()) / c["vp_bounds"][1])
-        self.wav = G.ricker(G.num_steps(c["tn"], self.dt), self.dt, c["f0"])
-        self.op = Elastic(self.eta, self.dt, self.grid.spacing,
-                          c["space_order"], self.wav, self.src_idx,
-                          self.src_w, self.rec_idx, self.rec_w,
-                          state_dtype=self.hist_dtype)
-        self.obs = self.op.forward(self.op.params(*lame(
-            self._pad(self.true_vp), self._pad(vs_t), self._pad(rho_t))),
-            self.shots)
-        w = np.full(self.grid.shape, c["water_vp"], np.float32)
-        self.dw = self.op.forward(self.op.params(*lame(
-            self._pad(w), self._pad(np.zeros_like(w)),
-            self._pad(np.ones_like(w)))), self.shots)
-
-    def __call__(self, x, calc_grad):
-        vp64 = 1.0 / np.sqrt(x.reshape(self.grid.shape))
-        vpp = self._pad(vp64)
-        lam, mu, b = lame(vpp, self.vs0, self.rho0)
-        if not calc_grad:
-            return self.misfit(self.op.forward(self.op.params(lam, mu, b),
-                                               self.shots))[0], None
-        _, f, g_lam, illum = self.op.gradient(lam, mu, b, self.shots,
-                                              self.misfit)
-        g_vp = _fold(2.0 * self.rho0 * vpp * g_lam, self.grid.nbl)
-        g = self._finish(g_vp, self.grid.crop(illum))
-        return f, g * (-0.5 * vp64.reshape(-1) ** 3)
 
 
 def _fold(g, nbl):
@@ -191,14 +170,12 @@ def _fold(g, nbl):
     return g
 
 
-FAMILIES = {"acoustic": AcousticObjective, "elastic": ElasticObjective}
-
-
-def build(config, src, rec, data_dir, device, dtype=torch.float32,
-          hist_dtype=None, trace_dtype=None):
-    """The objective of ``config["family"]`` for the acquisition (src,
-    rec) on ``device``, computed in ``dtype``."""
-    return FAMILIES[config["family"]](config, src, rec, data_dir,
-                                      torch.device(device), dtype,
-                                      hist_dtype=hist_dtype,
-                                      trace_dtype=trace_dtype)
+def build(config, work, src, rec, data_dir, device, dtype=torch.float32,
+          hist_dtype=None, trace_dtype=None, here=None):
+    """The objective of ``config["family"]`` under ``work["misfit"]`` for
+    the acquisition (src, rec) on ``device``, computed in ``dtype``; the
+    modules are found under ``here`` (``find``)."""
+    objective, misfit = find(config, work, here)
+    return objective(config, src, rec, data_dir, torch.device(device),
+                     dtype, misfit=misfit, hist_dtype=hist_dtype,
+                     trace_dtype=trace_dtype)

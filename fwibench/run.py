@@ -16,6 +16,15 @@ port's state is freed, the plain reference of ``fwibench/reference``
 follows the window's first iteration from the same inputs and decides
 ``correct`` (``fwibench/check.py``). The last line of standard output is
 the result as one JSON object.
+
+Everything the run takes from a cell is found by name in files of the
+benchmark's folder (``fwibench/lib.py`` lists them): the workload, its
+configuration, the family's system under test, the reference's family
+objective and the workload's misfit (``reference/objective.py``), the
+metrics, their roles and counts. A cell of another family or misfit is
+added as files. Where the reference has no module for the cell's family
+or misfit, the run stops before the program's set-up, names the file it
+looked for and prints no result.
 """
 from time import perf_counter
 
@@ -137,35 +146,42 @@ def _short(name):
     return name.split("(")[0].strip() or name[:80]
 
 
-def _breakdown(tr):
-    """The device operations that took most time and the idle time by the
-    harness span the host was in (an objective call, else the driver's
-    loop), ten of each, in seconds."""
-    ops = {}
-    for d in tr["device"]:
-        name = _short(d["name"])
-        ops[name] = ops.get(name, 0.0) + d["dur"] * 1e-6
-    objs = [s for s in tr["spans"] if s["name"].startswith("objective.")]
+def _idle_gaps(tr):
+    """The device's idle time in the traced stretch, in seconds, by the
+    innermost span the host was in (a program span, else an objective
+    call, else ``driver``: ``spans.owners``)."""
+    from fwibench import spans
     gaps = {}
     a, b = tr["stretch"]
+    pieces = spans.owners(tr["spans"], a, b)
     edges = [a] + [x for iv in tr["busy"] for x in iv] + [b]
+    j = 0
     for k in range(0, len(edges) - 1, 2):
         g0, g1 = edges[k], edges[k + 1]
         if g1 <= g0:
             continue
-        rest = g1 - g0
-        for s in objs:
-            part = min(g1, s["ts"] + s["dur"]) - max(g0, s["ts"])
-            if part > 0:
-                gaps[s["name"]] = gaps.get(s["name"], 0.0) + part * 1e-6
-                rest -= part
-        if rest > 0:
-            gaps["driver"] = gaps.get("driver", 0.0) + rest * 1e-6
+        while pieces[j][1] <= g0:
+            j += 1
+        for p0, p1, name in pieces[j:]:
+            if p0 >= g1:
+                break
+            gaps[name] = gaps.get(name, 0.0) + (min(g1, p1)
+                                                - max(g0, p0)) * 1e-6
+    return gaps
+
+
+def _breakdown(tr):
+    """The device operations that took most time and the idle time by the
+    span the host was in (``_idle_gaps``), ten of each, in seconds."""
+    ops = {}
+    for d in tr["device"]:
+        name = _short(d["name"])
+        ops[name] = ops.get(name, 0.0) + d["dur"] * 1e-6
 
     def top(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])
                 ][:10]
-    return {"device_ops": top(ops), "idle_gaps": top(gaps)}
+    return {"device_ops": top(ops), "idle_gaps": top(_idle_gaps(tr))}
 
 
 def _du(path):
@@ -197,6 +213,9 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT,
     bench = lib.Bench(root, **({"here": here} if here else {}))
     work = bench.workload(name)
     config = bench.config(work["config"])
+    # the reference's family and misfit first: a cell that cannot be
+    # judged gets no set-up and no window
+    objective.find(config, work, bench.here)
     data_dir = data_dir or os.path.join(root, "model_data")
     dev_cuda = device == "cuda"
 
@@ -204,8 +223,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT,
     # one trial
     src, rec = lib.acquisition(config, work, seed)
     marks = [("imports", perf_counter())]
-    system = lib.family(config["family"]).setup(config, work, src, data_dir,
-                                                device)
+    system = bench.family(config["family"]).setup(config, work, src,
+                                                  data_dir, device)
     marks.append(("models and data", perf_counter()))
     if patch is not None:
         system = patch(system)
@@ -291,7 +310,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT,
     record = {"setup_s": setup_s, "window_s": recorder.t_end
               - recorder.t_start, "t_end": recorder.t_end,
               "iterations": iterations, "calls": calls, "trace": None,
-              "sizes": lib.sizes(config, nt), "family": config["family"],
+              "sizes": lib.sizes(config, nt, work),
+              "family": config["family"],
               "peaks": lib.peaks(torch.cuda.get_device_name(0))
               if dev_cuda else None, "bench": bench}
     breakdown = None
@@ -322,7 +342,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT,
         torch.cuda.empty_cache()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    ref_obj = objective.build(config, src, rec, data_dir, device)
+    ref_obj = objective.build(config, work, src, rec, data_dir, device,
+                              here=bench.here)
     ref = lib.follow_reference(ref_obj, m0, config, work)
     values = check.readings(first, ref)
     values["eager_calls"] = eager
@@ -359,6 +380,7 @@ def main(argv=None):
     torch.set_num_threads(1)
 
     from fwibench import check, lib
+    from fwibench.reference.objective import Missing
     chips = lib.Bench(ROOT).workload(args.workload)["chips"]
     seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if seen < chips:
@@ -366,8 +388,12 @@ def main(argv=None):
               f"{seen}", file=sys.stderr)
         return 2
     print(f"fwibench: card {_power_limit()}", file=sys.stderr)
-    result, table = run_cell(args.workload, args.seed, args.seconds,
-                             args.trace)
+    try:
+        result, table = run_cell(args.workload, args.seed, args.seconds,
+                                 args.trace)
+    except Missing as e:
+        print(f"fwibench: {e}; no result", file=sys.stderr)
+        return 4
     bad = forbidden_modules()
     if bad:
         print(f"fwibench: the run loaded {', '.join(bad)}; no result",

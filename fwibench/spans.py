@@ -3,7 +3,9 @@ objective's ``fwi.*`` (``fwi.py``, ``elastic_fwi.py``) and the inversion
 loop's ``loop.*`` (``optimize/``), recorded by ``profiling.span`` into the
 traced run's trace beside the harness's ``iteration`` and ``objective.*``.
 All spans nest by containment on the one host thread. Times in the
-trace's microseconds; the readers return milliseconds or a share."""
+trace's microseconds; the readers return milliseconds or a share.
+``owners`` names each stretch of the host's time by its innermost span,
+for the run's breakdown of the device's idle time."""
 from __future__ import annotations
 
 from bisect import bisect_right
@@ -12,6 +14,8 @@ from fwibench.lib import union
 
 # the prefixes of the program's span names
 PROGRAM = ("fwi.", "loop.")
+# the prefix of the harness's spans around each objective call
+CALL = "objective."
 
 
 def _end(s):
@@ -102,6 +106,30 @@ def self_ms_per_iteration(rec, names):
         return None
     own = self_times(spans)
     return 1e-3 * sum(own[i] for i in hits) / len(its)
+
+
+def owners(spans, a, b):
+    """[(start, end, name)] pieces that cover [a, b] in order, each named
+    by the span the host was in there: the innermost program span, else
+    the innermost objective call, else ``driver`` (innermost: the latest
+    start, then the shorter)."""
+    ranked = sorted((s for s in spans if s["name"].startswith(
+        PROGRAM + (CALL,)) and _end(s) > a and s["ts"] < b),
+        key=lambda s: s["ts"])
+    cuts = sorted({a, b} | {min(max(x, a), b) for s in ranked
+                            for x in (s["ts"], _end(s))})
+    out, active, k = [], [], 0
+    for t0, t1 in zip(cuts, cuts[1:]):
+        while k < len(ranked) and ranked[k]["ts"] <= t0:
+            active.append(ranked[k])
+            k += 1
+        active = [s for s in active if _end(s) > t0]
+        name = "driver"
+        if active:
+            name = max(active, key=lambda s: (s["name"].startswith(PROGRAM),
+                                              s["ts"], -s["dur"]))["name"]
+        out.append((t0, t1, name))
+    return out
 
 
 def unattributed_idle_pct(rec):

@@ -14,7 +14,7 @@ BENCH = lib.Bench(os.path.dirname(HERE))
 
 def _sizes(config, nt):
     return lib.sizes(json.load(open(os.path.join(
-        HERE, "configs", config + ".json"))), nt)
+        HERE, "configs", config + ".json"))), nt, {"misfit": 0})
 
 
 @pytest.mark.parametrize("family,config,nt,kind,ops,nbytes,least_ms", [

@@ -1,6 +1,8 @@
 """The metric arithmetic on synthetic records: the window over the
 iterations, the percentile rule, host time outside calls, the union of
-device intervals, self time, roofline shares and the trace's reading."""
+device intervals, self time, roofline shares (a role by its own count,
+added as files), the trace's reading and the breakdown of the idle time
+by the innermost span."""
 import json
 import os
 
@@ -35,7 +37,7 @@ def _record(**kw):
            "peaks": (67.0e12, 3.35e12),
            "sizes": lib.sizes(json.load(open(os.path.join(
                ROOT, "fwibench", "configs", "smarmn-acoustic.json"))),
-               1357)}
+               1357, {"misfit": 0})}
     rec.update(kw)
     return rec
 
@@ -125,6 +127,62 @@ def test_trace_reading_and_layer_metrics(tmp_path):
     assert gaps["objective.gradient"] == pytest.approx(20e-6)
     assert gaps["objective.trial"] == pytest.approx(15e-6)
     assert gaps["driver"] == pytest.approx(10e-6)
+
+
+def test_role_reads_with_its_own_count(tmp_path):
+    from fwibench.tests import tiny
+    root, here, _ = tiny.make(str(tmp_path / "copy"))
+    with open(os.path.join(here, "counts", "fixed.py"), "w") as f:
+        f.write('"""A count added as a file: 6.7 TFLOP, no bytes."""\n\n\n'
+                "def work(kind, sizes):\n"
+                "    assert sizes['misfit'] == 0\n"
+                "    assert sizes['w2_num_steps'] == 15\n"
+                "    return 6.7e12, 0\n")
+    with open(os.path.join(here, "roles", "acoustic_fixed.json"), "w") as f:
+        json.dump({"call": "gradient", "count": "fixed",
+                   "kernels": ["forward_tile", "adjoint_tile"]}, f)
+    rec = _record(trace=_trace(tmp_path), bench=lib.Bench(root, here=here))
+    # 0.1 s on 67 TFLOP/s over the gradient's 40 us of sweep kernels
+    assert lib.role_share(rec, "acoustic_fixed") == pytest.approx(
+        100 * 0.1 / 40e-6)
+    # the existing roles name their family's count and read as they did
+    for role in ("acoustic_gradient", "acoustic_trial", "elastic_gradient",
+                 "elastic_trial"):
+        assert BENCH.role(role)["count"] == role.split("_")[0]
+    least = lib.least_seconds(rec, "gradient")
+    assert least == lib.least_seconds(rec, "gradient", "acoustic") == \
+        222_189_648_000 / 67.0e12
+    assert lib.role_share(rec, "acoustic_gradient") == \
+        100.0 * least * 1 / (40.0 * 1e-6)
+
+
+def test_breakdown_names_the_innermost_span(tmp_path):
+    """An iteration of 100 us: a trial 10-60 with fwi.prepare 10-20 in it
+    and a kernel 25-55, loop.checkpoint 70-90 outside every call."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": n,
+           "ts": 1000.0 + a, "dur": d}
+          for n, a, d in (("iteration", 0, 100), ("objective.trial", 10, 50),
+                          ("fwi.prepare", 10, 10),
+                          ("loop.checkpoint", 70, 20))]
+    ev.append({"ph": "X", "cat": "kernel", "name": "forward_tile",
+               "ts": 1025.0, "dur": 30.0})
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    tr = run._trace_record(str(path))
+    gaps = dict(run._breakdown(tr)["idle_gaps"])
+    assert gaps == pytest.approx({"fwi.prepare": 10e-6,
+                                  "objective.trial": 10e-6,
+                                  "loop.checkpoint": 20e-6,
+                                  "driver": 30e-6})
+    # the same total as with the harness's spans alone (trial 20, driver
+    # 50): only the names move
+    path.write_text(json.dumps({"traceEvents": [
+        e for e in ev if not e["name"].startswith(("fwi.", "loop."))]}))
+    plain = dict(run._breakdown(run._trace_record(str(path)))["idle_gaps"])
+    assert plain == pytest.approx({"objective.trial": 20e-6,
+                                   "driver": 50e-6})
+    assert sum(gaps.values()) == pytest.approx(sum(plain.values()))
+    assert sum(gaps.values()) == pytest.approx(tr["window_s"] - tr["busy_s"])
 
 
 def test_readers_without_a_trace_return_nothing():

@@ -1,8 +1,9 @@
 """The readers of the program's own spans and write count: their
 arithmetic on a hand-built trace (self time of nested spans, the device's
-idle time inside a span, per-chunk spans, a gap outside every span), no
-reading without a trace or on a trace that holds only the harness's spans,
-and a traced tiny cell that reports them on the CPU."""
+idle time inside a span, per-chunk spans, a gap outside every span, the
+breakdown's idle time by the innermost span), no reading without a trace
+or on a trace that holds only the harness's spans, and a traced tiny cell
+that reports them on the CPU."""
 import json
 import os
 
@@ -89,7 +90,24 @@ def test_span_readers_on_a_hand_built_trace(tmp_path):
     for name in ("glue_ms.gradient", "device_idle_pct",
                  "acoustic_gradient_roofline", "acoustic_trial_roofline"):
         assert read(name, rec) == pytest.approx(read(name, plain))
-    assert run._breakdown(rec["trace"]) == run._breakdown(plain["trace"])
+    # the breakdown keeps the device's operations and its idle total, and
+    # names the idle time by the innermost program span (an iteration:
+    # prepare 10 + 4 + 2, finish 7 + 5, dumps 10 + 2 + 3 + 10, checkpoint
+    # 24, outside every span 5 + 10 ...)
+    bd, bd_plain = run._breakdown(rec["trace"]), run._breakdown(
+        plain["trace"])
+    assert bd["device_ops"] == bd_plain["device_ops"]
+    gaps = run._idle_gaps(rec["trace"])
+    assert sum(gaps.values()) == pytest.approx(sum(run._idle_gaps(
+        plain["trace"]).values()))
+    assert gaps == pytest.approx({
+        "fwi.prepare": 32e-6, "fwi.forward": 8e-6, "fwi.misfit": 12e-6,
+        "fwi.adjoint": 2e-6, "fwi.imaging": 10e-6, "fwi.finish": 24e-6,
+        "loop.dumps": 50e-6, "loop.direction": 10e-6, "loop.search": 10e-6,
+        "loop.checkpoint": 48e-6, "driver": 30e-6})
+    assert [k for k, _ in bd["idle_gaps"]][:3] == [
+        "loop.dumps", "loop.checkpoint", "fwi.prepare"]
+    assert len(bd["idle_gaps"]) == 10
 
 
 def test_span_readers_without_program_spans_return_nothing(tmp_path):
