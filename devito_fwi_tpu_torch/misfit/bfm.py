@@ -19,8 +19,13 @@ batch-native on torch. Port of the default route of
 
 Where the JAX package branches with ``lax.cond`` on a device flag (the
 Legendre certificate, the pushforward predicates), the port reads the flag
-on the host (``bool(flag)``) and runs one branch. ``COUNTS`` counts those
-reads, the Legendre fallbacks and the pushforwards by tier.
+on the host (``bool(flag)``) and runs one branch. ``COUNTS`` counts the
+solves, those reads, the Legendre fallbacks and the pushforwards by tier.
+Under a recording ``torch.profiler`` each solve is a ``fwi.bfm`` span
+holding one ``fwi.bfm.poisson`` span a Poisson update, one
+``fwi.bfm.legendre`` a 2-D Legendre transform and one ``fwi.bfm.push`` a
+pushforward with its predicate reads (``utils.profiling.span``; a shared
+no-op otherwise).
 
 Backends are keywords (``resolve_backends``) with the JAX package's
 values: push "pallas" (the slab kernel first) or "xla" (banded product,
@@ -45,13 +50,14 @@ import torch.nn.functional as F
 
 from ..ops import cuda_bfm as _cb
 from ..ops.cuda_acoustic import matmul_full
+from ..utils.profiling import span
 
 __all__ = ["bfm_batch", "bfm_torch", "bfm", "bfmx", "resolve_backends",
            "COUNTS", "reset_counts"]
 
-# host reads of device flags and the branches they chose
-COUNTS = dict(push_slab=0, push_banded=0, push_scatter=0, predicate_reads=0,
-              legendre_reads=0, legendre_fallbacks=0)
+# solves, host reads of device flags and the branches they chose
+COUNTS = dict(solves=0, push_slab=0, push_banded=0, push_scatter=0,
+              predicate_reads=0, legendre_reads=0, legendre_fallbacks=0)
 
 
 def reset_counts():
@@ -588,6 +594,15 @@ def bfm_batch(f_b, g_b, num_steps=10, step_scale=1.0, nsub=2, dmax=127,
     Legendre temporaries. A shot whose densities are all zero gets loss 0
     and gradient 0."""
     push, prep, legendre = resolve_backends(push, prep, legendre)
+    COUNTS["solves"] += 1
+    with span("fwi.bfm"):
+        return _bfm_solve(f_b, g_b, num_steps, step_scale, nsub, dmax,
+                          max_tmp_elems, push, prep, legendre)
+
+
+def _bfm_solve(f_b, g_b, num_steps, step_scale, nsub, dmax, max_tmp_elems,
+               push, prep, legendre):
+    """``bfm_batch``'s solve, its backends checked."""
     dtype, dev = f_b.dtype, f_b.device
     B, n2, n1 = f_b.shape
     pcount = n1 * n2
@@ -627,12 +642,13 @@ def bfm_batch(f_b, g_b, num_steps=10, step_scale=1.0, nsub=2, dmax=127,
     C1T, C2T = C1.T.contiguous(), C2.T.contiguous()
 
     def update_potential(phi, rho, target, sigma):
-        r = rho - target
-        w = matmul_full(matmul_full(C2, r), C1T) / kernel
-        w[:, 0, 0] = 0.0
-        w = matmul_full(matmul_full(C2T, w), C1)
-        h1 = psum(w * r) / pcount
-        return phi + sigma[:, None, None] * w, h1
+        with span("fwi.bfm.poisson"):
+            r = rho - target
+            w = matmul_full(matmul_full(C2, r), C1T) / kernel
+            w[:, 0, 0] = 0.0
+            w = matmul_full(matmul_full(C2T, w), C1)
+            h1 = psum(w * r) / pcount
+            return phi + sigma[:, None, None] * w, h1
 
     def compute_w2(phi, dual):
         return psum(quad_b * (mu + nu) - nu * phi - mu * dual) / pcount
@@ -645,12 +661,14 @@ def bfm_batch(f_b, g_b, num_steps=10, step_scale=1.0, nsub=2, dmax=127,
                            torch.where(dn, sigma * 0.8, sigma))
 
     def legendre_2d(u):
-        return _legendre_2d(u, xs, ys, max_tmp_elems, legendre)
+        with span("fwi.bfm.legendre"):
+            return _legendre_2d(u, xs, ys, max_tmp_elems, legendre)
 
     def pushforward(dens, potential):
-        xMap, yMap = _pushforward_map(potential, n1, n2)
-        return _sampling_pushforward_batch(dens, xMap, yMap, n1, n2, nsub,
-                                           dmax, push, prep)
+        with span("fwi.bfm.push"):
+            xMap, yMap = _pushforward_map(potential, n1, n2)
+            return _sampling_pushforward_batch(dens, xMap, yMap, n1, n2,
+                                               nsub, dmax, push, prep)
 
     phi, dual, rho = quad_b, quad_b, mu
     old = compute_w2(quad_b, quad_b)
