@@ -117,11 +117,16 @@ result line is printed:
 24. the banded kernel at the main path's shapes (the 29-shot live state,
    39353 and 8700 rows): the launch the helper chose, kernel beside twin,
    CUDA events, with the card's bound, and the anchored torch route on the
-   same inputs, exactly; one 2-D transform both ways;
+   same inputs, exactly; the anchored kernel (``cuda_bfm.legendre_anchored``,
+   the default route) on the same passes: its launch, kernel beside its
+   twin (the anchored torch route) and its bound, output and flag with
+   ``torch.equal``; one 2-D transform both ways;
 25. main path, banded W2-2d: a 29-shot gradient and trial through
    ``fwi_loss`` with ``bfm_options={"legendre": "banded"}``: the kernel
-   launched and no twin called, the certificate reads and fallbacks, loss and gradient held
-   against the anchored route's; the banded trial under ``torch.profiler``;
+   launched and no twin called, the certificate reads and fallbacks, loss
+   and gradient held against the anchored route's, which launched the
+   anchored kernel and no twin (its ``COUNTS`` printed); the banded trial
+   under ``torch.profiler``;
 26. main path, banded W2-2d FWI: the SMARMN driver (``--misfit 2
    --maxiter 2``, ``run_fwi(..., bfm_options={"legendre": "banded"})``):
    finite and decreasing misfit, the banded kernel and the sweeps launched,
@@ -346,6 +351,8 @@ REPLACES = {
     "pushforward_slabs_nat": "devito_fwi_tpu/ops/pallas_bfm.py:369",
     "pushforward_slabs": "devito_fwi_tpu/ops/pallas_bfm.py:323",
     "legendre_banded": "devito_fwi_tpu/ops/pallas_bfm.py:173",
+    "legendre_anchored": "devito_fwi_tpu/misfit/bfm.py:109 (XLA, no "
+                         "pl.pallas_call)",
     "elastic_segments": "devito_fwi_tpu/ops/pallas_staggered.py:173",
     "elastic_fwd_hist_segments": "devito_fwi_tpu/ops/pallas_staggered.py:607",
     "elastic_grad_stream_segments":
@@ -1650,6 +1657,23 @@ def legendre_bound(rows, n, W, K):
             rows * n * (2 * W + 1) * 3 + rows * nsamp * n * 3)
 
 
+def anchored_bound(rows, n, A, Wside):
+    """(bytes, ops) of one anchored Legendre launch: u read and the output
+    written once, the slopes and the flag; per row the npad = A ceil(n/A)
+    outputs over their block's window of W = A ceil((2 Wside + A)/A) taps
+    and the ceil(n/A) + 1 anchors over the row's n lanes, a product, a
+    difference and a max each."""
+    npad = -(-n // A) * A
+    W = -(-(2 * Wside + A) // A) * A
+    return ((2 * rows * n + n) * 4 + 1,
+            rows * npad * W * 3 + rows * (npad // A + 1) * n * 3)
+
+
+def anchor_geometry(n):
+    """The anchored route's A/Wside for rows of n (``misfit.bfm``)."""
+    return (32, 64) if n >= 512 else (8, 32)
+
+
 def bands(n):
     """The banded route's W/K for rows of n (``misfit.bfm``)."""
     return (48, 16) if n >= 512 else (24, 8)
@@ -1720,7 +1744,8 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
                          "noise)", inband, True)
     del small
 
-    phase(f"24 banded Legendre kernel vs twin and kernel times, {B} shots "
+    phase(f"24 banded and anchored Legendre kernels vs twins and kernel "
+          f"times, {B} shots "
           "(main-path shapes)")
     name = "legendre_banded"
     passes = legendre_passes(bfm, cb, u)
@@ -1751,14 +1776,58 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
         anchor_ms += a_ms
         err[name] = max(err[name], e)
         print(f"   pass {k + 1}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, "
-              f"anchored torch route {a_ms:.3f} ms, bound "
+              f"anchored route (its kernel) {a_ms:.3f} ms, bound "
               f"{bound(*b)[0]:.3f} ms by {bound(*b)[1]} ({b[0]:.4g} B, "
               f"{b[1]:.4g} f32 ops)")
     bounds[name] = bound(nbytes, nops)
     print(f"   one 2-D transform (both passes): kernel {ms[name]:.3f} ms, "
-          f"twin {plain_ms[name]:.3f} ms, anchored torch route "
+          f"twin {plain_ms[name]:.3f} ms, anchored route "
           f"{anchor_ms:.3f} ms, bound {bounds[name][0]:.3f} ms by "
           f"{bounds[name][1]}, {bounds[name][0] / ms[name]:.1%} of the bound")
+    # the anchored kernel, the default route's, on the same passes; its
+    # twin is the anchored torch route (36.3 ms a 2-D transform in the
+    # W2 cell's first measurement)
+    name = "legendre_anchored"
+    ms[name] = plain_ms[name] = err[name] = 0.0
+    nbytes = nops = 0
+    for k, rows in enumerate(passes):
+        n = rows.shape[1]
+        A, Wside = anchor_geometry(n)
+        sg = cb._grid(n, dev)
+        launch = cb.legendre_anchored_launch(rows.shape[0], n, A, Wside)
+        print(f"   pass {k + 1} anchored launch: {launch.grid} blocks of "
+              f"{launch.threads} threads at A/Wside {A}/{Wside} (window "
+              f"{launch.window}), {launch.tiles} tile(s) of {launch.tile} "
+              f"outputs: {launch.band_blocks} band blocks "
+              f"({launch.band_smem} bytes of shared memory), "
+              f"{launch.cert_blocks} certificate blocks ({launch.anchors} "
+              f"anchors, {launch.samples} a lane, {launch.cert_smem} bytes)")
+        k_ms, got = cuda_ms(lambda: cb.legendre_anchored(rows, sg, A, Wside),
+                            10)
+        t_ms, want = cuda_ms(lambda: cb.legendre_anchored_plain(
+            rows, sg, A, Wside), 1)
+        same = (torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+                and torch.equal(torch.nan_to_num(got[0]),
+                                torch.nan_to_num(want[0]))
+                and bool(got[1]) == bool(want[1]))
+        b = anchored_bound(rows.shape[0], n, A, Wside)
+        nbytes, nops = nbytes + b[0], nops + b[1]
+        ms[name] += k_ms
+        plain_ms[name] += t_ms
+        print(f"   pass {k + 1} anchored: kernel {k_ms:.3f} ms, twin (the "
+              f"torch route) {t_ms:.3f} ms, bound {bound(*b)[0]:.3f} ms by "
+              f"{bound(*b)[1]} ({b[0]:.4g} B, {b[1]:.4g} f32 ops); flag "
+              f"{bool(got[1])} (twin {bool(want[1])}), output and flag "
+              f"torch.equal {same}")
+        if not same:
+            raise AssertionError(f"pass {k + 1}: the anchored Legendre "
+                                 "kernel disagrees with its twin")
+        del got, want
+    bounds[name] = bound(nbytes, nops)
+    print(f"   one 2-D transform, anchored: kernel {ms[name]:.3f} ms, twin "
+          f"(the torch route) {plain_ms[name]:.3f} ms, bound "
+          f"{bounds[name][0]:.3f} ms by {bounds[name][1]}: "
+          f"{ms[name] / bounds[name][0]:.2f}x the bound")
     xs, ys = cb._grid(nrec, dev), cb._grid(nt, dev)
     two_d = {}
     for leg in ("banded", "anchor"):
@@ -1801,6 +1870,15 @@ def w2_host_phases(dev, marm, fwi, bfm, cb, ca, qWasserstein, least_square,
                                   or any(cb.TWIN_CALLS.values())):
             raise AssertionError("the banded W2-2d objective did not launch "
                                  "the banded kernel, or called a twin")
+        if label == "anchor":
+            print(f"   anchor: legendre_anchored launches "
+                  f"{cb.LAUNCHES['legendre_anchored']}; BFM counts "
+                  f"{dict(bfm.COUNTS)}")
+            if cb.LAUNCHES["legendre_anchored"] < 1 \
+                    or any(cb.TWIN_CALLS.values()):
+                raise AssertionError("the anchored W2-2d objective did not "
+                                     "launch the anchored kernel, or called "
+                                     "a twin")
     for calc_grad in (True, False):
         (fb, gb), (fa, ga) = out["banded", calc_grad], out["anchor",
                                                            calc_grad]
@@ -4032,7 +4110,7 @@ def main():
           f"{bfm.COUNTS['legendre_reads']}")
     if min(ca.LAUNCHES[n] for n in ca.KERNELS[:3]) < 1:
         raise AssertionError("the W2-2d path did not run the sweeps")
-    report("W2-2d", ("pushforward_slabs_nat",))
+    report("W2-2d", ("pushforward_slabs_nat", "legendre_anchored"))
 
     phase(f"8 main path: the checkpoint route, {B}-shot gradients")
     for reset in counters:
@@ -4202,7 +4280,7 @@ def main():
             rows.append(dict(
                 name=n, route="cuda",
                 source="devito_fwi_tpu_torch/csrc/"
-                       f"{'bfm_legendre' if n == 'legendre_banded' else src}"
+                       f"{'bfm_legendre' if 'legendre' in n else src}"
                        ".cu",
                 replaces=REPLACES[n], launches=launches[n],
                 max_abs_err=err[n], ms=ms[n], plain_ms=plain_ms[n],

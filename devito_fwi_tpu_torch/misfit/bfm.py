@@ -7,8 +7,10 @@ batch-native on torch. Port of the default route of
   (``ops.cuda_acoustic.matmul_full``, TF32 off);
 * the c-transform for the quadratic cost as a separable discrete Legendre
   transform (``fot2d.c:50-178``): the anchored block-banded evaluation with
-  its sampled-argmax certificate, and the full blocked transform where the
-  certificate fails;
+  its sampled-argmax certificate (on the card one kernel launch a pass,
+  ``ops.cuda_bfm.legendre_anchored``; its torch twin
+  ``_legendre_last_anchored`` elsewhere), and the full blocked transform
+  where the certificate fails;
 * the mass-conserving pushforward through the map ``grad(potential)``
   (``fot2d.c:294-457``) with fixed nsub x nsub supersampling (nsub = 0:
   the two-level adaptive mode), dispatched to three tiers that compute the
@@ -20,7 +22,8 @@ batch-native on torch. Port of the default route of
 Where the JAX package branches with ``lax.cond`` on a device flag (the
 Legendre certificate, the pushforward predicates), the port reads the flag
 on the host (``bool(flag)``) and runs one branch. ``COUNTS`` counts the
-solves, those reads, the Legendre fallbacks and the pushforwards by tier.
+solves, those reads, the Legendre fallbacks, the anchored passes on the
+kernel and the pushforwards by tier.
 Under a recording ``torch.profiler`` each solve is a ``fwi.bfm`` span
 holding one ``fwi.bfm.poisson`` span a Poisson update, one
 ``fwi.bfm.legendre`` a 2-D Legendre transform and one ``fwi.bfm.push`` a
@@ -49,15 +52,18 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cuda_bfm as _cb
+from ..ops.cuda_bfm import _legendre_last_anchored
 from ..ops.cuda_acoustic import matmul_full
 from ..utils.profiling import span
 
 __all__ = ["bfm_batch", "bfm_torch", "bfm", "bfmx", "resolve_backends",
            "COUNTS", "reset_counts"]
 
-# solves, host reads of device flags and the branches they chose
+# solves, host reads of device flags and the branches they chose, and the
+# anchored passes that ran on the kernel
 COUNTS = dict(solves=0, push_slab=0, push_banded=0, push_scatter=0,
-              predicate_reads=0, legendre_reads=0, legendre_fallbacks=0)
+              predicate_reads=0, legendre_reads=0, legendre_fallbacks=0,
+              legendre_kernel=0)
 
 
 def reset_counts():
@@ -107,71 +113,24 @@ def _legendre_last(u, s, max_tmp_elems=2_000_000):
     return out
 
 
-def _legendre_last_anchored(u, s, A=16, Wside=64, max_tmp_elems=32_000_000):
-    """Block-banded Legendre transform along the last axis with a
-    sampled-argmax certificate: ``(out, ok)``, ``out`` equal to
-    ``_legendre_last(u, s)`` whenever ``ok``.
-
-    ``s_i s_j - u_j`` is supermodular in (i, j) for nondecreasing ``s``, so
-    its first and last argmax over j are nondecreasing in i. An anchor pass
-    takes the exact first/last argmax at every block edge i = k*A; every
-    output of block k then has its argmax in [first(k*A), last((k+1)*A)],
-    and the certificate checks that bracket against the block's window
-    [k*A - Wside, k*A + A - 1 + Wside]. The banded pass evaluates each
-    A-output block over its window of W = 2*Wside + A (rounded up to A)
-    entries, taken from the padded row as a strided view."""
-    n = s.shape[0]
-    lead = u.shape[:-1]
-    U = u.reshape(-1, n)
-    rws = U.shape[0]
-    dtype, dev = u.dtype, u.device
-    nA = -(-n // A)
-    npad = nA * A
-    W = -(-(2 * Wside + A) // A) * A
-    big = torch.finfo(dtype).max / 8
-
-    # anchor pass: exact first/last argmax at the block edges
-    m_idx = torch.clamp(torch.arange(nA + 1, device=dev) * A, max=n - 1)
-    s_anchor = s[m_idx]
-    blk = max(1, min(nA + 1, max_tmp_elems // max(rws * n, 1)))
-    j_iota = torch.arange(n, dtype=torch.int32, device=dev)
-    first = torch.empty((rws, nA + 1), dtype=torch.int32, device=dev)
-    last = torch.empty_like(first)
-    for a0 in range(0, nA + 1, blk):
-        cand = s_anchor[a0:a0 + blk, None] * s[None, :] - U[:, None, :]
-        hit = cand >= cand.amax(-1, keepdim=True)
-        first[:, a0:a0 + blk] = torch.where(hit, j_iota, n).amin(-1)
-        last[:, a0:a0 + blk] = torch.where(hit, j_iota, -1).amax(-1)
-    kA = torch.arange(nA, dtype=torch.int32, device=dev) * A
-    ok = torch.all(first[:, :-1] >= kA - Wside) \
-        & torch.all(last[:, 1:] <= kA + (W - Wside - 1)) \
-        & torch.all(s[1:] >= s[:-1])      # monotone argmax needs sorted s
-
-    # banded pass: window[r, k, w] = U_pad[r, k*A + w] = U[r, k*A + w - Wside]
-    P = npad + W - A
-    U_pad = torch.full((rws, P), big, dtype=dtype, device=dev)
-    U_pad[:, Wside:Wside + n] = U
-    s_pad = torch.zeros(P, dtype=dtype, device=dev)
-    s_pad[Wside:Wside + n] = s
-    sO = F.pad(s, (0, npad - n)).reshape(nA, A)
-    PK = sO[:, :, None] * s_pad.unfold(0, W, A)[:, None, :]   # (nA, A, W)
-    rb = max(1, min(rws, max_tmp_elems // max(nA * A * W, 1)))
-    out = u.new_empty((rws, npad))
-    for r0 in range(0, rws, rb):
-        band = U_pad[r0:r0 + rb].unfold(-1, W, A)               # (rb, nA, W)
-        out[r0:r0 + rb] = (PK[None] - band[:, :, None, :]).amax(-1) \
-            .reshape(-1, npad)
-    return out[:, :n].reshape(lead + (n,)), ok
-
-
 def _legendre_last_anchor_fast(u, s, max_tmp_elems=32_000_000):
     """Anchored Legendre transform, with the full transform where its
-    certificate fails (one host read of the flag)."""
+    certificate fails (one host read of the flag). A float32 ``u`` on the
+    card takes the kernel (``ops.cuda_bfm.legendre_anchored``, one launch;
+    counted in ``COUNTS["legendre_kernel"]``), anything else the torch
+    evaluation ``_legendre_last_anchored``; both give the same output and
+    flag."""
     n = s.shape[0]
     A, Wside = (32, 64) if n >= 512 else (8, 32)
     if n <= 2 * Wside + 2 * A:
         return _legendre_last(u, s, max_tmp_elems)
-    out, ok = _legendre_last_anchored(u, s, A, Wside, max_tmp_elems)
+    if u.is_cuda and u.dtype == s.dtype == torch.float32:
+        out, ok = _cb.legendre_anchored(u.reshape(-1, n).contiguous(),
+                                        s.contiguous(), A, Wside)
+        out = out.reshape(u.shape)
+        COUNTS["legendre_kernel"] += 1
+    else:
+        out, ok = _legendre_last_anchored(u, s, A, Wside, max_tmp_elems)
     if _read(ok, "legendre_reads"):
         return out
     COUNTS["legendre_fallbacks"] += 1

@@ -1,7 +1,10 @@
-"""The BFM's two kernels, on the card and as their plain torch twins: the
+"""The BFM's kernels, on the card and as their plain torch twins: the
 pushforward slab kernel, counterpart of ``devito_fwi_tpu.ops.pallas_bfm``'s
-``pushforward_slabs_nat`` and ``pushforward_slabs``, and the banded Legendre
-transform with its certificate, counterpart of its ``legendre_banded``.
+``pushforward_slabs_nat`` and ``pushforward_slabs``; the banded Legendre
+transform with its certificate, counterpart of its ``legendre_banded``; and
+the anchored Legendre transform with its certificate, the BFM's default
+route, counterpart of ``devito_fwi_tpu.misfit.bfm``'s XLA route
+``_legendre_last_anchored``.
 
 The slab kernels compute, for every (shot, block of R rows), the bilinear
 supersample pushforward of the block into an (R + G, lanes) slab: each
@@ -21,9 +24,18 @@ count as ``-FLT_MAX/8``), ``s_i = (i + 0.5)/n``, and a device flag that is
 True iff every row passes the total-monotonicity certificate, so that
 ``out`` is the full transform (see ``csrc/bfm_legendre.cu``).
 
+``legendre_anchored(u, s, A, Wside)`` takes a (rows, n) float32 ``u`` and
+the caller's float32 slopes ``s`` and returns what ``_legendre_last_anchored``
+(its plain twin, the torch evaluation) returns: each block of A outputs the
+max of ``s_i s_j - u[r, j]`` over its window of W = A ceil((2 Wside + A)/A)
+columns from ``k A - Wside``, and a device flag that is True iff ``s`` is
+sorted and every row passes the anchors' certificate, so that ``out`` is the
+full transform.
+
 For CUDA tensors each wrapper launches its kernel (``csrc/bfm_push.cu``, one
 launch, the plane strides as arguments; ``csrc/bfm_legendre.cu``, one launch
-of 32-row blocks, ``legendre_launch``) and adds one to ``LAUNCHES[name]``;
+of 32-row blocks, ``legendre_launch`` and ``legendre_anchored_launch``) and
+adds one to ``LAUNCHES[name]``;
 for CPU tensors it runs the plain
 twin, which repeats the kernel's arithmetic (the slabs in ``_push_block``'s
 order, g, then e, then q), so that the kernel equals it bitwise. On another
@@ -45,8 +57,11 @@ difference and a max for each band tap and each certificate lane; its
 kernel takes 32 rows a block, one a lane, so that the slopes, the same for
 every row, and each lane's shared loads serve many evaluations, and checks
 the certificate as maxima of the regions left and right of each sample's
-band (``csrc/bfm_legendre.cu``). Its time on the card is in ``PERF.md``
-(kernel table, row 11).
+band (``csrc/bfm_legendre.cu``). The anchored kernel shares that design:
+its anchors are the certificate's samples, walked by the same code, and a
+lane's 8 outputs share their block's window, so a step of 4 taps is one
+16-byte shared load of u and one broadcast of 4 slopes for 32 evaluations.
+Their times on the card are in ``PERF.md`` (kernel table, rows 11 and 24).
 """
 from __future__ import annotations
 
@@ -61,11 +76,13 @@ from . import cuda_build
 
 __all__ = ["pushforward_slabs_nat", "pushforward_slabs",
            "pushforward_slabs_nat_plain", "pushforward_slabs_plain",
-           "legendre_banded", "legendre_banded_plain", "KERNELS",
-           "LAUNCHES", "TWIN_CALLS", "reset_counters", "SIGNATURES",
-           "LEGENDRE_SIGNATURES", "push_launch", "legendre_launch"]
+           "legendre_banded", "legendre_banded_plain", "legendre_anchored",
+           "legendre_anchored_plain", "KERNELS", "LAUNCHES", "TWIN_CALLS",
+           "reset_counters", "SIGNATURES", "LEGENDRE_SIGNATURES",
+           "push_launch", "legendre_launch", "legendre_anchored_launch"]
 
-KERNELS = ("pushforward_slabs_nat", "pushforward_slabs", "legendre_banded")
+KERNELS = ("pushforward_slabs_nat", "pushforward_slabs", "legendre_banded",
+           "legendre_anchored")
 # launches of each kernel and calls of each plain twin
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 TWIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -91,6 +108,7 @@ SIGNATURES = {
 # (argtypes, restype) of the C entry points of csrc/bfm_legendre.cu
 LEGENDRE_SIGNATURES = {
     "bfm_legendre_banded": ([_P] * 4 + [_I] * 8 + [_P], _I),
+    "bfm_legendre_anchored": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "bfm_legendre_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -336,8 +354,8 @@ def legendre_launch(rows, n, W, K):
     shared memory (the tile of 32 rows and its band halo at an odd pitch,
     the slopes, a staging tile a warp); ``cert_blocks`` take a (row block,
     group of 8 x ``samples`` samples) of the certificate, ``passes`` groups
-    a row block, needing ``cert_smem`` (a tile, the slopes, a NaN word a
-    warp); ``smem`` is the larger. Raises ValueError for what the kernel
+    a row block, needing ``cert_smem`` (a tile and the slopes); ``smem`` is
+    the larger. Raises ValueError for what the kernel
     does not take: no row, rows of fewer than 2 or more than 2^30 lanes,
     grids of 2^31 blocks, K < 1, K > W (the certificate's walk needs
     a < c + 1) and bands too wide for a block's shared memory."""
@@ -356,7 +374,7 @@ def legendre_launch(rows, n, W, K):
     passes = -(-nsamp // (warps * LEGENDRE_MAX_SAMPLES))
     samples = -(-nsamp // (warps * passes))
     band_smem = 4 * (R * (tile + ND + 1) + tile + ND + warps * R * (V + 1))
-    cert_smem = 4 * (R * (tile + 1) + tile + warps)
+    cert_smem = 4 * (R * (tile + 1) + tile)
     blocks = -(-rows // R)
     if blocks * (tiles + passes) >= 2 ** 31:
         raise ValueError(f"banded Legendre: {rows} rows of {n} need "
@@ -426,3 +444,175 @@ def legendre_banded(u, W, K):
 def legendre_banded_plain(u, W, K):
     """Plain torch twin of ``legendre_banded``, on any device."""
     return _legendre_run(True, u, W, K)
+
+
+# ---------------------------------------------------------------------------
+# anchored Legendre transform
+# ---------------------------------------------------------------------------
+
+def _legendre_last_anchored(u, s, A=16, Wside=64, max_tmp_elems=32_000_000):
+    """Block-banded Legendre transform along the last axis with a
+    sampled-argmax certificate: ``(out, ok)``, ``out`` equal to
+    ``misfit.bfm._legendre_last(u, s)`` whenever ``ok``; in torch, on any
+    device (``legendre_anchored``'s plain twin).
+
+    ``s_i s_j - u_j`` is supermodular in (i, j) for nondecreasing ``s``, so
+    its first and last argmax over j are nondecreasing in i. An anchor pass
+    takes the exact first/last argmax at every block edge i = k*A; every
+    output of block k then has its argmax in [first(k*A), last((k+1)*A)],
+    and the certificate checks that bracket against the block's window
+    [k*A - Wside, k*A + A - 1 + Wside]. The banded pass evaluates each
+    A-output block over its window of W = 2*Wside + A (rounded up to A)
+    entries, taken from the padded row as a strided view."""
+    n = s.shape[0]
+    lead = u.shape[:-1]
+    U = u.reshape(-1, n)
+    rws = U.shape[0]
+    dtype, dev = u.dtype, u.device
+    nA = -(-n // A)
+    npad = nA * A
+    W = -(-(2 * Wside + A) // A) * A
+    big = torch.finfo(dtype).max / 8
+
+    # anchor pass: exact first/last argmax at the block edges
+    m_idx = torch.clamp(torch.arange(nA + 1, device=dev) * A, max=n - 1)
+    s_anchor = s[m_idx]
+    blk = max(1, min(nA + 1, max_tmp_elems // max(rws * n, 1)))
+    j_iota = torch.arange(n, dtype=torch.int32, device=dev)
+    first = torch.empty((rws, nA + 1), dtype=torch.int32, device=dev)
+    last = torch.empty_like(first)
+    for a0 in range(0, nA + 1, blk):
+        cand = s_anchor[a0:a0 + blk, None] * s[None, :] - U[:, None, :]
+        hit = cand >= cand.amax(-1, keepdim=True)
+        first[:, a0:a0 + blk] = torch.where(hit, j_iota, n).amin(-1)
+        last[:, a0:a0 + blk] = torch.where(hit, j_iota, -1).amax(-1)
+    kA = torch.arange(nA, dtype=torch.int32, device=dev) * A
+    ok = torch.all(first[:, :-1] >= kA - Wside) \
+        & torch.all(last[:, 1:] <= kA + (W - Wside - 1)) \
+        & torch.all(s[1:] >= s[:-1])      # monotone argmax needs sorted s
+
+    # banded pass: window[r, k, w] = U_pad[r, k*A + w] = U[r, k*A + w - Wside]
+    P = npad + W - A
+    U_pad = torch.full((rws, P), big, dtype=dtype, device=dev)
+    U_pad[:, Wside:Wside + n] = U
+    s_pad = torch.zeros(P, dtype=dtype, device=dev)
+    s_pad[Wside:Wside + n] = s
+    sO = F.pad(s, (0, npad - n)).reshape(nA, A)
+    PK = sO[:, :, None] * s_pad.unfold(0, W, A)[:, None, :]   # (nA, A, W)
+    rb = max(1, min(rws, max_tmp_elems // max(nA * A * W, 1)))
+    out = u.new_empty((rws, npad))
+    for r0 in range(0, rws, rb):
+        band = U_pad[r0:r0 + rb].unfold(-1, W, A)               # (rb, nA, W)
+        out[r0:r0 + rb] = (PK[None] - band[:, :, None, :]).amax(-1) \
+            .reshape(-1, npad)
+    return out[:, :n].reshape(lead + (n,)), ok
+
+
+def legendre_anchored_launch(rows, n, A, Wside):
+    """The anchored kernel's launch at these shapes: one grid of ``grid``
+    blocks of ``threads`` threads, each block ``LEGENDRE_ROWS`` rows, one a
+    lane, the outputs cut into ``tiles`` tiles of ``tile`` (a multiple of A,
+    at most ``LEGENDRE_MAX_TILE``), each block of A outputs over its window
+    of ``window`` = A ceil((2 Wside + A)/A) columns. ``band_blocks`` blocks
+    take a (row block, tile), needing ``band_smem`` bytes of shared memory
+    (the tile's windows, tile + window - A columns of 32 rows at a pitch of
+    an odd number of 16-byte words, their slopes, a staging tile a warp);
+    ``cert_blocks`` take a (row block, group of 8 x ``samples`` of the
+    ``anchors`` = ceil(n/A) + 1 anchors), ``passes`` groups a row block,
+    needing ``cert_smem`` (a tile and the slopes); ``smem`` is the larger.
+    Raises ValueError for what the kernel does not take: no row, rows of
+    fewer than 2 or more than 2^30 lanes, A not a positive multiple of 8 or
+    past ``LEGENDRE_MAX_TILE``, Wside < 0, grids of 2^31 blocks and windows
+    too wide for a block's shared memory."""
+    if rows < 1 or not 2 <= n <= 2 ** 30:
+        raise ValueError(f"anchored Legendre: {rows} rows of {n}; the kernel "
+                         "takes at least one row of 2 .. 2^30 lanes")
+    V, R, warps = LEGENDRE_OUTPUTS, LEGENDRE_ROWS, LEGENDRE_WARPS
+    if A < V or A % V or A > LEGENDRE_MAX_TILE or Wside < 0:
+        raise ValueError(f"anchored Legendre: A = {A}, Wside = {Wside}; the "
+                         f"kernel takes A a multiple of {V} up to "
+                         f"{LEGENDRE_MAX_TILE} and Wside >= 0")
+    W = -(-(2 * Wside + A) // A) * A
+    npad = -(-n // A) * A
+    anchors = npad // A + 1
+    # the fewest tiles of at most LEGENDRE_MAX_TILE outputs, evened out
+    most = LEGENDRE_MAX_TILE // A * A
+    tile = -(-(-(-npad // -(-npad // most))) // A) * A
+    tiles = -(-npad // tile)
+    passes = -(-anchors // (warps * LEGENDRE_MAX_SAMPLES))
+    samples = -(-anchors // (warps * passes))
+    L = tile + W - A
+    band_smem = 4 * (R * (L + 4) + L + warps * R * (V + 1))
+    cert_smem = 4 * (R * (tile + 1) + tile)
+    blocks = -(-rows // R)
+    if blocks * (tiles + passes) >= 2 ** 31:
+        raise ValueError(f"anchored Legendre: {rows} rows of {n} need "
+                         f"{blocks * (tiles + passes)} blocks; the grid "
+                         "takes fewer than 2^31")
+    if band_smem > SMEM_LIMIT:
+        raise ValueError(f"anchored Legendre: A = {A}, Wside = {Wside} need "
+                         f"{band_smem} bytes of shared memory a block; the "
+                         f"card has {SMEM_LIMIT}")
+    return SimpleNamespace(rows_a_block=R, threads=32 * warps, tile=tile,
+                           tiles=tiles, window=W, anchors=anchors,
+                           samples=samples, passes=passes,
+                           band_blocks=blocks * tiles,
+                           cert_blocks=blocks * passes,
+                           grid=blocks * (tiles + passes),
+                           band_smem=band_smem, cert_smem=cert_smem,
+                           smem=max(band_smem, cert_smem))
+
+
+def _anchored_cuda(u, s, A, Wside, launch):
+    rows, n = u.shape
+    lib = _legendre_lib()
+    out = torch.empty_like(u)
+    ok = torch.empty((), dtype=torch.bool, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.bfm_legendre_anchored(
+            u.data_ptr(), s.data_ptr(), out.data_ptr(), ok.data_ptr(), rows,
+            n, A, Wside, launch.tile, launch.samples, launch.passes,
+            launch.smem, torch.cuda.current_stream(u.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"bfm_legendre_anchored: CUDA error {err} "
+                           f"({lib.bfm_legendre_error_string(err).decode()})")
+    return out, ok
+
+
+def _anchored_run(plain, u, s, A, Wside):
+    fn = "legendre_anchored"
+    dev = u.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{fn}: tensor on {dev}; expected cuda or cpu")
+    if u.dim() != 2 or u.shape[0] < 1 or u.shape[1] < 2:
+        raise ValueError(f"{fn}: u of shape {tuple(u.shape)}; expected "
+                         "(rows, n) with rows >= 1 and n >= 2")
+    if s.device != dev or s.dim() != 1 or s.shape[0] != u.shape[1]:
+        raise ValueError(f"{fn}: s of shape {tuple(s.shape)} on {s.device}; "
+                         f"expected ({u.shape[1]},) on {dev}")
+    if u.dtype != torch.float32 or s.dtype != torch.float32:
+        raise TypeError(f"{fn}: u of dtype {u.dtype}, s of dtype {s.dtype}; "
+                        "expected float32")
+    if not (u.is_contiguous() and s.is_contiguous()):
+        raise ValueError(f"{fn}: u or s is not contiguous")
+    launch = legendre_anchored_launch(u.shape[0], u.shape[1], A, Wside)
+    if dev.type == "cuda" and not plain:
+        out = _anchored_cuda(u, s, A, Wside, launch)
+        LAUNCHES[fn] += 1
+        return out
+    TWIN_CALLS[fn] += 1
+    return _legendre_last_anchored(u, s, A, Wside)
+
+
+def legendre_anchored(u, s, A, Wside):
+    """Anchored Legendre transform of a (rows, n) float32 ``u`` along its
+    last axis with slopes ``s`` (n,) and the certificate: ``(out, ok)``,
+    ``ok`` a 0-dim bool tensor on ``u``'s device; ``out`` equals ``max_j
+    (s_i s_j - u[:, j])`` when ``ok`` is True. Bitwise
+    ``_legendre_last_anchored(u, s, A, Wside)``, output and flag."""
+    return _anchored_run(False, u, s, A, Wside)
+
+
+def legendre_anchored_plain(u, s, A, Wside):
+    """Plain torch twin of ``legendre_anchored``, on any device."""
+    return _anchored_run(True, u, s, A, Wside)

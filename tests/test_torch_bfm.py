@@ -16,6 +16,13 @@ kernel's plain twin (ops.cuda_bfm) against the JAX package, on the CPU:
   maxima, the pad lanes added once) replayed in numpy: the twin's flag on
   every row, NaN, +-inf and rows at or below -big included; its launch
   helper against a block's shared memory;
+* the anchored kernel (``cuda_bfm.legendre_anchored``): its certificate
+  (the banded kernel's walk at the anchors' regions) replayed in numpy
+  against its twin's flag row by row; its launch helper at the W2 cell's
+  two pass shapes; the wrapper on the CPU running the twin, the torch
+  evaluation, bitwise, and raising for what the kernel does not take; the
+  anchored route off the card taking the torch evaluation, its kernel
+  counter at 0;
 * the map, the subsamples and the adaptive mask: the integer planes equal,
   the float planes to 1e-6 of their max;
 * the slab twins (natural and blocked layouts) against the Pallas kernels
@@ -154,32 +161,32 @@ def test_legendre_banded_twin_matches_pallas_interpret(W, K, n, rows,
         assert torch.equal(out_t, full)
 
 
-def _region_flags(u, W, K):
-    """A numpy replay, in float32, of the card kernel's certificate
-    (csrc/bfm_legendre.cu): per row and sample the maxima of A = [0, a),
-    a = i_{m+1} - W, of B and of C = (c, npad), c = i_{m-1} + W, the real
-    lanes as the walk switches at a and c + 1 (fmax, which drops NaN), the
+def _region_flags(u, s, K, nsamp, npad, limits):
+    """A numpy replay, in float32, of the card kernels' certificate
+    (csrc/bfm_legendre.cu): per row and sample i_m = min(m K, n-1) the
+    maxima of A = [0, a), of B and of C = [c1, npad), (a, c1) =
+    ``limits(m, i)`` (banded: i_{m+1} - W and i_{m-1} + W + 1; anchored:
+    i_m - Wside and i_{m-1} + W - Wside), the real lanes as the walk
+    switches at a and c1 (maxima that propagate NaN, as max.NaN does), the
     npad - n pad lanes added as -big to the regions they fall in; a sample
-    passes iff A is empty or max A < max, and C is empty or max C < max;
-    a row holding a NaN passes. Returns the flag of each row."""
+    passes iff its max is NaN (no lane is a hit), or A is empty or max A <
+    max, and C is empty or max C < max. Returns the flag of each row."""
     rows, n = u.shape
-    s = _f32_grid(n)
     big = np.float32(np.finfo(np.float32).max / 8)
-    npad = -(-n // 128) * 128
-    nsamp = -(-(n - 1) // K) + 1
     inf = np.float32(np.inf)
 
     def sample(m):
         return min(m * K, n - 1)
 
     def rmax(v):
-        return np.fmax.reduce(v, axis=1, initial=-inf)
+        return np.maximum.reduce(v, axis=1, initial=-inf)
 
     ok = np.ones(rows, bool)
     for m in range(nsamp):
         v = s[sample(m)] * s[None, :] - u
-        al = sample(m + 1) - W if m + 1 < nsamp else -2 ** 31
-        c1 = sample(m - 1) + W + 1 if m >= 1 else 2 ** 31 - 1
+        al, c1 = limits(m, sample)
+        al = al if m + 1 < nsamp else -2 ** 31
+        c1 = c1 if m >= 1 else 2 ** 31 - 1
         a = max(al, 0)
         mA = rmax(v[:, :a])
         if c1 < n:
@@ -188,14 +195,32 @@ def _region_flags(u, W, K):
             mB, mC = rmax(v[:, a:]), np.full(rows, -inf)
         if npad > n:
             if c1 <= n:
-                mC = np.fmax(mC, -big)
+                mC = np.maximum(mC, -big)
             else:
-                mB = np.fmax(mB, -big)
+                mB = np.maximum(mB, -big)
                 if c1 < npad:
-                    mC = np.fmax(mC, -big)
-        M = np.fmax(np.fmax(mA, mB), mC)
-        ok &= ((al <= 0) | (mA < M)) & ((c1 >= npad) | (mC < M))
-    return ok | np.isnan(u).any(1)
+                    mC = np.maximum(mC, -big)
+        M = np.maximum(np.maximum(mA, mB), mC)
+        ok &= np.isnan(M) | (((al <= 0) | (mA < M))
+                             & ((c1 >= npad) | (mC < M)))
+    return ok
+
+
+def _banded_flags(u, W, K):
+    """``_region_flags`` at the banded kernel's geometry."""
+    n = u.shape[1]
+    return _region_flags(u, _f32_grid(n), K, -(-(n - 1) // K) + 1,
+                         -(-n // 128) * 128,
+                         lambda m, i: (i(m + 1) - W, i(m - 1) + W + 1))
+
+
+def _anchored_flags(u, s, A, Wside):
+    """``_region_flags`` at the anchored kernel's geometry: the anchors
+    min(m A, n-1), m = 0 .. ceil(n/A), no pad lanes."""
+    n = u.shape[1]
+    W = -(-(2 * Wside + A) // A) * A
+    return _region_flags(u, s, A, -(-n // A) + 1, n,
+                         lambda m, i: (i(m) - Wside, i(m - 1) + W - Wside))
 
 
 def _certificate_rows(n, rows=12, seed=1):
@@ -228,7 +253,7 @@ def test_legendre_region_certificate_equals_twin(W, K, n):
     lanes added once) gives the twin's first/last flag row by row, on rows
     in band and displaced, with NaN, at and past -big, at +-inf."""
     u = _certificate_rows(n)
-    got = _region_flags(u, W, K)
+    got = _banded_flags(u, W, K)
     want = np.array([bool(cb.legendre_banded_plain(
         torch.tensor(u[r:r + 1]), W, K)[1]) for r in range(u.shape[0])])
     assert got.tolist() == want.tolist()
@@ -246,11 +271,11 @@ def test_legendre_launch_fits_shared_memory():
     assert (a.threads, a.tile, a.tiles, a.samples, a.passes) == \
         (256, 304, 1, 5, 1)
     assert (a.band_blocks, a.cert_blocks, a.grid) == (1230, 1230, 2460)
-    assert (a.band_smem, a.cert_smem, a.smem) == (56_864, 40_288, 56_864)
+    assert (a.band_smem, a.cert_smem, a.smem) == (56_864, 40_256, 56_864)
     b = cb.legendre_launch(8700, 1357, 48, 16)
     assert (b.tile, b.tiles, b.samples, b.passes) == (344, 4, 6, 2)
     assert (b.band_blocks, b.cert_blocks, b.grid) == (1088, 544, 1632)
-    assert (b.band_smem, b.cert_smem, b.smem) == (68_480, 45_568, 68_480)
+    assert (b.band_smem, b.cert_smem, b.smem) == (68_480, 45_536, 68_480)
     for x, n, K in ((a, 300, 8), (b, 1357, 16)):
         assert x.rows_a_block == 32 and 3 * x.smem <= 232_448
         assert x.passes * 8 * x.samples >= -(-(n - 1) // K) + 1
@@ -266,6 +291,122 @@ def test_legendre_launch_fits_shared_memory():
                  (1, 2 ** 30 + 1, 48, 16), (2 ** 31, 10 ** 4, 48, 16)):
         with pytest.raises(ValueError):
             cb.legendre_launch(*args)
+
+
+@pytest.mark.parametrize("n", [300, 1357, 301])
+def test_legendre_anchored_region_certificate_equals_twin(n):
+    """The anchored kernel's certificate (the banded kernel's walk, with
+    the regions left of i_m - Wside and right of i_{m-1} + W - Wside - 1 at
+    the anchors min(m A, n-1), no pad lanes) gives the twin's flag row by
+    row, on rows in band and displaced, with NaN, at and past -big, at
+    +-inf."""
+    u = _certificate_rows(n)
+    s = _f32_grid(n)
+    A, Wside = (32, 64) if n >= 512 else (8, 32)
+    got = _anchored_flags(u, s, A, Wside)
+    want = np.array([bool(cb.legendre_anchored_plain(
+        torch.tensor(u[r:r + 1]), torch.tensor(s), A, Wside)[1])
+        for r in range(u.shape[0])])
+    assert got.tolist() == want.tolist()
+    assert want[0] and want[2] and not want[3] and not want[7]
+
+
+def test_legendre_anchored_launch_fits_shared_memory():
+    """The anchored kernel's launch at both pass shapes of the 29-shot
+    SMARMN state (39,353 rows of 300 at A/Wside 8/32, a window of 72;
+    8,700 rows of 1357 at 32/64, a window of 160) fits three blocks in an
+    SM's shared memory, its u pitch an odd number of 16-byte words and its
+    sample groups covering the anchors; at the longest rows and the widest
+    window it takes it fits a block's 232,448 bytes; A off a positive
+    multiple of 8 or past a tile, Wside < 0, short or over-long rows, grids
+    past 2^31 blocks and wider windows raise."""
+    a = cb.legendre_anchored_launch(39353, 300, 8, 32)
+    assert (a.threads, a.tile, a.tiles, a.window, a.anchors, a.samples,
+            a.passes) == (256, 304, 1, 72, 39, 5, 1)
+    assert (a.band_blocks, a.cert_blocks, a.grid) == (1230, 1230, 2460)
+    assert (a.band_smem, a.cert_smem, a.smem) == (58_304, 40_256, 58_304)
+    b = cb.legendre_anchored_launch(8700, 1357, 32, 64)
+    assert (b.tile, b.tiles, b.window, b.anchors, b.samples, b.passes) == \
+        (352, 4, 160, 44, 6, 1)
+    assert (b.band_blocks, b.cert_blocks, b.grid) == (1088, 272, 1360)
+    assert (b.band_smem, b.cert_smem, b.smem) == (73_088, 46_592, 73_088)
+    for x, n, A in ((a, 300, 8), (b, 1357, 32)):
+        assert x.rows_a_block == 32 and 3 * x.smem <= 232_448
+        assert x.tile % A == 0 and (x.tiles - 1) * x.tile < n <= \
+            x.tiles * x.tile
+        assert (x.tile + x.window - A + 4) % 8 == 4
+        assert x.passes * 8 * x.samples >= x.anchors == -(-n // A) + 1
+    big = cb.legendre_anchored_launch(1, 2 ** 30, 32, 64)
+    assert big.tile == 384 and big.tiles * 384 >= 2 ** 30
+    assert big.samples == 8 and big.passes * 64 >= big.anchors
+    assert big.smem <= 232_448
+    # the widest window at A = 8: Wside 648, W = 1304
+    assert cb.legendre_anchored_launch(1, 3840, 8, 648).smem == 231_488
+    for args in ((1, 3840, 8, 649), (1, 300, 12, 32), (1, 300, 4, 32),
+                 (1, 3000, 392, 8), (1, 300, 8, -1), (0, 300, 8, 32),
+                 (4, 1, 8, 32), (1, 2 ** 30 + 1, 32, 64),
+                 (2 ** 31, 10 ** 4, 8, 32)):
+        with pytest.raises(ValueError):
+            cb.legendre_anchored_launch(*args)
+
+
+def test_legendre_anchored_twin_is_the_torch_evaluation():
+    """On the CPU the wrapper runs its twin, the torch evaluation
+    ``_legendre_last_anchored``, bitwise, and counts a twin call; it
+    raises, counting nothing, for another device, another type, a strided
+    view, slopes of another length or on another device, and A off a
+    multiple of 8."""
+    s, u = _legendre_input(700, 0)
+    u2 = torch.tensor(u).reshape(-1, 700)
+    st = torch.tensor(s)
+    cb.reset_counters()
+    out, ok = cb.legendre_anchored(u2, st, 32, 64)
+    assert cb.TWIN_CALLS["legendre_anchored"] == 1
+    assert sum(cb.LAUNCHES.values()) == 0
+    want, ok_want = T._legendre_last_anchored(u2, st, 32, 64)
+    assert ok.dtype == torch.bool and bool(ok) == bool(ok_want)
+    assert torch.equal(out, want)
+    cb.reset_counters()
+    meta = torch.zeros((4, 700), device="meta")
+    for args, err in (((meta, st), ValueError),
+                      ((u2.double(), st.double()), TypeError),
+                      ((u2[:, ::2], st[::2]), ValueError),
+                      ((u2, st[:699]), ValueError),
+                      ((u2, st.to("meta")), ValueError)):
+        with pytest.raises(err):
+            cb.legendre_anchored(*args, 32, 64)
+    with pytest.raises(ValueError):
+        cb.legendre_anchored(u2, st, 12, 64)
+    assert sum(cb.TWIN_CALLS.values()) == sum(cb.LAUNCHES.values()) == 0
+
+
+def test_anchor_fast_takes_the_torch_evaluation_off_the_card(monkeypatch):
+    """Off the card, and for float64, ``_legendre_last_anchor_fast`` takes
+    the torch evaluation (the kernel's twin) and reads its flag once: no
+    launch, no wrapper call, ``COUNTS["legendre_kernel"]`` stays 0; and
+    ``reset_counts`` clears that counter."""
+    calls = []
+    evaluate = T._legendre_last_anchored
+
+    def spy(*a, **k):
+        calls.append(a[2:4])
+        return evaluate(*a, **k)
+
+    monkeypatch.setattr(T, "_legendre_last_anchored", spy)
+    s, u = _legendre_input(700, 0)
+    cb.reset_counters()
+    T.reset_counts()
+    for dtype in (torch.float32, torch.float64):
+        out = T._legendre_last_anchor_fast(torch.tensor(u, dtype=dtype),
+                                           torch.tensor(s, dtype=dtype))
+        assert out.dtype == dtype and out.shape == u.shape
+    assert calls == [(32, 64), (32, 64)]
+    assert T.COUNTS["legendre_kernel"] == 0
+    assert T.COUNTS["legendre_reads"] == 2
+    assert sum(cb.LAUNCHES.values()) == sum(cb.TWIN_CALLS.values()) == 0
+    T.COUNTS["legendre_kernel"] = 3
+    T.reset_counts()
+    assert T.COUNTS["legendre_kernel"] == 0
 
 
 @pytest.mark.parametrize("n,shift", [(300, 0), (640, 0), (640, 300),

@@ -20,7 +20,12 @@ its twin exactly; it raises, launching nothing, for Q = 9 and for shared
 memory past a block's. The banded Legendre kernel runs at both of its
 bands on seeded rows in band, displaced past the band, holding a NaN and
 at or below -big, bitwise, and inside the W2 misfit against the anchored
-route. The elastic kernels
+route. The anchored Legendre kernel runs at both of its geometries at the
+W2 cell's row counts on seeded rows in band, displaced past the window,
+holding a NaN, at or below -big, with unsorted slopes and with ties,
+bitwise its twin, and inside the W2 misfit bitwise the torch route; it
+raises, launching nothing, for float64, strided, mismatched or CPU
+operands. The elastic kernels
 run on a two-layer 61 x 48 model (nbl 10, 1-5 shots, space order 4 and
 8; the padded 81 x 68 grid is no multiple of the forward step's 32 x 32
 tile), the three sweeps equal to their twins exactly, and raise,
@@ -395,6 +400,133 @@ def test_banded_w2_route_equals_anchor_on_the_card(cuda):
     assert sum(cb.TWIN_CALLS.values()) == 0
     assert torch.equal(out["banded"][0], out["anchor"][0])
     assert torch.equal(out["banded"][1], out["anchor"][1])
+
+
+def _anchored_rows(dev, rows, n, case):
+    """Rows for the anchored kernel at rows of n and their float32 slopes
+    (the BFM's grid (j + 0.5)/n): seeded rows in band (0.5 s^2 + noise, as
+    ``chip_smoke.py``'s), displaced 100 samples past the window, with a
+    NaN, with rows at big, at twice big and at +inf (every lane's value at
+    or below -big), with two slopes swapped (s unsorted), and ties: slopes
+    and u equal in pairs of lanes, so that an anchor's first and last
+    argmax differ."""
+    rng = np.random.default_rng(7)
+    s = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+    noise = rng.uniform(size=(rows, n))
+    if case == "ties":
+        s = ((2 * (np.arange(n) // 2) + 1.0) / n).astype(np.float32)
+        noise = np.repeat(noise[:, ::2], 2, axis=1)[:, :n]
+    u = (0.5 * s.astype(np.float64)[None, :] ** 2
+         + 5e-4 * noise).astype(np.float32)
+    if case == "displaced":
+        u = np.roll(u, 100, axis=-1)
+    if case == "nan":
+        u[rows // 2, n // 3] = np.nan
+    if case == "below_big":
+        big = np.float32(np.finfo(np.float32).max / 8)
+        u[rows // 3] = big
+        u[rows // 2] = np.float32(2) * big
+        u[rows - 1] = np.inf
+    if case == "unsorted":
+        s = s.copy()
+        s[[n // 2, n // 2 + 1]] = s[[n // 2 + 1, n // 2]]
+    return (torch.as_tensor(np.ascontiguousarray(u), device=dev),
+            torch.as_tensor(s, device=dev))
+
+
+def _anchor_geometry(n):
+    """misfit.bfm's (A, Wside) for rows of n."""
+    return (32, 64) if n >= 512 else (8, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows", [(300, 39353), (1357, 8700), (300, 131),
+                                    (1357, 70)],
+                         ids=["n300_cell", "n1357_cell", "n300", "n1357"])
+@pytest.mark.parametrize("case", ["in_band", "displaced", "nan",
+                                  "below_big", "unsorted", "ties"])
+def test_legendre_anchored_matches_twin(cuda, n, rows, case):
+    """The anchored Legendre kernel against its twin (the torch evaluation)
+    at both geometries of the W2 route (300 traces at A/Wside 8/32, 1357
+    samples at 32/64), at the 29-shot cell's row counts and at row counts
+    no multiple of the 32 rows a block: output and flag bitwise, NaN where
+    the twin has NaN; displaced rows, rows at or below -big and unsorted
+    slopes fail the certificate, a NaN and ties do not."""
+    u, s = _anchored_rows(cuda, rows, n, case)
+    A, Wside = _anchor_geometry(n)
+    cb.reset_counters()
+    out, ok = cb.legendre_anchored(u, s, A, Wside)
+    assert cb.LAUNCHES["legendre_anchored"] == 1
+    assert sum(cb.TWIN_CALLS.values()) == 0
+    want, ok_want = cb.legendre_anchored_plain(u, s, A, Wside)
+    torch.cuda.synchronize()
+    assert ok.dtype == torch.bool and ok.dim() == 0
+    assert bool(ok) == bool(ok_want) == (case in ("in_band", "nan", "ties"))
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(want))
+    if case == "ties":
+        v = s[5 * A] * s - u
+        assert bool(((v >= v.amax(-1, keepdim=True)).sum(-1) >= 2).all())
+    if case == "below_big":
+        for r in (rows // 3, rows // 2, rows - 1):
+            one = u[r:r + 1].contiguous()
+            got = cb.legendre_anchored(one, s, A, Wside)
+            twin = cb.legendre_anchored_plain(one, s, A, Wside)
+            assert not bool(got[1]) and not bool(twin[1])
+            assert torch.equal(got[0], twin[0])
+
+
+@pytest.mark.cuda
+def test_legendre_anchored_raises_for_what_it_does_not_take(cuda):
+    """float64, a strided view, slopes of another length or left on the
+    CPU, rows on the CPU beside slopes on the card, and A off a multiple of
+    8 raise, launching nothing and calling no twin."""
+    u, s = _anchored_rows(cuda, 40, 300, "in_band")
+    cb.reset_counters()
+    for args in ((u.double(), s), (u, s.double()),
+                 (u[:, :150], s[:150]), (u, s[:299]), (u, s.cpu()),
+                 (u.cpu(), s)):
+        with pytest.raises((TypeError, ValueError)):
+            cb.legendre_anchored(*args, 8, 32)
+    with pytest.raises(ValueError):
+        cb.legendre_anchored(u, s, 12, 32)
+    assert sum(cb.LAUNCHES.values()) == 0
+    assert sum(cb.TWIN_CALLS.values()) == 0
+
+
+@pytest.mark.cuda
+def test_anchored_w2_route_runs_the_kernel(cuda, monkeypatch):
+    """``bfm_batch`` with the default route launches ``legendre_anchored``
+    once an anchored pass (``COUNTS["legendre_kernel"]`` equal to the
+    certificate reads) and calls no twin; its loss and gradient equal,
+    with ``torch.equal``, those of the same solve with the kernel's dispatch
+    bypassed (the twin, the torch evaluation, on the card)."""
+    import importlib
+    bfm = importlib.import_module("devito_fwi_tpu_torch.misfit.bfm")
+    t = np.arange(240)[:, None]
+    x = np.arange(128)[None, :]
+
+    def blob(t0, x0):
+        return np.exp(-((t - t0) ** 2 / 80.0 + (x - x0) ** 2 / 40.0))
+
+    mu = torch.as_tensor(np.stack([blob(60, 40) + blob(170, 80),
+                                   blob(90, 56) + blob(200, 32)]) + 1e-3,
+                         dtype=torch.float32, device=cuda)
+    nu = torch.roll(mu, 6, 1)
+    cb.reset_counters()
+    bfm.reset_counts()
+    kernel = bfm.bfm_batch(mu, nu, num_steps=4)
+    assert cb.LAUNCHES["legendre_anchored"] == \
+        bfm.COUNTS["legendre_kernel"] == bfm.COUNTS["legendre_reads"] > 0
+    assert bfm.COUNTS["legendre_fallbacks"] == 0
+    assert sum(cb.TWIN_CALLS.values()) == 0
+    monkeypatch.setattr(cb, "legendre_anchored", cb.legendre_anchored_plain)
+    cb.reset_counters()
+    twin = bfm.bfm_batch(mu, nu, num_steps=4)
+    assert cb.TWIN_CALLS["legendre_anchored"] > 0
+    assert cb.LAUNCHES["legendre_anchored"] == 0
+    assert torch.equal(kernel[0], twin[0])
+    assert torch.equal(kernel[1], twin[1])
 
 
 # ---------------------------------------------------------------------------
